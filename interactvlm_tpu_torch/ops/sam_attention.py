@@ -1,0 +1,186 @@
+"""SAM encoder attention with the decomposed relative-position bias: the CUDA
+kernels ``csrc/window_attention.cu`` and ``csrc/rel_attention.cu`` and their
+plain PyTorch versions.
+
+Ports of ``interactvlm_tpu/ops/sam_attention.py``: ``_window_kernel``
+(wrapper ``fused_window_attention``) for the 14x14 windows and ``_kernel``
+(wrapper ``fused_rel_attention``) for the 64x64 global grid. Both add
+
+    bias[q, c] = rel_h[c // W, q] + rel_w[q, c % W]
+
+to the scaled logits (reference ``add_decomposed_rel_pos``,
+image_encoder.py:354-392). The factors come from two einsums outside the
+kernels, in the input dtype with f32 accumulation; the kernels rebuild the
+bias from them and never hold it as L x L in device memory. The kernel
+sources say what bounds each on the H100 and how the design answers that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from interactvlm_tpu_torch.ops import _cuda
+
+KERNEL_HEAD_DIMS = (16, 32, 64, 80)
+MAX_WINDOW_FACTORS = 64  # H + W of a window (window_attention.cu MAXF)
+MAX_GRID_SIDE = 64  # H and W of a global grid (rel_attention.cu MAXHW)
+
+
+def rel_tables(rel_pos, size: int):
+    """(2*size-1, d) table -> (size, size, d) relative-position embeddings
+    (reference ``get_rel_pos`` for equal q/k sizes)."""
+    idx = torch.arange(size, device=rel_pos.device)
+    return rel_pos[idx[:, None] - idx[None, :] + size - 1]
+
+
+def window_factors(q, rel_pos_h, rel_pos_w, hw):
+    """q (BW, nH, L, D) -> stacked factors (BW*nH, H+W, L) in q's dtype:
+    rows [0, H) hold rel_h[kh, q], rows [H, H+W) hold rel_w[kw, q]."""
+    H, W = hw
+    BW, nH, L, D = q.shape
+    r_q = q.reshape(BW, nH, H, W, D)
+    rel_h = torch.einsum("bnhwc,hkc->bnkhw", r_q,
+                         rel_tables(rel_pos_h, H).to(q.dtype))
+    rel_w = torch.einsum("bnhwc,wkc->bnkhw", r_q,
+                         rel_tables(rel_pos_w, W).to(q.dtype))
+    return torch.cat(
+        [rel_h.reshape(BW, nH, H, L), rel_w.reshape(BW, nH, W, L)], dim=2
+    ).reshape(BW * nH, H + W, L)
+
+
+def global_factors(q, rel_pos_h, rel_pos_w, hw):
+    """q (B, nH, L, D) -> rel_h (B*nH, H, L) and rel_w (B*nH, L, W)."""
+    H, W = hw
+    B, nH, L, D = q.shape
+    r_q = q.reshape(B, nH, H, W, D)
+    rel_h = torch.einsum("bnhwc,hkc->bnkhw", r_q,
+                         rel_tables(rel_pos_h, H).to(q.dtype))
+    rel_w = torch.einsum("bnhwc,wkc->bnhwk", r_q,
+                         rel_tables(rel_pos_w, W).to(q.dtype))
+    return (rel_h.reshape(B * nH, H, L).contiguous(),
+            rel_w.reshape(B * nH, L, W).contiguous())
+
+
+def _attend(q, k, v, bias, scale):
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits + bias, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v).to(v.dtype)
+
+
+def window_attention_plain(q, k, v, factors, hw):
+    """Plain version of the window kernel: q/k/v (R, L, D), factors
+    (R, H+W, L) -> (R, L, D)."""
+    H, W = hw
+    L = q.shape[1]
+    c = torch.arange(L, device=q.device)
+    f = factors.float()
+    bias = (f[:, c // W, :] + f[:, H + c % W, :]).transpose(1, 2)
+    return _attend(q, k, v, bias, q.shape[-1] ** -0.5)
+
+
+def rel_attention_plain(q, k, v, rel_h, rel_w, hw):
+    """Plain version of the global kernel: q/k/v (R, L, D), rel_h (R, H, L),
+    rel_w (R, L, W) -> (R, L, D)."""
+    H, W = hw
+    L = q.shape[1]
+    c = torch.arange(L, device=q.device)
+    bias = rel_h.float()[:, c // W, :].transpose(1, 2) + rel_w.float()[:, :, c % W]
+    return _attend(q, k, v, bias, q.shape[-1] ** -0.5)
+
+
+def _argtypes(n_ptrs, n_ints):
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _check_qkv(kernel, q, k, v):
+    R, L, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{kernel}: shapes {q.shape} {k.shape} {v.shape}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel}: head dim {D} not in {KERNEL_HEAD_DIMS}")
+    return R, L, D
+
+
+def window_attention(q, k, v, factors, hw):
+    """Window attention with stacked rel-pos factors over (R, L, D) rows.
+
+    CPU tensors run ``window_attention_plain``; CUDA tensors launch the
+    kernel (bf16, contiguous) or raise.
+    """
+    if not q.is_cuda:
+        return window_attention_plain(q, k, v, factors, hw)
+    H, W = hw
+    R, L, D = _check_qkv("window_attention", q, k, v)
+    if L != H * W or factors.shape != (R, H + W, L):
+        raise ValueError(f"window_attention: factors {factors.shape} for {hw}")
+    if H + W > MAX_WINDOW_FACTORS:
+        raise ValueError(f"window_attention: window {hw} too large")
+    _cuda.require_kernel_inputs("window_attention", q, k, v, factors)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _cuda.launch(
+            "window_attention", "ivlm_window_attn", _argtypes(5, 5),
+            _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(factors),
+            _cuda.ptr(o), R, L, H, W, D, float(D ** -0.5),
+            _cuda.stream_handle(q.device),
+        )
+    window_attention.launches += 1
+    return o
+
+
+window_attention.launches = 0
+
+
+def rel_attention(q, k, v, rel_h, rel_w, hw):
+    """Global attention with rel-pos factors over (R, L, D) rows.
+
+    CPU tensors run ``rel_attention_plain``; CUDA tensors launch the kernel
+    (bf16, contiguous) or raise.
+    """
+    if not q.is_cuda:
+        return rel_attention_plain(q, k, v, rel_h, rel_w, hw)
+    H, W = hw
+    R, L, D = _check_qkv("rel_attention", q, k, v)
+    if L != H * W or rel_h.shape != (R, H, L) or rel_w.shape != (R, L, W):
+        raise ValueError(
+            f"rel_attention: factors {rel_h.shape} {rel_w.shape} for {hw}")
+    if H > MAX_GRID_SIDE or W > MAX_GRID_SIDE:
+        raise ValueError(f"rel_attention: grid {hw} too large")
+    _cuda.require_kernel_inputs("rel_attention", q, k, v, rel_h, rel_w)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _cuda.launch(
+            "rel_attention", "ivlm_rel_attn", _argtypes(6, 5),
+            _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(rel_h),
+            _cuda.ptr(rel_w), _cuda.ptr(o), R, L, H, W, D, float(D ** -0.5),
+            _cuda.stream_handle(q.device),
+        )
+    rel_attention.launches += 1
+    return o
+
+
+rel_attention.launches = 0
+
+
+def fused_window_attention(q, k, v, rel_pos_h, rel_pos_w, hw):
+    """(BW, nH, L, D) window attention with decomposed rel-pos bias
+    (port of ``fused_window_attention``)."""
+    BW, nH, L, D = q.shape
+    rows = [t.reshape(BW * nH, L, D).contiguous() for t in (q, k, v)]
+    out = window_attention(
+        *rows, window_factors(q, rel_pos_h, rel_pos_w, hw), hw
+    )
+    return out.reshape(BW, nH, L, D)
+
+
+def fused_rel_attention(q, k, v, rel_pos_h, rel_pos_w, hw):
+    """(B, nH, L, D) global attention with decomposed rel-pos bias
+    (port of ``fused_rel_attention``)."""
+    B, nH, L, D = q.shape
+    rel_h, rel_w = global_factors(q, rel_pos_h, rel_pos_w, hw)
+    rows = [t.reshape(B * nH, L, D).contiguous() for t in (q, k, v)]
+    out = rel_attention(*rows, rel_h, rel_w, hw)
+    return out.reshape(B, nH, L, D)

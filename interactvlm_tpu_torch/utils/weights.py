@@ -1,0 +1,215 @@
+"""Weights of the PyTorch port: seeded initialisation on the device, and
+conversion of the JAX package's flax parameter trees.
+
+The port's parameter names are the reference's torch checkpoint keys (HF
+LLaMA / CLIP, the SAM ``.pth``, the merged InteractVLM checkpoint), so
+``from_jax_params`` is the inverse of ``interactvlm_tpu/utils/weights.py``'s
+converters: Dense ``kernel`` (in, out) -> ``weight`` (out, in); Conv HWIO ->
+OIHW; ConvTranspose taps flipped back to torch's (in, out, kh, kw);
+LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from interactvlm_tpu_torch.models.llama import RMSNorm
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights, drawn on the parameters' own device: norm
+    scales 1, biases 0, Linear/Conv weights lecun-normal (std
+    fan_in^-1/2, as flax initialises them), every other parameter
+    (embeddings, tokens, positional and rel-pos tables) N(0, 0.02), the
+    SAM Fourier matrix N(0, 1)."""
+    for mod in module.modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, (nn.LayerNorm, RMSNorm)) and leaf == "weight":
+                p.fill_(1.0)
+            elif leaf == "bias":
+                p.zero_()
+            elif isinstance(mod, nn.ConvTranspose2d):
+                fan_in = p.shape[0] * p.shape[2] * p.shape[3]
+                p.normal_(0.0, fan_in ** -0.5, generator=generator)
+            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+            else:
+                p.normal_(0.0, 0.02, generator=generator)
+        for leaf, b in mod.named_buffers(recurse=False):
+            if leaf == "positional_encoding_gaussian_matrix":
+                b.normal_(0.0, 1.0, generator=generator)
+    return module
+
+
+def _t(x) -> torch.Tensor:
+    return torch.tensor(np.array(x, np.float32))
+
+
+def _dense(node, prefix, sd):
+    sd[prefix + "weight"] = _t(np.asarray(node["kernel"]).T)
+    if "bias" in node:
+        sd[prefix + "bias"] = _t(node["bias"])
+
+
+def _conv(node, prefix, sd):
+    sd[prefix + "weight"] = _t(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in node:
+        sd[prefix + "bias"] = _t(node["bias"])
+
+
+def _conv_transpose(node, prefix, sd):
+    # flax (kh, kw, in, out) with flipped taps -> torch (in, out, kh, kw)
+    w = np.asarray(node["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    sd[prefix + "weight"] = _t(w)
+    if "bias" in node:
+        sd[prefix + "bias"] = _t(node["bias"])
+
+
+def _ln(node, prefix, sd):
+    sd[prefix + "weight"] = _t(node["scale"])
+    sd[prefix + "bias"] = _t(node["bias"])
+
+
+def _indexed(node, stem):
+    """{stem_0: a, stem_1: b, ...} -> [(0, a), (1, b), ...]."""
+    out = []
+    for name, child in node.items():
+        if name.startswith(stem + "_") and name[len(stem) + 1:].isdigit():
+            out.append((int(name[len(stem) + 1:]), child))
+    return sorted(out, key=lambda x: x[0])
+
+
+def _llama(t, prefix, sd):
+    m = t["model"]
+    sd[prefix + "model.embed_tokens.weight"] = _t(m["embed_tokens"]["embedding"])
+    sd[prefix + "model.norm.weight"] = _t(m["norm"]["weight"])
+    _dense(t["lm_head"], prefix + "lm_head.", sd)
+    for i, layer in _indexed(m, "layer"):
+        p = f"{prefix}model.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _dense(layer["self_attn"][proj], f"{p}self_attn.{proj}.", sd)
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            _dense(layer["mlp"][proj], f"{p}mlp.{proj}.", sd)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{p}{norm}.weight"] = _t(layer[norm]["weight"])
+
+
+def _clip(t, prefix, sd):
+    p = prefix + "vision_model."
+    _conv(t["patch_embedding"], p + "embeddings.patch_embedding.", sd)
+    sd[p + "embeddings.class_embedding"] = _t(t["class_embedding"])
+    sd[p + "embeddings.position_embedding.weight"] = _t(t["position_embedding"])
+    _ln(t["pre_layrnorm"], p + "pre_layrnorm.", sd)
+    for i, layer in _indexed(t, "layer"):
+        lp = f"{p}encoder.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(layer["self_attn"][proj], f"{lp}self_attn.{proj}.", sd)
+        _ln(layer["layer_norm1"], lp + "layer_norm1.", sd)
+        _ln(layer["layer_norm2"], lp + "layer_norm2.", sd)
+        _dense(layer["fc1"], lp + "mlp.fc1.", sd)
+        _dense(layer["fc2"], lp + "mlp.fc2.", sd)
+
+
+def _sam_attention(node, prefix, sd):
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _dense(node[proj], f"{prefix}{proj}.", sd)
+
+
+def _sam(t, prefix, sd):
+    e, p = t["image_encoder"], prefix + "image_encoder."
+    _conv(e["patch_embed"], p + "patch_embed.proj.", sd)
+    sd[p + "pos_embed"] = _t(e["pos_embed"])
+    for i, blk in _indexed(e, "block"):
+        bp = f"{p}blocks.{i}."
+        _ln(blk["norm1"], bp + "norm1.", sd)
+        _ln(blk["norm2"], bp + "norm2.", sd)
+        _dense(blk["attn"]["qkv"], bp + "attn.qkv.", sd)
+        _dense(blk["attn"]["proj"], bp + "attn.proj.", sd)
+        sd[bp + "attn.rel_pos_h"] = _t(blk["attn"]["rel_pos_h"])
+        sd[bp + "attn.rel_pos_w"] = _t(blk["attn"]["rel_pos_w"])
+        _dense(blk["mlp"]["lin1"], bp + "mlp.lin1.", sd)
+        _dense(blk["mlp"]["lin2"], bp + "mlp.lin2.", sd)
+    _conv(e["neck_conv1"], p + "neck.0.", sd)
+    _ln(e["neck_ln1"], p + "neck.1.", sd)
+    _conv(e["neck_conv2"], p + "neck.2.", sd)
+    _ln(e["neck_ln2"], p + "neck.3.", sd)
+
+    pe, p = t["prompt_encoder"], prefix + "prompt_encoder."
+    sd[p + "pe_layer.positional_encoding_gaussian_matrix"] = _t(
+        pe["pe_layer"]["gaussian_matrix"])
+    for i in range(4):
+        sd[f"{p}point_embeddings.{i}.weight"] = _t(pe[f"point_embed_{i}"])[None]
+    sd[p + "not_a_point_embed.weight"] = _t(pe["not_a_point_embed"])[None]
+    sd[p + "no_mask_embed.weight"] = _t(pe["no_mask_embed"])[None]
+    for j, layer in _indexed(pe.get("mask_downscaling", {}), "layers"):
+        conv = "kernel" in layer
+        (_conv if conv else _ln)(layer, f"{p}mask_downscaling.{j}.", sd)
+
+    d, p = t["mask_decoder"], prefix + "mask_decoder."
+    sd[p + "iou_token.weight"] = _t(d["iou_token"])
+    sd[p + "mask_tokens.weight"] = _t(d["mask_tokens"])
+    _conv_transpose(d["upscale_conv1"], p + "output_upscaling.0.", sd)
+    _ln(d["upscale_ln"], p + "output_upscaling.1.", sd)
+    _conv_transpose(d["upscale_conv2"], p + "output_upscaling.3.", sd)
+    for j, layer in _indexed(d["iou_prediction_head"], "layer"):
+        _dense(layer, f"{p}iou_prediction_head.layers.{j}.", sd)
+    for i, mlp in _indexed(d, "hyper_mlp"):
+        for j, layer in _indexed(mlp, "layer"):
+            _dense(layer, f"{p}output_hypernetworks_mlps.{i}.layers.{j}.", sd)
+    tr, tp = d["transformer"], p + "transformer."
+    for i, blk in _indexed(tr, "layer"):
+        bp = f"{tp}layers.{i}."
+        for att in ("self_attn", "cross_attn_token_to_image",
+                    "cross_attn_image_to_token"):
+            _sam_attention(blk[att], f"{bp}{att}.", sd)
+        for norm in ("norm1", "norm2", "norm3", "norm4"):
+            _ln(blk[norm], f"{bp}{norm}.", sd)
+        _dense(blk["mlp"]["lin1"], bp + "mlp.lin1.", sd)
+        _dense(blk["mlp"]["lin2"], bp + "mlp.lin2.", sd)
+    _sam_attention(tr["final_attn_token_to_image"],
+                   tp + "final_attn_token_to_image.", sd)
+    _ln(tr["norm_final_attn"], tp + "norm_final_attn.", sd)
+
+
+def _llava(t, prefix, sd):
+    _clip(t["vision_tower"], prefix + "vision_tower.", sd)
+    _dense(t["mm_projector"], prefix + "mm_projector.", sd)
+    _llama(t["lm"], prefix + "lm.", sd)
+
+
+def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree of the JAX package (numpy leaves, boxes
+    unwrapped) -> the port's ``state_dict`` (f32 tensors).
+
+    Takes the composite ``InteractVLM`` tree or the tree of one of its
+    parts: ``LlavaModel``, ``LlamaForCausalLM``, ``CLIPVisionTower`` or
+    ``Sam``. The SAM mask-downscaling convolutions, which the text-prompt
+    path never initialises in the JAX package, are absent from the result
+    unless the tree has them.
+    """
+    t = tree.get("params", tree)
+    sd: Dict[str, torch.Tensor] = {}
+    if "llava" in t:
+        _llava(t["llava"], "llava.", sd)
+        _sam(t["sam"], "sam.", sd)
+        _dense(t["text_hidden_fcs"]["fc1"], "text_hidden_fcs.0.0.", sd)
+        _dense(t["text_hidden_fcs"]["fc2"], "text_hidden_fcs.0.2.", sd)
+        if "cam_pose_encoder" in t:
+            _dense(t["cam_pose_encoder"]["linear1"],
+                   "cam_pose_encoder.linear1.", sd)
+    elif "vision_tower" in t:
+        _llava(t, "", sd)
+    elif "lm_head" in t:
+        _llama(t, "", sd)
+    elif "image_encoder" in t:
+        _sam(t, "", sd)
+    elif "patch_embedding" in t:
+        _clip(t, "", sd)
+    else:
+        raise ValueError(f"unrecognised parameter tree: {sorted(t)}")
+    return sd

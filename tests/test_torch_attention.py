@@ -1,0 +1,161 @@
+"""The port's attention: each kernel's plain PyTorch version against the JAX
+package's Pallas kernel in interpret mode, and the dispatch's routing of
+CPU tensors.
+
+Tolerance: the comparisons run in f32 on both sides and differ only in
+summation order and in the online-softmax rescaling of the Pallas kernels,
+so 2e-5 absolute on O(1) outputs. The CUDA kernels are held against these
+plain versions on the card in ``test_torch_kernels.py``.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from interactvlm_tpu.models.sam.image_encoder import (
+    decomposed_rel_pos_bias as jax_rel_bias,
+)
+from interactvlm_tpu.ops.attention import _xla_attention
+from interactvlm_tpu.ops.flash_attention import _flash_forward
+from interactvlm_tpu.ops.sam_attention import (
+    fused_rel_attention as jax_fused_rel,
+    fused_window_attention as jax_fused_window,
+)
+from interactvlm_tpu_torch.ops import flash_attention as F
+from interactvlm_tpu_torch.ops import sam_attention as S
+from interactvlm_tpu_torch.ops.attention import (
+    attention_plain,
+    dot_product_attention,
+)
+
+TOL = 2e-5
+
+
+def _rand(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+@pytest.mark.parametrize(
+    "B,H,Lq,Lk,D,causal,lens",
+    [
+        (2, 2, 128, 128, 16, False, None),
+        (1, 2, 200, 200, 128, True, None),
+        (1, 2, 64, 192, 16, True, None),  # Lq != Lk: bottom-right offset
+        (2, 2, 160, 160, 128, True, (160, 57)),  # per-row kv lengths
+        (2, 1, 96, 96, 16, False, (0, 40)),  # row 0 sees no key
+    ],
+)
+def test_flash_plain_matches_pallas_interpret(B, H, Lq, Lk, D, causal, lens):
+    rng = np.random.default_rng(0)
+    q, k, v = _rand(rng, (B, H, Lq, D)), _rand(rng, (B, H, Lk, D)), _rand(
+        rng, (B, H, Lk, D))
+    kv = None if lens is None else np.asarray(lens, np.int32)
+    want_o, want_lse = _flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, True,
+        None if kv is None else jnp.asarray(kv))
+    got_o, got_lse = F.flash_forward_plain(
+        _t(q), _t(k), _t(v), causal, None, None if kv is None else _t(kv))
+    want_o = np.asarray(want_o)
+    want_lse = np.asarray(want_lse)[:, :Lq, 0].reshape(B, H, Lq)
+    got_o, got_lse = got_o.numpy(), got_lse.numpy().reshape(B, H, Lq)
+    seen = np.ones(B, bool) if kv is None else kv > 0
+    np.testing.assert_allclose(got_o[seen], want_o[seen], atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got_lse[seen], want_lse[seen], atol=1e-4,
+                               rtol=TOL)
+    # a row that sees no key gives 0 (the Pallas kernel's -1e30 fill
+    # averages its block-padded values there instead)
+    assert (got_o[~seen] == 0).all() and (got_lse[~seen] == 0).all()
+
+
+def test_window_plain_matches_pallas_interpret():
+    rng = np.random.default_rng(1)
+    H = W = 14
+    BW, nH, D = 2, 2, 80
+    q, k, v = (_rand(rng, (BW, nH, H * W, D)) for _ in range(3))
+    rh, rw = _rand(rng, (2 * H - 1, D), 0.5), _rand(rng, (2 * W - 1, D), 0.5)
+    want = jax_fused_window(*(jnp.asarray(x) for x in (q, k, v, rh, rw)),
+                            (H, W), interpret=True)
+    got = S.fused_window_attention(*(_t(x) for x in (q, k, v, rh, rw)), (H, W))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_global_plain_matches_pallas_interpret():
+    rng = np.random.default_rng(2)
+    H = W = 16
+    B, nH, D = 1, 2, 80
+    q, k, v = (_rand(rng, (B, nH, H * W, D)) for _ in range(3))
+    rh, rw = _rand(rng, (2 * H - 1, D), 0.5), _rand(rng, (2 * W - 1, D), 0.5)
+    want = jax_fused_rel(*(jnp.asarray(x) for x in (q, k, v, rh, rw)),
+                         (H, W), interpret=True)
+    got = S.fused_rel_attention(*(_t(x) for x in (q, k, v, rh, rw)), (H, W))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("causal,use_bias", [(True, False), (False, True)])
+def test_attention_plain_matches_xla_path(causal, use_bias):
+    """``attention_plain`` is ``_xla_attention``: causal fill aligned
+    bottom-right (Lq < Lk), additive bias."""
+    rng = np.random.default_rng(3)
+    q, k, v = (_rand(rng, (2, 2, 24, 16)), _rand(rng, (2, 2, 40, 16)),
+               _rand(rng, (2, 2, 40, 16)))
+    bias = _rand(rng, (2, 1, 24, 40)) if use_bias else None
+    want = _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          None if bias is None else jnp.asarray(bias), causal)
+    got = attention_plain(_t(q), _t(k), _t(v),
+                          None if bias is None else _t(bias), causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_sam_rel_bias_matches_jax():
+    rng = np.random.default_rng(4)
+    q = _rand(rng, (2, 2, 6 * 5, 8))
+    rh, rw = _rand(rng, (11, 8)), _rand(rng, (9, 8))
+    from interactvlm_tpu_torch.models.sam.image_encoder import (
+        decomposed_rel_pos_bias,
+    )
+
+    want = jax_rel_bias(jnp.asarray(q), jnp.asarray(rh), jnp.asarray(rw), (6, 5))
+    got = decomposed_rel_pos_bias(_t(q), _t(rh), _t(rw), (6, 5))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    # the stacked factors the window kernel takes rebuild the same bias
+    k, v = _t(_rand(rng, q.shape)), _t(_rand(rng, q.shape))
+    np.testing.assert_allclose(
+        S.fused_window_attention(_t(q), k, v, _t(rh), _t(rw), (6, 5)).numpy(),
+        dot_product_attention(_t(q), k, v, bias=got, scale=8 ** -0.5).numpy(),
+        atol=TOL, rtol=TOL)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """A CPU tensor never reaches a kernel: each wrapper returns its plain
+    version's result and its launch count does not move, and the dispatch
+    sends even a flash-eligible call (no bias, Lq >= 512) to the plain
+    attention."""
+    rng = np.random.default_rng(5)
+    counts = (F.flash_forward.launches, S.window_attention.launches,
+              S.rel_attention.launches)
+    q, k, v = (_t(_rand(rng, (1, 1, 512, 16))) for _ in range(3))
+    assert torch.equal(dot_product_attention(q, k, v, causal=True),
+                       attention_plain(q, k, v, causal=True))
+    o, lse = F.flash_forward(q, k, v, True)
+    o2, lse2 = F.flash_forward_plain(q, k, v, True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+    R, H, W, D = 3, 4, 4, 16
+    q, k, v = (_t(_rand(rng, (R, H * W, D))) for _ in range(3))
+    f = _t(_rand(rng, (R, H + W, H * W)))
+    assert torch.equal(S.window_attention(q, k, v, f, (H, W)),
+                       S.window_attention_plain(q, k, v, f, (H, W)))
+    rh, rw = _t(_rand(rng, (R, H, H * W))), _t(_rand(rng, (R, H * W, W)))
+    assert torch.equal(S.rel_attention(q, k, v, rh, rw, (H, W)),
+                       S.rel_attention_plain(q, k, v, rh, rw, (H, W)))
+    assert counts == (F.flash_forward.launches, S.window_attention.launches,
+                      S.rel_attention.launches)

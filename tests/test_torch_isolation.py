@@ -1,0 +1,116 @@
+"""The port stands alone: it and ``chip_smoke.py`` import neither JAX nor
+any module of the JAX package, its entry points refuse to fall back to the
+CPU when no GPU is present, and its state dict carries the reference's
+checkpoint keys (the JAX package's own converters read it back into the
+tree ``from_jax_params`` took in)."""
+
+import os
+import subprocess
+import sys
+
+import flax.linen as nn
+import numpy as np
+import jax
+import pytest
+import torch
+
+from interactvlm_tpu.config import interactvlm_tiny as jax_tiny
+from interactvlm_tpu.models.interactvlm import InteractVLM as JaxIVLM
+from interactvlm_tpu.utils.testing import make_synthetic_batch
+from interactvlm_tpu.utils.weights import convert_interactvlm_checkpoint
+from interactvlm_tpu_torch import config as C
+from interactvlm_tpu_torch.models.clip_vit import CLIPVisionTower
+from interactvlm_tpu_torch.models.interactvlm import InteractVLM
+from interactvlm_tpu_torch.models.llama import LlamaForCausalLM
+from interactvlm_tpu_torch.models.llava import LlavaModel
+from interactvlm_tpu_torch.models.sam.sam import Sam
+from interactvlm_tpu_torch.utils.weights import from_jax_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import interactvlm_tpu_torch
+for info in pkgutil.walk_packages(interactvlm_tpu_torch.__path__,
+                                  "interactvlm_tpu_torch."):
+    importlib.import_module(info.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "interactvlm_tpu" or m.startswith("interactvlm_tpu."))
+print("MODULES", len([m for m in sys.modules
+                      if m.startswith("interactvlm_tpu_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+    n = int(res.stdout.split("MODULES ")[1].split()[0])
+    assert n >= 20, res.stdout  # every submodule was imported
+
+
+@pytest.mark.parametrize("build", [
+    lambda: InteractVLM(C.interactvlm_tiny()),
+    lambda: LlavaModel(C.llama_tiny(), C.clip_tiny()),
+    lambda: LlamaForCausalLM(C.llama_tiny()),
+    lambda: CLIPVisionTower(C.clip_tiny()),
+    lambda: Sam(C.sam_tiny()),
+], ids=["InteractVLM", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
+        "Sam"])
+def test_entry_points_default_to_the_gpu(build):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build()
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def test_state_dict_round_trips_through_the_jax_converters():
+    """from_jax_params -> port state_dict -> the merged-checkpoint key
+    layout -> ``convert_interactvlm_checkpoint`` (which runs
+    ``convert_llama``, ``convert_sam`` and ``convert_clip_vision``) gives
+    back every leaf of the original JAX tree, exactly."""
+    jcfg = jax_tiny()
+    batch = make_synthetic_batch(jcfg, B=2, L=12, mask_size=32)
+    tree = jax.tree.map(np.asarray, nn.meta.unbox(
+        JaxIVLM(jcfg).init(jax.random.PRNGKey(3), batch)))
+    tm = InteractVLM(C.interactvlm_tiny(), device="cpu")
+    tm.load_state_dict(from_jax_params(tree), strict=False)
+
+    merged, clip_sd = {}, {}
+    renames = [("llava.lm.model.", "model."), ("llava.lm.lm_head.", "lm_head."),
+               ("llava.mm_projector.", "model.mm_projector."),
+               ("sam.", "model.visual_model."),
+               ("text_hidden_fcs.", "model.text_hidden_fcs."),
+               ("cam_pose_encoder.", "cam_pose_encoder.")]
+    for key, val in tm.state_dict().items():
+        val = val.numpy()
+        if key.startswith("llava.vision_tower."):
+            clip_sd[key[len("llava.vision_tower."):]] = val
+            continue
+        for old, new in renames:
+            if key.startswith(old):
+                merged[new + key[len(old):]] = val
+                break
+        else:
+            raise AssertionError(f"unmapped key {key}")
+    back = _flat(convert_interactvlm_checkpoint(merged, jcfg, clip_sd))
+    want = _flat(tree["params"])
+    assert set(want) <= set(back), sorted(set(want) - set(back))
+    for path, arr in want.items():
+        np.testing.assert_array_equal(back[path], arr, err_msg=path)
