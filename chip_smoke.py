@@ -6,19 +6,28 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero, and
 prints no result, without them. Phases, each of which fails the run:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the three hand-written attention kernels under
-   ``interactvlm_tpu_torch/csrc/``, one ``nvcc`` each, all started together;
+2. build: the four hand-written kernels under ``interactvlm_tpu_torch/csrc/``
+   (flash, window and global rel-pos attention, fused int8 matmul), one
+   ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   13B serving path gives it, bf16 inputs from a seeded generator, with the
+   two serving paths give it, inputs from a seeded generator, with the
    kernel's, the plain version's and one library call's time beside the
    least time the card could take (``bound_ms``);
-4. reference: the ``interactvlm_tiny`` pipeline on the card (bf16 SAM,
-   window kernel) against the same weights on the CPU in f32;
-5. main path: ``interactvlm_13b`` at full width and depth in bf16 with
+4. reference: the ``interactvlm_tiny`` pipeline on the card against the same
+   weights on the CPU, dense (bf16 SAM) and int8 (int8 LLaMA in f32 with the
+   int8 KV cache, int8 bf16 SAM);
+5. the 13B path: ``interactvlm_13b`` at full width and depth in bf16 with
    seeded random weights, B=8 images x V=4 views, a 64-token prompt, 32
    greedy decode steps, 1024^2 masks and a 6890-vertex lift, through
-   ``evaluate_batch`` in streaming and in cached-view mode; images/s, the
-   time of each leg, and each kernel's launch count over the run.
+   ``evaluate_batch`` in streaming and in cached-view mode;
+6. the 7B-int8 path, the JAX package's chip serving configuration
+   (``bench.py``): LLaMA-7B with int8 weights and the int8 KV cache, CLIP
+   ViT-L/14, SAM ViT-H with int8 weights and tanh GELU, all bf16; streaming
+   at B=8 and cached at B=32, otherwise as the 13B path.
+
+Each path reports images/s, the time of each leg, peak memory, the decode
+host/device split and each kernel's launches over its run; the 7B path also
+times decode with the int8 against the dense cache.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -27,6 +36,7 @@ The second-to-last line is ``{"kernels": [...]}``; the last is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -39,6 +49,8 @@ from interactvlm_tpu_torch.config import (
     clip_vit_l_14,
     interactvlm_13b,
     interactvlm_tiny,
+    llama_7b,
+    llama_tiny,
     sam_tiny,
     sam_vit_h,
 )
@@ -49,19 +61,26 @@ from interactvlm_tpu_torch.geometry.lift import (
 )
 from interactvlm_tpu_torch.models.generate import greedy_generate
 from interactvlm_tpu_torch.models.interactvlm import InteractVLM, lift_human
+from interactvlm_tpu_torch.models.layers import Int8Linear
 from interactvlm_tpu_torch.ops import _cuda
 from interactvlm_tpu_torch.ops import flash_attention as FA
+from interactvlm_tpu_torch.ops import int8_matmul as Q
 from interactvlm_tpu_torch.ops import sam_attention as SA
 from interactvlm_tpu_torch.utils.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from interactvlm_tpu_torch.utils.weights import init_params
 
-# Dense peak rates (NVIDIA data sheets): bf16 tensor-core FLOP/s, HBM bytes/s.
-PEAKS = {"H100 SXM": (989e12, 3.35e12), "H100 PCIe": (756e12, 2.0e12)}
+# Dense peak rates (NVIDIA data sheets): bf16 tensor-core FLOP/s, HBM
+# bytes/s, int8 tensor-core OP/s.
+PEAKS = {"H100 SXM": (989e12, 3.35e12, 1979e12),
+         "H100 PCIe": (756e12, 2.0e12, 1513e12)}
 # kernel vs plain version, element-wise (see compare)
 ATOL, WINDOW_ATOL, RTOL, RMS_TOL, LSE_TOL = 4e-3, 2e-2, 2e-2, 1e-2, 1e-3
+# int8 matmul vs plain version (see compare_int8)
+INT8_RTOL, INT8_ATOL_OF_MAX = 2.0 ** -7, 1e-6
 B, V, L_TEXT, T, MASK = 8, 4, 64, 32, 1024
-REPEATS = 5  # timed batches per mode, after one warm-up batch each
-LEG_REPEATS = 3
+B_CACHED_INT8 = 32  # the 7B-int8 cached batch (bench.py's default)
+REPEATS = 3  # timed batches per mode and path, after one warm-up batch each
+LEG_REPEATS = 2
 N_VERTS, MAX_K, BACKGROUND = 6890, 256, 0.7
 
 KERNELS = {
@@ -77,6 +96,10 @@ KERNELS = {
         source="interactvlm_tpu_torch/csrc/rel_attention.cu",
         replaces="interactvlm_tpu/ops/sam_attention.py:39",
         wrapper=SA.rel_attention),
+    "int8_matmul": dict(
+        source="interactvlm_tpu_torch/csrc/int8_matmul.cu",
+        replaces="interactvlm_tpu/ops/int8_matmul.py:39",
+        wrapper=Q.int8_matmul_fused),
 }
 
 
@@ -88,10 +111,23 @@ def peaks(name: str):
     return PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
 
 
-def bound(flops, nbytes, name):
-    flop_s, byte_s = peaks(name)
-    t_ops, t_bytes = flops / flop_s * 1e3, nbytes / byte_s * 1e3
+def bound(flops, nbytes, name, int8=False):
+    """The least time in ms for the work: operations over the bf16 (or,
+    with ``int8``, the int8) tensor-core peak, or bytes over the memory
+    rate, whichever is larger, and which of the two it is."""
+    flop_s, byte_s, int8_s = peaks(name)
+    t_ops = flops / (int8_s if int8 else flop_s) * 1e3
+    t_bytes = nbytes / byte_s * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def reset_launches():
+    for w in KERNELS.values():
+        w["wrapper"].launches = 0
+
+
+def read_launches():
+    return {n: w["wrapper"].launches for n, w in KERNELS.items()}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -275,12 +311,113 @@ def case_global(gen, name):
     return out
 
 
+# (what, M, K, N, bias, activation, calls per streaming / cached batch of
+# the 7B-int8 path): the SAM ViT-H encoder over 32 views (window blocks
+# partition 32 x 64 x 64 tokens into 32 x 25 windows of 196), LLaMA-7B
+# prefill of 8 x 319 tokens, and decode at B=8 (streaming) and B=32 (cached)
+SAM_WIN, SAM_TOK, PREFILL = B * V * 25 * 196, B * V * 64 * 64, B * (L_TEXT - 1 + 256)
+INT8_CASES = [
+    ("SAM qkv, window blocks", SAM_WIN, 1280, 3840, True, "none", (28, 0)),
+    ("SAM qkv, global blocks", SAM_TOK, 1280, 3840, True, "none", (4, 0)),
+    ("SAM proj, window blocks", SAM_WIN, 1280, 1280, True, "none", (28, 0)),
+    ("SAM proj, global blocks", SAM_TOK, 1280, 1280, True, "none", (4, 0)),
+    ("SAM lin1 + tanh GELU", SAM_TOK, 1280, 5120, True, "gelu_tanh", (32, 0)),
+    ("SAM lin2", SAM_TOK, 5120, 1280, True, "none", (32, 0)),
+    ("LLaMA-7B prefill q/k/v/o", PREFILL, 4096, 4096, False, "none", (128, 0)),
+    ("LLaMA-7B prefill gate/up", PREFILL, 4096, 11008, False, "none", (64, 0)),
+    ("LLaMA-7B prefill down", PREFILL, 11008, 4096, False, "none", (32, 0)),
+    ("LLaMA-7B prefill q/k/v/o, cached B=32", 4 * PREFILL, 4096, 4096, False,
+     "none", (0, 128)),
+    ("LLaMA-7B prefill gate/up, cached B=32", 4 * PREFILL, 4096, 11008, False,
+     "none", (0, 64)),
+    ("LLaMA-7B prefill down, cached B=32", 4 * PREFILL, 11008, 4096, False,
+     "none", (0, 32)),
+    ("LLaMA-7B decode q/k/v/o, B=8", B, 4096, 4096, False, "none",
+     (128 * (T - 1), 0)),
+    ("LLaMA-7B decode gate/up, B=8", B, 4096, 11008, False, "none",
+     (64 * (T - 1), 0)),
+    ("LLaMA-7B decode down, B=8", B, 11008, 4096, False, "none",
+     (32 * (T - 1), 0)),
+    ("LLaMA-7B lm_head, B=8", B, 4096, 32000, False, "none", (T, 0)),
+    ("LLaMA-7B decode q/k/v/o, B=32", 32, 4096, 4096, False, "none",
+     (0, 128 * (T - 1))),
+    ("LLaMA-7B decode gate/up, B=32", 32, 4096, 11008, False, "none",
+     (0, 64 * (T - 1))),
+    ("LLaMA-7B decode down, B=32", 32, 11008, 4096, False, "none",
+     (0, 32 * (T - 1))),
+    ("LLaMA-7B lm_head, B=32", 32, 4096, 32000, False, "none", (0, T)),
+]
+
+
+def compare_int8(got, want):
+    """The int8 kernel against its plain version, element-wise: both share
+    the quantization of x and an exact integer sum and round the rescale,
+    bias and GELU alike in f32 (erff against torch.erf), so each element
+    within one bf16 rounding step, 2^-7 of its magnitude, plus 1e-6 of the
+    output's largest magnitude for the GELU near zero."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    limit = INT8_RTOL * w.abs() + INT8_ATOL_OF_MAX * w.abs().max()
+    res = {"max_abs_err": err.max().item(),
+           "err_over_limit": (err / limit.clamp_min(1e-30)).max().item(),
+           "rms_rel_err": (err.square().mean()
+                           / w.square().mean().clamp_min(1e-30)).sqrt().item(),
+           "tol": {"rtol": INT8_RTOL, "atol_of_max": INT8_ATOL_OF_MAX}}
+    res["ok"] = res["err_over_limit"] <= 1.0 and bool(torch.isfinite(g).all())
+    return res
+
+
+def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
+    """One int8 matmul shape of the 7B-int8 path: bf16 x, random int8 W
+    with per-column scales of the init's magnitude. Library yardsticks:
+    ``torch._int_mm`` on the pre-quantized operands (int32 out, no
+    quantization or epilogue; it refuses M <= 16) and a bf16 ``F.linear``
+    at the same shape; the port calls neither."""
+    x = rand_bf16(gen, (M, K))
+    w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    scale = torch.full((N,), 1.0 / (127.0 * K ** 0.5), device="cuda")
+    bias = rand_bf16(gen, (N,), 0.1).float() if with_bias else None
+    got = Q.int8_matmul_fused(x, w, scale, bias, act)
+    want = Q.int8_matmul_fused_plain(x, w, scale, bias, act)
+    res = compare_int8(got, want)
+    del got, want
+    big = M * K * N > 1e11
+    kernel_ms = time_ms(lambda: Q.int8_matmul_fused(x, w, scale, bias, act),
+                        10 if big else 50)
+    plain_ms = time_ms(
+        lambda: Q.int8_matmul_fused_plain(x, w, scale, bias, act), 2, 1)
+    nbytes = 2 * M * K + N * K + 4 * N * (2 if with_bias else 1) + 2 * M * N
+    t, by = bound(2 * M * K * N, nbytes, name, int8=True)
+    lib = None
+    if M > 16:
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        lib = time_ms(lambda: torch._int_mm(xq, w.t()), 10 if big else 50)
+        del xq
+    wb = rand_bf16(gen, (N, K))
+    linear_ms = time_ms(lambda: torch.nn.functional.linear(x, wb),
+                        10 if big else 50)
+    return dict(shape=f"{what}: M={M} K={K} N={N}"
+                f"{' +bias' if with_bias else ''}"
+                f"{' +' + act if act != 'none' else ''}",
+                calls_per_batch={"streaming": calls[0], "cached": calls[1]},
+                **res, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=lib, library="torch._int_mm (int32 product only)",
+                bf16_linear_ms=linear_ms, bound_ms=t, bound_by=by)
+
+
 def kernel_phase(name):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {"flash_attention": [case_flash_prefill(gen, name),
                                  case_flash_sam(gen, name)],
              "window_attention": [case_window(gen, name)],
              "rel_attention": [case_global(gen, name)]}
+    torch.cuda.empty_cache()
+    cases["int8_matmul"] = []
+    for c in INT8_CASES:
+        cases["int8_matmul"].append(case_int8(gen, name, *c))
+        torch.cuda.empty_cache()
     for kname, rows in cases.items():
         for row in rows:
             log(json.dumps({"name": kname, **row}))
@@ -327,35 +464,50 @@ def synthetic_lift_maps(hw, n_verts, device, seed):
             "num_vertices": n_verts}
 
 
-def let_seg_token_appear(model, batch, device):
+def let_seg_token_appear(model, batch, device, kv_cache):
     """Random weights almost never emit [SEG], and without it the mask and
     lift legs return zeros. Make the seg token's lm_head row 1.5x that of
-    the token most often emitted, so that it wins wherever that token did."""
+    the token most often emitted, so that it wins wherever that token did
+    (for an int8 head: the same int8 row with 1.5x its scale)."""
     llava, seg = model.llava, model.config.seg_token_idx
     ids = torch.as_tensor(batch["input_ids"], device=device)
     px = torch.as_tensor(batch["images_clip"], device=device).to(
         model.config.clip.dtype)
-    out = greedy_generate(llava, ids, px, max_new_tokens=8, eos_id=-1)
+    out = greedy_generate(llava, ids, px, max_new_tokens=8, eos_id=-1,
+                          kv_cache=kv_cache)
     mode = int(torch.mode(out["generated_ids"].flatten()).values)
+    head = llava.lm.lm_head
     with torch.no_grad():
-        w = llava.lm.lm_head.weight
-        w[seg] = 1.5 * w[mode]
+        if isinstance(head, Int8Linear):
+            head.weight[seg] = head.weight[mode]
+            head.weight_scale[seg] = 1.5 * head.weight_scale[mode]
+        else:
+            head.weight[seg] = 1.5 * head.weight[mode]
 
 
-def reference_phase():
+def reference_phase(int8: bool):
     """interactvlm_tiny on the card against the same weights in f32 on the
     CPU, through evaluate_batch. LLaMA and CLIP run f32 on both sides (the
     generated ids must match); SAM runs bf16 on the card (the window kernel
     takes bf16 only), so masks are held to 5e-2 of their largest magnitude
     and contacts to 5e-2 absolute: bf16 keeps ~3 significant digits through
-    two encoder blocks, the decoder and the lift's sigmoid."""
-    cpu_cfg = interactvlm_tiny()
-    gpu_cfg = dataclasses.replace(cpu_cfg, sam=sam_tiny(dtype=torch.bfloat16))
+    two encoder blocks, the decoder and the lift's sigmoid.
+
+    ``int8``: int8 LLaMA weights with the int8 KV cache, and the int8 SAM
+    encoder. On the card every int8 linear launches the int8 kernel; on the
+    CPU the JAX package's composition runs, which rounds x / (amax / 127)
+    where the kernel rounds x * (127 / amax): they differ only on a rounding
+    tie, so the ids must still match."""
+    kv = "int8" if int8 else "dense"
+    cpu_cfg = interactvlm_tiny(llama=llama_tiny(weights_int8=int8),
+                               sam=sam_tiny(weights_int8=int8))
+    gpu_cfg = dataclasses.replace(cpu_cfg, sam=sam_tiny(
+        dtype=torch.bfloat16, weights_int8=int8))
     cpu = init_params(InteractVLM(cpu_cfg, device="cpu"),
                       torch.Generator().manual_seed(1))
     batch = synthetic_batch(cpu_cfg, 2, 12, "cpu", 1)
     batch["sam_images"] = batch["sam_images"].float()
-    let_seg_token_appear(cpu, batch, "cpu")
+    let_seg_token_appear(cpu, batch, "cpu", kv)
     gpu = InteractVLM(gpu_cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     maps = synthetic_lift_maps(64, cpu_cfg.num_human_vertices, "cpu", 2)
@@ -363,45 +515,74 @@ def reference_phase():
                  for k, x in batch.items()}
     gpu_maps = {k: x.cuda() if torch.is_tensor(x) else x
                 for k, x in maps.items()}
-    before = SA.window_attention.launches
     want = evaluate_batch(cpu, batch, 64, human_maps=maps, eos_id=-1,
-                          max_new_tokens=8)
+                          max_new_tokens=8, kv_cache=kv)
+    reset_launches()
     got = evaluate_batch(gpu, gpu_batch, 64, human_maps=gpu_maps, eos_id=-1,
-                         max_new_tokens=8)
-    launched = SA.window_attention.launches - before
+                         max_new_tokens=8, kv_cache=kv)
+    launched = read_launches()
     ids_equal = torch.equal(got["generated_ids"].cpu(), want["generated_ids"])
     scale = want["pred_masks"].abs().max().item()
     mask_err = max_err(got["pred_masks"].cpu(), want["pred_masks"]) / max(scale, 1e-6)
     contact_err = max_err(got["pred_contact_3d"].cpu(), want["pred_contact_3d"])
     res = dict(phase="reference", config="interactvlm_tiny",
+               weights="int8" if int8 else "dense", kv_cache=kv,
                ids_equal=ids_equal, has_seg=int(want["has_seg"].sum()),
                mask_rel_err=mask_err, contact_abs_err=contact_err,
-               window_launches=launched)
+               launches=launched)
     log(json.dumps(res))
+    needed = ["window_attention"] + (["int8_matmul"] if int8 else [])
     if not (ids_equal and mask_err < 5e-2 and contact_err < 5e-2
-            and launched > 0 and bool(want["has_seg"].any())):
+            and all(launched[n] > 0 for n in needed)
+            and bool(want["has_seg"].any())):
         raise SystemExit(f"the card disagrees with the CPU reference: {res}")
 
 
-def main_path_phase():
+def config_13b():
     bf16 = torch.bfloat16
     cfg0 = interactvlm_13b()
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg0, clip=clip_vit_l_14(dtype=bf16), sam=sam_vit_h(dtype=bf16),
         seg_token_idx=min(cfg0.llama.vocab_size - 1, 32000),
         img_emb_len=clip_vit_l_14().num_patches - 1)
+
+
+def config_7b_int8():
+    """``bench.py``'s chip configuration: LLaMA-7B int8 weights (no remat),
+    CLIP ViT-L/14, SAM ViT-H int8 with tanh GELU, all bf16."""
+    bf16 = torch.bfloat16
+    llama = llama_7b(dtype=bf16, remat=False, weights_int8=True)
+    return dataclasses.replace(
+        interactvlm_13b(), llama=llama, clip=clip_vit_l_14(dtype=bf16),
+        sam=sam_vit_h(dtype=bf16, gelu_approx=True, weights_int8=True),
+        seg_token_idx=min(llama.vocab_size - 1, 32000),
+        img_emb_len=clip_vit_l_14().num_patches - 1)
+
+
+def serving_path_phase(path, cfg, kv_cache, b_cached):
+    """Drive ``evaluate_batch`` at full width and depth in streaming (B=8)
+    and cached (``b_cached``) mode. The cached batch is the streaming batch
+    repeated, so every copy must generate the streaming ids. Launches are
+    counted from 0 over the first round (one streaming and one cached
+    batch), and per mode for the int8 kernel."""
     t0 = time.perf_counter()
     model = InteractVLM(cfg, device="cuda")
     init_params(model, torch.Generator(device="cuda").manual_seed(0))
     model.eval().requires_grad_(False)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(json.dumps({"phase": "init", "params": n_params,
+    log(json.dumps({"phase": "init", "path": path, "params": n_params,
                     "s": time.perf_counter() - t0}))
 
     batch = synthetic_batch(cfg, B, L_TEXT, "cuda", 0)
-    batch["images_clip"] = batch["images_clip"].to(bf16)
-    let_seg_token_appear(model, batch, "cuda")
+    batch["images_clip"] = batch["images_clip"].to(cfg.clip.dtype)
+    let_seg_token_appear(model, batch, "cuda", kv_cache)
+    reps = b_cached // B
+    batches = {"streaming": batch, "cached": {
+        "input_ids": np.tile(batch["input_ids"], (reps, 1)),
+        "labels": np.tile(batch["labels"], (reps, 1)),
+        "images_clip": batch["images_clip"].repeat(reps, 1, 1, 1),
+        "cam_params": batch["cam_params"].repeat(reps, 1, 1)}}
     maps = synthetic_lift_maps(MASK, N_VERTS, "cuda", 3)
     t0 = time.perf_counter()
     gidx, gw = build_gather_maps(maps["p2v"].permute(1, 2, 3, 0).cpu().numpy(),
@@ -413,65 +594,113 @@ def main_path_phase():
     cached = model.encode_sam_images(batch["sam_images"][:1])
 
     def run(mode):
-        if mode == "cached":
-            return evaluate_batch(model, batch, MASK, max_new_tokens=T,
-                                  human_maps=maps, eos_id=-1,
-                                  cached_image_emb=cached)
-        return evaluate_batch(model, batch, MASK, max_new_tokens=T,
-                              human_maps=maps, eos_id=-1)
+        return evaluate_batch(
+            model, batches[mode], MASK, max_new_tokens=T, human_maps=maps,
+            eos_id=-1, kv_cache=kv_cache,
+            cached_image_emb=cached if mode == "cached" else None)
 
     modes = ("streaming", "cached")
     for mode in modes:  # warm-up: cuBLAS handles, allocator
         run(mode)
     torch.cuda.reset_peak_memory_stats()
-    # the first round's batches are the main path's run: their launches are
+    # the first round's batches are the path's run: their launches are
     # counted and their outputs checked; the later rounds only add times
-    outs, secs = {}, {m: [] for m in modes}
+    outs, secs, int8_by_mode = {}, {m: [] for m in modes}, {}
     for rnd in range(REPEATS):
         if rnd == 0:
-            for w in KERNELS.values():
-                w["wrapper"].launches = 0
+            reset_launches()
         for mode in modes:
+            before = Q.int8_matmul_fused.launches
             out, ms = wall_ms(lambda: run(mode))
             secs[mode].append(ms / 1e3)
             outs.setdefault(mode, out)
+            if rnd == 0:
+                int8_by_mode[mode] = Q.int8_matmul_fused.launches - before
         if rnd == 0:
-            launches = {n: w["wrapper"].launches for n, w in KERNELS.items()}
+            launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for n, c in launches.items():
-        if c <= 0:
-            raise SystemExit(f"the main path never launched {n}")
+    needed = ["flash_attention", "window_attention", "rel_attention"]
+    if cfg.llama.weights_int8:
+        needed.append("int8_matmul")
+    for n in needed:
+        if launches[n] <= 0:
+            raise SystemExit(f"the {path} path never launched {n}")
+    if cfg.llama.weights_int8:
+        # per batch: 7 projections a layer and the lm_head, at the prefill
+        # and each of the T - 1 decode steps; 4 linears a SAM block when
+        # the encoder runs (streaming only)
+        llama_calls = (7 * cfg.llama.num_layers + 1) * T
+        sam_calls = 4 * cfg.sam.encoder_depth if cfg.sam.weights_int8 else 0
+        want = {"streaming": llama_calls + sam_calls, "cached": llama_calls}
+        log(json.dumps({"phase": "int8_launches", "path": path,
+                        "by_mode": int8_by_mode, "expected": want}))
+        if int8_by_mode != want:
+            raise SystemExit(f"int8 launches {int8_by_mode} != {want}")
 
     for mode, out in outs.items():
+        nb = batches[mode]["input_ids"].shape[0]
         masks, contact = out["pred_masks"], out["pred_contact_3d"]
-        ok = (tuple(masks.shape) == (B, V, MASK, MASK)
-              and tuple(contact.shape) == (B, N_VERTS)
+        ok = (tuple(masks.shape) == (nb, V, MASK, MASK)
+              and tuple(contact.shape) == (nb, N_VERTS)
               and bool(torch.isfinite(masks).all())
               and bool(torch.isfinite(contact).all())
               and float(contact.min()) >= 0.0 and float(contact.max()) <= 1.0
               and bool(out["has_seg"].any()))
         med = float(np.median(secs[mode]))
-        log(json.dumps({"phase": "main_path", "mode": mode,
-                        "images_per_s": B / med,
-                        "images_per_s_min": B / max(secs[mode]),
-                        "images_per_s_max": B / min(secs[mode]),
+        log(json.dumps({"phase": "main_path", "path": path, "mode": mode,
+                        "batch": nb, "kv_cache": kv_cache,
+                        "images_per_s": nb / med,
+                        "images_per_s_min": nb / max(secs[mode]),
+                        "images_per_s_max": nb / min(secs[mode]),
                         "batch_s": secs[mode],
                         "has_seg": int(out["has_seg"].sum()),
                         "contact_mean": float(contact.mean()), "ok": ok}))
         if not ok:
-            raise SystemExit(f"{mode} outputs are malformed")
-    if not torch.equal(outs["streaming"]["generated_ids"],
-                       outs["cached"]["generated_ids"]):
-        raise SystemExit("streaming and cached runs generated different ids")
-    runs = [leg_times(model, batch, maps, gidx, gw, outs["streaming"])
-            for _ in range(LEG_REPEATS)]
+            raise SystemExit(f"{path} {mode} outputs are malformed")
+    ids = outs["streaming"]["generated_ids"]
+    if not torch.equal(outs["cached"]["generated_ids"],
+                       ids.repeat(reps, 1)):
+        raise SystemExit(f"{path}: streaming and cached runs generated "
+                         f"different ids")
+    runs = [leg_times(model, batch, maps, gidx, gw, outs["streaming"],
+                      kv_cache) for _ in range(LEG_REPEATS)]
     legs = {k: spread([r[k] for r in runs]) for k in runs[0]}
-    log(json.dumps({"phase": "legs_ms", **legs, "peak_gb": peak_gb}))
-    log(json.dumps({"phase": "decode_host_device_ms",
-                    **decode_split(model, batch)}))
-    log(json.dumps({"phase": "profile", "mode": "streaming",
+    log(json.dumps({"phase": "legs_ms", "path": path, **legs,
+                    "peak_gb": peak_gb}))
+    log(json.dumps({"phase": "decode_host_device_ms", "path": path,
+                    "kv_cache": kv_cache,
+                    **decode_split(model, batch, kv_cache)}))
+    if kv_cache == "int8":
+        log(json.dumps({"phase": "decode_int8_vs_dense_cache_ms",
+                        "path": path, **decode_by_cache(model, batch)}))
+    log(json.dumps({"phase": "profile", "path": path, "mode": "streaming",
                     **device_busy(lambda: run("streaming"))}))
+    del model, cached, outs
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def decode_by_cache(model, batch):
+    """The decode leg (greedy_generate less prefill, host clock around
+    synchronised calls) with the int8 and the dense cache on the same
+    weights, three of each in turns: int8, dense, dense, int8, int8,
+    dense."""
+    llava = model.llava
+    ids = torch.as_tensor(batch["input_ids"], device="cuda")
+    px = batch["images_clip"]
+    Lp = L_TEXT - 1 + model.config.clip.num_patches
+    out = {"int8": [], "dense": []}
+    for kv in out:  # warm-up: the dense cache's shapes are new here
+        greedy_generate(llava, ids, px, max_new_tokens=T, eos_id=-1,
+                        kv_cache=kv)
+    for kv in ("int8", "dense", "dense", "int8", "int8", "dense"):
+        _, p = wall_ms(lambda: llava.prefill(ids, px, Lp + T, kv_cache=kv))
+        _, g = wall_ms(lambda: greedy_generate(llava, ids, px,
+                                               max_new_tokens=T, eos_id=-1,
+                                               kv_cache=kv))
+        out[kv].append(g - p)
+    return out
 
 
 def device_busy(fn):
@@ -500,7 +729,7 @@ def device_busy(fn):
                                e.count] for e in top]}
 
 
-def decode_split(model, batch):
+def decode_split(model, batch, kv_cache):
     """Where the decode leg's time goes, in one call: the synchronised wall
     time of greedy_generate, the host time until it returns, and the card's
     busy time (torch.profiler); prefill's are subtracted to leave the 31
@@ -511,10 +740,11 @@ def decode_split(model, batch):
     Lp = L_TEXT - 1 + cfg.clip.num_patches
 
     def prefill():
-        return llava.prefill(ids, px, Lp + T)
+        return llava.prefill(ids, px, Lp + T, kv_cache=kv_cache)
 
     def generate():
-        return greedy_generate(llava, ids, px, max_new_tokens=T, eos_id=-1)
+        return greedy_generate(llava, ids, px, max_new_tokens=T, eos_id=-1,
+                               kv_cache=kv_cache)
 
     walls = {n: wall_ms(f)[1] for n, f in (("p", prefill), ("g", generate))}
     issue = {n: issue_ms(f) for n, f in (("p", prefill), ("g", generate))}
@@ -527,7 +757,7 @@ def decode_split(model, batch):
             "generate_device_busy": busy["g"]}
 
 
-def leg_times(model, batch, maps, gidx, gw, ref):
+def leg_times(model, batch, maps, gidx, gw, ref, kv_cache):
     """Each leg of one streaming batch, host clock around a synchronised
     call. The gather-form lift (the bench's) is held to the scatter form
     that evaluate_batch runs, 1e-5 absolute: both sum the same f32 terms
@@ -537,9 +767,11 @@ def leg_times(model, batch, maps, gidx, gw, ref):
     px = batch["images_clip"]
     Lp = L_TEXT - 1 + cfg.clip.num_patches
     llava = model.llava
-    _, prefill = wall_ms(lambda: llava.prefill(ids, px, Lp + T))
+    _, prefill = wall_ms(lambda: llava.prefill(ids, px, Lp + T,
+                                               kv_cache=kv_cache))
     gen, generate = wall_ms(
-        lambda: greedy_generate(llava, ids, px, max_new_tokens=T, eos_id=-1))
+        lambda: greedy_generate(llava, ids, px, max_new_tokens=T, eos_id=-1,
+                                kv_cache=kv_cache))
     # the hidden state that predicted each sample's first [SEG]
     is_seg = ref["generated_ids"] == cfg.seg_token_idx
     first = torch.where(ref["has_seg"], is_seg.int().argmax(1), 0)
@@ -587,10 +819,20 @@ def main() -> int:
     log(json.dumps({"phase": "build", "s": time.perf_counter() - t0,
                     "ptxas": regs}))
 
+    t_start = time.perf_counter()
     cases = kernel_phase(name)
+    log(json.dumps({"phase": "kernels_done",
+                    "s": time.perf_counter() - t_start}))
+    paths = {"13b_bf16": (config_13b(), "dense", B),
+             "7b_int8": (config_7b_int8(), "int8", B_CACHED_INT8)}
+    launches = {}
     with torch.inference_mode():
-        reference_phase()
-        launches = main_path_phase()
+        reference_phase(int8=False)
+        reference_phase(int8=True)
+        for path, (cfg, kv, b_cached) in paths.items():
+            launches[path] = serving_path_phase(path, cfg, kv, b_cached)
+            log(json.dumps({"phase": f"{path}_done",
+                            "s": time.perf_counter() - t_start}))
 
     rows = []
     for kname, meta in KERNELS.items():
@@ -598,7 +840,10 @@ def main() -> int:
         worst = max(cases[kname], key=lambda c: c["err_over_limit"])
         rows.append({
             "name": kname, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches[kname],
+            "replaces": meta["replaces"],
+            # this slice's path (7B int8) runs all four kernels
+            "launches": launches["7b_int8"][kname],
+            "launches_by_path": {p: c[kname] for p, c in launches.items()},
             "max_abs_err": worst["max_abs_err"],
             "err_over_limit": worst["err_over_limit"], "tol": worst["tol"],
             "ms": first["kernel_ms"],

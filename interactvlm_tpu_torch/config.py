@@ -35,7 +35,7 @@ class SAMConfig:
     iou_head_hidden_dim: int = 256
     dtype: torch.dtype = torch.float32
     gelu_approx: bool = False
-    # int8 encoder matmuls: not ported yet; the port raises when it is set
+    # int8 encoder matmuls (qkv, proj, lin1, lin2 as Int8Linear)
     weights_int8: bool = False
 
     @property
@@ -142,7 +142,8 @@ class LlamaConfig:
     remat: bool = True
     lora_rank: int = 0
     lora_alpha: float = 16.0
-    # quantized serving weights: not ported yet; the port raises when set
+    # quantized serving weights: int8 is ported (Int8Linear); int4 and
+    # lora_rank > 0 are not yet, and the port raises when they are set
     weights_int8: bool = False
     weights_int4: bool = False
 

@@ -47,13 +47,15 @@ def _numpy(x):
 def evaluate_batch(model: InteractVLM, batch: Dict, mask_size: int,
                    contact_type: str = "hcontact", max_new_tokens: int = 32,
                    human_maps: Optional[Dict] = None, eos_id: int = 2,
-                   cached_image_emb=None, max_seg_tokens: int = 1):
+                   kv_cache: str = "dense", cached_image_emb=None,
+                   max_seg_tokens: int = 1):
     """Generate-mode inference for one hcontact batch on the model's device.
 
     ``batch`` holds input_ids, labels (numpy or tensors), images_clip
     (B, S, S, 3), sam_images (B, V, S, S, 3) and cam_params (B, V, 5).
     ``human_maps`` holds corner-major ``p2v``/``bary`` (3, V, H, W) and
-    optionally ``num_vertices``. ``cached_image_emb`` ((1, V, g, g, C)) is
+    optionally ``num_vertices``. ``kv_cache`` is "dense" or "int8" (the
+    LLaMA decode cache). ``cached_image_emb`` ((1, V, g, g, C)) is
     the frozen-encoder embedding of the fixed canonical renders; it skips
     the SAM encode. Returns tensors on the model's device: generated_ids
     (B, T), pred_masks (B, V, mask_size, mask_size), pred_contact_3d (B, N)
@@ -72,7 +74,7 @@ def evaluate_batch(model: InteractVLM, batch: Dict, mask_size: int,
     clip_px = torch.as_tensor(batch["images_clip"], device=dev).to(cfg.clip.dtype)
     gen = greedy_generate(model.llava, ids, clip_px,
                           max_new_tokens=max_new_tokens, eos_id=eos_id,
-                          attn_mask=attn_mask)
+                          attn_mask=attn_mask, kv_cache=kv_cache)
     gen_ids = gen["generated_ids"]
     is_seg = gen_ids == cfg.seg_token_idx
     has_seg = is_seg.any(dim=1)

@@ -1,7 +1,7 @@
 """Greedy autoregressive decoding with hidden-state capture.
 
-Port of ``interactvlm_tpu/models/generate.py``: prefill into a dense KV
-cache, then a Python loop of decode steps (the JAX package's ``lax.scan``).
+Port of ``interactvlm_tpu/models/generate.py``: prefill into a dense or
+int8 KV cache, then a Python loop of decode steps (the JAX package's ``lax.scan``).
 The hidden state that predicted each emitted token is kept so [SEG]-token
 embeddings can be gathered afterwards.
 """
@@ -18,11 +18,13 @@ from interactvlm_tpu_torch.models.llava import LlavaModel
 @torch.inference_mode()
 def greedy_generate(model: LlavaModel, input_ids, pixels,
                     max_new_tokens: int = 32, eos_id: int = 2,
-                    attn_mask: Optional[torch.Tensor] = None):
+                    attn_mask: Optional[torch.Tensor] = None,
+                    kv_cache: str = "dense"):
     """Greedy decode on the model's device.
 
     input_ids: (B, L) prompt with one IMAGE_TOKEN_INDEX per row, right-padded
-    with ``attn_mask`` marking valid tokens; pixels: (B, S, S, 3).
+    with ``attn_mask`` marking valid tokens; pixels: (B, S, S, 3); kv_cache:
+    "dense" or "int8".
     Returns generated_ids (B, T) (eos after a row stops), step_hidden
     (B, T, H), prompt_hidden, prompt_spliced_ids and prompt_len.
     """
@@ -30,7 +32,7 @@ def greedy_generate(model: LlavaModel, input_ids, pixels,
     Lp = L - 1 + model.clip_config.num_patches
     (last_logits, prompt_hidden, caches, spliced_ids, prompt_len,
      first_hidden) = model.prefill(input_ids, pixels, Lp + max_new_tokens,
-                                   attn_mask)
+                                   attn_mask, kv_cache)
     tok = last_logits.argmax(-1).to(torch.int32)
     done = tok == eos_id
     pos = prompt_len.to(torch.int32)

@@ -1,12 +1,15 @@
-"""LLaMA decoder in PyTorch with a dense KV cache.
+"""LLaMA decoder in PyTorch with a dense or int8 KV cache.
 
-Port of ``interactvlm_tpu/models/llama.py`` (dense bf16 path): RMSNorm in
-f32, HF rotate-half rotary embeddings, SwiGLU MLP, and attention in three
-modes: no cache, prefill over a fresh cache, and decode over a filled dense
-cache. Module and parameter names are those of HF ``LlamaForCausalLM``
-(``model.layers.{i}.self_attn.q_proj.weight`` ...), so an HF state dict
-loads by key. Causal prefill with at least 256 tokens launches the flash
-kernel on CUDA with per-row kv lengths (``models/llama.py:409-420``).
+Port of ``interactvlm_tpu/models/llama.py`` (dense and int8 serving paths):
+RMSNorm in f32, HF rotate-half rotary embeddings, SwiGLU MLP, and attention
+in three modes: no cache, prefill over a fresh cache, and decode over a
+filled dense or int8 cache. Module and parameter names are those of HF
+``LlamaForCausalLM`` (``model.layers.{i}.self_attn.q_proj.weight`` ...), so
+an HF state dict loads by key. Causal prefill with at least 256 tokens
+launches the flash kernel on CUDA with per-row kv lengths
+(``models/llama.py:409-420``). Under ``weights_int8`` every projection, the
+MLP and the lm_head are ``Int8Linear`` (int8 ``weight`` plus
+``weight_scale``), which on CUDA launch the fused int8 kernel.
 """
 
 from __future__ import annotations
@@ -18,12 +21,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from interactvlm_tpu_torch.config import LlamaConfig
-from interactvlm_tpu_torch.models.layers import Linear
+from interactvlm_tpu_torch.models.layers import Int8Linear, Linear
 from interactvlm_tpu_torch.ops.attention import dot_product_attention
 from interactvlm_tpu_torch.ops.flash_attention import flash_attention
+from interactvlm_tpu_torch.ops.quant import append_kv_cache_int8
 from interactvlm_tpu_torch.utils.device import resolve_device
 
-KVCache = Dict[str, Any]  # {"k", "v": (B, Lmax, nkv, d), "valid": (B, Lmax), "index": int}
+# {"k", "v": (B, Lmax, nkv, d), "valid": (B, Lmax), "index": int}, plus
+# "k_scale", "v_scale" (B, Lmax, nkv, 1) f32 for an int8 cache (k, v int8)
+KVCache = Dict[str, Any]
 
 FLASH_MIN_PREFILL = 256
 MASK_BIAS = -1e9
@@ -61,6 +67,15 @@ def apply_rope(x, cos, sin):
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
+def linear(config: LlamaConfig, in_features: int, out_features: int, device):
+    """A bias-free projection: ``Int8Linear`` under ``weights_int8``."""
+    if config.weights_int8:
+        return Int8Linear(in_features, out_features, dtype=config.dtype,
+                          device=device)
+    return Linear(in_features, out_features, bias=False, dtype=config.dtype,
+                  device=device)
+
+
 def _padding_bias(attn_mask):
     return torch.where(attn_mask[:, None, None, :] > 0, 0.0,
                        MASK_BIAS).to(torch.float32)
@@ -71,11 +86,12 @@ class LlamaAttention(nn.Module):
         super().__init__()
         c = config
         self.config = c
-        kw = dict(bias=False, dtype=c.dtype, device=device)
-        self.q_proj = Linear(c.hidden_size, c.num_heads * c.head_dim, **kw)
-        self.k_proj = Linear(c.hidden_size, c.num_kv_heads * c.head_dim, **kw)
-        self.v_proj = Linear(c.hidden_size, c.num_kv_heads * c.head_dim, **kw)
-        self.o_proj = Linear(c.num_heads * c.head_dim, c.hidden_size, **kw)
+        self.q_proj = linear(c, c.hidden_size, c.num_heads * c.head_dim, device)
+        self.k_proj = linear(c, c.hidden_size, c.num_kv_heads * c.head_dim,
+                            device)
+        self.v_proj = linear(c, c.hidden_size, c.num_kv_heads * c.head_dim,
+                            device)
+        self.o_proj = linear(c, c.num_heads * c.head_dim, c.hidden_size, device)
 
     def forward(self, x, positions, attn_mask=None,
                 cache: Optional[KVCache] = None, fresh_cache: bool = True):
@@ -94,14 +110,19 @@ class LlamaAttention(nn.Module):
         bias, causal, kv_lengths = None, True, None
         if cache is not None:
             idx = cache["index"]
-            cache["k"][:, idx:idx + L] = k.to(cache["k"].dtype)
-            cache["v"][:, idx:idx + L] = v.to(cache["v"].dtype)
+            int8_cache = "k_scale" in cache
+            if int8_cache:
+                append_kv_cache_int8(cache, k, v)
+            else:
+                cache["k"][:, idx:idx + L] = k.to(cache["k"].dtype)
+                cache["v"][:, idx:idx + L] = v.to(cache["v"].dtype)
+                cache["index"] = idx + L
             cache["valid"][:, idx:idx + L] = (
                 attn_mask.to(torch.int8) if attn_mask is not None else 1)
-            cache["index"] = idx + L
             if L > 1 and fresh_cache:
                 # a prompt chunk over a fresh cache attends causally within
-                # the chunk over its exact k/v
+                # the chunk over its exact (for an int8 cache: not yet
+                # quantized) k/v
                 if attn_mask is not None:
                     kv_lengths = attn_mask.sum(-1).to(torch.int32)
                     bias = _padding_bias(attn_mask)
@@ -117,6 +138,9 @@ class LlamaAttention(nn.Module):
                     cache["valid"][:, None, :Lk] > 0)
                 bias = torch.where(visible, 0.0, MASK_BIAS).to(
                     torch.float32)[:, None]
+                if int8_cache:
+                    out = _int8_cache_attention(q, cache, Lk, bias, nh)
+                    return self.o_proj(out.reshape(B, L, nh * d)), cache
                 causal = False
                 k = cache["k"][:, :Lk].to(x.dtype)
                 v = cache["v"][:, :Lk].to(x.dtype)
@@ -138,14 +162,41 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out), cache
 
 
+def _int8_cache_attention(q, cache, Lk: int, bias, nh: int):
+    """Attention of q (B, L, nh, d) over the first Lk slots of an int8
+    cache, with the per-position scales folded in (the JAX package's
+    ``models/llama.py:371-395``): logits in f32 from the int8 keys, times
+    d^-1/2, times the k scales, plus the mask bias; softmax; times the v
+    scales; then the probabilities in q's dtype times the int8 values,
+    summed in f32. Every int8 value is exact in bf16, so widening it to f32
+    directly equals the JAX package's cast to the compute dtype. No
+    dequantized cache is kept. Returns (B, L, nh, d) in q's dtype."""
+    d = q.shape[-1]
+    kq, vq = cache["k"][:, :Lk], cache["v"][:, :Lk]
+    ks, vs = cache["k_scale"][:, :Lk, :, 0], cache["v_scale"][:, :Lk, :, 0]
+    if kq.shape[2] != nh:
+        rep = nh // kq.shape[2]
+        kq, vq = kq.repeat_interleave(rep, 2), vq.repeat_interleave(rep, 2)
+        ks, vs = ks.repeat_interleave(rep, 2), vs.repeat_interleave(rep, 2)
+    dt = q.dtype
+    qh = q.transpose(1, 2).float()  # (B, nh, L, d)
+    kh = kq.permute(0, 2, 3, 1).float()  # (B, nh, d, Lk)
+    logits = torch.matmul(qh, kh) * d ** -0.5
+    logits = logits * ks.transpose(1, 2)[:, :, None, :]
+    probs = torch.softmax(logits + bias, dim=-1)
+    probs = probs * vs.transpose(1, 2)[:, :, None, :]
+    vh = vq.transpose(1, 2).float()  # (B, nh, Lk, d)
+    out = torch.matmul(probs.to(dt).float(), vh).to(dt)
+    return out.transpose(1, 2)
+
+
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device):
         super().__init__()
-        kw = dict(bias=False, dtype=config.dtype, device=device)
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(h, i, **kw)
-        self.up_proj = Linear(h, i, **kw)
-        self.down_proj = Linear(i, h, **kw)
+        self.gate_proj = linear(config, h, i, device)
+        self.up_proj = linear(config, h, i, device)
+        self.down_proj = linear(config, i, h, device)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -202,14 +253,15 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, device="cuda"):
         super().__init__()
-        if config.weights_int8 or config.weights_int4 or config.lora_rank:
-            raise NotImplementedError(
-                "int8/int4 weights and LoRA are not ported yet")
+        if config.weights_int4 or config.lora_rank:
+            raise NotImplementedError("int4 weights and LoRA are not ported yet")
         device = resolve_device(device)
         self.config = config
         self.model = LlamaModel(config, device)
-        self.lm_head = Linear(config.hidden_size, config.padded_vocab_size,
-                              bias=False, dtype=config.dtype, device=device)
+        # int8 under weights_int8: with lora_rank == 0 (the only rank ported)
+        # the JAX package's lm_head is int8 too
+        self.lm_head = linear(config, config.hidden_size,
+                             config.padded_vocab_size, device)
 
     def logits(self, h):
         """lm_head with the vocab-pad columns masked to -1e30."""

@@ -18,6 +18,7 @@ from interactvlm_tpu_torch.config import CLIPVisionConfig, LlamaConfig
 from interactvlm_tpu_torch.models.clip_vit import CLIPVisionTower
 from interactvlm_tpu_torch.models.layers import Linear
 from interactvlm_tpu_torch.models.llama import LlamaForCausalLM, init_kv_cache
+from interactvlm_tpu_torch.ops.quant import init_kv_cache_int8
 from interactvlm_tpu_torch.utils.constants import (
     IGNORE_INDEX,
     IMAGE_TOKEN_INDEX,
@@ -121,8 +122,11 @@ class LlavaModel(nn.Module):
                                    spliced_mask)
         return embeds, spliced_ids, spliced_labels, spliced_mask
 
-    def prefill(self, input_ids, pixels, max_len: int, attn_mask=None):
-        """Run the spliced prompt, filling a dense KV cache of ``max_len``.
+    def prefill(self, input_ids, pixels, max_len: int, attn_mask=None,
+                kv_cache: str = "dense"):
+        """Run the spliced prompt, filling a KV cache of ``max_len``:
+        ``kv_cache`` "dense" (the compute dtype) or "int8" (quantized per
+        position and head, ``ops/quant.py``).
 
         Returns (last_logits (B, V), hidden (B, Lp, H), caches,
         spliced_ids, prompt_len (B,), last_hidden (B, H)); the lm_head runs
@@ -131,7 +135,14 @@ class LlavaModel(nn.Module):
         embeds, spliced_ids, _, spliced_mask = self.splice(
             input_ids, pixels, None, attn_mask)
         B, Lp, _ = embeds.shape
-        caches = init_kv_cache(self.llama_config, B, max_len, embeds.device)
+        if kv_cache == "int8":
+            caches = init_kv_cache_int8(self.llama_config, B, max_len,
+                                        embeds.device)
+        elif kv_cache == "dense":
+            caches = init_kv_cache(self.llama_config, B, max_len,
+                                   embeds.device)
+        else:
+            raise ValueError(f"unknown kv_cache {kv_cache!r}")
         positions = torch.arange(Lp, device=embeds.device)[None].expand(B, Lp)
         hidden, caches = self.lm.model(embeds, positions, spliced_mask,
                                        caches, True)

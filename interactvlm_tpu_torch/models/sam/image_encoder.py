@@ -8,7 +8,10 @@ permute to channels-first around the call. Names follow the SAM checkpoint
 (H*W >= 1024) go to the global rel-pos attention and every other block to
 the window attention, as the JAX package routes them on the TPU
 (``image_encoder.py:160-197``): on CUDA each launches its kernel, on the CPU
-its plain version.
+its plain version. Under ``SAMConfig.weights_int8`` the qkv, proj, lin1
+and lin2 linears are ``Int8Linear`` with a separate f32 bias, and lin1
+carries the GELU (tanh under ``gelu_approx``) in the int8 kernel's epilogue
+(``image_encoder.py:23-64``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from interactvlm_tpu_torch.config import SAMConfig
-from interactvlm_tpu_torch.models.layers import LayerNorm, Linear
+from interactvlm_tpu_torch.models.layers import Int8Linear, LayerNorm, Linear
 from interactvlm_tpu_torch.ops.sam_attention import (
     fused_rel_attention,
     fused_window_attention,
@@ -70,17 +73,28 @@ def decomposed_rel_pos_bias(q, rel_pos_h, rel_pos_w, hw):
     return bias.reshape(B, nH, H * W, H * W)
 
 
+def encoder_linear(in_features: int, out_features: int, int8: bool, dtype,
+                   device, activation: str = "none"):
+    """An encoder linear with bias: ``Int8Linear`` (f32 bias, fused
+    ``activation``) in the int8 mode, else ``Linear``, whose caller applies
+    any activation itself."""
+    if int8:
+        return Int8Linear(in_features, out_features, bias=True,
+                          activation=activation, dtype=dtype, device=device)
+    return Linear(in_features, out_features, dtype=dtype, device=device)
+
+
 class Attention(nn.Module):
     """Multi-head attention with decomposed relative position bias."""
 
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int],
-                 dtype, device):
+                 dtype, device, int8: bool = False):
         super().__init__()
         self.num_heads = num_heads
         head_dim = dim // num_heads
         kw = dict(dtype=dtype, device=device)
-        self.qkv = Linear(dim, dim * 3, **kw)
-        self.proj = Linear(dim, dim, **kw)
+        self.qkv = encoder_linear(dim, dim * 3, int8, dtype, device)
+        self.proj = encoder_linear(dim, dim, int8, dtype, device)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1,
                                                   head_dim, **kw))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1,
@@ -102,15 +116,20 @@ class Attention(nn.Module):
 
 class MLPBlock(nn.Module):
     def __init__(self, dim: int, mlp_dim: int, gelu_approx: bool, dtype,
-                 device):
+                 device, int8: bool = False):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
-        self.lin1 = Linear(dim, mlp_dim, **kw)
-        self.lin2 = Linear(mlp_dim, dim, **kw)
-        self.approximate = "tanh" if gelu_approx else "none"
+        # int8: the GELU rides lin1's kernel epilogue
+        self.act = None if int8 else ("tanh" if gelu_approx else "none")
+        self.lin1 = encoder_linear(
+            dim, mlp_dim, int8, dtype, device,
+            activation="gelu_tanh" if gelu_approx else "gelu")
+        self.lin2 = encoder_linear(mlp_dim, dim, int8, dtype, device)
 
     def forward(self, x):
-        return self.lin2(F.gelu(self.lin1(x), approximate=self.approximate))
+        h = self.lin1(x)
+        if self.act is not None:
+            h = F.gelu(h, approximate=self.act)
+        return self.lin2(h)
 
 
 class Block(nn.Module):
@@ -123,10 +142,10 @@ class Block(nn.Module):
         kw = dict(dtype=cfg.dtype, device=device)
         self.norm1 = LayerNorm(dim, eps=LN_EPS, **kw)
         self.attn = Attention(dim, cfg.encoder_num_heads, size, cfg.dtype,
-                              device)
+                              device, cfg.weights_int8)
         self.norm2 = LayerNorm(dim, eps=LN_EPS, **kw)
         self.mlp = MLPBlock(dim, int(dim * cfg.mlp_ratio), cfg.gelu_approx,
-                            cfg.dtype, device)
+                            cfg.dtype, device, cfg.weights_int8)
 
     def forward(self, x):
         shortcut = x
@@ -162,8 +181,6 @@ class ImageEncoderViT(nn.Module):
 
     def __init__(self, config: SAMConfig, device="cuda"):
         super().__init__()
-        if config.weights_int8:
-            raise NotImplementedError("the int8 SAM encoder is not ported yet")
         device = resolve_device(device)
         cfg = config
         g = cfg.image_embedding_size

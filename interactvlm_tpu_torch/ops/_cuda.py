@@ -15,14 +15,15 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("flash_attention", "window_attention", "rel_attention")
+SOURCES = ("flash_attention", "window_attention", "rel_attention",
+           "int8_matmul")
 _HEADERS = ("attention_core.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -30,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[Tuple[str, str], Callable] = {}
 
 
 def _nvcc() -> str:
@@ -99,16 +101,24 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, fn: str, argtypes, *args) -> None:
-    """Call the C launcher ``fn`` of library ``name`` (building and loading
-    it at first use) and raise if it reports a launch error."""
+def _bind(name: str, fn: str, argtypes) -> Callable:
     lib = load(name)
     f = getattr(lib, fn)
     f.restype = ctypes.c_int
     f.argtypes = argtypes
+    _bound[(name, fn)] = f
+    return f
+
+
+def launch(name: str, fn: str, argtypes, *args) -> None:
+    """Call the C launcher ``fn`` of library ``name`` and raise if it
+    reports a launch error. The library is built and loaded, and the
+    function bound to its argument types, once, at its first launch: the
+    int8 serving path launches thousands of times a batch."""
+    f = _bound.get((name, fn)) or _bind(name, fn, argtypes)
     code = f(*args)
     if code != 0:
-        msg = getattr(lib, f"ivlm_{name}_error_string")(code).decode()
+        msg = getattr(_loaded[name], f"ivlm_{name}_error_string")(code).decode()
         raise RuntimeError(f"{name} kernel launch failed ({code}): {msg}")
 
 

@@ -1,0 +1,130 @@
+"""Fused int8 quantize + matmul: the CUDA kernel ``csrc/int8_matmul.cu`` and
+its plain PyTorch version.
+
+Port of ``interactvlm_tpu/ops/int8_matmul.py:_kernel`` / ``_kernel_nobias``
+(the Pallas TPU kernel, wrapper ``int8_matmul_fused``). The kernel source
+says what bounds it on the H100 and how its design answers that.
+
+Semantics, for x (..., K) bf16 or f32 and an int8 weight (N, K) with f32
+per-column scales (N,): per row of x, amax = max|x| (in x's own type, then
+f32), x_scale = max(amax, 1e-8) / 127, inv = 127 / max(amax, 1e-8),
+xq = clip(round_half_even(x * inv), -127, 127); acc = xq @ Wq^T exactly (an
+int32 sum); out = act(f32(acc) * x_scale * w_scale + bias) in f32, cast to
+the output dtype. ``activation`` is "none", "gelu" (exact erf; the TPU
+kernel's Abramowitz-Stegun polynomial is within 1.5e-7 of it) or
+"gelu_tanh". A zero row writes ``act(bias)``.
+
+This is the composition ``ops/quant.int8_matmul`` up to one point: it
+multiplies by ``inv`` where the composition divides by ``x_scale``, so the
+two can round an element to neighbouring integers where x * (127 / amax)
+and x / (amax / 127) fall on opposite sides of a rounding tie.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from interactvlm_tpu_torch.ops import _cuda
+from interactvlm_tpu_torch.ops.quant import (
+    SCALE_FLOOR,
+    exact_div,
+    int_matmul_exact,
+)
+
+ACTIVATIONS = {"none": 0, "gelu": 1, "gelu_tanh": 2}
+X_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def apply_activation(y, activation: str):
+    if activation == "gelu":
+        return 0.5 * y * (1.0 + torch.erf(y * 2.0 ** -0.5))
+    if activation == "gelu_tanh":
+        return F.gelu(y, approximate="tanh")
+    if activation != "none":
+        raise ValueError(f"int8_matmul: unknown activation {activation!r}")
+    return y
+
+
+def int8_matmul_fused_plain(x, w_q, w_scale, bias=None,
+                            activation: str = "none", out_dtype=None):
+    """Plain version of the kernel, the same arithmetic in torch: the int32
+    sum is taken exactly in float64 (``quant.int_matmul_exact``)."""
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K)
+    amax = x2.abs().amax(dim=-1, keepdim=True).float().clamp_min(SCALE_FLOOR)
+    x_scale = exact_div(amax, 127.0)
+    inv = exact_div(127.0, amax)
+    xq = torch.clamp(torch.round(x2.float() * inv), -127, 127)
+    out = int_matmul_exact(xq, w_q) * x_scale * w_scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    out = apply_activation(out, activation)
+    return out.to(out_dtype or x.dtype).reshape(*x.shape[:-1], w_q.shape[0])
+
+
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def _check(x, w_q, w_scale, bias, activation, out_dtype):
+    K = x.shape[-1]
+    N = w_q.shape[0]
+    if x.dtype not in X_DTYPES or out_dtype not in X_DTYPES:
+        raise ValueError(f"int8_matmul: x and the output must be bf16 or f32, "
+                         f"got {x.dtype} -> {out_dtype}")
+    if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.shape[1] != K:
+        raise ValueError(f"int8_matmul: weight must be int8 (N, {K}), got "
+                         f"{w_q.dtype} {tuple(w_q.shape)}")
+    if K % 32 or N % 8:
+        raise ValueError(f"int8_matmul: K must be a multiple of 32 and N of "
+                         f"8, got K={K} N={N}")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"int8_matmul: unknown activation {activation!r}")
+    _cuda.require_kernel_inputs("int8_matmul", x, dtype=x.dtype)
+    _cuda.require_kernel_inputs("int8_matmul", w_q, dtype=torch.int8)
+    f32 = [w_scale] + ([bias] if bias is not None else [])
+    _cuda.require_kernel_inputs("int8_matmul", *f32, dtype=torch.float32)
+    for t in [w_q] + f32:
+        if t.device != x.device:
+            raise ValueError("int8_matmul: all inputs must be on one CUDA device")
+    for t in f32:
+        if t.shape != (N,):
+            raise ValueError(f"int8_matmul: scale and bias must be ({N},), "
+                             f"got {tuple(t.shape)}")
+
+
+def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
+                      out_dtype=None):
+    """x (..., K) @ int8 W (N, K) -> (..., N) in ``out_dtype`` (x's dtype by
+    default), with the quantization of x, the rescale, the bias and the
+    activation fused.
+
+    CPU tensors run ``int8_matmul_fused_plain``; CUDA tensors launch the
+    kernel (x bf16 or f32 and contiguous, W int8 contiguous, f32 scale and
+    bias, K a multiple of 32, N of 8) or raise.
+    """
+    out_dtype = out_dtype or x.dtype
+    if not x.is_cuda:
+        return int8_matmul_fused_plain(x, w_q, w_scale, bias, activation,
+                                       out_dtype)
+    _check(x, w_q, w_scale, bias, activation, out_dtype)
+    K, N = x.shape[-1], w_q.shape[0]
+    out = torch.empty(*x.shape[:-1], N, dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        _cuda.launch(
+            "int8_matmul", "ivlm_int8_matmul", _ARGTYPES,
+            _cuda.ptr(x), int(x.dtype == torch.float32), _cuda.ptr(w_q),
+            _cuda.ptr(w_scale),
+            _cuda.ptr(bias) if bias is not None else ctypes.c_void_p(None),
+            _cuda.ptr(out), int(out_dtype == torch.float32),
+            ACTIVATIONS[activation], x.numel() // K, N, K,
+            _cuda.stream_handle(x.device),
+        )
+    int8_matmul_fused.launches += 1
+    return out
+
+
+int8_matmul_fused.launches = 0

@@ -1,35 +1,46 @@
-"""Weights of the PyTorch port: seeded initialisation on the device, and
-conversion of the JAX package's flax parameter trees.
+"""Weights of the PyTorch port: seeded initialisation on the device,
+conversion of the JAX package's flax parameter trees, and the int8 serving
+layouts.
 
 The port's parameter names are the reference's torch checkpoint keys (HF
 LLaMA / CLIP, the SAM ``.pth``, the merged InteractVLM checkpoint), so
 ``from_jax_params`` is the inverse of ``interactvlm_tpu/utils/weights.py``'s
 converters: Dense ``kernel`` (in, out) -> ``weight`` (out, in); Conv HWIO ->
 OIHW; ConvTranspose taps flipped back to torch's (in, out, kh, kw);
-LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``.
+LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``. An
+int8 Dense (``kernel_q`` (in, out) int8, ``kernel_scale`` (1, out) f32)
+becomes ``weight`` (out, in) int8 and ``weight_scale`` (out,) f32.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from interactvlm_tpu_torch.models.layers import Int8Linear
 from interactvlm_tpu_torch.models.llama import RMSNorm
+from interactvlm_tpu_torch.ops.quant import quantize_int8
 
 
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, drawn on the parameters' own device: norm
     scales 1, biases 0, Linear/Conv weights lecun-normal (std
-    fan_in^-1/2, as flax initialises them), every other parameter
-    (embeddings, tokens, positional and rel-pos tables) N(0, 0.02), the
-    SAM Fourier matrix N(0, 1)."""
+    fan_in^-1/2, as flax initialises them), int8 weights uniform integers
+    in [-127, 127] with scales 1 / (127 fan_in^1/2) (the JAX package's
+    ``Int8Dense`` init), every other parameter (embeddings, tokens,
+    positional and rel-pos tables) N(0, 0.02), the SAM Fourier matrix
+    N(0, 1)."""
     for mod in module.modules():
         for leaf, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, (nn.LayerNorm, RMSNorm)) and leaf == "weight":
+            if isinstance(mod, Int8Linear) and leaf == "weight":
+                p.random_(-127, 128, generator=generator)
+            elif isinstance(mod, Int8Linear) and leaf == "weight_scale":
+                p.fill_(1.0 / (127.0 * mod.in_features ** 0.5))
+            elif isinstance(mod, (nn.LayerNorm, RMSNorm)) and leaf == "weight":
                 p.fill_(1.0)
             elif leaf == "bias":
                 p.zero_()
@@ -51,7 +62,16 @@ def _t(x) -> torch.Tensor:
 
 
 def _dense(node, prefix, sd):
-    sd[prefix + "weight"] = _t(np.asarray(node["kernel"]).T)
+    if "int8" in node:  # the SAM encoder's int8 layout: {int8: {...}, bias}
+        _dense(node["int8"], prefix, sd)
+    elif "kernel_q" in node:
+        q = np.asarray(node["kernel_q"])
+        if q.dtype != np.int8:
+            raise ValueError(f"{prefix}kernel_q: expected int8, got {q.dtype}")
+        sd[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(q.T))
+        sd[prefix + "weight_scale"] = _t(np.asarray(node["kernel_scale"])[0])
+    else:
+        sd[prefix + "weight"] = _t(np.asarray(node["kernel"]).T)
     if "bias" in node:
         sd[prefix + "bias"] = _t(node["bias"])
 
@@ -184,7 +204,8 @@ def _llava(t, prefix, sd):
 
 def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
     """A flax parameter tree of the JAX package (numpy leaves, boxes
-    unwrapped) -> the port's ``state_dict`` (f32 tensors).
+    unwrapped) -> the port's ``state_dict`` (f32 tensors; int8 weights
+    stay int8).
 
     Takes the composite ``InteractVLM`` tree or the tree of one of its
     parts: ``LlavaModel``, ``LlamaForCausalLM``, ``CLIPVisionTower`` or
@@ -213,3 +234,47 @@ def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
     else:
         raise ValueError(f"unrecognised parameter tree: {sorted(t)}")
     return sd
+
+
+INT8_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
+                "gate_proj", "up_proj", "down_proj", "lm_head")
+SAM_INT8_TARGETS = ("qkv", "proj", "lin1", "lin2")
+
+
+def int8_serving_state_dict(sd: Dict[str, torch.Tensor],
+                            targets: Sequence[str] = INT8_TARGETS
+                            ) -> Dict[str, torch.Tensor]:
+    """A port state dict with bf16/f32 LLaMA weights -> the layout of a
+    model built with ``LlamaConfig(weights_int8=True)``: each targeted
+    ``<name>.weight`` (out, in) becomes int8 ``weight`` plus f32
+    ``weight_scale`` (out,), quantized per output column over its inputs.
+
+    The port of ``interactvlm_tpu/utils/weights.py:int8_serving_params``: on
+    the same weights it gives the same int8 bytes (transposed to the port's
+    (out, in) layout) and the same f32 scales. Like it, it converts every
+    target it is given, so pass the LLaMA's entries only.
+    """
+    out = {}
+    for key, t in sd.items():
+        mod, _, leaf = key.rpartition(".")
+        if leaf == "weight" and mod.rpartition(".")[2] in targets \
+                and t.dim() == 2 and t.is_floating_point():
+            q, scale = quantize_int8(t, axis=-1)
+            out[key] = q
+            out[mod + ".weight_scale"] = scale[:, 0]
+        else:
+            out[key] = t
+    return out
+
+
+def int8_sam_encoder_state_dict(sd: Dict[str, torch.Tensor],
+                                targets: Sequence[str] = SAM_INT8_TARGETS
+                                ) -> Dict[str, torch.Tensor]:
+    """A port state dict with a bf16/f32 SAM image encoder -> the layout of
+    ``SAMConfig(weights_int8=True)``: the qkv, proj, lin1 and lin2 weights
+    become int8 plus per-column scales, their biases stay as they are, and
+    convolutions and norms are untouched. The port of
+    ``interactvlm_tpu/utils/weights.py:int8_sam_encoder_params`` (same
+    bytes and scales, (out, in) layout); pass the image encoder's entries
+    only, as the decoder's MLP has linears of the same names."""
+    return int8_serving_state_dict(sd, targets)

@@ -23,6 +23,7 @@ from interactvlm_tpu_torch.models.clip_vit import CLIPVisionTower
 from interactvlm_tpu_torch.models.interactvlm import InteractVLM
 from interactvlm_tpu_torch.models.llama import LlamaForCausalLM
 from interactvlm_tpu_torch.models.llava import LlavaModel
+from interactvlm_tpu_torch.models.sam.image_encoder import ImageEncoderViT
 from interactvlm_tpu_torch.models.sam.sam import Sam
 from interactvlm_tpu_torch.utils.weights import from_jax_params
 
@@ -41,6 +42,8 @@ bad = sorted(m for m in sys.modules
              if m == "interactvlm_tpu" or m.startswith("interactvlm_tpu."))
 print("MODULES", len([m for m in sys.modules
                       if m.startswith("interactvlm_tpu_torch")]))
+print("INT8", all(m in sys.modules for m in (
+    "interactvlm_tpu_torch.ops.quant", "interactvlm_tpu_torch.ops.int8_matmul")))
 print("BAD", bad)
 """
 
@@ -52,7 +55,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     n = int(res.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 20, res.stdout  # every submodule was imported
+    assert n >= 22, res.stdout  # every submodule was imported
+    assert "INT8 True" in res.stdout, res.stdout
 
 
 @pytest.mark.parametrize("build", [
@@ -61,8 +65,10 @@ def test_port_and_chip_smoke_import_no_jax():
     lambda: LlamaForCausalLM(C.llama_tiny()),
     lambda: CLIPVisionTower(C.clip_tiny()),
     lambda: Sam(C.sam_tiny()),
+    lambda: LlamaForCausalLM(C.llama_tiny(weights_int8=True)),
+    lambda: ImageEncoderViT(C.sam_tiny(weights_int8=True)),
 ], ids=["InteractVLM", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
-        "Sam"])
+        "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8"])
 def test_entry_points_default_to_the_gpu(build):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")

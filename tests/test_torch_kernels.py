@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs a CUDA device and skips without one; the file imports
-no JAX, so it runs on a machine that has only PyTorch (``--noconftest``
-skips ``tests/conftest.py``, which sets up JAX):
+Every test here but the one of the C launcher's binding needs a CUDA device
+and skips without one; the file imports no JAX, so it runs on a machine that
+has only PyTorch (``--noconftest`` skips ``tests/conftest.py``, which sets up
+JAX):
 
     python -m pytest --noconftest tests/test_torch_kernels.py
 
@@ -19,6 +20,12 @@ weight's rounding step moves an output by up to ~2^-6), and the RMS error
 over the output to 1e-2 of the plain output's RMS, which a systematic error
 of a percent fails even where every element passes. The logsumexp is f32 on
 both sides and differs only in summation order, so 1e-3.
+
+The int8 matmul kernel and its plain version share the quantization of x
+and an exact integer sum, and round the rescale, bias and activation alike
+in f32 (erff on the card, torch.erf in the plain version): each element is
+held to one bf16 rounding step, 2^-7 of its magnitude, plus 1e-6 of the
+output's largest magnitude for the GELU near zero.
 """
 
 import numpy as np
@@ -26,6 +33,7 @@ import pytest
 import torch
 
 from interactvlm_tpu_torch.ops import flash_attention as F
+from interactvlm_tpu_torch.ops import int8_matmul as Q
 from interactvlm_tpu_torch.ops import sam_attention as S
 
 ATOL, WINDOW_ATOL, RTOL, RMS_TOL = 4e-3, 2e-2, 2e-2, 1e-2
@@ -111,3 +119,117 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(2, 3).contiguous().transpose(2, 3)
         F.flash_forward(t, t, t)
+
+
+def test_launch_binds_each_c_function_once():
+    """The wrapper's C launcher is looked up and typed at its first launch
+    only (the int8 path launches thousands of times a batch); a nonzero
+    return raises with the library's error string. Runs without a card:
+    the library is a stand-in."""
+    from interactvlm_tpu_torch.ops import _cuda
+
+    class Fn:
+        def __call__(self, *args):
+            return args[0]
+
+    class Lib:
+        lookups = 0
+
+        def __getattr__(self, attr):
+            type(self).lookups += 1
+            if attr.endswith("_error_string"):
+                return lambda code: b"stand-in error"
+            return Fn()
+
+    _cuda._loaded["standin"] = Lib()
+    try:
+        for _ in range(5):
+            _cuda.launch("standin", "ivlm_standin", [], 0)
+        assert Lib.lookups == 1
+        with pytest.raises(RuntimeError, match="stand-in error"):
+            _cuda.launch("standin", "ivlm_standin", [], 7)
+    finally:
+        _cuda._loaded.pop("standin")
+        _cuda._bound.pop(("standin", "ivlm_standin"))
+
+
+def _int8_weight(rng, N, K, dev):
+    w = torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8)).to(dev)
+    scale = torch.from_numpy(
+        rng.uniform(0.5, 1.5, N).astype(np.float32) / (127 * K ** 0.5)).to(dev)
+    return w, scale
+
+
+@pytest.mark.parametrize("M,K,N,dtype,with_bias,act", [
+    (8, 4096, 4096, torch.bfloat16, False, "none"),  # LLaMA-7B decode
+    (32, 4096, 11008, torch.bfloat16, False, "none"),  # cached decode
+    (2552, 4096, 11008, torch.bfloat16, False, "none"),  # 7B prefill
+    (6272, 1280, 5120, torch.bfloat16, True, "gelu_tanh"),  # SAM lin1
+    (3000, 1280, 3840, torch.bfloat16, True, "gelu"),  # SAM qkv, exact GELU
+    (39, 64, 96, torch.float32, True, "gelu"),  # tiny f32 preset, K % 64
+])
+def test_int8_kernel_matches_plain(dev, M, K, N, dtype, with_bias, act):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        dev, dtype)
+    x[0] = 0.0  # a zero row writes act(bias)
+    x[1, :9] = torch.tensor([127.0, 2.5, 3.5, -2.5, 0.5, 1.5, -0.5, 126.5,
+                             -127.0])  # rounding ties
+    w, scale = _int8_weight(rng, N, K, dev)
+    bias = (torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+            if with_bias else None)
+    before = Q.int8_matmul_fused.launches
+    out = Q.int8_matmul_fused(x, w, scale, bias, act)
+    torch.cuda.synchronize()
+    assert Q.int8_matmul_fused.launches == before + 1
+    assert out.dtype == dtype and out.shape == (M, N)
+    want = Q.int8_matmul_fused_plain(x, w, scale, bias, act).float()
+    if act == "none":  # the same f32 operations in the same order
+        assert torch.equal(out.float(), want)
+    err = (out.float() - want).abs()
+    limit = 2.0 ** -7 * want.abs() + 1e-6 * want.abs().max()
+    assert bool((err <= limit).all()), err.max().item()
+    assert torch.isfinite(out).all()
+
+
+def test_quantize_on_the_card_gives_the_cpu_bytes(dev):
+    """The int8 KV cache quantizes on the card: its scales and bytes must be
+    those of the CPU (and so of the JAX package), with no reciprocal
+    shortcut in the division by 127."""
+    from interactvlm_tpu_torch.ops.quant import quantize_int8
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((4096, 128)).astype(np.float32))
+    q_cpu, s_cpu = quantize_int8(x)
+    q_dev, s_dev = quantize_int8(x.to(dev))
+    assert torch.equal(s_dev.cpu(), s_cpu)
+    assert torch.equal(q_dev.cpu(), q_cpu)
+
+
+def test_int8_kernel_rounds_half_to_even(dev):
+    """W = I with unit scales returns x's quantized values exactly: with
+    amax 127 (x_scale 1) the halves must land on even integers (``roundf``
+    would not)."""
+    x = torch.zeros(2, 32, device=dev)
+    x[:, :9] = torch.tensor([127.0, 2.5, 3.5, -2.5, -3.5, 0.5, 1.5, -0.5,
+                             126.5])
+    w = torch.eye(32, device=dev).to(torch.int8)
+    scale = torch.ones(32, device=dev)
+    out = Q.int8_matmul_fused(x, w, scale)
+    assert out[0, :9].tolist() == [127, 2, 4, -2, -4, 0, 2, 0, 126]
+
+
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(5)
+    w, scale = _int8_weight(rng, 64, 80, dev)
+    x = torch.randn(4, 80, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        Q.int8_matmul_fused(x, w, scale)
+    w, scale = _int8_weight(rng, 64, 128, dev)
+    x = torch.randn(128, 4, device=dev, dtype=torch.bfloat16).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.int8_matmul_fused(x, w, scale)
+    with pytest.raises(ValueError, match="CUDA"):
+        Q.int8_matmul_fused(x.contiguous(), w.cpu(), scale)
+    with pytest.raises(ValueError, match="float16"):
+        Q.int8_matmul_fused(x.contiguous().half(), w, scale)
