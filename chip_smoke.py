@@ -6,12 +6,13 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero, and
 prints no result, without them. Phases, each of which fails the run:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the four hand-written kernels under ``interactvlm_tpu_torch/csrc/``
-   (flash, window and global rel-pos attention, fused int8 matmul), one
+2. build: the five hand-written kernel sources under
+   ``interactvlm_tpu_torch/csrc/`` (flash forward, flash backward dq and
+   dk/dv, window and global rel-pos attention, fused int8 matmul), one
    ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   two serving paths give it, inputs from a seeded generator, with the
-   kernel's, the plain version's and one library call's time beside the
+   serving and training paths give it, inputs from a seeded generator, with
+   the kernel's, the plain version's and one library call's time beside the
    least time the card could take (``bound_ms``);
 4. reference: the ``interactvlm_tiny`` pipeline on the card against the same
    weights on the CPU, dense (bf16 SAM) and int8 (int8 LLaMA in f32 with the
@@ -23,11 +24,25 @@ prints no result, without them. Phases, each of which fails the run:
 6. the 7B-int8 path, the JAX package's chip serving configuration
    (``bench.py``): LLaMA-7B with int8 weights and the int8 KV cache, CLIP
    ViT-L/14, SAM ViT-H with int8 weights and tanh GELU, all bf16; streaming
-   at B=8 and cached at B=32, otherwise as the 13B path.
+   at B=8 and cached at B=32, otherwise as the 13B path;
+7. the training reference: one LoRA training step of ``interactvlm_tiny``
+   on the card in bf16 (a 259-token spliced prompt, so LLaMA's attention
+   runs the flash forward and both backward kernels) against the same step
+   on the CPU in f32 from the same weights: each loss term, and the cosine
+   and norm of every trainable's gradient;
+8. the 13B LoRA training path, the JAX trainer's default preset
+   (``scripts/run_train.sh`` hcontact-damon): LLaMA-13B bf16 with LoRA rank
+   8 on q/v and remat, CLIP ViT-L/14, SAM ViT-H, B=8 hcontact rows of 512
+   spliced tokens (two right-padded), 1024^2 masks and a 6890-vertex 3D
+   contact loss, AdamW with the preset's schedule: one warm-up step, then
+   timed steps through ``TrainStep``.
 
-Each path reports images/s, the time of each leg, peak memory, the decode
-host/device split and each kernel's launches over its run; the 7B path also
-times decode with the int8 against the dense cache.
+Each serving path reports images/s, the time of each leg, peak memory, the
+decode host/device split and each kernel's launches over its run; the 7B
+path also times decode with the int8 against the dense cache. The training
+path reports step time, images/s and tokens/s, peak memory, the
+forward/backward/optimizer split, the device's busy share and each
+kernel's launches per step.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -49,6 +64,7 @@ from interactvlm_tpu_torch.config import (
     clip_vit_l_14,
     interactvlm_13b,
     interactvlm_tiny,
+    llama_13b,
     llama_7b,
     llama_tiny,
     sam_tiny,
@@ -66,7 +82,14 @@ from interactvlm_tpu_torch.ops import _cuda
 from interactvlm_tpu_torch.ops import flash_attention as FA
 from interactvlm_tpu_torch.ops import int8_matmul as Q
 from interactvlm_tpu_torch.ops import sam_attention as SA
+from interactvlm_tpu_torch.train.optimizer import (
+    apply_trainable_mask,
+    cast_frozen_params,
+    make_optimizer,
+)
+from interactvlm_tpu_torch.train.train_step import TrainStep
 from interactvlm_tpu_torch.utils.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from interactvlm_tpu_torch.utils.testing import make_synthetic_batch
 from interactvlm_tpu_torch.utils.weights import init_params
 
 # Dense peak rates (NVIDIA data sheets): bf16 tensor-core FLOP/s, HBM
@@ -77,30 +100,48 @@ PEAKS = {"H100 SXM": (989e12, 3.35e12, 1979e12),
 ATOL, WINDOW_ATOL, RTOL, RMS_TOL, LSE_TOL = 4e-3, 2e-2, 2e-2, 1e-2, 1e-3
 # int8 matmul vs plain version (see compare_int8)
 INT8_RTOL, INT8_ATOL_OF_MAX = 2.0 ** -7, 1e-6
+# flash backward kernels vs plain version (see compare_grad)
+GRAD_ATOL_OF_RMS = 2e-2
 B, V, L_TEXT, T, MASK = 8, 4, 64, 32, 1024
 B_CACHED_INT8 = 32  # the 7B-int8 cached batch (bench.py's default)
 REPEATS = 3  # timed batches per mode and path, after one warm-up batch each
 LEG_REPEATS = 2
 N_VERTS, MAX_K, BACKGROUND = 6890, 256, 0.7
+# the 13B training path: the preset's batch of 8, 257 text tokens (512
+# spliced), rows 0 and 1 right-padded to these text lengths
+L_TRAIN, TRAIN_PADDED = 257, (200, 129)
+TRAIN_STEPS = 5  # timed steps, after one warm-up step
 
 KERNELS = {
     "flash_attention": dict(
         source="interactvlm_tpu_torch/csrc/flash_attention.cu",
         replaces="interactvlm_tpu/ops/flash_attention.py:43",
-        wrapper=FA.flash_forward),
+        wrapper=FA.flash_forward, symbol="flash_fwd_kernel"),
     "window_attention": dict(
         source="interactvlm_tpu_torch/csrc/window_attention.cu",
         replaces="interactvlm_tpu/ops/sam_attention.py:117",
-        wrapper=SA.window_attention),
+        wrapper=SA.window_attention, symbol="window_kernel"),
     "rel_attention": dict(
         source="interactvlm_tpu_torch/csrc/rel_attention.cu",
         replaces="interactvlm_tpu/ops/sam_attention.py:39",
-        wrapper=SA.rel_attention),
+        wrapper=SA.rel_attention, symbol="rel_kernel"),
     "int8_matmul": dict(
         source="interactvlm_tpu_torch/csrc/int8_matmul.cu",
         replaces="interactvlm_tpu/ops/int8_matmul.py:39",
-        wrapper=Q.int8_matmul_fused),
+        wrapper=Q.int8_matmul_fused, symbol="int8_matmul_kernel"),
+    "flash_attention_bwd_dq": dict(
+        source="interactvlm_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="interactvlm_tpu/ops/flash_attention.py:190",
+        wrapper=FA.flash_bwd_dq, symbol="flash_bwd_dq_kernel"),
+    "flash_attention_bwd_dkv": dict(
+        source="interactvlm_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="interactvlm_tpu/ops/flash_attention.py:243",
+        wrapper=FA.flash_bwd_dkv, symbol="flash_bwd_dkv_kernel"),
 }
+SERVING_KERNELS = ("flash_attention", "window_attention", "rel_attention",
+                   "int8_matmul")
+TRAINING_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv")
 
 
 def log(*a):
@@ -213,23 +254,21 @@ def sdpa():
 
 
 # --------------------------------------------------------------- kernels
-def case_flash_prefill(gen, name):
-    """LLaMA-13B prefill, one layer: B=8, H=40, L=319, D=128, causal, with
-    the per-row kv lengths of an all-valid prompt."""
-    Bq, H, L, D = B, 40, L_TEXT - 1 + 256, 128
+def case_flash_prefill(gen, name, L, lens, what):
+    """LLaMA-13B causal attention, one layer: B=8, H=40, D=128, per-row kv
+    lengths ``lens``: the serving prefill (L=319, all valid) and the
+    training forward (L=512, two rows right-padded)."""
+    Bq, H, D = B, 40, 128
     q, k, v = (rand_bf16(gen, (Bq, H, L, D)) for _ in range(3))
-    lens = torch.full((Bq,), L, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     got, lse = FA.flash_forward(q, k, v, True, None, lens)
     want, lse_want = FA.flash_forward_plain(q, k, v, True, None, lens)
-    r = torch.arange(L, device="cuda")
-    vis = (r[None, :] <= r[:, None])[None] & (r[None, None, :] < lens[:, None, None])
-    mask = torch.where(vis, 0.0, float("-inf")).to(torch.bfloat16)[:, None]
-    pairs = int(vis.sum().item()) * H
+    mask = float_mask(Bq, L, L, True, lens)
+    pairs = int(FA._visible(Bq, L, L, True, lens, "cuda").sum().item()) * H
     t, by = bound(4 * D * pairs, (4 * Bq * H * L * D) * 2 + Bq * H * L * 4
                   + Bq * 4, name)
     return dict(
-        shape="B=8 H=40 L=319 D=128 causal kv_lengths (LLaMA prefill, 1 layer)",
-        **compare(got, want, lse, lse_want),
+        shape=what, **compare(got, want, lse, lse_want),
         kernel_ms=time_ms(lambda: FA.flash_forward(q, k, v, True, None, lens), 20),
         plain_ms=time_ms(
             lambda: FA.flash_forward_plain(q, k, v, True, None, lens), 5),
@@ -309,6 +348,114 @@ def case_global(gen, name):
     out["kernel_ms_per_block"] = time_ms(lambda: SA.rel_attention(*big, hw), 3, 1)
     out["bound_ms_per_block"] = bound(*flops_bytes(B * V * 16), name)[0]
     return out
+
+
+def compare_grad(got, want):
+    """A backward kernel's gradient against its plain version. Both
+    recompute P from the same logsumexp in f32 and round P and dS to bf16
+    as their products' operands, so they differ by the order of f32 sums,
+    by a rounding step of P or dS where that order moves a value across a
+    bf16 boundary, and by the bf16 output's rounding. Gradients have no
+    fixed scale: each element within GRAD_ATOL_OF_RMS of the plain
+    gradient's RMS plus RTOL of its magnitude, the RMS error within RMS_TOL
+    of the plain RMS, and every element finite."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rms = w.square().mean().sqrt().clamp_min(1e-30)
+    res = {"max_abs_err": err.max().item(),
+           "err_over_limit": (err / (GRAD_ATOL_OF_RMS * rms
+                                     + RTOL * w.abs())).max().item(),
+           "rms_rel_err": (err.square().mean().sqrt() / rms).item(),
+           "tol": {"atol_of_rms": GRAD_ATOL_OF_RMS, "rtol": RTOL,
+                   "rms_rel": RMS_TOL}}
+    res["ok"] = (res["err_over_limit"] <= 1.0 and res["rms_rel_err"] <= RMS_TOL
+                 and bool(torch.isfinite(g).all()))
+    return res
+
+
+def float_mask(Bq, Lq, Lk, causal, lens):
+    """The explicit float mask (B, 1, Lq, Lk) equal to the kernels' masking,
+    for the SDPA yardstick; None where nothing is masked."""
+    if not causal and lens is None:
+        return None
+    vis = FA._visible(Bq, Lq, Lk, causal, lens, "cuda")
+    return torch.where(vis, 0.0, float("-inf")).to(torch.bfloat16)
+
+
+def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
+    """Kernels 4 and 5 at one shape: (dq, dk, dv) from the port's forward
+    against ``flash_backward_plain``. Times: each kernel alone, the whole
+    backward (D = rowsum(dO O) and both kernels), the plain version, and,
+    as the library yardstick the port never calls, SDPA's backward alone
+    and SDPA forward + backward with the same explicit float mask against
+    the port's flash forward + backward. Bounds count this run's visible
+    (query, key) pairs: the dq kernel recomputes S and dP and forms dQ
+    (6 D flops a pair), the dk/dv kernel recomputes S and dP and forms dV
+    and dK (8); the whole backward needs 10 (S, dP, dV, dK, dQ) over the
+    bytes of q, k, v, o, dO, dq, dk and dv."""
+    q, do = rand_bf16(gen, (Bq, H, Lq, D)), rand_bf16(gen, (Bq, H, Lq, D))
+    k, v = rand_bf16(gen, (Bq, H, Lk, D)), rand_bf16(gen, (Bq, H, Lk, D))
+    kv = (None if lens is None
+          else torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    o, lse = FA.flash_forward(q, k, v, causal, None, kv)
+    got = FA.flash_backward(q, k, v, o, lse, do, causal, None, kv)
+    want = FA.flash_backward_plain(q, k, v, o, lse, do, causal, None, kv)
+    cmp = {n: compare_grad(g, w) for n, g, w in zip(("dq", "dk", "dv"),
+                                                    got, want)}
+    del got, want
+    scale = D ** -0.5
+    dsum = (do.float() * o.float()).sum(-1).reshape(Bq * H, Lq)
+    pairs = int(FA._visible(Bq, Lq, Lk, causal, kv, "cuda").sum().item()) * H
+    BH = Bq * H
+    qb, kb, rows = BH * Lq * D * 2, BH * Lk * D * 2, BH * Lq * 4
+    dq_t = bound(6 * D * pairs, 2 * qb + 2 * kb + 2 * rows + qb, name)
+    dkv_t = bound(8 * D * pairs, 2 * qb + 2 * kb + 2 * rows + 2 * kb, name)
+    bwd_t = bound(10 * D * pairs, 3 * qb + 2 * kb + qb + 2 * kb, name)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    mask = float_mask(Bq, Lq, Lk, causal, kv)
+    lib_out = sdpa()(*leaves, attn_mask=mask)
+
+    def port_fwd_bwd():
+        out = FA.flash_attention(*leaves, causal=causal, kv_lengths=kv)
+        return torch.autograd.grad(out, leaves, do)
+
+    def lib_fwd_bwd():
+        return torch.autograd.grad(sdpa()(*leaves, attn_mask=mask), leaves,
+                                   do)
+
+    out = dict(
+        shape=what, dq=cmp["dq"], dk=cmp["dk"], dv=cmp["dv"],
+        dq_ms=time_ms(lambda: FA.flash_bwd_dq(q, k, v, do, lse, dsum, causal,
+                                              scale, kv), 20),
+        dkv_ms=time_ms(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, dsum,
+                                                causal, scale, kv), 20),
+        backward_ms=time_ms(lambda: FA.flash_backward(
+            q, k, v, o, lse, do, causal, None, kv), 20),
+        plain_ms=time_ms(lambda: FA.flash_backward_plain(
+            q, k, v, o, lse, do, causal, None, kv), 3),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True), 10),
+        library="SDPA backward (dq, dk and dv together)",
+        port_fwd_bwd_ms=time_ms(port_fwd_bwd, 10),
+        library_fwd_bwd_ms=time_ms(lib_fwd_bwd, 10),
+        dq_bound_ms=dq_t[0], dq_bound_by=dq_t[1],
+        dkv_bound_ms=dkv_t[0], dkv_bound_by=dkv_t[1],
+        backward_bound_ms=bwd_t[0], backward_bound_by=bwd_t[1],
+        visible_pairs=pairs)
+    return out
+
+
+def bwd_rows(case, which):
+    """One backward case as the row of one kernel: ``dq`` or ``dkv``."""
+    if which == "dq":
+        worst = case["dq"]
+    else:
+        worst = max(case["dk"], case["dv"], key=lambda c: c["err_over_limit"])
+    return dict(shape=case["shape"], **worst,
+                kernel_ms=case[f"{which}_ms"], plain_ms=case["plain_ms"],
+                library_ms=case["library_ms"],
+                bound_ms=case[f"{which}_bound_ms"],
+                bound_by=case[f"{which}_bound_by"])
 
 
 # (what, M, K, N, bias, activation, calls per streaming / cached batch of
@@ -409,10 +556,29 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
 
 def kernel_phase(name):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {"flash_attention": [case_flash_prefill(gen, name),
-                                 case_flash_sam(gen, name)],
+    L_serve, lens = L_TEXT - 1 + 256, train_kv_lengths()
+    cases = {"flash_attention": [
+                 case_flash_prefill(gen, name, L_serve, (L_serve,) * B,
+                                    "B=8 H=40 L=319 D=128 causal kv_lengths "
+                                    "(LLaMA prefill, 1 layer)"),
+                 case_flash_sam(gen, name),
+                 case_flash_prefill(gen, name, 512, lens,
+                                    "B=8 H=40 L=512 D=128 causal, kv lengths "
+                                    f"{lens} (LLaMA-13B training, 1 layer)")],
              "window_attention": [case_window(gen, name)],
              "rel_attention": [case_global(gen, name)]}
+    torch.cuda.empty_cache()
+    bwd = [case_flash_bwd(gen, name, "B=8 H=40 L=512 D=128 causal, kv "
+                          f"lengths {lens} (LLaMA-13B training, 1 layer)",
+                          B, 40, 512, 512, 128, True, lens),
+           case_flash_bwd(gen, name, "B=32 H=8 Lq=4096 Lk=9 D=16 (SAM "
+                          "decoder image->token, training)", B * V, 8, 4096,
+                          9, 16, False, None)]
+    for c in bwd:
+        log(json.dumps({"name": "flash_attention_bwd", **c}))
+    for which in ("dq", "dkv"):
+        cases[f"flash_attention_bwd_{which}"] = [bwd_rows(c, which)
+                                                 for c in bwd]
     torch.cuda.empty_cache()
     cases["int8_matmul"] = []
     for c in INT8_CASES:
@@ -706,8 +872,9 @@ def decode_by_cache(model, batch):
 def device_busy(fn):
     """One batch under torch.profiler: the share of its wall time in which
     the card ran a kernel or copy, and the operations with the most device
-    time. The profiler's host-side cost lengthens the batch, so the share is
-    a lower bound. ``None`` where the trace holds no device activity."""
+    time, and the device time and count of each hand-written kernel. The
+    profiler's host-side cost lengthens the batch, so the share is a lower
+    bound. ``None`` where the trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -721,12 +888,18 @@ def device_busy(fn):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    top = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
+    avg = prof.key_averages()
+    top = sorted(avg, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
+    ours = {n: [sum(e.self_device_time_total for e in avg
+                    if w["symbol"] in e.key) / 1e3,
+                sum(e.count for e in avg if w["symbol"] in e.key)]
+            for n, w in KERNELS.items()}
     return {"batch_ms": ms, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / ms if spans else None,
             "top_device_ms": [[e.key[:80], e.self_device_time_total / 1e3,
-                               e.count] for e in top]}
+                               e.count] for e in top],
+            "kernel_device_ms": ours}
 
 
 def decode_split(model, batch, kv_cache):
@@ -796,6 +969,266 @@ def leg_times(model, batch, maps, gidx, gw, ref, kv_cache):
             "lift_gather": lift_gather, "lift_gather_vs_scatter": diff}
 
 
+# --------------------------------------------------------------- training
+# training reference phase: each loss term within LOSS_RTOL of the CPU's
+# (relative, or absolute below 1e-2); each trainable's gradient with a
+# cosine of at least GRAD_COS and a norm within GRAD_NORM_RTOL of the CPU's,
+# where the CPU gradient's norm is above GRAD_FLOOR of the largest one (a
+# key projection's bias has an exactly zero gradient in exact arithmetic:
+# there both sides are rounding noise, and only finiteness is held). See
+# train_reference_phase for why these sizes.
+LOSS_RTOL, GRAD_COS, GRAD_NORM_RTOL, GRAD_FLOOR = 2e-2, 0.99, 1e-1, 1e-3
+REF_TRAIN_L, REF_TRAIN_PADDED = 256, 200
+
+
+def right_pad(batch, row, length, seg):
+    """Right-pad one row of a ``make_synthetic_batch`` batch to ``length``
+    text tokens: its [SEG] token and its three supervised positions move
+    inside the length (as the batch lays them out at the end of a row),
+    the rest becomes padding (id 0, mask 0, label ignored)."""
+    ids, labels = batch["input_ids"], batch["labels"]
+    ids[row, length - 2] = seg
+    labels[row] = IGNORE_INDEX
+    labels[row, length - 3:length] = ids[row, length - 3:length]
+    labels[row, length - 3] = 9
+    ids[row, length:] = 0
+    batch["attn_mask"][row, length:] = 0
+
+
+def train_kv_lengths():
+    """The spliced lengths of the 13B training batch: text length - 1 +
+    256 patches; the padded rows first."""
+    P = clip_vit_l_14().num_patches
+    text = list(TRAIN_PADDED) + [L_TRAIN] * (B - len(TRAIN_PADDED))
+    return tuple(n - 1 + P for n in text)
+
+
+def train_reference_phase():
+    """One LoRA training forward and backward of ``interactvlm_tiny`` (rank
+    4, remat on) on the card in bf16 against the same on the CPU in f32,
+    from the same weights (LoRA B drawn non-zero so A has a gradient). A
+    256-token prompt (259 spliced, one row right-padded to 200) makes
+    LLaMA's causal attention launch the flash forward (twice a layer under
+    remat) and both backward kernels with ragged kv lengths; SAM runs bf16
+    on the card (its encoder without autograd). bf16 keeps ~3 significant
+    digits: through two LLaMA layers, SAM's decoder and the lifts a loss
+    moves by well under a percent, a gradient's direction by a fraction of
+    one (cosine >= 0.99), and a small leaf's norm, summed over few terms,
+    by a few percent (so 10 %). The trainable leaves stay f32 on the card
+    (cast_frozen_params), as in training."""
+    bf16 = torch.bfloat16
+    llama = llama_tiny(lora_rank=4, remat=True)
+    cpu_cfg = interactvlm_tiny(llama=llama)
+    gpu_cfg = interactvlm_tiny(llama=dataclasses.replace(llama, dtype=bf16),
+                               sam=sam_tiny(dtype=bf16))
+    cpu = init_params(InteractVLM(cpu_cfg, device="cpu"),
+                      torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(5)
+        for n, p in cpu.named_parameters():
+            if "lora_B" in n:
+                p.normal_(0.0, 0.05, generator=gen)
+    gpu = cast_frozen_params(InteractVLM(gpu_cfg, device="cuda"), bf16)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = make_synthetic_batch(cpu_cfg, B=2, L=REF_TRAIN_L, tasks=(2, 3),
+                                 mask_size=64, seed=4, device="cpu")
+    batch["attn_mask"] = torch.ones_like(batch["input_ids"])
+    right_pad(batch, 1, REF_TRAIN_PADDED, cpu_cfg.seg_token_idx)
+    mask = apply_trainable_mask(cpu)
+    apply_trainable_mask(gpu)
+    want = cpu(batch)
+    want["loss"].backward()
+    reset_launches()
+    got = gpu({k: v.cuda() for k, v in batch.items()})
+    got["loss"].backward()
+    torch.cuda.synchronize()
+    launched = read_launches()
+    losses = {}
+    for k, w in want.items():
+        if w.dim() == 0:
+            g, w = got[k].item(), w.item()
+            losses[k] = {"cpu": w, "card": g,
+                         "err": abs(g - w) / max(abs(w), 1e-2)}
+    def grad(p):  # a trainable the loss does not reach (the IoU head)
+        return p.grad.float().cpu() if p.grad is not None else torch.zeros(
+            p.shape)
+
+    cpu_grads = {n: grad(p) for n, p in cpu.named_parameters() if mask[n]}
+    floor = GRAD_FLOOR * max(g.norm().item() for g in cpu_grads.values())
+    worst_cos, worst_norm, finite, n_held = 1.0, 0.0, True, 0
+    for n, p in gpu.named_parameters():
+        if not mask[n]:
+            continue
+        g, w = grad(p), cpu_grads[n]
+        finite = finite and bool(torch.isfinite(g).all())
+        if w.norm().item() > floor:
+            n_held += 1
+            cos = (g.flatten() @ w.flatten() / (g.norm() * w.norm())).item()
+            worst_cos = min(worst_cos, cos)
+            worst_norm = max(worst_norm, abs(g.norm().item()
+                                             / w.norm().item() - 1))
+    res = dict(phase="train_reference", config="interactvlm_tiny lora 4",
+               losses=losses, grads_held=n_held,
+               grads_total=sum(mask.values()), worst_cos=worst_cos,
+               worst_norm_rel_err=worst_norm, grads_finite=finite,
+               launches=launched,
+               tol={"loss_rtol": LOSS_RTOL, "grad_cos": GRAD_COS,
+                    "grad_norm_rtol": GRAD_NORM_RTOL,
+                    "grad_floor": GRAD_FLOOR})
+    log(json.dumps(res))
+    if not (all(v["err"] <= LOSS_RTOL for v in losses.values()) and finite
+            and worst_cos >= GRAD_COS and worst_norm <= GRAD_NORM_RTOL
+            and all(launched[n] > 0 for n in TRAINING_KERNELS)):
+        raise SystemExit(f"the card's training step disagrees with the "
+                         f"CPU's: {res}")
+    del cpu, gpu, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def config_13b_train():
+    """The JAX trainer's default preset at full width: LLaMA-13B bf16 with
+    LoRA rank 8 (alpha 16) on q/v and remat, CLIP ViT-L/14 and SAM ViT-H in
+    bf16 (exact GELU, no int8)."""
+    bf16 = torch.bfloat16
+    llama = llama_13b(dtype=bf16, lora_rank=8, lora_alpha=16.0)
+    return dataclasses.replace(
+        interactvlm_13b(), llama=llama, clip=clip_vit_l_14(dtype=bf16),
+        sam=sam_vit_h(dtype=bf16),
+        seg_token_idx=min(llama.vocab_size - 1, 32000),
+        img_emb_len=clip_vit_l_14().num_patches - 1)
+
+
+def frozen_fingerprint(model):
+    """Per frozen parameter, two sums over its raw bits (plain and
+    position-weighted): any changed element changes them."""
+    sums = []
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.requires_grad:
+                continue
+            bits = p.detach().flatten().view(
+                {1: torch.int8, 2: torch.int16, 4: torch.int32}[
+                    p.element_size()]).long()
+            w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+            sums.append(torch.stack([bits.sum(), (bits * w).sum()]))
+    return torch.stack(sums).cpu()
+
+
+def training_path_phase():
+    """The 13B LoRA training step of the preset at B=8: one warm-up step
+    (step 0 of the warm-up, lr 0), then TRAIN_STEPS timed steps, each
+    phase's end synchronised (``TrainStep``'s ``mark``); launches counted
+    from 0 over the first timed step; one more step under the profiler."""
+    t0 = time.perf_counter()
+    cfg = config_13b_train()
+    model = InteractVLM(cfg, device="cuda")
+    init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    cast_frozen_params(model, torch.bfloat16)
+    opt, sched = make_optimizer(model)  # lr 3e-4, warm-up 100 of 15000
+    step = TrainStep(model, opt, sched)
+    n_train = sum(p.numel() for p in step.params)
+    torch.cuda.synchronize()
+    log(json.dumps({"phase": "init", "path": "train_13b_lora",
+                    "params": sum(p.numel() for p in model.parameters()),
+                    "trainable": n_train, "s": time.perf_counter() - t0}))
+
+    t0 = time.perf_counter()
+    batch = make_synthetic_batch(cfg, B=B, L=L_TRAIN, tasks=(2,),
+                                 mask_size=MASK, seed=0, device="cuda")
+    batch["attn_mask"] = torch.ones_like(batch["input_ids"])
+    for row, n in enumerate(TRAIN_PADDED):
+        right_pad(batch, row, n, cfg.seg_token_idx)
+    lens = tuple((batch["attn_mask"].sum(1) - 1
+                  + cfg.clip.num_patches).tolist())
+    if lens != train_kv_lengths():
+        raise SystemExit(f"training kv lengths {lens}")
+    log(json.dumps({"phase": "train_batch", "s": time.perf_counter() - t0,
+                    "kv_lengths": lens}))
+    fp = frozen_fingerprint(model)
+    watched = {n: p.detach().clone() for n, p in model.named_parameters()
+               if "lora_B" in n or "mask_decoder" in n}
+
+    steps = [step(batch)]  # warm-up: cuBLAS handles, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, split = [], {"forward": [], "backward": [], "optimizer": []}
+    for i in range(TRAIN_STEPS):
+        marks = []
+
+        def mark(phase):
+            torch.cuda.synchronize()
+            marks.append((phase, time.perf_counter()))
+
+        if i == 0:
+            reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps.append(step(batch, mark))
+        if i == 0:
+            launches = read_launches()
+        prev = t
+        for phase, at in marks:
+            split[phase].append((at - prev) * 1e3)
+            prev = at
+        secs.append(prev - t)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        _, sam_ms = wall_ms(lambda: model.encode_sam_images(
+            batch["sam_images"]))
+    metrics = [{k: float(v) for k, v in m.items()} for m in steps]
+    tokens = sum(lens)
+    med = float(np.median(secs))
+    res = dict(phase="main_path", path="train_13b_lora", batch=B,
+               spliced_tokens=tokens, step_ms=spread([x * 1e3 for x in secs]),
+               images_per_s=B / med, tokens_per_s=tokens / med,
+               peak_gb=peak_gb, split_ms={k: spread(v) for k, v in split.items()},
+               sam_encode_in_forward_ms=sam_ms, metrics=metrics,
+               lr_last=opt.param_groups[0]["lr"], updates=step.step)
+    log(json.dumps(res))
+    log(json.dumps({"phase": "profile", "path": "train_13b_lora",
+                    **device_busy(lambda: step(batch))}))
+
+    layers, dec = cfg.llama.num_layers, cfg.sam.decoder_depth
+    n_global = len(cfg.sam.encoder_global_attn_indexes)
+    # each layer's flash forward runs again in the backward under remat;
+    # the SAM decoder's image->token attention (Lq = 4096) once a block
+    want = {"flash_attention": 2 * layers + dec,
+            "flash_attention_bwd_dq": layers + dec,
+            "flash_attention_bwd_dkv": layers + dec,
+            "window_attention": cfg.sam.encoder_depth - n_global,
+            "rel_attention": n_global, "int8_matmul": 0}
+    log(json.dumps({"phase": "train_launches_per_step", "launches": launches,
+                    "expected": want}))
+    moved = {n: not torch.equal(p.detach(), watched[n])
+             for n, p in model.named_parameters() if n in watched}
+    lora_b = [n for n in moved if "lora_B" in n]
+    dec_moved = sum(moved[n] for n in moved if "mask_decoder" in n)
+    checks = {
+        "losses_finite": all(np.isfinite(m[k]) for m in metrics
+                             for k in m if k.endswith("loss")),
+        "none_skipped": all(m["skipped_nonfinite"] == 0.0 for m in metrics),
+        "grad_norm_finite_positive": all(
+            np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
+            for m in metrics),
+        "frozen_bit_identical": torch.equal(fp, frozen_fingerprint(model)),
+        "every_lora_b_moved": len(lora_b) == 2 * layers and all(
+            moved[n] for n in lora_b),
+        "mask_decoder_moved": dec_moved > 0,
+        "launches_as_expected": launches == want,
+    }
+    log(json.dumps({"phase": "train_checks", **checks,
+                    "mask_decoder_params_moved": dec_moved,
+                    "mask_decoder_params": sum("mask_decoder" in n
+                                               for n in moved)}))
+    if not all(checks.values()):
+        raise SystemExit(f"the 13B training path failed: {checks}")
+    del model, opt, sched, step, batch, watched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -833,16 +1266,24 @@ def main() -> int:
             launches[path] = serving_path_phase(path, cfg, kv, b_cached)
             log(json.dumps({"phase": f"{path}_done",
                             "s": time.perf_counter() - t_start}))
+    train_reference_phase()
+    launches["train_13b_lora"] = training_path_phase()
+    log(json.dumps({"phase": "train_13b_lora_done",
+                    "s": time.perf_counter() - t_start}))
 
     rows = []
     for kname, meta in KERNELS.items():
         first = cases[kname][0]
         worst = max(cases[kname], key=lambda c: c["err_over_limit"])
+        # the newest path that runs the kernel: training (flash forward and
+        # backward, and the frozen SAM encoder's window and rel-pos
+        # kernels), else 7B int8 (the int8 kernel)
+        path = ("train_13b_lora" if launches["train_13b_lora"][kname] > 0
+                else "7b_int8")
         rows.append({
             "name": kname, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"],
-            # this slice's path (7B int8) runs all four kernels
-            "launches": launches["7b_int8"][kname],
+            "replaces": meta["replaces"], "launches_path": path,
+            "launches": launches[path][kname],
             "launches_by_path": {p: c[kname] for p, c in launches.items()},
             "max_abs_err": worst["max_abs_err"],
             "err_over_limit": worst["err_over_limit"], "tol": worst["tol"],

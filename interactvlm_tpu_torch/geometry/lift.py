@@ -1,13 +1,18 @@
-"""2D -> 3D contact lifting for the fixed-topology human mesh.
+"""2D -> 3D contact lifting.
 
-Port of the soft barycentric lift of ``interactvlm_tpu/geometry/lift.py``
-(reference ``HumanContact3DPredictor``, components.py:220-277): per view,
+Port of ``interactvlm_tpu/geometry/lift.py``. The soft barycentric lift for
+the fixed-topology human mesh (reference ``HumanContact3DPredictor``,
+components.py:220-277): per view,
 ``sigmoid(clamp(logits, -20, 20))`` is scattered with barycentric weights
 onto vertices and normalised by the scattered weight; views are then
 averaged per vertex over the views that saw it; the result is clamped to
 [0, 1]. The scatter form (``index_add_``) serves ``lift_human``; the gather
 form (per-vertex pixel lists from ``build_gather_maps``) is numerically the
 same whenever no vertex has more than ``max_k`` candidates.
+
+The batched lifts of the training losses (``lift_batch_soft``,
+``lift_batch_thresholded``, ``lift_batch_points``) fold the batch into the
+segment ids of one ``index_add`` and are differentiable in the logits.
 """
 
 from __future__ import annotations
@@ -22,6 +27,12 @@ def corner_major(arr):
     if isinstance(arr, np.ndarray):
         return np.ascontiguousarray(np.moveaxis(arr, -1, 0))
     return torch.movedim(arr, -1, 0).contiguous()
+
+
+def clip(x, lo: float, hi: float):
+    """``jnp.clip``: a maximum, then a minimum, so that a value on a bound
+    takes half the gradient, as in JAX (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 def _per_view_normalized_scatter(values, weights, ids, num_views,
@@ -123,3 +134,86 @@ def lift_multiview_soft_gather(logits, gather_idx, gather_w):
     out = torch.where(count > 0, total / torch.where(count > 0, count, 1.0),
                       0.0)
     return out.clamp(0.0, 1.0)
+
+
+def _flat_ids_and_weights(p2v3, bary3, num_views: int, num_vertices: int,
+                          select):
+    """Corner-major (3, V, H, W) maps -> flat candidate ids (segment
+    ``view * N + vertex``, dump ``V * N``) and weights; ``select`` (V, H, W)
+    multiplies the weights (validity and threshold selection)."""
+    valid = ((p2v3 >= 0) & (p2v3 < num_vertices)).all(dim=0)
+    sel = valid.to(bary3.dtype) * select
+    view = torch.arange(num_views, device=p2v3.device).view(1, -1, 1, 1)
+    ids = torch.where((valid & (select > 0))[None],
+                      view * num_vertices + p2v3.clamp(0, num_vertices - 1),
+                      num_views * num_vertices)
+    return ids.reshape(-1).long(), (bary3 * sel[None]).reshape(-1)
+
+
+def _batched_normalized_scatter(values, weights, ids, B: int, num_views: int,
+                                num_vertices: int):
+    """(B, K) candidate streams with per-sample ids (dump ``V * N``) -> one
+    ``index_add`` over ``B * V * N`` segments, normalised per view, then
+    averaged over the views that saw each vertex. Returns (B, N)."""
+    VN = num_views * num_vertices
+    base = torch.arange(B, device=ids.device)[:, None] * VN
+    bids = torch.where(ids == VN, B * VN, ids + base).reshape(-1)
+    zeros = torch.zeros(B * VN + 1, dtype=values.dtype, device=values.device)
+    votes = zeros.index_add(0, bids, (weights * values).reshape(-1))[:-1]
+    wsum = zeros.index_add(0, bids, weights.reshape(-1))[:-1]
+    votes = votes.reshape(B, num_views, num_vertices)
+    wsum = wsum.reshape(B, num_views, num_vertices)
+    seen = wsum > 0
+    view_vote = torch.where(seen, votes / torch.where(seen, wsum, 1.0), 0.0)
+    count = seen.sum(1).to(votes.dtype)
+    total = view_vote.sum(1)
+    return torch.where(count > 0, total / torch.where(count > 0, count, 1.0),
+                       0.0)
+
+
+def lift_batch_soft(logits, p2v3, bary3, num_vertices: int, active=None):
+    """Batched soft lift: (B, V, H, W) logits and corner-major maps shared
+    by the batch -> (B, N); ``active`` (B,) zeroes other samples."""
+    B, V = logits.shape[:2]
+    probs = torch.sigmoid(clip(logits.float(), -20.0, 20.0))
+    ids, weights = _flat_ids_and_weights(
+        p2v3, bary3.float(), V, num_vertices,
+        torch.ones(logits.shape[1:], device=logits.device))
+    values = probs[:, None].expand((B, 3) + probs.shape[1:]).reshape(B, -1)
+    out = _batched_normalized_scatter(
+        values, weights[None].expand(values.shape),
+        ids[None].expand(values.shape), B, V, num_vertices)
+    out = clip(out, 0.0, 1.0)
+    if active is not None:
+        out = torch.where(active[:, None], out, 0.0)
+    return out
+
+
+def lift_batch_thresholded(logits, p2v3, bary3, num_vertices: int,
+                           threshold: float = 0.3):
+    """Batched thresholded lift with per-sample corner-major maps
+    (3, B, V, H, W) -> (B, N): pixels with probability above ``threshold``
+    scatter it; the selection carries no gradient."""
+    B, V = logits.shape[:2]
+    probs = torch.sigmoid(logits.float())
+    sel = (probs > threshold).float().detach()
+    flat = [_flat_ids_and_weights(p2v3[:, b], bary3[:, b].float(), V,
+                                  num_vertices, sel[b]) for b in range(B)]
+    ids = torch.stack([f[0] for f in flat])
+    weights = torch.stack([f[1] for f in flat])
+    values = probs[:, None].expand((B, 3) + probs.shape[1:]).reshape(B, -1)
+    return _batched_normalized_scatter(values, weights, ids, B, V,
+                                       num_vertices)
+
+
+def lift_batch_points(values, p2p, num_points: int):
+    """Batched point-cloud lift: (B, V, H, W) values and per-sample maps
+    (B, V, H, W) (-1 invalid) -> (B, P)."""
+    B, V = values.shape[:2]
+    valid = (p2p >= 0) & (p2p < num_points)
+    view = torch.arange(V, device=p2p.device).view(1, V, 1, 1)
+    ids = torch.where(valid, view * num_points + p2p.clamp(0, num_points - 1),
+                      V * num_points).reshape(B, -1).long()
+    return _batched_normalized_scatter(
+        values.float().reshape(B, -1), valid.float().reshape(B, -1), ids, B,
+        V, num_points)

@@ -1,17 +1,24 @@
-"""Linear and LayerNorm layers that compute in their parameter dtype, and the
-int8 linear layer of the serving path.
+"""Linear, LayerNorm, transposed-convolution and embedding layers with a
+compute dtype apart from their parameters' dtype, the LoRA linear of
+training, and the int8 linear layer of the serving path.
 
-Like flax's ``nn.Dense(dtype=...)``, they cast the input to the layer's
-dtype first, so an f32 positional encoding added to a bf16 stream feeds a
-bf16 layer without a dtype error. State-dict keys are those of
-``torch.nn.Linear`` / ``torch.nn.LayerNorm``.
+Like flax's ``nn.Dense(dtype=...)``, each layer casts its input and its
+parameters to its compute ``dtype`` at every call: the dtype it was built
+in, whatever dtype its parameters are stored in later. Serving builds and
+computes in one dtype; training keeps its trainable parameters in f32
+(``train/optimizer.py``) while they compute in bf16, as the JAX package's
+f32 params under bf16 modules do. State-dict keys are those of
+``torch.nn.Linear`` / ``LayerNorm`` / ``ConvTranspose2d`` / ``Embedding``;
+a LoRA linear adds peft's ``lora_A.weight`` and ``lora_B.weight``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from interactvlm_tpu_torch.ops import _cuda
 from interactvlm_tpu_torch.ops.int8_matmul import (
     apply_activation,
     int8_matmul_fused,
@@ -19,14 +26,93 @@ from interactvlm_tpu_torch.ops.int8_matmul import (
 from interactvlm_tpu_torch.ops.quant import int8_matmul
 
 
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
 class Linear(nn.Linear):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=None, device=None):
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype,
+                         device=device)
+        self.dtype = self.weight.dtype
+
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class LayerNorm(nn.LayerNorm):
+    def __init__(self, normalized_shape, eps: float = 1e-5, dtype=None,
+                 device=None):
+        super().__init__(normalized_shape, eps=eps, dtype=dtype, device=device)
+        self.dtype = self.weight.dtype
+
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.dtype
+        return F.layer_norm(x.to(dt), self.normalized_shape,
+                            _cast(self.weight, dt), _cast(self.bias, dt),
+                            self.eps)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dtype=None, device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         dtype=dtype, device=device)
+        self.dtype = self.weight.dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  _cast(self.bias, dt), self.stride)
+
+
+class Embedding(nn.Embedding):
+    """Lookup from the table, cast to the compute dtype: the rows of
+    ``weight.to(dtype)`` (flax's ``nn.Embed(dtype=...)``) without casting
+    the whole table."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, dtype=None,
+                 device=None):
+        super().__init__(num_embeddings, embedding_dim, dtype=dtype,
+                         device=device)
+        self.dtype = self.weight.dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight).to(self.dtype)
+
+
+class LoraFactor(nn.Module):
+    """One low-rank factor, a module so that its parameter is named
+    ``lora_A.weight`` / ``lora_B.weight``; ``init_std`` 0 draws zeros."""
+
+    def __init__(self, rows: int, cols: int, init_std: float, dtype, device):
+        super().__init__()
+        self.init_std = init_std
+        self.weight = nn.Parameter(torch.zeros(rows, cols, dtype=dtype,
+                                               device=device))
+
+
+class LoraLinear(Linear):
+    """Bias-free linear plus a low-rank adapter,
+    y = base(x) + ((x A^T) B^T) * alpha / r: the port of the JAX package's
+    ``LoraDense`` (``interactvlm_tpu/models/llama.py:172-210``). A (r, K) and
+    B (N, r) are cast to x's dtype; no dropout, as there. ``weight`` is the
+    frozen base; init draws A ~ N(0, 0.02) and B = 0."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 alpha: float, dtype=None, device=None):
+        super().__init__(in_features, out_features, bias=False, dtype=dtype,
+                         device=device)
+        self.scaling = alpha / rank
+        self.lora_A = LoraFactor(rank, in_features, 0.02, dtype, device)
+        self.lora_B = LoraFactor(out_features, rank, 0.0, dtype, device)
+
+    def forward(self, x):
+        a = self.lora_A.weight.to(x.dtype)
+        b = self.lora_B.weight.to(x.dtype)
+        return super().forward(x) + F.linear(F.linear(x, a), b) * self.scaling
 
 
 class Int8Linear(nn.Module):
@@ -49,6 +135,10 @@ class Int8Linear(nn.Module):
     the exact or tanh GELU in that dtype. The kernel and the composition
     differ only where x * (127 / amax) and x / (amax / 127) fall on opposite
     sides of a rounding tie, and in where they round to the layer dtype.
+
+    Under grad it raises on both devices: the straight-through backward of
+    the JAX package (``ops/quant.py:33-67``) is not ported yet, and the
+    output would carry no gradient.
     """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = False,
@@ -69,11 +159,12 @@ class Int8Linear(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
-        if x.is_cuda:
+        if x.is_cuda:  # int8_matmul_fused refuses grad
             return int8_matmul_fused(
                 x.reshape(-1, self.in_features), self.weight,
                 self.weight_scale, self.bias, self.activation, self.dtype,
             ).reshape(*x.shape[:-1], self.out_features)
+        _cuda.refuse_grad("Int8Linear", x)
         y = int8_matmul(x, self.weight, self.weight_scale, dtype=self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)

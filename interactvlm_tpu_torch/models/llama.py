@@ -1,15 +1,19 @@
-"""LLaMA decoder in PyTorch with a dense or int8 KV cache.
+"""LLaMA decoder in PyTorch with a dense or int8 KV cache, and LoRA.
 
-Port of ``interactvlm_tpu/models/llama.py`` (dense and int8 serving paths):
+Port of ``interactvlm_tpu/models/llama.py`` (serving and training paths):
 RMSNorm in f32, HF rotate-half rotary embeddings, SwiGLU MLP, and attention
 in three modes: no cache, prefill over a fresh cache, and decode over a
 filled dense or int8 cache. Module and parameter names are those of HF
 ``LlamaForCausalLM`` (``model.layers.{i}.self_attn.q_proj.weight`` ...), so
-an HF state dict loads by key. Causal prefill with at least 256 tokens
+an HF state dict loads by key. Causal attention over at least 256 tokens
 launches the flash kernel on CUDA with per-row kv lengths
-(``models/llama.py:409-420``). Under ``weights_int8`` every projection, the
-MLP and the lm_head are ``Int8Linear`` (int8 ``weight`` plus
-``weight_scale``), which on CUDA launch the fused int8 kernel.
+(``models/llama.py:409-420``), differentiable through its backward kernels.
+Under ``weights_int8`` every projection, the MLP and the lm_head are
+``Int8Linear`` (int8 ``weight`` plus ``weight_scale``), which on CUDA launch
+the fused int8 kernel. With ``lora_rank > 0`` q_proj and v_proj are
+``LoraLinear`` (peft's ``lora_A`` / ``lora_B``) over a bf16 base; with
+``remat`` each decoder layer is recomputed in the backward
+(``nn.remat(LlamaBlock)``), which launches its flash forward a second time.
 """
 
 from __future__ import annotations
@@ -19,9 +23,15 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from interactvlm_tpu_torch.config import LlamaConfig
-from interactvlm_tpu_torch.models.layers import Int8Linear, Linear
+from interactvlm_tpu_torch.models.layers import (
+    Embedding,
+    Int8Linear,
+    Linear,
+    LoraLinear,
+)
 from interactvlm_tpu_torch.ops.attention import dot_product_attention
 from interactvlm_tpu_torch.ops.flash_attention import flash_attention
 from interactvlm_tpu_torch.ops.quant import append_kv_cache_int8
@@ -67,8 +77,13 @@ def apply_rope(x, cos, sin):
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
-def linear(config: LlamaConfig, in_features: int, out_features: int, device):
-    """A bias-free projection: ``Int8Linear`` under ``weights_int8``."""
+def linear(config: LlamaConfig, in_features: int, out_features: int, device,
+           lora: bool = False):
+    """A bias-free projection: ``Int8Linear`` under ``weights_int8``,
+    ``LoraLinear`` where ``lora`` and ``lora_rank > 0``."""
+    if lora and config.lora_rank > 0:
+        return LoraLinear(in_features, out_features, config.lora_rank,
+                          config.lora_alpha, dtype=config.dtype, device=device)
     if config.weights_int8:
         return Int8Linear(in_features, out_features, dtype=config.dtype,
                           device=device)
@@ -86,11 +101,12 @@ class LlamaAttention(nn.Module):
         super().__init__()
         c = config
         self.config = c
-        self.q_proj = linear(c, c.hidden_size, c.num_heads * c.head_dim, device)
+        self.q_proj = linear(c, c.hidden_size, c.num_heads * c.head_dim, device,
+                             lora=True)
         self.k_proj = linear(c, c.hidden_size, c.num_kv_heads * c.head_dim,
                             device)
         self.v_proj = linear(c, c.hidden_size, c.num_kv_heads * c.head_dim,
-                            device)
+                            device, lora=True)
         self.o_proj = linear(c, c.num_heads * c.head_dim, c.hidden_size, device)
 
     def forward(self, x, positions, attn_mask=None,
@@ -229,8 +245,8 @@ class LlamaModel(nn.Module):
         super().__init__()
         c = config
         self.config = c
-        self.embed_tokens = nn.Embedding(c.padded_vocab_size, c.hidden_size,
-                                         dtype=c.dtype, device=device)
+        self.embed_tokens = Embedding(c.padded_vocab_size, c.hidden_size,
+                                      dtype=c.dtype, device=device)
         self.layers = nn.ModuleList(
             LlamaDecoderLayer(c, device) for _ in range(c.num_layers))
         self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, c.dtype, device)
@@ -238,28 +254,39 @@ class LlamaModel(nn.Module):
     def forward(self, inputs_embeds, positions=None, attn_mask=None,
                 caches: Optional[List[KVCache]] = None,
                 fresh_cache: bool = True):
-        """Returns (hidden (B, L, H) after the final norm, caches)."""
+        """Returns (hidden (B, L, H) after the final norm, caches). Under
+        ``remat`` and grad each layer keeps only its input for the backward
+        and runs again there."""
         B, L, _ = inputs_embeds.shape
         if positions is None:
             positions = torch.arange(L, device=inputs_embeds.device)[None].expand(B, L)
+        remat = (self.config.remat and caches is None
+                 and torch.is_grad_enabled())
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
-            x, _ = layer(x, positions, attn_mask,
-                         caches[i] if caches is not None else None,
-                         fresh_cache)
+            if remat:
+                x, _ = checkpoint(layer, x, positions, attn_mask, None,
+                                  fresh_cache, use_reentrant=False)
+            else:
+                x, _ = layer(x, positions, attn_mask,
+                             caches[i] if caches is not None else None,
+                             fresh_cache)
         return self.norm(x), caches
 
 
 class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, device="cuda"):
         super().__init__()
-        if config.weights_int4 or config.lora_rank:
-            raise NotImplementedError("int4 weights and LoRA are not ported yet")
+        if config.weights_int4:
+            raise NotImplementedError("int4 weights are not ported yet")
+        if config.weights_int8 and config.lora_rank:
+            raise NotImplementedError(
+                "LoRA over the int8 base (QLoRA) is not ported yet")
         device = resolve_device(device)
         self.config = config
         self.model = LlamaModel(config, device)
-        # int8 under weights_int8: with lora_rank == 0 (the only rank ported)
-        # the JAX package's lm_head is int8 too
+        # int8 under weights_int8 (lora_rank 0, as the JAX package's serving
+        # head); with lora_rank > 0 it stays in the compute dtype and trains
         self.lm_head = linear(config, config.hidden_size,
                              config.padded_vocab_size, device)
 
@@ -300,3 +327,15 @@ def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, device,
         }
         for _ in range(config.num_layers)
     ]
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Shifted causal-LM cross entropy: f32 log-softmax, targets equal to
+    ``ignore_index`` masked, mean over the valid targets (HF
+    ``LlamaForCausalLM`` semantics; the JAX package's
+    ``cross_entropy_loss``)."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    shift = labels[:, 1:].long()
+    valid = shift != ignore_index
+    ll = logp.gather(-1, torch.where(valid, shift, 0)[..., None])[..., 0]
+    return -(ll * valid).sum() / valid.sum().clamp_min(1)

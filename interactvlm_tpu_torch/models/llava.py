@@ -4,12 +4,15 @@ Port of ``interactvlm_tpu/models/llava.py``. The <image> placeholder
 (``IMAGE_TOKEN_INDEX``) of each row is replaced by the projected CLIP patch
 embeddings through a static-shape gather (one image per sequence).
 ``seg_predictor_mask`` marks the position *preceding* each seg token, whose
-hidden state predicted it (reference InteractVLM.py:331-341).
+hidden state predicted it (reference InteractVLM.py:331-341). ``forward``
+is the teacher-forced pass of training; the frozen CLIP tower runs under
+``torch.no_grad()`` there (the JAX package's ``stop_gradient``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -79,6 +82,15 @@ def seg_predictor_mask(spliced_ids, seg_token_ids: Sequence[int]):
     return torch.cat([is_seg[:, 1:], torch.zeros_like(is_seg[:, :1])], dim=1)
 
 
+@dataclasses.dataclass
+class LlavaOutput:
+    logits: torch.Tensor  # (B, Lout, V)
+    hidden: torch.Tensor  # (B, Lout, H) after the final norm
+    spliced_ids: torch.Tensor  # (B, Lout), PATCH_ID at patches
+    spliced_labels: Optional[torch.Tensor]
+    spliced_mask: torch.Tensor
+
+
 class LlavaModel(nn.Module):
     """CLIP tower (frozen) + linear mm_projector + LLaMA decoder."""
 
@@ -99,12 +111,21 @@ class LlavaModel(nn.Module):
         return self.mm_projector.weight.device
 
     def encode_images(self, pixels):
-        """(B, S, S, 3) -> (B, P, hidden) projected patch embeddings."""
-        return self.mm_projector(self.vision_tower(pixels))
+        """(B, S, S, 3) -> (B, P, hidden) projected patch embeddings. The
+        tower is frozen: it runs without autograd."""
+        with torch.no_grad():
+            feats = self.vision_tower(pixels)
+        return self.mm_projector(feats)
 
-    def splice(self, input_ids, pixels, labels=None, attn_mask=None):
-        """Spliced embeddings with aligned ids, labels and mask."""
+    def splice(self, input_ids, pixels, labels=None, attn_mask=None,
+               image_index=None):
+        """Spliced embeddings with aligned ids, labels and mask.
+        ``image_index`` (B,) maps each row onto a compact batch of images,
+        which ``pixels`` then holds, one encode each."""
         patches = self.encode_images(pixels)
+        if image_index is not None:
+            patches = patches[torch.as_tensor(image_index,
+                                              device=patches.device).long()]
         P = patches.shape[1]
         idx, is_patch, _, has_img = splice_indices(input_ids, P)
         safe_ids = torch.where(input_ids == IMAGE_TOKEN_INDEX, 0,
@@ -121,6 +142,18 @@ class LlavaModel(nn.Module):
         spliced_mask = torch.where(is_patch & ~has_img[:, None], 0,
                                    spliced_mask)
         return embeds, spliced_ids, spliced_labels, spliced_mask
+
+    def forward(self, input_ids, pixels, labels=None, attn_mask=None,
+                image_index=None) -> LlavaOutput:
+        """Teacher-forced pass over the spliced sequence: logits and final
+        hidden states of every position, with the aligned ids, labels and
+        mask."""
+        embeds, spliced_ids, spliced_labels, spliced_mask = self.splice(
+            input_ids, pixels, labels, attn_mask, image_index)
+        logits, hidden, _ = self.lm.forward_embeds(embeds,
+                                                   attn_mask=spliced_mask)
+        return LlavaOutput(logits, hidden, spliced_ids, spliced_labels,
+                           spliced_mask)
 
     def prefill(self, input_ids, pixels, max_len: int, attn_mask=None,
                 kv_cache: str = "dense"):

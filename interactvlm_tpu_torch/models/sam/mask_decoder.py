@@ -14,7 +14,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from interactvlm_tpu_torch.config import SAMConfig
-from interactvlm_tpu_torch.models.layers import LayerNorm, Linear
+from interactvlm_tpu_torch.models.layers import (
+    ConvTranspose2d,
+    LayerNorm,
+    Linear,
+)
 from interactvlm_tpu_torch.models.sam.transformer import TwoWayTransformer
 from interactvlm_tpu_torch.utils.device import resolve_device
 
@@ -51,10 +55,10 @@ class MaskDecoder(nn.Module):
             cfg.decoder_depth, dim, cfg.decoder_num_heads,
             cfg.decoder_mlp_dim, cfg.dtype, device)
         self.output_upscaling = nn.ModuleList([
-            nn.ConvTranspose2d(dim, dim // 4, 2, stride=2, **kw),
+            ConvTranspose2d(dim, dim // 4, 2, stride=2, **kw),
             LayerNorm(dim // 4, eps=1e-6, **kw),
             nn.GELU(),
-            nn.ConvTranspose2d(dim // 4, dim // 8, 2, stride=2, **kw),
+            ConvTranspose2d(dim // 4, dim // 8, 2, stride=2, **kw),
             nn.GELU(),
         ])
         self.output_hypernetworks_mlps = nn.ModuleList(
@@ -82,7 +86,7 @@ class MaskDecoder(nn.Module):
 
         up0, ln, act0, up1, act1 = self.output_upscaling
         x = keys.reshape(b, g, g, -1).permute(0, 3, 1, 2)
-        x = up0(x.to(up0.weight.dtype)).permute(0, 2, 3, 1)
+        x = up0(x).permute(0, 2, 3, 1)
         x = act0(ln(x)).permute(0, 3, 1, 2)
         up = act1(up1(x)).permute(0, 2, 3, 1)  # (B, 4g, 4g, C/8)
 

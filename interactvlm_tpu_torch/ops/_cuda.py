@@ -22,8 +22,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("flash_attention", "window_attention", "rel_attention",
-           "int8_matmul")
+SOURCES = ("flash_attention", "flash_attention_bwd", "window_attention",
+           "rel_attention", "int8_matmul")
 _HEADERS = ("attention_core.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -135,6 +135,17 @@ def require_kernel_inputs(kernel: str, *tensors: torch.Tensor,
             raise ValueError(f"{kernel}: inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel}: inputs must be 16-byte aligned")
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need a gradient through a kernel that has
+    no backward yet: its output would carry none, and the gradient would be
+    cut without an error."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: no backward is ported; call it under torch.no_grad() "
+            f"or on inputs that do not require grad")
 
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:

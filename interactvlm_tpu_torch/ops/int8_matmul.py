@@ -104,8 +104,10 @@ def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
 
     CPU tensors run ``int8_matmul_fused_plain``; CUDA tensors launch the
     kernel (x bf16 or f32 and contiguous, W int8 contiguous, f32 scale and
-    bias, K a multiple of 32, N of 8) or raise.
+    bias, K a multiple of 32, N of 8) or raise. Both raise under grad: the
+    straight-through backward is not ported yet.
     """
+    _cuda.refuse_grad("int8_matmul", x, bias)
     out_dtype = out_dtype or x.dtype
     if not x.is_cuda:
         return int8_matmul_fused_plain(x, w_q, w_scale, bias, activation,

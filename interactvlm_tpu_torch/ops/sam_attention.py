@@ -108,8 +108,10 @@ def window_attention(q, k, v, factors, hw):
     """Window attention with stacked rel-pos factors over (R, L, D) rows.
 
     CPU tensors run ``window_attention_plain``; CUDA tensors launch the
-    kernel (bf16, contiguous) or raise.
+    kernel (bf16, contiguous) or raise. Both raise under grad: the kernel
+    has no backward, and its only caller is the frozen SAM encoder.
     """
+    _cuda.refuse_grad("window_attention", q, k, v, factors)
     if not q.is_cuda:
         return window_attention_plain(q, k, v, factors, hw)
     H, W = hw
@@ -138,8 +140,10 @@ def rel_attention(q, k, v, rel_h, rel_w, hw):
     """Global attention with rel-pos factors over (R, L, D) rows.
 
     CPU tensors run ``rel_attention_plain``; CUDA tensors launch the kernel
-    (bf16, contiguous) or raise.
+    (bf16, contiguous) or raise. Both raise under grad, as
+    ``window_attention`` does.
     """
+    _cuda.refuse_grad("rel_attention", q, k, v, rel_h, rel_w)
     if not q.is_cuda:
         return rel_attention_plain(q, k, v, rel_h, rel_w, hw)
     H, W = hw

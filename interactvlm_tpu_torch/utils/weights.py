@@ -9,7 +9,11 @@ converters: Dense ``kernel`` (in, out) -> ``weight`` (out, in); Conv HWIO ->
 OIHW; ConvTranspose taps flipped back to torch's (in, out, kh, kw);
 LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``. An
 int8 Dense (``kernel_q`` (in, out) int8, ``kernel_scale`` (1, out) f32)
-becomes ``weight`` (out, in) int8 and ``weight_scale`` (out,) f32.
+becomes ``weight`` (out, in) int8 and ``weight_scale`` (out,) f32. A LoRA
+Dense (``base/kernel``, ``lora_a`` (in, r), ``lora_b`` (r, out)) becomes
+``weight``, ``lora_A.weight`` (r, in) and ``lora_B.weight`` (out, r).
+Applied to a gradient tree of the JAX package, ``from_jax_params`` gives the
+gradients under the port's names.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from interactvlm_tpu_torch.models.layers import Int8Linear
+from interactvlm_tpu_torch.models.layers import Int8Linear, LoraFactor
 from interactvlm_tpu_torch.models.llama import RMSNorm
 from interactvlm_tpu_torch.ops.quant import quantize_int8
 
@@ -33,10 +37,16 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     in [-127, 127] with scales 1 / (127 fan_in^1/2) (the JAX package's
     ``Int8Dense`` init), every other parameter (embeddings, tokens,
     positional and rel-pos tables) N(0, 0.02), the SAM Fourier matrix
-    N(0, 1)."""
+    N(0, 1), LoRA A N(0, 0.02) and LoRA B 0 (the JAX package's
+    ``LoraDense``)."""
     for mod in module.modules():
         for leaf, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, Int8Linear) and leaf == "weight":
+            if isinstance(mod, LoraFactor):
+                if mod.init_std:
+                    p.normal_(0.0, mod.init_std, generator=generator)
+                else:
+                    p.zero_()
+            elif isinstance(mod, Int8Linear) and leaf == "weight":
                 p.random_(-127, 128, generator=generator)
             elif isinstance(mod, Int8Linear) and leaf == "weight_scale":
                 p.fill_(1.0 / (127.0 * mod.in_features ** 0.5))
@@ -62,7 +72,11 @@ def _t(x) -> torch.Tensor:
 
 
 def _dense(node, prefix, sd):
-    if "int8" in node:  # the SAM encoder's int8 layout: {int8: {...}, bias}
+    if "lora_a" in node:  # LoraDense: {base: {kernel}, lora_a, lora_b}
+        _dense(node["base"], prefix, sd)
+        sd[prefix + "lora_A.weight"] = _t(np.asarray(node["lora_a"]).T)
+        sd[prefix + "lora_B.weight"] = _t(np.asarray(node["lora_b"]).T)
+    elif "int8" in node:  # the SAM encoder's int8 layout: {int8: {...}, bias}
         _dense(node["int8"], prefix, sd)
     elif "kernel_q" in node:
         q = np.asarray(node["kernel_q"])

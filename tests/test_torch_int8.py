@@ -135,10 +135,13 @@ def test_llama_int8_greedy_ids_with_int8_cache_match_jax(llama):
 
 
 def test_int4_and_lora_still_raise():
-    for kw in (dict(weights_int4=True), dict(lora_rank=8),
-               dict(weights_int8=True, lora_rank=8)):
+    """int4, and LoRA over the int8 base (QLoRA), are not ported; LoRA over
+    the bf16/f32 base is."""
+    for kw in (dict(weights_int4=True), dict(weights_int8=True, lora_rank=8)):
         with pytest.raises(NotImplementedError):
             LlamaForCausalLM(llama_tiny(**kw), device="cpu")
+    m = LlamaForCausalLM(llama_tiny(lora_rank=8), device="cpu")
+    assert m.model.layers[0].self_attn.q_proj.lora_A.weight.shape == (8, 64)
 
 
 def test_init_params_draws_int8_weights_the_jax_way():

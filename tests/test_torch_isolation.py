@@ -25,6 +25,9 @@ from interactvlm_tpu_torch.models.llama import LlamaForCausalLM
 from interactvlm_tpu_torch.models.llava import LlavaModel
 from interactvlm_tpu_torch.models.sam.image_encoder import ImageEncoderViT
 from interactvlm_tpu_torch.models.sam.sam import Sam
+from interactvlm_tpu_torch.utils.testing import (
+    make_synthetic_batch as make_port_batch,
+)
 from interactvlm_tpu_torch.utils.weights import from_jax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,6 +47,11 @@ print("MODULES", len([m for m in sys.modules
                       if m.startswith("interactvlm_tpu_torch")]))
 print("INT8", all(m in sys.modules for m in (
     "interactvlm_tpu_torch.ops.quant", "interactvlm_tpu_torch.ops.int8_matmul")))
+print("TRAIN", all(m in sys.modules for m in (
+    "interactvlm_tpu_torch.models.losses",
+    "interactvlm_tpu_torch.train.optimizer",
+    "interactvlm_tpu_torch.train.train_step",
+    "interactvlm_tpu_torch.utils.testing")))
 print("BAD", bad)
 """
 
@@ -55,8 +63,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     n = int(res.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 22, res.stdout  # every submodule was imported
+    assert n >= 27, res.stdout  # every submodule was imported
     assert "INT8 True" in res.stdout, res.stdout
+    assert "TRAIN True" in res.stdout, res.stdout
 
 
 @pytest.mark.parametrize("build", [
@@ -67,8 +76,11 @@ def test_port_and_chip_smoke_import_no_jax():
     lambda: Sam(C.sam_tiny()),
     lambda: LlamaForCausalLM(C.llama_tiny(weights_int8=True)),
     lambda: ImageEncoderViT(C.sam_tiny(weights_int8=True)),
+    lambda: LlamaForCausalLM(C.llama_tiny(lora_rank=4)),
+    lambda: make_port_batch(C.interactvlm_tiny()),
 ], ids=["InteractVLM", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
-        "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8"])
+        "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8",
+        "LlamaForCausalLM-lora", "make_synthetic_batch"])
 def test_entry_points_default_to_the_gpu(build):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")

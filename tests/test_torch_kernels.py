@@ -21,6 +21,20 @@ over the output to 1e-2 of the plain output's RMS, which a systematic error
 of a percent fails even where every element passes. The logsumexp is f32 on
 both sides and differs only in summation order, so 1e-3.
 
+The flash backward kernels (dq; dk and dv) against ``flash_backward_plain``:
+both recompute the probabilities from the same logsumexp in f32 and round P
+and dS to bf16 as the operands of their products, so they differ by the
+order of f32 sums, by a rounding step of P or dS where that order moves a
+value across a bf16 rounding boundary, and by the bf16 rounding of the
+output. Gradients have no fixed scale, so each element is held to 2e-2 of
+the plain gradient's RMS plus 2e-2 of its own magnitude, and the RMS error
+to 1e-2 of the plain RMS; rows that see no key must give exact zeros.
+Against autograd through the f32 plain attention, which rounds neither P nor
+dS, the rounding error accumulates over up to L terms in the key rows that
+many queries see (measured on the card: worst element 3.3 % of the RMS in
+the first key row at L = 512): there each element is held to 5e-2 of the
+RMS.
+
 The int8 matmul kernel and its plain version share the quantization of x
 and an exact integer sum, and round the rescale, bias and activation alike
 in f32 (erff on the card, torch.erf in the plain version): each element is
@@ -38,6 +52,7 @@ from interactvlm_tpu_torch.ops import sam_attention as S
 
 ATOL, WINDOW_ATOL, RTOL, RMS_TOL = 4e-3, 2e-2, 2e-2, 1e-2
 LSE_TOL = 1e-3
+GRAD_ATOL_OF_RMS, AUTOGRAD_ATOL_OF_RMS = 2e-2, 5e-2
 
 
 @pytest.fixture
@@ -79,6 +94,113 @@ def test_flash_kernel_matches_plain(dev, B, H, Lq, Lk, D, causal, lens):
     o2, lse2 = F.flash_forward_plain(q, k, v, causal, None, kv)
     assert _close(o, o2)
     assert (lse - lse2).abs().max().item() < LSE_TOL
+
+
+def _grad_close(got, want, atol_of_rms=GRAD_ATOL_OF_RMS):
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rms = w.square().mean().sqrt().clamp_min(1e-30)
+    ok = bool((err <= atol_of_rms * rms + RTOL * w.abs()).all())
+    return ok and (err.square().mean().sqrt() / rms).item() <= RMS_TOL
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D,causal,lens", [
+    (2, 4, 512, 512, 128, True, (512, 300)),  # LLaMA-13B training, ragged
+    (2, 8, 4096, 9, 16, False, None),  # SAM decoder image -> token
+    (1, 2, 70, 130, 64, True, None),  # causal, Lq < Lk
+    (1, 2, 130, 70, 32, True, (70,)),  # causal, Lq > Lk: 60 rows see no key
+    (2, 2, 100, 100, 32, True, (0, 37)),  # row 0 sees no key at all
+])
+def test_flash_backward_kernels_match_plain(dev, B, H, Lq, Lk, D, causal,
+                                            lens):
+    rng = np.random.default_rng(7)
+    q, do = _bf16(rng, (B, H, Lq, D), dev), _bf16(rng, (B, H, Lq, D), dev)
+    k, v = _bf16(rng, (B, H, Lk, D), dev), _bf16(rng, (B, H, Lk, D), dev)
+    kv = None if lens is None else torch.tensor(lens, device=dev)
+    o, lse = F.flash_forward(q, k, v, causal, None, kv)
+    n_dq, n_dkv = F.flash_bwd_dq.launches, F.flash_bwd_dkv.launches
+    got = F.flash_backward(q, k, v, o, lse, do, causal, None, kv)
+    torch.cuda.synchronize()
+    assert (F.flash_bwd_dq.launches, F.flash_bwd_dkv.launches) == (
+        n_dq + 1, n_dkv + 1)
+    want = F.flash_backward_plain(q, k, v, o, lse, do, causal, None, kv)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _grad_close(g, w), name
+    # rows that see no key: zero dq; keys no row sees: zero dk and dv
+    r = torch.arange(Lq, device=dev)
+    c = torch.arange(Lk, device=dev)
+    kvl = (torch.tensor(lens, device=dev) if lens is not None
+           else torch.full((B,), Lk, device=dev))
+    vis = (c[None, None, :] < kvl[:, None, None]).expand(B, Lq, Lk)
+    if causal:
+        vis = vis & (c[None, :] <= r[:, None] + Lk - Lq)[None]
+    blind_rows = ~vis.any(-1)  # (B, Lq)
+    unseen_keys = ~vis.any(-2)  # (B, Lk)
+    assert bool((got[0].float()[blind_rows[:, None].expand(B, H, Lq)] == 0).all())
+    for g in got[1:]:
+        assert bool((g.float()[unseen_keys[:, None].expand(B, H, Lk)] == 0).all())
+
+
+def test_flash_autograd_matches_plain_autograd(dev):
+    """Under grad the CUDA flash call carries a gradient (no silent cut),
+    and it agrees with autograd through the plain attention with the
+    equivalent bias."""
+    from interactvlm_tpu_torch.ops.attention import attention_plain
+
+    rng = np.random.default_rng(8)
+    B, H, L, D = 2, 4, 300, 64
+    lens = torch.tensor([300, 211], device=dev)
+    leaves = [_bf16(rng, (B, H, L, D), dev).requires_grad_() for _ in range(3)]
+    out = F.flash_attention(*leaves, causal=True, kv_lengths=lens)
+    assert out.grad_fn is not None
+    w = torch.from_numpy(rng.standard_normal((B, H, L, D)).astype(np.float32)
+                         ).to(dev)
+    got = torch.autograd.grad((out.float() * w).sum(), leaves)
+    bias = torch.where(torch.arange(L, device=dev)[None, :] < lens[:, None],
+                       0.0, -1e9)[:, None, None, :]
+    ref = [t.detach().float().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(
+        (attention_plain(*ref, bias=bias, causal=True) * w).sum(), ref)
+    for g, r in zip(got, want):
+        assert _grad_close(g, r, AUTOGRAD_ATOL_OF_RMS)
+
+
+def test_flash_backward_refuses_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(9)
+    q = _bf16(rng, (1, 2, 64, 16), dev)
+    o, lse = F.flash_forward(q, q, q)
+    with pytest.raises(ValueError, match="bfloat16"):
+        F.flash_backward(q, q, q, o, lse, q.float())
+    with pytest.raises(ValueError, match="lse"):
+        F.flash_backward(q, q, q, o, lse[:1], q)
+    with pytest.raises(ValueError, match="contiguous"):
+        F.flash_backward(q, q, q, o, lse, q.transpose(2, 3).contiguous()
+                         .transpose(2, 3))
+    q48 = _bf16(rng, (1, 2, 64, 48), dev)
+    with pytest.raises(ValueError, match="head dim"):
+        F.flash_backward(q48, q48, q48, q48, lse, q48)
+
+
+def test_forward_only_kernels_raise_under_grad(dev):
+    """The window, rel-pos and int8 kernels have no backward: under grad
+    they raise instead of returning a tensor without a gradient."""
+    rng = np.random.default_rng(10)
+    q = _bf16(rng, (2, 196, 80), dev).requires_grad_()
+    f = _bf16(rng, (2, 28, 196), dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        S.window_attention(q, q, q, f, (14, 14))
+    g = _bf16(rng, (2, 1024, 80), dev).requires_grad_()
+    rh, rw = _bf16(rng, (2, 32, 1024), dev), _bf16(rng, (2, 1024, 32), dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        S.rel_attention(g, g, g, rh, rw, (32, 32))
+    w, scale = _int8_weight(rng, 64, 128, dev)
+    x = _bf16(rng, (4, 128), dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        Q.int8_matmul_fused(x, w, scale)
+    with torch.no_grad():
+        assert S.window_attention(q, q, q, f, (14, 14)).shape == q.shape
 
 
 def test_window_kernel_matches_plain(dev):
