@@ -6,31 +6,39 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero, and
 prints no result, without them. Phases, each of which fails the run:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the five hand-written kernel sources under
+2. build: the nine hand-written kernel sources under
    ``interactvlm_tpu_torch/csrc/`` (flash forward, flash backward dq and
-   dk/dv, window and global rel-pos attention, fused int8 matmul), one
-   ``nvcc`` each, all started together;
+   dk/dv, window and global rel-pos attention, fused int8 matmul, the
+   two-pass int8 quantize and matmul, the bf16 serving matmul, the
+   tensor-core rate loop, the window copy), one ``nvcc`` each, all started
+   together;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   serving and training paths give it, inputs from a seeded generator, with
-   the kernel's, the plain version's and one library call's time beside the
-   least time the card could take (``bound_ms``);
-4. reference: the ``interactvlm_tiny`` pipeline on the card against the same
+   serving, training and probe paths give it, inputs from a seeded
+   generator, with the kernel's, the plain version's and one library call's
+   time beside the least time the card could take (``bound_ms``);
+4. the probes: the chain probe (eight variants: bf16 and int8 matmuls,
+   library and hand-written, at 32768 x 1280 x 5120, 20 chained
+   iterations), the tensor-core rate probe (four operand types at 512 x 1280
+   x 1280) and the window-attention probe (nine variants at 200 windows and
+   the 64 x 64 global grid), each variant's line printed; every chain
+   variant must launch each of its kernels twice an iteration;
+5. reference: the ``interactvlm_tiny`` pipeline on the card against the same
    weights on the CPU, dense (bf16 SAM) and int8 (int8 LLaMA in f32 with the
    int8 KV cache, int8 bf16 SAM);
-5. the 13B path: ``interactvlm_13b`` at full width and depth in bf16 with
+6. the 13B path: ``interactvlm_13b`` at full width and depth in bf16 with
    seeded random weights, B=8 images x V=4 views, a 64-token prompt, 32
    greedy decode steps, 1024^2 masks and a 6890-vertex lift, through
    ``evaluate_batch`` in streaming and in cached-view mode;
-6. the 7B-int8 path, the JAX package's chip serving configuration
+7. the 7B-int8 path, the JAX package's chip serving configuration
    (``bench.py``): LLaMA-7B with int8 weights and the int8 KV cache, CLIP
    ViT-L/14, SAM ViT-H with int8 weights and tanh GELU, all bf16; streaming
    at B=8 and cached at B=32, otherwise as the 13B path;
-7. the training reference: one LoRA training step of ``interactvlm_tiny``
+8. the training reference: one LoRA training step of ``interactvlm_tiny``
    on the card in bf16 (a 259-token spliced prompt, so LLaMA's attention
    runs the flash forward and both backward kernels) against the same step
    on the CPU in f32 from the same weights: each loss term, and the cosine
    and norm of every trainable's gradient;
-8. the 13B LoRA training path, the JAX trainer's default preset
+9. the 13B LoRA training path, the JAX trainer's default preset
    (``scripts/run_train.sh`` hcontact-damon): LLaMA-13B bf16 with LoRA rank
    8 on q/v and remat, CLIP ViT-L/14, SAM ViT-H, B=8 hcontact rows of 512
    spliced tokens (two right-padded), 1024^2 masks and a 6890-vertex 3D
@@ -44,7 +52,9 @@ path reports step time, images/s and tokens/s, peak memory, the
 forward/backward/optimizer split, the device's busy share and each
 kernel's launches per step.
 
-The second-to-last line is ``{"kernels": [...]}``; the last is
+Each path counts every kernel's launches from 0 over its run; the
+``{"kernels": [...]}`` line, second to last, gives each kernel's count on
+the path named in ``KERNELS`` and on every path. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -81,7 +91,12 @@ from interactvlm_tpu_torch.models.layers import Int8Linear
 from interactvlm_tpu_torch.ops import _cuda
 from interactvlm_tpu_torch.ops import flash_attention as FA
 from interactvlm_tpu_torch.ops import int8_matmul as Q
+from interactvlm_tpu_torch.ops import mxu as MX
 from interactvlm_tpu_torch.ops import sam_attention as SA
+from interactvlm_tpu_torch.ops import serving_matmul as SM
+from interactvlm_tpu_torch.probes import chain as chain_probe
+from interactvlm_tpu_torch.probes import mxu as mxu_probe
+from interactvlm_tpu_torch.probes import winattn as winattn_probe
 from interactvlm_tpu_torch.train.optimizer import (
     apply_trainable_mask,
     cast_frozen_params,
@@ -93,9 +108,9 @@ from interactvlm_tpu_torch.utils.testing import make_synthetic_batch
 from interactvlm_tpu_torch.utils.weights import init_params
 
 # Dense peak rates (NVIDIA data sheets): bf16 tensor-core FLOP/s, HBM
-# bytes/s, int8 tensor-core OP/s.
-PEAKS = {"H100 SXM": (989e12, 3.35e12, 1979e12),
-         "H100 PCIe": (756e12, 2.0e12, 1513e12)}
+# bytes/s, int8 tensor-core OP/s, f32 FLOP/s on the CUDA cores (no TF32).
+PEAKS = {"H100 SXM": (989e12, 3.35e12, 1979e12, 67e12),
+         "H100 PCIe": (756e12, 2.0e12, 1513e12, 51e12)}
 # kernel vs plain version, element-wise (see compare)
 ATOL, WINDOW_ATOL, RTOL, RMS_TOL, LSE_TOL = 4e-3, 2e-2, 2e-2, 1e-2, 1e-3
 # int8 matmul vs plain version (see compare_int8)
@@ -112,31 +127,60 @@ N_VERTS, MAX_K, BACKGROUND = 6890, 256, 0.7
 L_TRAIN, TRAIN_PADDED = 257, (200, 129)
 TRAIN_STEPS = 5  # timed steps, after one warm-up step
 
+# each kernel's source, the TPU kernel it replaces, its wrapper (whose
+# launch count a path reads), its symbol in a profile, and the path whose
+# count the kernel line reports
 KERNELS = {
     "flash_attention": dict(
         source="interactvlm_tpu_torch/csrc/flash_attention.cu",
         replaces="interactvlm_tpu/ops/flash_attention.py:43",
-        wrapper=FA.flash_forward, symbol="flash_fwd_kernel"),
+        wrapper=FA.flash_forward, symbol="flash_fwd_kernel",
+        path="train_13b_lora"),
     "window_attention": dict(
         source="interactvlm_tpu_torch/csrc/window_attention.cu",
         replaces="interactvlm_tpu/ops/sam_attention.py:117",
-        wrapper=SA.window_attention, symbol="window_kernel"),
+        wrapper=SA.window_attention, symbol="window_kernel",
+        path="train_13b_lora"),
     "rel_attention": dict(
         source="interactvlm_tpu_torch/csrc/rel_attention.cu",
         replaces="interactvlm_tpu/ops/sam_attention.py:39",
-        wrapper=SA.rel_attention, symbol="rel_kernel"),
+        wrapper=SA.rel_attention, symbol="rel_kernel", path="train_13b_lora"),
     "int8_matmul": dict(
         source="interactvlm_tpu_torch/csrc/int8_matmul.cu",
         replaces="interactvlm_tpu/ops/int8_matmul.py:39",
-        wrapper=Q.int8_matmul_fused, symbol="int8_matmul_kernel"),
+        wrapper=Q.int8_matmul_fused, symbol="int8_matmul_kernel",
+        path="7b_int8"),
     "flash_attention_bwd_dq": dict(
         source="interactvlm_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="interactvlm_tpu/ops/flash_attention.py:190",
-        wrapper=FA.flash_bwd_dq, symbol="flash_bwd_dq_kernel"),
+        wrapper=FA.flash_bwd_dq, symbol="flash_bwd_dq_kernel",
+        path="train_13b_lora"),
     "flash_attention_bwd_dkv": dict(
         source="interactvlm_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="interactvlm_tpu/ops/flash_attention.py:243",
-        wrapper=FA.flash_bwd_dkv, symbol="flash_bwd_dkv_kernel"),
+        wrapper=FA.flash_bwd_dkv, symbol="flash_bwd_dkv_kernel",
+        path="train_13b_lora"),
+    "quantize_rows": dict(
+        source="interactvlm_tpu_torch/csrc/int8_prequant.cu",
+        replaces="interactvlm_tpu/ops/int8_matmul.py:82",
+        wrapper=Q.quantize_rows, symbol="quantize_rows_kernel", path="probes"),
+    "int8_matmul_prequant": dict(
+        source="interactvlm_tpu_torch/csrc/int8_prequant.cu",
+        replaces="interactvlm_tpu/ops/int8_matmul.py:124",
+        wrapper=Q.int8_matmul_prequant, symbol="prequant_matmul_kernel",
+        path="probes"),
+    "fused_dense": dict(
+        source="interactvlm_tpu_torch/csrc/serving_matmul.cu",
+        replaces="interactvlm_tpu/ops/serving_matmul.py:50",
+        wrapper=SM.fused_dense, symbol="dense_kernel", path="probes"),
+    "mxu_loop": dict(
+        source="interactvlm_tpu_torch/csrc/mxu_probe.cu",
+        replaces="scripts/mxu_probe.py:28",
+        wrapper=MX.mxu_loop, symbol="_loop_kernel", path="probes"),
+    "window_copy": dict(
+        source="interactvlm_tpu_torch/csrc/window_copy.cu",
+        replaces="scripts/winattn_probe.py:123",
+        wrapper=SA.window_copy, symbol="window_copy_kernel", path="probes"),
 }
 SERVING_KERNELS = ("flash_attention", "window_attention", "rel_attention",
                    "int8_matmul")
@@ -152,12 +196,13 @@ def peaks(name: str):
     return PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
 
 
-def bound(flops, nbytes, name, int8=False):
-    """The least time in ms for the work: operations over the bf16 (or,
-    with ``int8``, the int8) tensor-core peak, or bytes over the memory
-    rate, whichever is larger, and which of the two it is."""
-    flop_s, byte_s, int8_s = peaks(name)
-    t_ops = flops / (int8_s if int8 else flop_s) * 1e3
+def bound(flops, nbytes, name, int8=False, f32=False):
+    """The least time in ms for the work: operations over the bf16 (with
+    ``int8``, the int8 tensor-core; with ``f32``, the CUDA cores' f32)
+    peak, or bytes over the memory rate, whichever is larger, and which of
+    the two it is."""
+    flop_s, byte_s, int8_s, f32_s = peaks(name)
+    t_ops = flops / (int8_s if int8 else f32_s if f32 else flop_s) * 1e3
     t_bytes = nbytes / byte_s * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -515,7 +560,8 @@ def compare_int8(got, want):
 
 
 def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
-    """One int8 matmul shape of the 7B-int8 path: bf16 x, random int8 W
+    """One int8 matmul shape of the 7B-int8 path (``calls`` per streaming
+    and cached batch) or of the chain probe (``calls`` None): bf16 x, random int8 W
     with per-column scales of the init's magnitude. Library yardsticks:
     ``torch._int_mm`` on the pre-quantized operands (int32 out, no
     quantization or epilogue; it refuses M <= 16) and a bf16 ``F.linear``
@@ -548,7 +594,8 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
     return dict(shape=f"{what}: M={M} K={K} N={N}"
                 f"{' +bias' if with_bias else ''}"
                 f"{' +' + act if act != 'none' else ''}",
-                calls_per_batch={"streaming": calls[0], "cached": calls[1]},
+                calls_per_batch=({"streaming": calls[0], "cached": calls[1]}
+                                 if calls else None),
                 **res, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=lib, library="torch._int_mm (int32 product only)",
                 bf16_linear_ms=linear_ms, bound_ms=t, bound_by=by)
@@ -592,6 +639,265 @@ def kernel_phase(name):
                                  f"at {row['shape']}: {row}")
     torch.cuda.empty_cache()
     return cases
+
+
+# --------------------------------------------------------------- probe kernels
+# the chain probe's shapes: the ViT-H MLP's two matmuls over 32 768 rows
+CHAIN_M, CHAIN_K, CHAIN_N = 32768, 1280, 5120
+# kernel 9 vs plain version, element-wise (see compare_dense)
+DENSE_RTOL, DENSE_ATOL_OF_RMS, DENSE_RMS_TOL = 2.0 ** -7, 1e-3, 2.0 ** -8
+# kernel 11 vs plain version: bf16 and f32 within MXU_TOL_OF_MAX of the
+# largest output, at a loop count whose int8 sums stay exact in f32
+MXU_TOL_OF_MAX, MXU_CHECK_LOOPS, MXU_TIME_LOOPS = 1e-5, 4, 2048
+TIES = [127.0, 2.5, 3.5, -2.5, 0.5, 1.5, -0.5, 126.5, -127.0]
+
+
+def compare_exact(got, want):
+    """Outputs that must be bit for bit equal: each pair of tensors."""
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    return {"max_abs_err": max(errs), "err_over_limit": 0.0 if ok else
+            float("inf"), "tol": "bit-exact", "ok": ok}
+
+
+def compare_dense(got, want):
+    """Kernel 9 against its plain version: both sum f32 products of bf16
+    inputs, in another order, and round once to the output type. Each
+    element within DENSE_RTOL (one bf16 step) of its magnitude plus
+    DENSE_ATOL_OF_RMS of the output's RMS (sums that cancel to near zero),
+    and the RMS error within DENSE_RMS_TOL of the plain RMS."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rms = w.square().mean().sqrt().clamp_min(1e-30)
+    res = {"max_abs_err": err.max().item(),
+           "err_over_limit": (err / (DENSE_RTOL * w.abs()
+                                     + DENSE_ATOL_OF_RMS * rms)).max().item(),
+           "rms_rel_err": (err.square().mean().sqrt() / rms).item(),
+           "tol": {"rtol": DENSE_RTOL, "atol_of_rms": DENSE_ATOL_OF_RMS,
+                   "rms_rel": DENSE_RMS_TOL}}
+    res["ok"] = (res["err_over_limit"] <= 1.0
+                 and res["rms_rel_err"] <= DENSE_RMS_TOL
+                 and bool(torch.isfinite(g).all()))
+    return res
+
+
+def rows_with_ties(gen, M, K):
+    """bf16 rows from the generator, row 0 zero, row 1 exact rounding ties
+    (amax 127)."""
+    x = rand_bf16(gen, (M, K))
+    x[0] = 0.0
+    x[1] = 0.0
+    x[1, :len(TIES)] = torch.tensor(TIES, device="cuda")
+    return x
+
+
+def int8_weight(gen, N, K):
+    w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    return w, torch.full((N,), 1.0 / (127.0 * K ** 0.5), device="cuda")
+
+
+def case_quantize(gen, name, M, K):
+    """Kernel 7 at the chain's activations (K = 1280) and hidden activations
+    (K = 5120): bytes bound it (2 in, 1 out an element, a scale a row). No
+    single torch call computes it: no library time."""
+    x = rows_with_ties(gen, M, K)
+    res = compare_exact(Q.quantize_rows(x), Q.quantize_rows_plain(x))
+    t, by = bound(0, 3 * M * K + 4 * M, name)
+    return dict(shape=f"M={M} K={K} bf16 (chain probe)", **res,
+                kernel_ms=time_ms(lambda: Q.quantize_rows(x), 20),
+                plain_ms=time_ms(lambda: Q.quantize_rows_plain(x), 5),
+                library_ms=None, library=None, bound_ms=t, bound_by=by)
+
+
+def case_prequant(gen, name, M, K, N, act):
+    """Kernel 8 at one of the chain's shapes: pre-quantized rows (kernel 7's
+    output) times a random int8 weight. Without a GELU bit for bit; with one
+    within ``compare_int8``'s limits. Library yardstick: ``torch._int_mm``
+    on the same operands (the int32 product only)."""
+    xq, xs = Q.quantize_rows(rand_bf16(gen, (M, K)))
+    w, scale = int8_weight(gen, N, K)
+    got = Q.int8_matmul_prequant(xq, xs, w, scale, torch.bfloat16, act)
+    want = Q.int8_matmul_prequant_plain(xq, xs, w, scale, torch.bfloat16, act)
+    res = (compare_exact([got], [want]) if act == "none"
+           else compare_int8(got, want))
+    del got, want
+    t, by = bound(2 * M * K * N, M * K + 4 * M + N * K + 4 * N + 2 * M * N,
+                  name, int8=True)
+    return dict(
+        shape=f"M={M} K={K} N={N}{' +' + act if act != 'none' else ''} "
+        f"(chain probe)", **res,
+        kernel_ms=time_ms(lambda: Q.int8_matmul_prequant(
+            xq, xs, w, scale, torch.bfloat16, act), 10),
+        plain_ms=time_ms(lambda: Q.int8_matmul_prequant_plain(
+            xq, xs, w, scale, torch.bfloat16, act), 2, 1),
+        library_ms=time_ms(lambda: torch._int_mm(xq, w.t()), 10),
+        library="torch._int_mm (int32 product only)", bound_ms=t, bound_by=by)
+
+
+def case_dense(gen, name, M, K, N, with_bias, act):
+    """Kernel 9 at one of the chain's shapes, bf16 in and out. Library
+    yardstick: ``F.linear`` in bf16 with the same bias (no GELU)."""
+    x = rand_bf16(gen, (M, K))
+    w = rand_bf16(gen, (N, K), K ** -0.5)
+    b = rand_bf16(gen, (N,), 0.5) if with_bias else None
+    res = compare_dense(SM.fused_dense(x, w, b, act),
+                        SM.fused_dense_plain(x, w, b, act))
+    t, by = bound(2 * M * K * N, 2 * (M * K + N * K + M * N) + 2 * N, name)
+    return dict(
+        shape=f"M={M} K={K} N={N}{' +bias' if with_bias else ''}"
+        f"{' +' + act if act != 'none' else ''} (chain probe)", **res,
+        kernel_ms=time_ms(lambda: SM.fused_dense(x, w, b, act), 10),
+        plain_ms=time_ms(lambda: SM.fused_dense_plain(x, w, b, act), 2, 1),
+        library_ms=time_ms(lambda: torch.nn.functional.linear(x, w, b), 10),
+        library="F.linear bf16 (with the bias, no GELU)", bound_ms=t,
+        bound_by=by)
+
+
+def case_mxu(name, label, in_dtype, acc_dtype):
+    """Kernel 11 at the mxu probe's 512 x 1280 x 1280: held to its plain
+    version at MXU_CHECK_LOOPS loops; timed per product as the difference
+    of MXU_TIME_LOOPS and a quarter of them, so the launch and the atomic
+    epilogue drop out. The bound is one product's operations over the peak
+    of its type (the operands' bytes are read once for all the loops).
+    Plain: one loop of the plain version; library: one torch.matmul (f32
+    without TF32) or ``torch._int_mm``."""
+    M, K, N = mxu_probe.M, mxu_probe.K, mxu_probe.N
+    x, w = mxu_probe.make_inputs(in_dtype, (M, K, N), "cuda")
+    got = MX.mxu_loop(x, w, MXU_CHECK_LOOPS, acc_dtype)
+    want = MX.mxu_loop_plain(x, w, MXU_CHECK_LOOPS, acc_dtype)
+    if in_dtype == torch.int8:
+        res = compare_exact([got], [want])
+    else:
+        err = max_err(got, want)
+        lim = MXU_TOL_OF_MAX * want.abs().max().item()
+        res = {"max_abs_err": err, "err_over_limit": err / lim,
+               "tol": {"abs_of_max": MXU_TOL_OF_MAX}, "ok": err <= lim}
+    small = MXU_TIME_LOOPS // 4
+    t_big = time_ms(lambda: MX.mxu_loop(x, w, MXU_TIME_LOOPS, acc_dtype), 3, 1)
+    t_small = time_ms(lambda: MX.mxu_loop(x, w, small, acc_dtype), 3, 1)
+    per_dot = (t_big - t_small) / (MXU_TIME_LOOPS - small)
+    t, by = bound(2 * M * K * N, 0, name, int8=in_dtype == torch.int8,
+                  f32=in_dtype == torch.float32)
+    if in_dtype == torch.int8:
+        lib = time_ms(lambda: torch._int_mm(x, w.t()), 20)
+    else:
+        lib = time_ms(lambda: torch.matmul(x, w.t()), 20)
+    return dict(shape=f"{label}: M={M} K={K} N={N}, ms per product", **res,
+                kernel_ms=per_dot, tops=2 * M * K * N / per_dot / 1e9,
+                plain_ms=time_ms(lambda: MX.mxu_loop_plain(x, w, 1, acc_dtype),
+                                 5),
+                library_ms=lib, library="torch._int_mm" if in_dtype ==
+                torch.int8 else "torch.matmul", bound_ms=t, bound_by=by)
+
+
+def case_copy(gen, name):
+    """The copy kernel at the window probe's BW=200 x 16 heads, L=196, D=80:
+    bytes (q, k, v read, q written). Plain and library: ``q.clone()``."""
+    R, L, D = 200 * 16, 196, 80
+    q, k, v = (rand_bf16(gen, (R, L, D)) for _ in range(3))
+    res = compare_exact([SA.window_copy(q, k, v)],
+                        [SA.window_copy_plain(q, k, v)])
+    t, by = bound(0, 4 * R * L * D * 2, name)
+    return dict(shape=f"R={R} L={L} D={D} (window probe, BW=200)", **res,
+                kernel_ms=time_ms(lambda: SA.window_copy(q, k, v), 20),
+                plain_ms=time_ms(lambda: SA.window_copy_plain(q, k, v), 20),
+                library_ms=time_ms(lambda: q.clone(), 20),
+                library="q.clone()", bound_ms=t, bound_by=by)
+
+
+def case_flash_global(gen, name):
+    """The window probe's ``global_plain``: B=8 H=16 over the 64 x 64 grid
+    (L = Lk = 4096), D=80 zero-padded to 128 as the variant pads it,
+    non-causal, no kv lengths, scale 80^-0.5. The plain version runs image
+    by image (its f32 scores take 1 GB an image)."""
+    P = winattn_probe
+    Bg, H, L, D = P.GB, P.GH, P.GW * P.GW, P.GD
+    q, k, v = (torch.nn.functional.pad(rand_bf16(gen, (Bg, H, L, D)),
+                                       (0, P.FLASH_D - D)) for _ in range(3))
+    scale = D ** -0.5
+
+    def plain():
+        outs = [FA.flash_forward_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                       False, scale) for i in range(Bg)]
+        return (torch.cat([o for o, _ in outs]),
+                torch.cat([lse for _, lse in outs]))
+
+    got, lse = FA.flash_forward(q, k, v, False, scale)
+    want, lse_want = plain()
+    res = compare(got, want, lse, lse_want)
+    del got, lse, want, lse_want
+    Dp = P.FLASH_D
+    t, by = bound(4 * Bg * H * L * L * Dp, 4 * Bg * H * L * Dp * 2
+                  + Bg * H * L * 4, name)
+    return dict(
+        shape=f"B={Bg} H={H} L=Lk={L} D={D} padded to {Dp}, non-causal "
+        "(window probe global_plain)", **res,
+        kernel_ms=time_ms(lambda: FA.flash_forward(q, k, v, False, scale), 5),
+        plain_ms=time_ms(plain, 2, 1),
+        library_ms=time_ms(lambda: sdpa()(q, k, v, scale=scale), 5),
+        bound_ms=t, bound_by=by)
+
+
+def probe_kernel_phase(name):
+    """Kernels 7, 8, 9, 11 and the copy kernel, each against its plain
+    version at the probes' shapes; and the earlier kernels at the shapes
+    only the probes give them: kernel 1 at ``global_plain``'s, kernel 6
+    without a bias at the chain's (with the erf GELU on the first matmul).
+    Kernels 2 and 3 run in the probes on the kernel phase's rows (L, D),
+    only over fewer of them (kernel 2 also on zero factors)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    M, K, N = CHAIN_M, CHAIN_K, CHAIN_N
+    cases = {
+        "flash_attention": [case_flash_global(gen, name)],
+        "int8_matmul": [
+            case_int8(gen, name, "chain probe pallas_int8_gelu, 1st matmul",
+                      M, K, N, False, "gelu", None),
+            case_int8(gen, name, "chain probe pallas_int8(_gelu), 2nd matmul",
+                      M, N, K, False, "none", None)],
+        "quantize_rows": [case_quantize(gen, name, M, K),
+                          case_quantize(gen, name, M, N)],
+        "int8_matmul_prequant": [case_prequant(gen, name, *s, act)
+                                 for s in ((M, K, N), (M, N, K))
+                                 for act in ("none", "gelu")],
+        "fused_dense": [case_dense(gen, name, *s, *e)
+                        for s in ((M, K, N), (M, N, K))
+                        for e in ((False, "none"), (True, "gelu"))],
+        "mxu_loop": [case_mxu(name, *c) for c in mxu_probe.COMBOS],
+        "window_copy": [case_copy(gen, name)],
+    }
+    for kname, rows in cases.items():
+        for row in rows:
+            log(json.dumps({"name": kname, **row}))
+            if not row["ok"]:
+                raise SystemExit(f"{kname} disagrees with its plain version "
+                                 f"at {row['shape']}: {row}")
+    torch.cuda.empty_cache()
+    return cases
+
+
+def probes_phase():
+    """This slice's path: the three probes at their default sizes on the
+    card, every variant (each prints its line). Launches are counted from 0
+    over the three; each chain variant must launch each of its kernels
+    twice an iteration."""
+    reset_launches()
+    chain = chain_probe.main(list(chain_probe.VARIANTS))
+    mxu = mxu_probe.main()
+    win = winattn_probe.main(list(winattn_probe.VARIANTS))
+    launches = read_launches()
+    bad = {v: r["launches"] for v, r in chain.items()
+           if any(n != 2 * r["iters"] for n in r["launches"].values())}
+    log(json.dumps({"phase": "probes", "chain": chain, "mxu": mxu,
+                    "winattn": win, "launches": launches}))
+    needed = ["quantize_rows", "int8_matmul_prequant", "fused_dense",
+              "mxu_loop", "window_copy", "int8_matmul", "window_attention",
+              "rel_attention", "flash_attention"]
+    if bad or not all(launches[n] > 0 for n in needed):
+        raise SystemExit(f"the probes' launches are off: {bad or launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------- models
@@ -1193,11 +1499,12 @@ def training_path_phase():
     n_global = len(cfg.sam.encoder_global_attn_indexes)
     # each layer's flash forward runs again in the backward under remat;
     # the SAM decoder's image->token attention (Lq = 4096) once a block
-    want = {"flash_attention": 2 * layers + dec,
-            "flash_attention_bwd_dq": layers + dec,
-            "flash_attention_bwd_dkv": layers + dec,
-            "window_attention": cfg.sam.encoder_depth - n_global,
-            "rel_attention": n_global, "int8_matmul": 0}
+    want = {n: 0 for n in KERNELS}
+    want.update({"flash_attention": 2 * layers + dec,
+                 "flash_attention_bwd_dq": layers + dec,
+                 "flash_attention_bwd_dkv": layers + dec,
+                 "window_attention": cfg.sam.encoder_depth - n_global,
+                 "rel_attention": n_global})
     log(json.dumps({"phase": "train_launches_per_step", "launches": launches,
                     "expected": want}))
     moved = {n: not torch.equal(p.detach(), watched[n])
@@ -1254,11 +1561,15 @@ def main() -> int:
 
     t_start = time.perf_counter()
     cases = kernel_phase(name)
+    for kname, rows in probe_kernel_phase(name).items():
+        cases.setdefault(kname, []).extend(rows)
     log(json.dumps({"phase": "kernels_done",
+                    "s": time.perf_counter() - t_start}))
+    launches = {"probes": probes_phase()}
+    log(json.dumps({"phase": "probes_done",
                     "s": time.perf_counter() - t_start}))
     paths = {"13b_bf16": (config_13b(), "dense", B),
              "7b_int8": (config_7b_int8(), "int8", B_CACHED_INT8)}
-    launches = {}
     with torch.inference_mode():
         reference_phase(int8=False)
         reference_phase(int8=True)
@@ -1275,11 +1586,7 @@ def main() -> int:
     for kname, meta in KERNELS.items():
         first = cases[kname][0]
         worst = max(cases[kname], key=lambda c: c["err_over_limit"])
-        # the newest path that runs the kernel: training (flash forward and
-        # backward, and the frozen SAM encoder's window and rel-pos
-        # kernels), else 7B int8 (the int8 kernel)
-        path = ("train_13b_lora" if launches["train_13b_lora"][kname] > 0
-                else "7b_int8")
+        path = meta["path"]
         rows.append({
             "name": kname, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches_path": path,

@@ -1,9 +1,12 @@
-"""Fused int8 quantize + matmul: the CUDA kernel ``csrc/int8_matmul.cu`` and
-its plain PyTorch version.
+"""Int8 quantize + matmul: the fused CUDA kernel ``csrc/int8_matmul.cu``, the
+two-pass kernels ``csrc/int8_prequant.cu``, and their plain PyTorch versions.
 
-Port of ``interactvlm_tpu/ops/int8_matmul.py:_kernel`` / ``_kernel_nobias``
-(the Pallas TPU kernel, wrapper ``int8_matmul_fused``). The kernel source
-says what bounds it on the H100 and how its design answers that.
+Ports of the Pallas TPU kernels of ``interactvlm_tpu/ops/int8_matmul.py``:
+``_kernel`` / ``_kernel_nobias`` (wrapper ``int8_matmul_fused``), and the
+two-pass form that only the chain probe runs, ``_quantize_kernel``
+(``quantize_rows``) and ``_mm_prequant_kernel`` (``int8_matmul_prequant``).
+The kernel sources say what bounds each on the H100 and how its design
+answers that.
 
 Semantics, for x (..., K) bf16 or f32 and an int8 weight (N, K) with f32
 per-column scales (N,): per row of x, amax = max|x| (in x's own type, then
@@ -130,3 +133,106 @@ def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
 
 
 int8_matmul_fused.launches = 0
+
+
+def quantize_rows_plain(x):
+    """Plain version of the row quantize kernel: x (M, K) -> (x_q int8
+    (M, K), x_scale f32 (M, 1)), with the fused kernel's quantization of x
+    (the absmax in x's own type, x * (127 / amax) rounded half to even)."""
+    amax = x.abs().amax(dim=-1, keepdim=True).float().clamp_min(SCALE_FLOOR)
+    inv = exact_div(127.0, amax)
+    q = torch.clamp(torch.round(x.float() * inv), -127, 127)
+    return q.to(torch.int8), exact_div(amax, 127.0)
+
+
+_QUANT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def quantize_rows(x):
+    """Per-row symmetric int8 quantization of (M, K) activations: returns
+    (x_q int8 (M, K), x_scale f32 (M, 1)), as ``quantize_rows_plain``.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (x bf16
+    or f32, contiguous, K a multiple of 8) or raise. Forward only."""
+    _cuda.refuse_grad("quantize_rows", x)
+    if not x.is_cuda:
+        return quantize_rows_plain(x)
+    if x.dim() != 2 or x.dtype not in X_DTYPES or x.shape[1] % 8:
+        raise ValueError(f"quantize_rows: x must be bf16 or f32 (M, K) with K "
+                         f"a multiple of 8, got {x.dtype} {tuple(x.shape)}")
+    _cuda.require_kernel_inputs("quantize_rows", x, dtype=x.dtype)
+    M, K = x.shape
+    xq = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    xs = torch.empty(M, 1, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _cuda.launch(
+            "int8_prequant", "ivlm_quantize_rows", _QUANT_ARGTYPES,
+            _cuda.ptr(x), int(x.dtype == torch.float32), _cuda.ptr(xq),
+            _cuda.ptr(xs), M, K, _cuda.stream_handle(x.device),
+        )
+    quantize_rows.launches += 1
+    return xq, xs
+
+
+quantize_rows.launches = 0
+
+
+def int8_matmul_prequant_plain(x_q, x_scale, w_q, w_scale,
+                               dtype=torch.bfloat16, activation: str = "none"):
+    """Plain version of the pre-quantized matmul kernel: the int32 sum taken
+    exactly, then (f32(acc) * x_scale) * w_scale and the activation in f32,
+    cast to ``dtype``."""
+    out = (int_matmul_exact(x_q, w_q) * x_scale.reshape(-1, 1).float()
+           * w_scale.float())
+    return apply_activation(out, activation).to(dtype)
+
+
+_PREQUANT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])
+
+
+def int8_matmul_prequant(x_q, x_scale, w_q, w_scale, dtype=torch.bfloat16,
+                         activation: str = "none"):
+    """Pre-quantized int8 x_q (M, K) with per-row scales (M, 1) @ int8 W
+    (N, K) with per-column scales (N,) -> (M, N) in ``dtype``, with the
+    rescale and the activation fused (no bias).
+
+    CPU tensors run ``int8_matmul_prequant_plain``; CUDA tensors launch the
+    kernel (contiguous int8 x_q and W, f32 scales, K a multiple of 32, N of
+    8, ``dtype`` bf16 or f32) or raise. Forward only."""
+    _cuda.refuse_grad("int8_matmul_prequant", x_scale, w_scale)
+    if not x_q.is_cuda:
+        return int8_matmul_prequant_plain(x_q, x_scale, w_q, w_scale, dtype,
+                                          activation)
+    M, K = x_q.shape
+    N = w_q.shape[0]
+    if w_q.dim() != 2 or w_q.shape[1] != K or K % 32 or N % 8:
+        raise ValueError(f"int8_matmul_prequant: weight (N, {K}) with K a "
+                         f"multiple of 32 and N of 8, got {tuple(w_q.shape)}")
+    if x_scale.numel() != M or w_scale.shape != (N,):
+        raise ValueError(f"int8_matmul_prequant: scales ({M}, 1) and ({N},), "
+                         f"got {tuple(x_scale.shape)} {tuple(w_scale.shape)}")
+    if dtype not in X_DTYPES or activation not in ACTIVATIONS:
+        raise ValueError(f"int8_matmul_prequant: output {dtype}, activation "
+                         f"{activation!r}")
+    _cuda.require_kernel_inputs("int8_matmul_prequant", x_q, w_q,
+                                dtype=torch.int8)
+    _cuda.require_kernel_inputs("int8_matmul_prequant", x_scale, w_scale,
+                                dtype=torch.float32)
+    if len({t.device for t in (x_q, w_q, x_scale, w_scale)}) != 1:
+        raise ValueError("int8_matmul_prequant: all inputs must be on one "
+                         "CUDA device")
+    out = torch.empty(M, N, dtype=dtype, device=x_q.device)
+    with torch.cuda.device(x_q.device):
+        _cuda.launch(
+            "int8_prequant", "ivlm_int8_prequant_matmul", _PREQUANT_ARGTYPES,
+            _cuda.ptr(x_q), _cuda.ptr(x_scale), _cuda.ptr(w_q),
+            _cuda.ptr(w_scale), _cuda.ptr(out), int(dtype == torch.float32),
+            ACTIVATIONS[activation], M, N, K, _cuda.stream_handle(x_q.device),
+        )
+    int8_matmul_prequant.launches += 1
+    return out
+
+
+int8_matmul_prequant.launches = 0

@@ -1,6 +1,7 @@
 """SAM encoder attention with the decomposed relative-position bias: the CUDA
 kernels ``csrc/window_attention.cu`` and ``csrc/rel_attention.cu`` and their
-plain PyTorch versions.
+plain PyTorch versions; and the window probe's copy kernel
+``csrc/window_copy.cu``.
 
 Ports of ``interactvlm_tpu/ops/sam_attention.py``: ``_window_kernel``
 (wrapper ``fused_window_attention``) for the 14x14 windows and ``_kernel``
@@ -167,6 +168,40 @@ def rel_attention(q, k, v, rel_h, rel_w, hw):
 
 
 rel_attention.launches = 0
+
+
+def window_copy_plain(q, k, v):
+    """Plain version of the copy kernel: q itself (k and v are only read)."""
+    return q.clone()
+
+
+def window_copy(q, k, v):
+    """The window probe's copy (port of ``scripts/winattn_probe.py:_copy``):
+    reads q, k and v (R, L, D) in the window kernel's grid and returns a copy
+    of q, to time the memory floor under the window kernel.
+
+    CPU tensors run ``window_copy_plain``; CUDA tensors launch the kernel
+    (bf16, contiguous, D a multiple of 8 up to 128) or raise."""
+    _cuda.refuse_grad("window_copy", q, k, v)
+    if not q.is_cuda:
+        return window_copy_plain(q, k, v)
+    R, L, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape or D % 8 or D > 128:
+        raise ValueError(f"window_copy: shapes {q.shape} {k.shape} {v.shape}")
+    _cuda.require_kernel_inputs("window_copy", q, k, v)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _cuda.launch(
+            "window_copy", "ivlm_window_copy",
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+            _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o), R, L, D,
+            _cuda.stream_handle(q.device),
+        )
+    window_copy.launches += 1
+    return o
+
+
+window_copy.launches = 0
 
 
 def fused_window_attention(q, k, v, rel_pos_h, rel_pos_w, hw):

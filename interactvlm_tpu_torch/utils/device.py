@@ -1,6 +1,8 @@
-"""Device selection for the port's entry points."""
+"""Device selection and timing for the port's entry points."""
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -16,3 +18,18 @@ def resolve_device(device="cuda") -> torch.device:
             "is available; pass device='cpu' to run the plain versions"
         )
     return dev
+
+
+def timed(fn, device: torch.device):
+    """(fn(), seconds): device time between CUDA events around the call on
+    the card, host time on the CPU."""
+    if device.type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return out, start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0

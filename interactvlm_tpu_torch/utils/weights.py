@@ -71,6 +71,22 @@ def _t(x) -> torch.Tensor:
     return torch.tensor(np.array(x, np.float32))
 
 
+def linear_weight_from_jax(kernel, dtype=torch.float32) -> torch.Tensor:
+    """A JAX Dense kernel (K, N) -> the port's weight (N, K) in ``dtype``
+    (exact for a bf16 kernel, which passes through f32)."""
+    return _t(np.asarray(kernel).T).to(dtype)
+
+
+def int8_weight_from_jax(kernel_q, kernel_scale):
+    """A JAX int8 weight (K, N) with per-column scales (1, N) -> the port's
+    int8 (N, K) and f32 (N,), the same bytes and scales."""
+    q = np.asarray(kernel_q)
+    if q.dtype != np.int8:
+        raise ValueError(f"kernel_q: expected int8, got {q.dtype}")
+    return (torch.from_numpy(np.ascontiguousarray(q.T)),
+            _t(np.asarray(kernel_scale).reshape(-1)))
+
+
 def _dense(node, prefix, sd):
     if "lora_a" in node:  # LoraDense: {base: {kernel}, lora_a, lora_b}
         _dense(node["base"], prefix, sd)
@@ -79,13 +95,10 @@ def _dense(node, prefix, sd):
     elif "int8" in node:  # the SAM encoder's int8 layout: {int8: {...}, bias}
         _dense(node["int8"], prefix, sd)
     elif "kernel_q" in node:
-        q = np.asarray(node["kernel_q"])
-        if q.dtype != np.int8:
-            raise ValueError(f"{prefix}kernel_q: expected int8, got {q.dtype}")
-        sd[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(q.T))
-        sd[prefix + "weight_scale"] = _t(np.asarray(node["kernel_scale"])[0])
+        sd[prefix + "weight"], sd[prefix + "weight_scale"] = \
+            int8_weight_from_jax(node["kernel_q"], node["kernel_scale"])
     else:
-        sd[prefix + "weight"] = _t(np.asarray(node["kernel"]).T)
+        sd[prefix + "weight"] = linear_weight_from_jax(node["kernel"])
     if "bias" in node:
         sd[prefix + "bias"] = _t(node["bias"])
 

@@ -52,6 +52,10 @@ print("TRAIN", all(m in sys.modules for m in (
     "interactvlm_tpu_torch.train.optimizer",
     "interactvlm_tpu_torch.train.train_step",
     "interactvlm_tpu_torch.utils.testing")))
+print("PROBES", all(m in sys.modules for m in (
+    "interactvlm_tpu_torch.ops.serving_matmul", "interactvlm_tpu_torch.ops.mxu",
+    "interactvlm_tpu_torch.probes.chain", "interactvlm_tpu_torch.probes.mxu",
+    "interactvlm_tpu_torch.probes.winattn")))
 print("BAD", bad)
 """
 
@@ -63,9 +67,10 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     n = int(res.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 27, res.stdout  # every submodule was imported
+    assert n >= 42, res.stdout  # every submodule was imported
     assert "INT8 True" in res.stdout, res.stdout
     assert "TRAIN True" in res.stdout, res.stdout
+    assert "PROBES True" in res.stdout, res.stdout
 
 
 @pytest.mark.parametrize("build", [

@@ -39,7 +39,17 @@ The int8 matmul kernel and its plain version share the quantization of x
 and an exact integer sum, and round the rescale, bias and activation alike
 in f32 (erff on the card, torch.erf in the plain version): each element is
 held to one bf16 rounding step, 2^-7 of its magnitude, plus 1e-6 of the
-output's largest magnitude for the GELU near zero.
+output's largest magnitude for the GELU near zero. The same holds for the
+two-pass form (row quantize, then the pre-quantized matmul): the quantize
+is held byte for byte, the matmul bit for bit without an activation.
+
+The bf16 serving matmul sums f32 products of bf16 inputs in another order
+than the plain version's f32 matmul, then rounds once to bf16: each element
+within 2^-7 of its magnitude plus 1e-3 of the output's RMS (sums that cancel
+to near zero), and the RMS error within 2^-8 of the RMS. The rate-probe
+loop: int8 products exactly (int32 wraps; f32 sums of integers below 2^24
+are exact), bf16 and f32 within 1e-5 of the largest output. The window
+copy: bit for bit.
 """
 
 import numpy as np
@@ -48,7 +58,9 @@ import torch
 
 from interactvlm_tpu_torch.ops import flash_attention as F
 from interactvlm_tpu_torch.ops import int8_matmul as Q
+from interactvlm_tpu_torch.ops import mxu as X
 from interactvlm_tpu_torch.ops import sam_attention as S
+from interactvlm_tpu_torch.ops import serving_matmul as D
 
 ATOL, WINDOW_ATOL, RTOL, RMS_TOL = 4e-3, 2e-2, 2e-2, 1e-2
 LSE_TOL = 1e-3
@@ -81,6 +93,7 @@ def _close(got, want, atol=ATOL):
     (4, 8, 300, 9, 16, False, None),  # SAM image -> token, Lk = 9
     (1, 2, 70, 130, 64, True, None),  # Lq < Lk: bottom-right offset
     (2, 2, 100, 100, 32, True, (0, 37)),  # row 0 sees no key
+    (1, 2, 4096, 4096, 128, False, None),  # window probe global_plain
 ])
 def test_flash_kernel_matches_plain(dev, B, H, Lq, Lk, D, causal, lens):
     rng = np.random.default_rng(0)
@@ -288,6 +301,7 @@ def _int8_weight(rng, N, K, dev):
     (2552, 4096, 11008, torch.bfloat16, False, "none"),  # 7B prefill
     (6272, 1280, 5120, torch.bfloat16, True, "gelu_tanh"),  # SAM lin1
     (3000, 1280, 3840, torch.bfloat16, True, "gelu"),  # SAM qkv, exact GELU
+    (3000, 1280, 5120, torch.bfloat16, False, "gelu"),  # chain int8_gelu
     (39, 64, 96, torch.float32, True, "gelu"),  # tiny f32 preset, K % 64
 ])
 def test_int8_kernel_matches_plain(dev, M, K, N, dtype, with_bias, act):
@@ -355,3 +369,138 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take(dev):
         Q.int8_matmul_fused(x.contiguous(), w.cpu(), scale)
     with pytest.raises(ValueError, match="float16"):
         Q.int8_matmul_fused(x.contiguous().half(), w, scale)
+
+
+def _ties_rows(rng, M, K, dev, dtype):
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        dev, dtype)
+    x[0] = 0.0  # a zero row: scale 1e-8 / 127, all zeros
+    x[1] = 0.0
+    x[1, :9] = torch.tensor([127.0, 2.5, 3.5, -2.5, 0.5, 1.5, -0.5, 126.5,
+                             -127.0])  # rounding ties
+    return x
+
+
+@pytest.mark.parametrize("M,K,dtype", [
+    (32768, 1280, torch.bfloat16),  # the chain probe's activations
+    (3000, 5120, torch.bfloat16),  # its hidden activations
+    (40, 264, torch.float32),
+    (5, 16384, torch.bfloat16),  # a row read twice
+])
+def test_quantize_rows_kernel_matches_plain(dev, M, K, dtype):
+    x = _ties_rows(np.random.default_rng(11), M, K, dev, dtype)
+    before = Q.quantize_rows.launches
+    q, s = Q.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert Q.quantize_rows.launches == before + 1
+    q2, s2 = Q.quantize_rows_plain(x)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    assert q[1, :9].tolist() == [127, 2, 4, -2, 0, 2, 0, 126, -127]
+
+
+@pytest.mark.parametrize("M,K,N,dtype,act", [
+    (3000, 1280, 5120, torch.bfloat16, "none"),
+    (3000, 1280, 5120, torch.bfloat16, "gelu"),
+    (257, 5120, 1280, torch.bfloat16, "none"),
+    (40, 256, 384, torch.float32, "gelu_tanh"),
+])
+def test_int8_prequant_kernel_matches_plain(dev, M, K, N, dtype, act):
+    rng = np.random.default_rng(12)
+    x = _ties_rows(rng, M, K, dev, torch.bfloat16)
+    xq, xs = Q.quantize_rows(x)
+    w, scale = _int8_weight(rng, N, K, dev)
+    before = Q.int8_matmul_prequant.launches
+    out = Q.int8_matmul_prequant(xq, xs, w, scale, dtype, act)
+    torch.cuda.synchronize()
+    assert Q.int8_matmul_prequant.launches == before + 1
+    assert out.dtype == dtype and out.shape == (M, N)
+    want = Q.int8_matmul_prequant_plain(xq, xs, w, scale, dtype, act).float()
+    if act == "none":
+        assert torch.equal(out.float(), want)
+    err = (out.float() - want).abs()
+    limit = 2.0 ** -7 * want.abs() + 1e-6 * want.abs().max()
+    assert bool((err <= limit).all())
+    # the two-pass form gives the fused kernel's bits
+    fused = Q.int8_matmul_fused(x, w, scale, None, act, dtype)
+    assert torch.equal(Q.int8_matmul_prequant(xq, xs, w, scale, dtype, act),
+                       fused)
+
+
+@pytest.mark.parametrize("lead,K,N,with_bias,act,dtype", [
+    ((3000,), 1280, 5120, True, "gelu", torch.bfloat16),  # ViT-H lin1
+    ((257,), 5120, 1280, False, "none", torch.bfloat16),  # ViT-H lin2
+    ((40,), 264, 392, True, "gelu_tanh", torch.float32),  # ragged tiles
+    ((2, 5), 64, 24, False, "none", torch.bfloat16),
+])
+def test_fused_dense_kernel_matches_plain(dev, lead, K, N, with_bias, act,
+                                          dtype):
+    rng = np.random.default_rng(13)
+    x = _bf16(rng, lead + (K,), dev)
+    w = _bf16(rng, (N, K), dev, K ** -0.5)
+    b = _bf16(rng, (N,), dev, 0.5) if with_bias else None
+    before = D.fused_dense.launches
+    out = D.fused_dense(x, w, b, act, dtype)
+    torch.cuda.synchronize()
+    assert D.fused_dense.launches == before + 1
+    assert out.dtype == dtype and out.shape == lead + (N,)
+    want = D.fused_dense_plain(x, w, b, act, dtype).float()
+    err = (out.float() - want).abs()
+    rms = want.square().mean().sqrt()
+    assert bool((err <= 2.0 ** -7 * want.abs() + 1e-3 * rms).all())
+    assert (err.square().mean().sqrt() / rms).item() <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("in_dtype,acc_dtype", [
+    (torch.bfloat16, torch.float32), (torch.int8, torch.int32),
+    (torch.int8, torch.float32), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("shape,loops", [((512, 1280, 1280), 4),
+                                         ((64, 256, 128), 3)])
+def test_mxu_kernel_matches_plain(dev, in_dtype, acc_dtype, shape, loops):
+    from interactvlm_tpu_torch.probes.mxu import make_inputs
+
+    x, w = make_inputs(in_dtype, shape, dev)
+    before = X.mxu_loop.launches
+    out = X.mxu_loop(x, w, loops, acc_dtype)
+    torch.cuda.synchronize()
+    assert X.mxu_loop.launches == before + 1
+    want = X.mxu_loop_plain(x, w, loops, acc_dtype)
+    assert out.dtype == torch.float32 and out.shape == want.shape
+    if in_dtype == torch.int8:
+        assert torch.equal(out, want)
+    else:
+        err = (out - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("R,L,D", [(3200, 196, 80), (3, 100, 16)])
+def test_window_copy_kernel_is_a_copy(dev, R, L, D):
+    rng = np.random.default_rng(14)
+    q, k, v = (_bf16(rng, (R, L, D), dev) for _ in range(3))
+    before = S.window_copy.launches
+    out = S.window_copy(q, k, v)
+    torch.cuda.synchronize()
+    assert S.window_copy.launches == before + 1
+    assert out.data_ptr() != q.data_ptr() and torch.equal(out, q)
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(dev):
+    rng = np.random.default_rng(15)
+    x = _bf16(rng, (16, 64), dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        D.fused_dense(x.clone().requires_grad_(), x)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        D.fused_dense(_bf16(rng, (16, 60), dev), _bf16(rng, (16, 60), dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        D.fused_dense(x.t().contiguous().t(), x)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        Q.quantize_rows(_bf16(rng, (4, 60), dev))
+    xq, xs = Q.quantize_rows(x)
+    w, scale = _int8_weight(rng, 16, 64, dev)
+    with pytest.raises(ValueError, match="scales"):
+        Q.int8_matmul_prequant(xq, xs[:8], w, scale)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        X.mxu_loop(x, x, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        X.mxu_loop(x, x, 2, torch.int32)
+    with pytest.raises(ValueError, match="shapes"):
+        S.window_copy(x[None], x[None], x[None, :8])
