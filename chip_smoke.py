@@ -6,16 +6,20 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero, and
 prints no result, without them. Phases, each of which fails the run:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the nine hand-written kernel sources under
-   ``interactvlm_tpu_torch/csrc/`` (flash forward, flash backward dq and
-   dk/dv, window and global rel-pos attention, fused int8 matmul, the
-   two-pass int8 quantize and matmul, the bf16 serving matmul, the
-   tensor-core rate loop, the window copy), one ``nvcc`` each, all started
+2. build: the ten hand-written kernel sources under
+   ``interactvlm_tpu_torch/csrc/`` (flash forward, with its wgmma kernel
+   for head dim 128; flash backward dq and dk/dv; window and global rel-pos
+   attention; the one-launch fused int8 matmul; the int8 row quantize and
+   pre-quantized matmul; the wgmma int8 GEMM; the bf16 serving matmul; the
+   tensor-core rate loop; the window copy), one ``nvcc`` each, all started
    together;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   serving, training and probe paths give it, inputs from a seeded
-   generator, with the kernel's, the plain version's and one library call's
-   time beside the least time the card could take (``bound_ms``);
+   serving, training and probe paths give it and at the edges of the wgmma
+   kernels' tiles (the int8 matmul at the rows where its two routes meet,
+   flash at head dim 128 with ragged lengths and rows that see no key),
+   inputs from a seeded generator, with the kernel's, the plain version's
+   and one library call's time beside the least time the card could take
+   (``bound_ms``); the int8 matmul's two-pass route also times each pass;
 4. the probes: the chain probe (eight variants: bf16 and int8 matmuls,
    library and hand-written, at 32768 x 1280 x 5120, 20 chained
    iterations), the tensor-core rate probe (four operand types at 512 x 1280
@@ -47,7 +51,10 @@ prints no result, without them. Phases, each of which fails the run:
 
 Each serving path reports images/s, the time of each leg, peak memory, the
 decode host/device split and each kernel's launches over its run; the 7B
-path also times decode with the int8 against the dense cache. The training
+path also times decode with the int8 against the dense cache, and checks
+the int8 matmul's calls by route: the encoder's and the prefill's through
+the row quantize and the GEMM, decode's and the lm_head's through the
+one-launch kernel. The training
 path reports step time, images/s and tokens/s, peak memory, the
 forward/backward/optimizer split, the device's busy share and each
 kernel's launches per step.
@@ -127,60 +134,68 @@ N_VERTS, MAX_K, BACKGROUND = 6890, 256, 0.7
 L_TRAIN, TRAIN_PADDED = 257, (200, 129)
 TRAIN_STEPS = 5  # timed steps, after one warm-up step
 
-# each kernel's source, the TPU kernel it replaces, its wrapper (whose
-# launch count a path reads), its symbol in a profile, and the path whose
-# count the kernel line reports
+# each kernel's sources (the first holds its entry point), the TPU kernel
+# it replaces, its wrapper (whose launch count a path reads), its symbols in
+# a profile (one a route), and the path whose count the kernel line reports
+CSRC = "interactvlm_tpu_torch/csrc/"
 KERNELS = {
     "flash_attention": dict(
-        source="interactvlm_tpu_torch/csrc/flash_attention.cu",
+        sources=[CSRC + "flash_attention.cu", CSRC + "flash_fwd_sm90.cuh",
+                 CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:43",
-        wrapper=FA.flash_forward, symbol="flash_fwd_kernel",
+        wrapper=FA.flash_forward,
+        symbols=["flash_fwd_kernel", "flash_fwd_sm90_kernel"],
         path="train_13b_lora"),
     "window_attention": dict(
-        source="interactvlm_tpu_torch/csrc/window_attention.cu",
+        sources=[CSRC + "window_attention.cu"],
         replaces="interactvlm_tpu/ops/sam_attention.py:117",
-        wrapper=SA.window_attention, symbol="window_kernel",
+        wrapper=SA.window_attention, symbols=["window_kernel"],
         path="train_13b_lora"),
     "rel_attention": dict(
-        source="interactvlm_tpu_torch/csrc/rel_attention.cu",
+        sources=[CSRC + "rel_attention.cu"],
         replaces="interactvlm_tpu/ops/sam_attention.py:39",
-        wrapper=SA.rel_attention, symbol="rel_kernel", path="train_13b_lora"),
+        wrapper=SA.rel_attention, symbols=["rel_kernel"],
+        path="train_13b_lora"),
     "int8_matmul": dict(
-        source="interactvlm_tpu_torch/csrc/int8_matmul.cu",
+        sources=[CSRC + "int8_gemm_sm90.cu", CSRC + "int8_prequant.cu",
+                 CSRC + "int8_matmul.cu"],
         replaces="interactvlm_tpu/ops/int8_matmul.py:39",
-        wrapper=Q.int8_matmul_fused, symbol="int8_matmul_kernel",
+        wrapper=Q.int8_matmul_fused,
+        symbols=["int8_matmul_kernel", "int8_gemm_kernel"],
         path="7b_int8"),
     "flash_attention_bwd_dq": dict(
-        source="interactvlm_tpu_torch/csrc/flash_attention_bwd.cu",
+        sources=[CSRC + "flash_attention_bwd.cu"],
         replaces="interactvlm_tpu/ops/flash_attention.py:190",
-        wrapper=FA.flash_bwd_dq, symbol="flash_bwd_dq_kernel",
+        wrapper=FA.flash_bwd_dq, symbols=["flash_bwd_dq_kernel"],
         path="train_13b_lora"),
     "flash_attention_bwd_dkv": dict(
-        source="interactvlm_tpu_torch/csrc/flash_attention_bwd.cu",
+        sources=[CSRC + "flash_attention_bwd.cu"],
         replaces="interactvlm_tpu/ops/flash_attention.py:243",
-        wrapper=FA.flash_bwd_dkv, symbol="flash_bwd_dkv_kernel",
+        wrapper=FA.flash_bwd_dkv, symbols=["flash_bwd_dkv_kernel"],
         path="train_13b_lora"),
     "quantize_rows": dict(
-        source="interactvlm_tpu_torch/csrc/int8_prequant.cu",
+        sources=[CSRC + "int8_prequant.cu"],
         replaces="interactvlm_tpu/ops/int8_matmul.py:82",
-        wrapper=Q.quantize_rows, symbol="quantize_rows_kernel", path="probes"),
+        wrapper=Q.quantize_rows, symbols=["quantize_rows_kernel"],
+        path="7b_int8"),
     "int8_matmul_prequant": dict(
-        source="interactvlm_tpu_torch/csrc/int8_prequant.cu",
+        sources=[CSRC + "int8_prequant.cu"],
         replaces="interactvlm_tpu/ops/int8_matmul.py:124",
-        wrapper=Q.int8_matmul_prequant, symbol="prequant_matmul_kernel",
+        wrapper=Q.int8_matmul_prequant, symbols=["prequant_matmul_kernel"],
         path="probes"),
     "fused_dense": dict(
-        source="interactvlm_tpu_torch/csrc/serving_matmul.cu",
+        sources=[CSRC + "serving_matmul.cu"],
         replaces="interactvlm_tpu/ops/serving_matmul.py:50",
-        wrapper=SM.fused_dense, symbol="dense_kernel", path="probes"),
+        wrapper=SM.fused_dense, symbols=["dense_kernel"], path="probes"),
     "mxu_loop": dict(
-        source="interactvlm_tpu_torch/csrc/mxu_probe.cu",
+        sources=[CSRC + "mxu_probe.cu"],
         replaces="scripts/mxu_probe.py:28",
-        wrapper=MX.mxu_loop, symbol="_loop_kernel", path="probes"),
+        wrapper=MX.mxu_loop, symbols=["_loop_kernel"], path="probes"),
     "window_copy": dict(
-        source="interactvlm_tpu_torch/csrc/window_copy.cu",
+        sources=[CSRC + "window_copy.cu"],
         replaces="scripts/winattn_probe.py:123",
-        wrapper=SA.window_copy, symbol="window_copy_kernel", path="probes"),
+        wrapper=SA.window_copy, symbols=["window_copy_kernel"],
+        path="probes"),
 }
 SERVING_KERNELS = ("flash_attention", "window_attention", "rel_attention",
                    "int8_matmul")
@@ -210,10 +225,15 @@ def bound(flops, nbytes, name, int8=False, f32=False):
 def reset_launches():
     for w in KERNELS.values():
         w["wrapper"].launches = 0
+    Q.int8_gemm.launches = 0
+    for route in Q.int8_matmul_fused.route_launches:
+        Q.int8_matmul_fused.route_launches[route] = 0
 
 
 def read_launches():
-    return {n: w["wrapper"].launches for n, w in KERNELS.items()}
+    return {**{n: w["wrapper"].launches for n, w in KERNELS.items()},
+            "int8_routes": dict(Q.int8_matmul_fused.route_launches),
+            "int8_gemm": Q.int8_gemm.launches}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -341,6 +361,51 @@ def case_flash_sam(gen, name):
         bound_ms=t, bound_by=by)
 
 
+# Head dim 128 at the edges of the wgmma kernel's 128-row and 128-key tiles:
+# (what, B, H, Lq, Lk, causal, kv lengths)
+FLASH_EDGE_CASES = [
+    ("Lq=1 Lk=200 causal, kv lengths 200 and 1", 2, 8, 1, 200, True,
+     (200, 1)),
+    ("Lq=63 Lk=200 causal (bottom-right offset)", 2, 8, 63, 200, True, None),
+    ("Lq=Lk=129 causal, kv lengths 0, 1 and full", 3, 8, 129, 129, True,
+     (0, 1, 129)),
+    ("Lq=300 Lk=129 causal: 171 rows see no key", 2, 8, 300, 129, True,
+     None),
+    ("Lq=319 Lk=500 non-causal, kv lengths 500 and 77", 2, 8, 319, 500,
+     False, (500, 77)),
+]
+
+
+def case_flash_edge(gen, name, what, Bq, H, Lq, Lk, causal, lens):
+    """Kernel 1 at D = 128 on one edge case: rows that see no key must give
+    exact zeros and logsumexp 0, besides ``compare``'s limits."""
+    D = 128
+    q = rand_bf16(gen, (Bq, H, Lq, D))
+    k, v = rand_bf16(gen, (Bq, H, Lk, D)), rand_bf16(gen, (Bq, H, Lk, D))
+    kv = (None if lens is None
+          else torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    got, lse = FA.flash_forward(q, k, v, causal, None, kv)
+    want, lse_want = FA.flash_forward_plain(q, k, v, causal, None, kv)
+    res = compare(got, want, lse, lse_want)
+    vis = FA._visible(Bq, Lq, Lk, causal, kv, "cuda")
+    blind = ~vis.any(-1).expand(Bq, H, Lq)
+    res["blind_rows"] = int(blind.sum().item())
+    res["ok"] = (res["ok"] and bool((got[blind] == 0).all())
+                 and bool((lse.reshape(Bq, H, Lq)[blind] == 0).all()))
+    pairs = int(vis.sum().item()) * H
+    t, by = bound(4 * D * pairs, (2 * Bq * H * Lq * D + 2 * Bq * H * Lk * D)
+                  * 2 + Bq * H * Lq * 4, name)
+    mask = float_mask(Bq, Lq, Lk, causal, kv)
+    return dict(
+        shape=f"B={Bq} H={H} D=128 {what}", **res,
+        kernel_ms=time_ms(lambda: FA.flash_forward(q, k, v, causal, None, kv),
+                          20),
+        plain_ms=time_ms(lambda: FA.flash_forward_plain(q, k, v, causal, None,
+                                                        kv), 5),
+        library_ms=time_ms(lambda: sdpa()(q, k, v, attn_mask=mask), 20),
+        bound_ms=t, bound_by=by)
+
+
 def case_window(gen, name):
     """ViT-H window block: 32 images x 25 windows x 16 heads = 12 800 rows,
     L=196 (14x14), D=80, stacked factors (R, 28, 196)."""
@@ -437,7 +502,11 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
     (query, key) pairs: the dq kernel recomputes S and dP and forms dQ
     (6 D flops a pair), the dk/dv kernel recomputes S and dP and forms dV
     and dK (8); the whole backward needs 10 (S, dP, dV, dK, dQ) over the
-    bytes of q, k, v, o, dO, dq, dk and dv."""
+    bytes of q, k, v, o, dO, dq, dk and dv. ``vs_f64`` holds the kernels'
+    and the plain version's distance from the exact gradient (the plain
+    version in f64, which rounds neither P nor dS) in ``compare_grad``'s
+    units: not a check, it says which side of a failed comparison is
+    off."""
     q, do = rand_bf16(gen, (Bq, H, Lq, D)), rand_bf16(gen, (Bq, H, Lq, D))
     k, v = rand_bf16(gen, (Bq, H, Lk, D)), rand_bf16(gen, (Bq, H, Lk, D))
     kv = (None if lens is None
@@ -447,7 +516,14 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
     want = FA.flash_backward_plain(q, k, v, o, lse, do, causal, None, kv)
     cmp = {n: compare_grad(g, w) for n, g, w in zip(("dq", "dk", "dv"),
                                                     got, want)}
-    del got, want
+    exact = FA.flash_backward_plain(*(t.double() for t in (q, k, v, o, lse,
+                                                          do)), causal,
+                                    None, kv)
+    vs_f64 = {n: {side: {m: compare_grad(x, e)[m]
+                         for m in ("err_over_limit", "rms_rel_err")}
+                  for side, x in (("kernel", g), ("plain", w))}
+              for n, g, w, e in zip(("dq", "dk", "dv"), got, want, exact)}
+    del got, want, exact
     scale = D ** -0.5
     dsum = (do.float() * o.float()).sum(-1).reshape(Bq * H, Lq)
     pairs = int(FA._visible(Bq, Lq, Lk, causal, kv, "cuda").sum().item()) * H
@@ -469,7 +545,7 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
                                    do)
 
     out = dict(
-        shape=what, dq=cmp["dq"], dk=cmp["dk"], dv=cmp["dv"],
+        shape=what, dq=cmp["dq"], dk=cmp["dk"], dv=cmp["dv"], vs_f64=vs_f64,
         dq_ms=time_ms(lambda: FA.flash_bwd_dq(q, k, v, do, lse, dsum, causal,
                                               scale, kv), 20),
         dkv_ms=time_ms(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, dsum,
@@ -538,6 +614,12 @@ INT8_CASES = [
     ("LLaMA-7B decode down, B=32", 32, 11008, 4096, False, "none",
      (0, 32 * (T - 1))),
     ("LLaMA-7B lm_head, B=32", 32, 4096, 32000, False, "none", (0, T)),
+    # the two routes where they meet: N ragged against the GEMM's 256-column
+    # tile, K against its 128-byte chunk
+    ("route threshold, one launch", Q.ONE_LAUNCH_MAX_ROWS, 160, 136, True,
+     "gelu_tanh", None),
+    ("route threshold, two passes", Q.ONE_LAUNCH_MAX_ROWS + 1, 160, 136,
+     True, "gelu_tanh", None),
 ]
 
 
@@ -561,11 +643,14 @@ def compare_int8(got, want):
 
 def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
     """One int8 matmul shape of the 7B-int8 path (``calls`` per streaming
-    and cached batch) or of the chain probe (``calls`` None): bf16 x, random int8 W
-    with per-column scales of the init's magnitude. Library yardsticks:
-    ``torch._int_mm`` on the pre-quantized operands (int32 out, no
-    quantization or epilogue; it refuses M <= 16) and a bf16 ``F.linear``
-    at the same shape; the port calls neither."""
+    and cached batch) or of the chain probe or the route threshold
+    (``calls`` None): bf16 x, random int8 W with per-column scales of the
+    init's magnitude. ``route`` is the wrapper's route at M; on the
+    two-pass route each pass is also timed alone (``quantize_ms``,
+    ``gemm_ms``). Library
+    yardsticks: ``torch._int_mm`` on the pre-quantized operands (int32 out,
+    no quantization or epilogue; it refuses M <= 16) and a bf16
+    ``F.linear`` at the same shape; the port calls neither."""
     x = rand_bf16(gen, (M, K))
     w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
                       dtype=torch.int8)
@@ -588,15 +673,25 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
                            dtype=torch.int8)
         lib = time_ms(lambda: torch._int_mm(xq, w.t()), 10 if big else 50)
         del xq
+    route = Q.int8_route(M)
+    passes = {}
+    if route == "two_pass":
+        xq, xs = Q.quantize_rows(x)
+        passes["quantize_ms"] = time_ms(lambda: Q.quantize_rows(x),
+                                        10 if big else 50)
+        passes["gemm_ms"] = time_ms(lambda: Q.int8_gemm(
+            xq, xs, w, scale, bias, act, x.dtype), 10 if big else 50)
+        del xq, xs
     wb = rand_bf16(gen, (N, K))
     linear_ms = time_ms(lambda: torch.nn.functional.linear(x, wb),
                         10 if big else 50)
     return dict(shape=f"{what}: M={M} K={K} N={N}"
                 f"{' +bias' if with_bias else ''}"
                 f"{' +' + act if act != 'none' else ''}",
+                route=route,
                 calls_per_batch=({"streaming": calls[0], "cached": calls[1]}
                                  if calls else None),
-                **res, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                **res, kernel_ms=kernel_ms, **passes, plain_ms=plain_ms,
                 library_ms=lib, library="torch._int_mm (int32 product only)",
                 bf16_linear_ms=linear_ms, bound_ms=t, bound_by=by)
 
@@ -620,7 +715,13 @@ def kernel_phase(name):
                           B, 40, 512, 512, 128, True, lens),
            case_flash_bwd(gen, name, "B=32 H=8 Lq=4096 Lk=9 D=16 (SAM "
                           "decoder image->token, training)", B * V, 8, 4096,
-                          9, 16, False, None)]
+                          9, 16, False, None),
+           # the training shape again on a second draw from its own
+           # generator, so no other case's inputs move
+           case_flash_bwd(torch.Generator(device="cuda").manual_seed(1), name,
+                          "B=8 H=40 L=512 D=128 causal, kv lengths "
+                          f"{lens} (LLaMA-13B training, second draw)",
+                          B, 40, 512, 512, 128, True, lens)]
     for c in bwd:
         log(json.dumps({"name": "flash_attention_bwd", **c}))
     for which in ("dq", "dkv"):
@@ -631,6 +732,9 @@ def kernel_phase(name):
     for c in INT8_CASES:
         cases["int8_matmul"].append(case_int8(gen, name, *c))
         torch.cuda.empty_cache()
+    # drawn last, so every earlier case keeps its inputs
+    cases["flash_attention"] += [case_flash_edge(gen, name, *c)
+                                 for c in FLASH_EDGE_CASES]
     for kname, rows in cases.items():
         for row in rows:
             log(json.dumps({"name": kname, **row}))
@@ -1082,12 +1186,13 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
         if rnd == 0:
             reset_launches()
         for mode in modes:
-            before = Q.int8_matmul_fused.launches
+            before = int8_counts()
             out, ms = wall_ms(lambda: run(mode))
             secs[mode].append(ms / 1e3)
             outs.setdefault(mode, out)
             if rnd == 0:
-                int8_by_mode[mode] = Q.int8_matmul_fused.launches - before
+                int8_by_mode[mode] = {k: v - before[k]
+                                      for k, v in int8_counts().items()}
         if rnd == 0:
             launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1100,10 +1205,17 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
     if cfg.llama.weights_int8:
         # per batch: 7 projections a layer and the lm_head, at the prefill
         # and each of the T - 1 decode steps; 4 linears a SAM block when
-        # the encoder runs (streaming only)
-        llama_calls = (7 * cfg.llama.num_layers + 1) * T
+        # the encoder runs (streaming only). The prefill's projections and
+        # the encoder's linears take the two passes (a row quantize and a
+        # GEMM each); the lm_head (at the prefill's last positions) and
+        # decode, B rows, the one-launch kernel.
+        proj = 7 * cfg.llama.num_layers
+        one = 1 + (proj + 1) * (T - 1)
         sam_calls = 4 * cfg.sam.encoder_depth if cfg.sam.weights_int8 else 0
-        want = {"streaming": llama_calls + sam_calls, "cached": llama_calls}
+        want = {mode: {"calls": one + two, "one_launch": one,
+                       "two_pass": two, "quantize_rows": two, "int8_gemm": two}
+                for mode, two in (("streaming", proj + sam_calls),
+                                  ("cached", proj))}
         log(json.dumps({"phase": "int8_launches", "path": path,
                         "by_mode": int8_by_mode, "expected": want}))
         if int8_by_mode != want:
@@ -1153,6 +1265,15 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
     return launches
 
 
+def int8_counts():
+    """The int8 matmul's calls on the card, its calls by route, and the
+    launches of the two-pass route's kernels."""
+    return {"calls": Q.int8_matmul_fused.launches,
+            **Q.int8_matmul_fused.route_launches,
+            "quantize_rows": Q.quantize_rows.launches,
+            "int8_gemm": Q.int8_gemm.launches}
+
+
 def decode_by_cache(model, batch):
     """The decode leg (greedy_generate less prefill, host clock around
     synchronised calls) with the int8 and the dense cache on the same
@@ -1197,10 +1318,11 @@ def device_busy(fn):
     avg = prof.key_averages()
     top = sorted(avg, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
-    ours = {n: [sum(e.self_device_time_total for e in avg
-                    if w["symbol"] in e.key) / 1e3,
-                sum(e.count for e in avg if w["symbol"] in e.key)]
-            for n, w in KERNELS.items()}
+    ours = {}
+    for n, w in KERNELS.items():
+        evs = [e for e in avg if any(s in e.key for s in w["symbols"])]
+        ours[n] = [sum(e.self_device_time_total for e in evs) / 1e3,
+                   sum(e.count for e in evs)]
     return {"batch_ms": ms, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / ms if spans else None,
             "top_device_ms": [[e.key[:80], e.self_device_time_total / 1e3,
@@ -1504,7 +1626,10 @@ def training_path_phase():
                  "flash_attention_bwd_dq": layers + dec,
                  "flash_attention_bwd_dkv": layers + dec,
                  "window_attention": cfg.sam.encoder_depth - n_global,
-                 "rel_attention": n_global})
+                 "rel_attention": n_global,
+                 "int8_routes": {r: 0 for r in
+                                 Q.int8_matmul_fused.route_launches},
+                 "int8_gemm": 0})
     log(json.dumps({"phase": "train_launches_per_step", "launches": launches,
                     "expected": want}))
     moved = {n: not torch.equal(p.detach(), watched[n])
@@ -1588,10 +1713,17 @@ def main() -> int:
         worst = max(cases[kname], key=lambda c: c["err_over_limit"])
         path = meta["path"]
         rows.append({
-            "name": kname, "route": "cuda", "source": meta["source"],
+            "name": kname, "route": "cuda", "source": meta["sources"][0],
+            "sources": meta["sources"],
             "replaces": meta["replaces"], "launches_path": path,
             "launches": launches[path][kname],
             "launches_by_path": {p: c[kname] for p, c in launches.items()},
+            # the int8 matmul counts calls; a two-pass call launches
+            # quantize_rows and the GEMM, a one-launch call its own kernel
+            **({"launches_by_route": launches[path]["int8_routes"],
+                "int8_gemm_launches_by_path": {p: c["int8_gemm"]
+                                               for p, c in launches.items()}}
+               if kname == "int8_matmul" else {}),
             "max_abs_err": worst["max_abs_err"],
             "err_over_limit": worst["err_over_limit"], "tol": worst["tol"],
             "ms": first["kernel_ms"],

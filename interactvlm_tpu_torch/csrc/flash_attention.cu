@@ -14,8 +14,11 @@
 // and probabilities in registers (never in device memory), skips the key
 // tiles that the causal mask or kv length hides, and masks the ragged
 // Lk = 9 edge in-kernel instead of padding keys and head dims to 128 as the
-// TPU layout did.
+// TPU layout did. Head dim 128 (the LLaMA-13B shapes and the window probe's
+// padded global grid) takes the wgmma and TMA kernel of flash_fwd_sm90.cuh
+// instead; 16, 32 and 64 stay on this mma.sync core.
 #include "attention_core.cuh"
+#include "flash_fwd_sm90.cuh"
 
 using namespace ivlm;
 
@@ -54,6 +57,10 @@ extern "C" int ivlm_flash_fwd(const void* q, const void* k, const void* v,
   bf16* op = static_cast<bf16*>(o);
   float* lp = static_cast<float*>(lse);
   const int* kl = static_cast<const int*>(kv_lengths);
+  if (d == flash_sm90::kD)
+    return static_cast<int>(flash_sm90::launch(qp, kp, vp, op, lp, kl, bh,
+                                               heads, lq, lk, scale, causal,
+                                               st));
 #define IVLM_LAUNCH(DIM)                                                      \
   case DIM:                                                                   \
     flash_fwd_kernel<DIM><<<grid, NTHREADS, 0, st>>>(qp, kp, vp, op, lp, kl,  \
@@ -64,7 +71,6 @@ extern "C" int ivlm_flash_fwd(const void* q, const void* k, const void* v,
     IVLM_LAUNCH(16)
     IVLM_LAUNCH(32)
     IVLM_LAUNCH(64)
-    IVLM_LAUNCH(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

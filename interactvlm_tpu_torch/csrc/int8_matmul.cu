@@ -9,15 +9,8 @@
 // xq = clip(rint(x * inv), -127, 127) (round half to even, as jnp.round);
 // out = act(f32(acc) * x_scale * w_scale + bias).
 //
-// What bounds it on the H100, at the main path's shapes:
-// - the SAM ViT-H encoder (M = 131 072 or 156 800 rows, K x N = 1280 x 3840,
-//   1280 x 1280, 1280 x 5120, 5120 x 1280): 2 M K N int8 operations against
-//   2 M K + K N + 2 M N bytes, 640-1020 operations a byte, above the card's
-//   ~590 int8 operations a byte: the tensor cores bound it, and the
-//   in-kernel quantization of x competes with them for instruction slots;
-// - LLaMA-7B prefill (M = 2552, ~1460 operations a byte): operations too;
-// - LLaMA-7B decode and lm_head (M = 8 or 32): the int8 weight bytes, read
-//   once per step.
+// What bounds it on the H100, at the shapes it runs (LLaMA-7B decode and
+// the lm_head, M = 8 or 32): the int8 weight bytes, read once per step.
 // The TPU kernel kept the whole (K, N) weight resident in VMEM and swept row
 // blocks in order. Here the output is tiled instead, and blocks run in
 // parallel: each block first takes the absmax of its BM rows of x in one
@@ -27,10 +20,13 @@
 // next to each other) while W chunks arrive through a cp.async ring. The
 // products run on mma.sync m16n8k32 s8 with fragments from ldmatrix; the
 // int32 accumulators stay in registers and are rescaled once. Rows past M and
-// columns past N are masked in-kernel (no host padding). Two tilings: 64 x
-// 128 blocks of 8 warps for many rows, and 32 x 32 blocks of 4 warps with a
-// 4-deep weight ring for decode, where only the count of blocks in flight
-// (N / 32 of them) keeps enough weight bytes moving.
+// columns past N are masked in-kernel (no host padding). The tiling is for
+// decode: 32 x 32 blocks of 4 warps with a 4-deep weight ring, where only
+// the count of blocks in flight (N / 32 of them) keeps enough weight bytes
+// moving. The wrapper sends more rows than ops/int8_matmul.py's
+// ONE_LAUNCH_MAX_ROWS to the two-pass route instead (csrc/int8_prequant.cu's
+// row quantize, then csrc/int8_gemm_sm90.cu), which beat this kernel's
+// former 64 x 128 tiling at every encoder and prefill shape.
 #include "matmul_core.cuh"
 
 namespace {
@@ -44,15 +40,6 @@ struct Epilogue {
   int out_f32;
   int act;
 };
-
-__device__ __forceinline__ float rescale(int acc, float xs, float ws, float b,
-                                         bool has_bias, int act) {
-  // the order of the TPU kernel: (acc * x_scale) * w_scale, + bias, GELU,
-  // each rounded on its own (no contraction into an fma)
-  float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
-  if (has_bias) v = __fadd_rn(v, b);
-  return apply_act(v, act);
-}
 
 template <class TL, typename TX>
 __global__ void __launch_bounds__(TL::kThreads)
@@ -161,29 +148,17 @@ __global__ void __launch_bounds__(TL::kThreads)
   });
 }
 
-// many rows: 64 x 128 output tiles, 8 warps of 32 x 32, 3-deep weight ring
-using Large = Tile<int8_t, 64, 128, 64, 2, 4, 3>;
-// decode: 32 x 32 tiles, 4 warps of 16 x 16, 4-deep weight ring
+// 32 x 32 tiles, 4 warps of 16 x 16, 4-deep weight ring
 using Small = Tile<int8_t, 32, 32, 128, 2, 2, 4>;
-constexpr int kSmallMaxRows = 32;
 
 template <typename TX>
 cudaError_t launch(const void* x, const void* w, const Epilogue& ep, int M,
                    int N, int K, cudaStream_t st) {
-  const TX* xp = static_cast<const TX*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  if (M <= kSmallMaxRows) {
-    const dim3 grid((N + Small::BN - 1) / Small::BN,
-                    (M + Small::BM - 1) / Small::BM);
-    int8_matmul_kernel<Small, TX>
-        <<<grid, Small::kThreads, 0, st>>>(xp, wp, ep, M, N, K);
-  } else {
-    const int row_blocks = (M + Large::BM - 1) / Large::BM;
-    if (row_blocks > 65535) return cudaErrorInvalidValue;
-    const dim3 grid((N + Large::BN - 1) / Large::BN, row_blocks);
-    int8_matmul_kernel<Large, TX>
-        <<<grid, Large::kThreads, 0, st>>>(xp, wp, ep, M, N, K);
-  }
+  const int row_blocks = (M + Small::BM - 1) / Small::BM;
+  if (row_blocks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((N + Small::BN - 1) / Small::BN, row_blocks);
+  int8_matmul_kernel<Small, TX><<<grid, Small::kThreads, 0, st>>>(
+      static_cast<const TX*>(x), static_cast<const int8_t*>(w), ep, M, N, K);
   return cudaGetLastError();
 }
 

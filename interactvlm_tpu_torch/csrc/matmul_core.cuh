@@ -339,6 +339,16 @@ __device__ __forceinline__ float apply_act(float v, int act) {
   return v;
 }
 
+// The int8 epilogue of one accumulator in the TPU kernel's order:
+// (acc * x_scale) * w_scale, + bias, then the activation, each step rounded
+// on its own (no contraction into an fma).
+__device__ __forceinline__ float rescale(int acc, float xs, float ws, float b,
+                                         bool has_bias, int act) {
+  float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
+  if (has_bias) v = __fadd_rn(v, b);
+  return apply_act(v, act);
+}
+
 // Two neighbouring epilogue values written as f32 or bf16.
 __device__ __forceinline__ void store2(void* out, size_t o, bool f32, float v0,
                                       float v1) {

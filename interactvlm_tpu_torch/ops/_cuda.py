@@ -23,9 +23,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("flash_attention", "flash_attention_bwd", "window_attention",
-           "rel_attention", "int8_matmul", "int8_prequant", "serving_matmul",
-           "mxu_probe", "window_copy")
-_HEADERS = ("attention_core.cuh", "matmul_core.cuh")
+           "rel_attention", "int8_matmul", "int8_prequant", "int8_gemm_sm90",
+           "serving_matmul", "mxu_probe", "window_copy")
+_HEADERS = ("attention_core.cuh", "matmul_core.cuh", "sm90_core.cuh",
+            "flash_fwd_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

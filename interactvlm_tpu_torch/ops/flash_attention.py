@@ -112,18 +112,21 @@ def flash_backward_plain(q, k, v, o, lse, do, causal=False, scale=None,
     dK = scale * dS^T Q and dV = P^T dO with P and dS rounded to the
     inputs' dtype as the products' operands, as the kernels round them (the
     TPU dq kernel rounds dS so; its f32 dk/dv products run at the TPU's
-    default one-pass bf16 precision). Accumulation in f32. In f32 the
-    rounding is none. Returns (dq, dk, dv) in the inputs' dtypes."""
+    default one-pass bf16 precision). Accumulation in f32, or in f64 for
+    f64 inputs. In f32 or f64 the rounding is none: f64 inputs give the
+    exact value that the kernels approximate. Returns (dq, dk, dv) in the
+    inputs' dtypes."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     scale = D ** -0.5 if scale is None else scale
-    qf, kf, dof = q.float(), k.float(), do.float()
-    dsum = (dof * o.float()).sum(-1, keepdim=True)
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, kf, dof = q.to(acc), k.to(acc), do.to(acc)
+    dsum = (dof * o.to(acc)).sum(-1, keepdim=True)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     vis = _visible(B, Lq, Lk, causal, kv_lengths, q.device)
     p = torch.where(vis, torch.exp(s - lse.reshape(B, H, Lq, 1)), 0.0)
-    ds = p * (torch.matmul(dof, v.float().transpose(-1, -2)) - dsum)
-    ds, p = ds.to(q.dtype).float(), p.to(q.dtype).float()
+    ds = p * (torch.matmul(dof, v.to(acc).transpose(-1, -2)) - dsum)
+    ds, p = ds.to(q.dtype).to(acc), p.to(q.dtype).to(acc)
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dv = torch.matmul(p.transpose(-1, -2), dof)

@@ -1,12 +1,18 @@
-"""Int8 quantize + matmul: the fused CUDA kernel ``csrc/int8_matmul.cu``, the
-two-pass kernels ``csrc/int8_prequant.cu``, and their plain PyTorch versions.
+"""Int8 quantize + matmul: the one-launch CUDA kernel ``csrc/int8_matmul.cu``,
+the row quantize and pre-quantized matmul ``csrc/int8_prequant.cu``, the
+wgmma int8 GEMM ``csrc/int8_gemm_sm90.cu``, and their plain PyTorch versions.
 
 Ports of the Pallas TPU kernels of ``interactvlm_tpu/ops/int8_matmul.py``:
-``_kernel`` / ``_kernel_nobias`` (wrapper ``int8_matmul_fused``), and the
-two-pass form that only the chain probe runs, ``_quantize_kernel``
-(``quantize_rows``) and ``_mm_prequant_kernel`` (``int8_matmul_prequant``).
-The kernel sources say what bounds each on the H100 and how its design
-answers that.
+``_kernel`` / ``_kernel_nobias`` (wrapper ``int8_matmul_fused``),
+``_quantize_kernel`` (``quantize_rows``) and ``_mm_prequant_kernel``
+(``int8_matmul_prequant``, which only the chain probe runs). The kernel
+sources say what bounds each on the H100 and how its design answers that.
+
+``int8_matmul_fused`` picks its route by the number of rows M alone
+(``int8_route``): up to ``ONE_LAUNCH_MAX_ROWS`` (decode and the lm_head,
+where the host's launches set the pace) one launch of the fused kernel;
+above it two passes, ``quantize_rows`` then ``int8_gemm``, which give the
+same bits.
 
 Semantics, for x (..., K) bf16 or f32 and an int8 weight (N, K) with f32
 per-column scales (N,): per row of x, amax = max|x| (in x's own type, then
@@ -99,16 +105,31 @@ def _check(x, w_q, w_scale, bias, activation, out_dtype):
                              f"got {tuple(t.shape)}")
 
 
+# Rows up to which int8_matmul_fused keeps the one-launch kernel: LLaMA
+# decode (M = B = 8 or 32) and the lm_head. There the host's issue time sets
+# the pace, and a second launch a linear would add to it.
+ONE_LAUNCH_MAX_ROWS = 32
+
+
+def int8_route(M: int) -> str:
+    """The route of ``int8_matmul_fused`` for M rows, by M alone:
+    "one_launch" (the fused kernel) or "two_pass" (``quantize_rows`` then
+    ``int8_gemm``)."""
+    return "one_launch" if M <= ONE_LAUNCH_MAX_ROWS else "two_pass"
+
+
 def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
                       out_dtype=None):
     """x (..., K) @ int8 W (N, K) -> (..., N) in ``out_dtype`` (x's dtype by
     default), with the quantization of x, the rescale, the bias and the
     activation fused.
 
-    CPU tensors run ``int8_matmul_fused_plain``; CUDA tensors launch the
-    kernel (x bf16 or f32 and contiguous, W int8 contiguous, f32 scale and
-    bias, K a multiple of 32, N of 8) or raise. Both raise under grad: the
-    straight-through backward is not ported yet.
+    CPU tensors run ``int8_matmul_fused_plain``; CUDA tensors (x bf16 or f32
+    and contiguous, W int8 contiguous, f32 scale and bias, K a multiple of
+    32, N of 8) take the route ``int8_route`` names for their rows, or
+    raise. Both raise under grad: the straight-through backward is not
+    ported yet. ``launches`` counts the calls on the card, and
+    ``route_launches`` each route's.
     """
     _cuda.refuse_grad("int8_matmul", x, bias)
     out_dtype = out_dtype or x.dtype
@@ -117,22 +138,31 @@ def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
                                        out_dtype)
     _check(x, w_q, w_scale, bias, activation, out_dtype)
     K, N = x.shape[-1], w_q.shape[0]
-    out = torch.empty(*x.shape[:-1], N, dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        _cuda.launch(
-            "int8_matmul", "ivlm_int8_matmul", _ARGTYPES,
-            _cuda.ptr(x), int(x.dtype == torch.float32), _cuda.ptr(w_q),
-            _cuda.ptr(w_scale),
-            _cuda.ptr(bias) if bias is not None else ctypes.c_void_p(None),
-            _cuda.ptr(out), int(out_dtype == torch.float32),
-            ACTIVATIONS[activation], x.numel() // K, N, K,
-            _cuda.stream_handle(x.device),
-        )
+    M = x.numel() // K
+    route = int8_route(M)
+    if route == "two_pass":
+        x_q, x_scale = quantize_rows(x.reshape(M, K))
+        out = int8_gemm(x_q, x_scale, w_q, w_scale, bias, activation,
+                        out_dtype).reshape(*x.shape[:-1], N)
+    else:
+        out = torch.empty(*x.shape[:-1], N, dtype=out_dtype, device=x.device)
+        with torch.cuda.device(x.device):
+            _cuda.launch(
+                "int8_matmul", "ivlm_int8_matmul", _ARGTYPES,
+                _cuda.ptr(x), int(x.dtype == torch.float32), _cuda.ptr(w_q),
+                _cuda.ptr(w_scale),
+                _cuda.ptr(bias) if bias is not None else ctypes.c_void_p(None),
+                _cuda.ptr(out), int(out_dtype == torch.float32),
+                ACTIVATIONS[activation], M, N, K,
+                _cuda.stream_handle(x.device),
+            )
     int8_matmul_fused.launches += 1
+    int8_matmul_fused.route_launches[route] += 1
     return out
 
 
 int8_matmul_fused.launches = 0
+int8_matmul_fused.route_launches = {"one_launch": 0, "two_pass": 0}
 
 
 def quantize_rows_plain(x):
@@ -179,12 +209,16 @@ quantize_rows.launches = 0
 
 
 def int8_matmul_prequant_plain(x_q, x_scale, w_q, w_scale,
-                               dtype=torch.bfloat16, activation: str = "none"):
-    """Plain version of the pre-quantized matmul kernel: the int32 sum taken
-    exactly, then (f32(acc) * x_scale) * w_scale and the activation in f32,
-    cast to ``dtype``."""
+                               dtype=torch.bfloat16, activation: str = "none",
+                               bias=None):
+    """Plain version of the pre-quantized matmul kernel and of the int8
+    GEMM: the int32 sum taken exactly, then (f32(acc) * x_scale) * w_scale,
+    + bias (the GEMM's only), and the activation in f32, cast to
+    ``dtype``."""
     out = (int_matmul_exact(x_q, w_q) * x_scale.reshape(-1, 1).float()
            * w_scale.float())
+    if bias is not None:
+        out = out + bias.float()
     return apply_activation(out, activation).to(dtype)
 
 
@@ -236,3 +270,56 @@ def int8_matmul_prequant(x_q, x_scale, w_q, w_scale, dtype=torch.bfloat16,
 
 
 int8_matmul_prequant.launches = 0
+
+
+_GEMM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p])
+
+
+def int8_gemm(x_q, x_scale, w_q, w_scale, bias=None, activation: str = "none",
+              dtype=torch.bfloat16):
+    """Pre-quantized int8 x_q (M, K) with per-row scales (M, 1) @ int8 W
+    (N, K) with per-column scales (N,), + an optional f32 bias (N,), ->
+    (M, N) in ``dtype``: pass 2 of ``int8_matmul_fused``'s two-pass route.
+
+    CPU tensors run ``int8_matmul_prequant_plain``; CUDA tensors launch the
+    wgmma kernel (contiguous int8 x_q and W, f32 scales and bias, K a
+    multiple of 32, N of 8, ``dtype`` bf16 or f32) or raise. Forward
+    only."""
+    _cuda.refuse_grad("int8_gemm", x_scale, w_scale, bias)
+    if not x_q.is_cuda:
+        return int8_matmul_prequant_plain(x_q, x_scale, w_q, w_scale, dtype,
+                                          activation, bias)
+    M, K = x_q.shape
+    N = w_q.shape[0]
+    if w_q.dim() != 2 or w_q.shape[1] != K or K % 32 or N % 8:
+        raise ValueError(f"int8_gemm: weight (N, {K}) with K a multiple of "
+                         f"32 and N of 8, got {tuple(w_q.shape)}")
+    f32 = [x_scale, w_scale] + ([bias] if bias is not None else [])
+    if (x_scale.numel() != M or w_scale.shape != (N,)
+            or (bias is not None and bias.shape != (N,))):
+        raise ValueError(f"int8_gemm: scales ({M}, 1) and ({N},), bias "
+                         f"({N},), got {[tuple(t.shape) for t in f32]}")
+    if dtype not in X_DTYPES or activation not in ACTIVATIONS:
+        raise ValueError(f"int8_gemm: output {dtype}, activation "
+                         f"{activation!r}")
+    _cuda.require_kernel_inputs("int8_gemm", x_q, w_q, dtype=torch.int8)
+    _cuda.require_kernel_inputs("int8_gemm", *f32, dtype=torch.float32)
+    if len({t.device for t in [x_q, w_q] + f32}) != 1:
+        raise ValueError("int8_gemm: all inputs must be on one CUDA device")
+    out = torch.empty(M, N, dtype=dtype, device=x_q.device)
+    with torch.cuda.device(x_q.device):
+        _cuda.launch(
+            "int8_gemm_sm90", "ivlm_int8_gemm", _GEMM_ARGTYPES,
+            _cuda.ptr(x_q), _cuda.ptr(x_scale), _cuda.ptr(w_q),
+            _cuda.ptr(w_scale),
+            _cuda.ptr(bias) if bias is not None else ctypes.c_void_p(None),
+            _cuda.ptr(out), int(dtype == torch.float32),
+            ACTIVATIONS[activation], M, N, K,
+            _cuda.stream_handle(x_q.device),
+        )
+    int8_gemm.launches += 1
+    return out
+
+
+int8_gemm.launches = 0

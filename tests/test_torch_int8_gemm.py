@@ -1,0 +1,133 @@
+"""The two-pass route of the port's fused int8 matmul on the CPU: the row
+quantize's plain version then the int8 GEMM's (``quantize_rows_plain``, then
+``int8_gemm`` on CPU tensors, which is ``int8_matmul_prequant_plain`` with a
+bias), against the fused kernel's plain version and against the JAX
+package's Pallas kernel in interpret mode; and the choice of route by rows.
+
+Tolerances:
+- against ``int8_matmul_fused_plain``: bit for bit. Both take the absmax in
+  x's own type, divide in IEEE f32, round half to even, sum exactly, and
+  round (acc * x_scale) * w_scale + bias and the activation alike in f32.
+- against the JAX ``int8_matmul_fused(..., interpret=True)``: the int8
+  bytes agree, but XLA compiles the kernel's amax / 127 into a multiply by
+  the f32 reciprocal of 127, so its x_scale sits up to one f32 ulp from the
+  port's IEEE division, and its GELU is an erf polynomial within 1.5e-7 of
+  erf. f32 outputs within 1e-5 of the output's largest magnitude; bf16
+  outputs within one bf16 step (2^-7 of the value) more, since results an
+  ulp apart can round to neighbouring bf16 values.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from interactvlm_tpu.ops import quant as jq
+from interactvlm_tpu.ops.int8_matmul import int8_matmul_fused as jax_fused
+from interactvlm_tpu_torch.ops import int8_matmul as Q
+
+BF16_STEP = 2.0 ** -7
+TIES = [127.0, 2.5, 3.5, -2.5, 0.5, 1.5, -0.5, 126.5, -127.0]
+
+
+def _x(rng, M, K):
+    """Rows from the generator in values bf16 holds exactly, a zero row and
+    a row of rounding ties (amax 127)."""
+    x = rng.standard_normal((M, K)).astype(np.float32) * 2
+    x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    x[0] = 0.0
+    x[1] = 0.0
+    x[1, :len(TIES)] = TIES
+    return x
+
+
+def _two_pass(x, w_q, w_scale, bias, activation, out_dtype):
+    x_q, x_scale = Q.quantize_rows_plain(x)
+    return Q.int8_gemm(x_q, x_scale, w_q, w_scale, bias, activation,
+                       out_dtype)
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("activation", ["none", "gelu", "gelu_tanh"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_two_pass_plain_gives_the_fused_plain_bits(in_dtype, out_dtype,
+                                                   activation, with_bias):
+    """M = 39 and N = 136 are ragged against the GEMM's 128-row and
+    256-column tiles, K = 160 against its 128-byte chunks."""
+    rng = np.random.default_rng(0)
+    M, K, N = 39, 160, 136
+    x = torch.from_numpy(_x(rng, M, K)).to(in_dtype)
+    w_q = torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8))
+    w_scale = torch.from_numpy(
+        rng.uniform(0.5, 1.5, N).astype(np.float32) / (127 * K ** 0.5))
+    bias = (torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+            if with_bias else None)
+    got = _two_pass(x, w_q, w_scale, bias, activation, out_dtype)
+    want = Q.int8_matmul_fused_plain(x, w_q, w_scale, bias, activation,
+                                     out_dtype)
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["none", "gelu", "gelu_tanh"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_two_pass_plain_matches_pallas_interpret(dtype, activation,
+                                                 with_bias):
+    """39 rows (not a multiple of the Pallas row block), with a zero row and
+    rounding ties; the JAX kernel wants K and N multiples of 128."""
+    rng = np.random.default_rng(1)
+    M, K, N = 39, 256, 128
+    x = _x(rng, M, K)
+    w = rng.standard_normal((K, N)).astype(np.float32) * K ** -0.5
+    bias = rng.standard_normal(N).astype(np.float32) if with_bias else None
+    wq, ws = jq.quantize_int8(jnp.asarray(w), axis=0)
+    jdt = jnp.dtype(dtype)
+    want = np.asarray(jax_fused(
+        jnp.asarray(x, jdt), wq, ws, dtype=jdt, activation=activation,
+        bias=None if bias is None else jnp.asarray(bias),
+        interpret=True)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    got = _two_pass(torch.from_numpy(x).to(tdt),
+                    torch.from_numpy(np.asarray(wq).T.copy()),
+                    torch.from_numpy(np.asarray(ws)[0].copy()),
+                    None if bias is None else torch.from_numpy(bias),
+                    activation, tdt).float().numpy()
+    scale = np.abs(want).max()
+    limit = 1e-5 * scale + (BF16_STEP * np.abs(want) if dtype == "bfloat16"
+                            else 0.0)
+    err = np.abs(got - want)
+    assert (err <= limit).all(), (err.max(), scale)
+
+
+def test_route_by_rows_over_the_main_path_shapes():
+    """Every decode and lm_head shape of the 7B-int8 path keeps the
+    one-launch kernel; every SAM encoder and prefill shape, and the chain
+    probe's, takes the two passes."""
+    import chip_smoke
+
+    path_cases = [c for c in chip_smoke.INT8_CASES if c[-1] is not None]
+    assert len(path_cases) == 20
+    for what, M, *_ in path_cases:
+        one = "decode" in what or "lm_head" in what
+        assert Q.int8_route(M) == ("one_launch" if one else "two_pass"), what
+    assert Q.int8_route(chip_smoke.CHAIN_M) == "two_pass"
+    assert Q.int8_route(Q.ONE_LAUNCH_MAX_ROWS) == "one_launch"
+    assert Q.int8_route(Q.ONE_LAUNCH_MAX_ROWS + 1) == "two_pass"
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(_x(rng, 40, 64))
+    w_q = torch.from_numpy(rng.integers(-127, 128, (24, 64), dtype=np.int8))
+    w_scale = torch.full((24,), 1e-3)
+    before = (Q.int8_matmul_fused.launches,
+              dict(Q.int8_matmul_fused.route_launches),
+              Q.quantize_rows.launches, Q.int8_gemm.launches)
+    Q.int8_matmul_fused(x, w_q, w_scale)
+    _two_pass(x, w_q, w_scale, None, "none", torch.float32)
+    assert (Q.int8_matmul_fused.launches,
+            dict(Q.int8_matmul_fused.route_launches),
+            Q.quantize_rows.launches, Q.int8_gemm.launches) == before
