@@ -14,7 +14,14 @@ kernels. Parts (all by default):
 - ``train``: ``chip_smoke.training_path_phase``, the 13B LoRA step;
 - ``bwd_draws``: ``chip_smoke.case_flash_bwd`` at the LLaMA-13B training
   shape on eight draws (generator seeds 0-7), each with the backward
-  kernels' distance from their plain version and from the f64 value.
+  kernels' distance from their plain version and from the f64 value;
+- ``matmuls``: the int8 matmul at the 7B-int8 path's decode and lm_head
+  shapes (``chip_smoke.INT8_CASES`` up to ``ONE_LAUNCH_MAX_ROWS`` rows) and
+  the bf16 serving matmul at the chain probe's, each timed by CUDA events
+  (``kernel_ms``) and by the profiler's device time per call
+  (``device_ms``), with the timing code here, the same for both sides;
+- ``serving_int8``: ``chip_smoke.serving_path_phase`` for the 7B-int8 path
+  alone.
 
 Each run's output goes to ``build/ab/logs/<n>_<side>_<part>.log`` under
 the directory it is started in; the script prints one JSON line per run
@@ -32,7 +39,8 @@ import os
 import subprocess
 import sys
 
-PARTS = ("kernels", "serving", "train", "bwd_draws")
+PARTS = ("kernels", "serving", "train", "bwd_draws", "matmuls",
+         "serving_int8")
 ORDER = ("parent", "change", "change", "parent")
 
 # what one run does, in the checkout it starts in
@@ -52,8 +60,53 @@ elif part == "serving":
         c.serving_path_phase("13b_bf16", c.config_13b(), "dense", c.B)
         c.serving_path_phase("7b_int8", c.config_7b_int8(), "int8",
                              c.B_CACHED_INT8)
+elif part == "serving_int8":
+    with torch.inference_mode():
+        c.serving_path_phase("7b_int8", c.config_7b_int8(), "int8",
+                             c.B_CACHED_INT8)
 elif part == "train":
     c.training_path_phase()
+elif part == "matmuls":
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from interactvlm_tpu_torch.ops import int8_matmul as Q
+    from interactvlm_tpu_torch.ops import serving_matmul as SM
+
+    def dev_ms(fn, iters=20):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return sum(e.time_range.end - e.time_range.start
+                   for e in evs) / 1e3 / iters
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode():
+        for what, M, K, N, bias, act, calls in c.INT8_CASES:
+            if M > Q.ONE_LAUNCH_MAX_ROWS or calls is None:
+                continue
+            x = c.rand_bf16(gen, (M, K))
+            w, scale = c.int8_weight(gen, N, K)
+            f = lambda: Q.int8_matmul_fused(x, w, scale)
+            print(json.dumps({"name": "int8_matmul", "shape": what,
+                              "kernel_ms": c.time_ms(f, 50),
+                              "device_ms": dev_ms(f)}), flush=True)
+        M, K, N = c.CHAIN_M, c.CHAIN_K, c.CHAIN_N
+        for k, n in ((K, N), (N, K)):
+            x = c.rand_bf16(gen, (M, k))
+            w = c.rand_bf16(gen, (n, k), k ** -0.5)
+            b = c.rand_bf16(gen, (n,), 0.5)
+            for bias, act in ((None, "none"), (b, "gelu")):
+                f = lambda: SM.fused_dense(x, w, bias, act)
+                print(json.dumps({"name": "fused_dense",
+                                  "shape": f"M={M} K={k} N={n} {act}",
+                                  "kernel_ms": c.time_ms(f, 10),
+                                  "device_ms": dev_ms(f, 5)}), flush=True)
 elif part == "bwd_draws":
     lens = c.train_kv_lengths()
     for seed in range(8):
@@ -76,7 +129,8 @@ def summary(lines):
             continue
         if "kernel_ms" in rec or "dq_ms" in rec:
             row = {k: rec.get(k) for k in (
-                "name", "shape", "route", "kernel_ms", "quantize_ms",
+                "name", "shape", "route", "kernel_ms", "device_ms",
+                "quantize_ms",
                 "gemm_ms", "dq_ms", "dkv_ms", "backward_ms",
                 "kernel_ms_per_block", "err_over_limit") if k in rec}
             if "vs_f64" in rec:  # a backward case: each gradient's check

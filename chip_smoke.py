@@ -9,17 +9,21 @@ prints no result, without them. Phases, each of which fails the run:
 2. build: the ten hand-written kernel sources under
    ``interactvlm_tpu_torch/csrc/`` (flash forward, with its wgmma kernel
    for head dim 128; flash backward dq and dk/dv; window and global rel-pos
-   attention; the one-launch fused int8 matmul; the int8 row quantize and
-   pre-quantized matmul; the wgmma int8 GEMM; the bf16 serving matmul; the
-   tensor-core rate loop; the window copy), one ``nvcc`` each, all started
-   together;
+   attention; the one-launch fused int8 matmul, K split over a thread-block
+   cluster; the int8 row quantize and pre-quantized matmul; the wgmma int8
+   GEMM; the wgmma bf16 serving matmul; the tensor-core rate loop; the
+   window copy), one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    serving, training and probe paths give it and at the edges of the wgmma
    kernels' tiles (the int8 matmul at the rows where its two routes meet,
    flash at head dim 128 with ragged lengths and rows that see no key),
    inputs from a seeded generator, with the kernel's, the plain version's
    and one library call's time beside the least time the card could take
-   (``bound_ms``); the int8 matmul's two-pass route also times each pass;
+   (``bound_ms``); the int8 matmul's two-pass route also times each pass,
+   and the int8 and bf16 matmul cases add each call's device time from the
+   profiler (``device_ms``, with what launched per call) beside the
+   yardsticks' (``library_device_ms``, ``bf16_linear_device_ms``): CUDA
+   events around back-to-back calls of a few microseconds time the host;
 4. the probes: the chain probe (eight variants: bf16 and int8 matmuls,
    library and hand-written, at 32768 x 1280 x 5120, 20 chained
    iterations), the tensor-core rate probe (four operand types at 512 x 1280
@@ -158,10 +162,10 @@ KERNELS = {
         path="train_13b_lora"),
     "int8_matmul": dict(
         sources=[CSRC + "int8_gemm_sm90.cu", CSRC + "int8_prequant.cu",
-                 CSRC + "int8_matmul.cu"],
+                 CSRC + "int8_matmul.cu", CSRC + "gemm_sm90.cuh"],
         replaces="interactvlm_tpu/ops/int8_matmul.py:39",
         wrapper=Q.int8_matmul_fused,
-        symbols=["int8_matmul_kernel", "int8_gemm_kernel"],
+        symbols=["int8_splitk_kernel", "int8_gemm_kernel"],
         path="7b_int8"),
     "flash_attention_bwd_dq": dict(
         sources=[CSRC + "flash_attention_bwd.cu"],
@@ -184,9 +188,10 @@ KERNELS = {
         wrapper=Q.int8_matmul_prequant, symbols=["prequant_matmul_kernel"],
         path="probes"),
     "fused_dense": dict(
-        sources=[CSRC + "serving_matmul.cu"],
+        sources=[CSRC + "serving_matmul.cu", CSRC + "gemm_sm90.cuh"],
         replaces="interactvlm_tpu/ops/serving_matmul.py:50",
-        wrapper=SM.fused_dense, symbols=["dense_kernel"], path="probes"),
+        wrapper=SM.fused_dense, symbols=["dense_gemm_kernel"],
+        path="probes"),
     "mxu_loop": dict(
         sources=[CSRC + "mxu_probe.cu"],
         replaces="scripts/mxu_probe.py:28",
@@ -248,6 +253,37 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2):
+    """Device time of one call of ``fn`` in ms: torch.profiler over
+    ``iters`` calls, the summed device durations of every kernel, memset and
+    copy they ran, over the calls the trace holds (the most launches of one
+    name; the profiler may drop a call's events); and what ran, by name, per
+    call. None where the trace holds no device activity (time with
+    ``time_ms`` then). Unlike CUDA events around back-to-back calls it
+    leaves out the host's issue time between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return None, None
+    counts = {}
+    for e in evs:
+        counts[e.name[:60]] = counts.get(e.name[:60], 0) + 1
+    # the calls the trace holds: it may drop a call's events
+    calls = max(counts.values())
+    us = sum(e.time_range.end - e.time_range.start for e in evs)
+    return us / 1e3 / calls, {n: c / calls for n, c in counts.items()}
 
 
 def wall_ms(fn):
@@ -663,17 +699,21 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
     big = M * K * N > 1e11
     kernel_ms = time_ms(lambda: Q.int8_matmul_fused(x, w, scale, bias, act),
                         10 if big else 50)
+    dev_ms, launched = device_ms(
+        lambda: Q.int8_matmul_fused(x, w, scale, bias, act), 5 if big else 20)
     plain_ms = time_ms(
         lambda: Q.int8_matmul_fused_plain(x, w, scale, bias, act), 2, 1)
     nbytes = 2 * M * K + N * K + 4 * N * (2 if with_bias else 1) + 2 * M * N
     t, by = bound(2 * M * K * N, nbytes, name, int8=True)
-    lib = None
+    lib = lib_dev = None
     if M > 16:
         xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
                            dtype=torch.int8)
         lib = time_ms(lambda: torch._int_mm(xq, w.t()), 10 if big else 50)
+        lib_dev = device_ms(lambda: torch._int_mm(xq, w.t()),
+                            5 if big else 20)[0]
         del xq
-    route = Q.int8_route(M)
+    route = Q.int8_route(M, K)
     passes = {}
     if route == "two_pass":
         xq, xs = Q.quantize_rows(x)
@@ -685,15 +725,20 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
     wb = rand_bf16(gen, (N, K))
     linear_ms = time_ms(lambda: torch.nn.functional.linear(x, wb),
                         10 if big else 50)
+    linear_dev = device_ms(lambda: torch.nn.functional.linear(x, wb),
+                           5 if big else 20)[0]
     return dict(shape=f"{what}: M={M} K={K} N={N}"
                 f"{' +bias' if with_bias else ''}"
                 f"{' +' + act if act != 'none' else ''}",
                 route=route,
                 calls_per_batch=({"streaming": calls[0], "cached": calls[1]}
                                  if calls else None),
-                **res, kernel_ms=kernel_ms, **passes, plain_ms=plain_ms,
-                library_ms=lib, library="torch._int_mm (int32 product only)",
-                bf16_linear_ms=linear_ms, bound_ms=t, bound_by=by)
+                **res, kernel_ms=kernel_ms, device_ms=dev_ms,
+                device_launches_per_call=launched, **passes,
+                plain_ms=plain_ms, library_ms=lib, library_device_ms=lib_dev,
+                library="torch._int_mm (int32 product only)",
+                bf16_linear_ms=linear_ms, bf16_linear_device_ms=linear_dev,
+                bound_ms=t, bound_by=by)
 
 
 def kernel_phase(name):
@@ -848,12 +893,16 @@ def case_dense(gen, name, M, K, N, with_bias, act):
     res = compare_dense(SM.fused_dense(x, w, b, act),
                         SM.fused_dense_plain(x, w, b, act))
     t, by = bound(2 * M * K * N, 2 * (M * K + N * K + M * N) + 2 * N, name)
+    dev_ms, launched = device_ms(lambda: SM.fused_dense(x, w, b, act), 5)
     return dict(
         shape=f"M={M} K={K} N={N}{' +bias' if with_bias else ''}"
         f"{' +' + act if act != 'none' else ''} (chain probe)", **res,
         kernel_ms=time_ms(lambda: SM.fused_dense(x, w, b, act), 10),
+        device_ms=dev_ms, device_launches_per_call=launched,
         plain_ms=time_ms(lambda: SM.fused_dense_plain(x, w, b, act), 2, 1),
         library_ms=time_ms(lambda: torch.nn.functional.linear(x, w, b), 10),
+        library_device_ms=device_ms(
+            lambda: torch.nn.functional.linear(x, w, b), 5)[0],
         library="F.linear bf16 (with the bias, no GELU)", bound_ms=t,
         bound_by=by)
 

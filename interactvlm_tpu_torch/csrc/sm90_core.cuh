@@ -2,8 +2,12 @@
 // Hopper's own machinery (sm_90a): the TMA tensor-map encode (host), the
 // mbarrier ring primitives, TMA tile loads, the wgmma shared-memory matrix
 // descriptors for 128-byte-swizzled tiles, the wgmma fence / commit / wait
-// wrappers and products, and setmaxnreg. Used by the int8 GEMM
-// (int8_gemm_sm90.cu) and the D = 128 flash forward (flash_fwd_sm90.cuh).
+// wrappers and products, setmaxnreg, named barriers, and the thread-block
+// cluster's pieces (the cluster barrier, distributed shared memory reads,
+// remote barrier arrivals and st.async stores). Used by the GEMM skeleton
+// (gemm_sm90.cuh: the int8 GEMM and the bf16 serving matmul), the one-launch
+// int8 matmul (int8_matmul.cu) and the D = 128 flash forward
+// (flash_fwd_sm90.cuh).
 //
 // The tensor map is encoded on the host at every launch from the tensors'
 // pointers (a few microseconds). cuTensorMapEncodeTiled is a driver-API
@@ -155,6 +159,112 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Named barrier `id` (1-15) over `count` threads (a multiple of 32): sync
+// waits for all of them, arrive only counts this warp in.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (a wgmma operand written by threads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The byte offset of element (row, k) of a tile of rows of 128 bytes,
+// 128-byte swizzled as TMA writes it: the 16-byte piece k / 16 of a row
+// moves to piece (k / 16) xor (row % 8). Threads that write a wgmma operand
+// themselves place it here.
+__device__ __forceinline__ uint32_t sw128_offset(uint32_t row, uint32_t k) {
+  return row * 128u + ((((k >> 4) ^ row) & 7u) << 4) + (k & 15u);
+}
+
+// ---- thread-block clusters
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier: every thread of every CTA of the cluster arrives,
+// then waits until all have (shared memory written before an arrival is
+// visible to the cluster's reads after the wait). A thread may work between
+// its arrival and its wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The address in CTA `rank`'s shared memory of what sits at p in ours.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// One arrival on the barrier at `bar` in CTA `rank`'s shared memory, with
+// no memory ordering: the arriving thread's earlier reads have returned
+// their values where those were used before it.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar,
+                                                   uint32_t rank) {
+  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n"
+               ::"r"(cluster_addr(bar, rank))
+               : "memory");
+}
+
+// As mbar_wait, acquiring at cluster scope what the arrivals released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// An asynchronous store of v into another CTA's shared memory (`addr` from
+// cluster_addr) that reports its 4 bytes to that CTA's barrier at `bar`
+// (also from cluster_addr): the data is visible to whoever waits there
+// once the phase completes, with no fence on either side.
+__device__ __forceinline__ void st_async_s32(uint32_t addr, int v,
+                                             uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
 // The wgmma matrix descriptor of a 128-byte-swizzled tile in shared memory
 // at byte address `addr` (tiles start on 1024-byte boundaries; an address
 // inside a swizzle row selects a K offset): bits 0-13 address / 16, 16-29
@@ -268,6 +378,80 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t a, uint64_
         IVLM_ACC8_S32(d, 104),
         IVLM_ACC8_S32(d, 112),
         IVLM_ACC8_S32(d, 120)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += a b, m64nNk32 for N = 8, 16, 32, s8 x s8 -> s32, both operands from
+// shared memory (K-major).
+__device__ __forceinline__ void wgmma_s8(int (&d)[4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+      : IVLM_ACC8_S32(d, 0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p;\n}\n"
+      : IVLM_ACC8_S32(d, 0),
+        IVLM_ACC8_S32(d, 8)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (+)= a b, m64n256k16, bf16 x bf16 -> f32, both operands from shared
+// memory, both K-major; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_bf16_ss_n256(float (&d)[128], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : IVLM_ACC8_F32(d, 0),
+        IVLM_ACC8_F32(d, 8),
+        IVLM_ACC8_F32(d, 16),
+        IVLM_ACC8_F32(d, 24),
+        IVLM_ACC8_F32(d, 32),
+        IVLM_ACC8_F32(d, 40),
+        IVLM_ACC8_F32(d, 48),
+        IVLM_ACC8_F32(d, 56),
+        IVLM_ACC8_F32(d, 64),
+        IVLM_ACC8_F32(d, 72),
+        IVLM_ACC8_F32(d, 80),
+        IVLM_ACC8_F32(d, 88),
+        IVLM_ACC8_F32(d, 96),
+        IVLM_ACC8_F32(d, 104),
+        IVLM_ACC8_F32(d, 112),
+        IVLM_ACC8_F32(d, 120)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -1,4 +1,5 @@
-"""Int8 quantize + matmul: the one-launch CUDA kernel ``csrc/int8_matmul.cu``,
+"""Int8 quantize + matmul: the one-launch CUDA kernel ``csrc/int8_matmul.cu``
+(K split over a thread-block cluster, ``one_launch_plan``),
 the row quantize and pre-quantized matmul ``csrc/int8_prequant.cu``, the
 wgmma int8 GEMM ``csrc/int8_gemm_sm90.cu``, and their plain PyTorch versions.
 
@@ -8,11 +9,12 @@ Ports of the Pallas TPU kernels of ``interactvlm_tpu/ops/int8_matmul.py``:
 (``int8_matmul_prequant``, which only the chain probe runs). The kernel
 sources say what bounds each on the H100 and how its design answers that.
 
-``int8_matmul_fused`` picks its route by the number of rows M alone
-(``int8_route``): up to ``ONE_LAUNCH_MAX_ROWS`` (decode and the lm_head,
-where the host's launches set the pace) one launch of the fused kernel;
-above it two passes, ``quantize_rows`` then ``int8_gemm``, which give the
-same bits.
+``int8_matmul_fused`` picks its route by the number of rows M (``int8_route``):
+up to ``ONE_LAUNCH_MAX_ROWS`` (decode and the lm_head, where the host's
+launches set the pace) one launch of the fused kernel; above it, or where K
+exceeds ``ONE_LAUNCH_MAX_K`` (the one-launch kernel keeps its slice of the
+quantized rows in shared memory), two passes, ``quantize_rows`` then
+``int8_gemm``, which give the same bits.
 
 Semantics, for x (..., K) bf16 or f32 and an int8 weight (N, K) with f32
 per-column scales (N,): per row of x, amax = max|x| (in x's own type, then
@@ -32,6 +34,7 @@ and x / (amax / 127) fall on opposite sides of a rounding tie.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -75,7 +78,7 @@ def int8_matmul_fused_plain(x, w_q, w_scale, bias=None,
 
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _check(x, w_q, w_scale, bias, activation, out_dtype):
@@ -111,11 +114,34 @@ def _check(x, w_q, w_scale, bias, activation, out_dtype):
 ONE_LAUNCH_MAX_ROWS = 32
 
 
-def int8_route(M: int) -> str:
-    """The route of ``int8_matmul_fused`` for M rows, by M alone:
+# The one-launch kernel's K split: 128-value chunks over a cluster of at
+# most 8 CTAs (the portable cluster size), one slice each. Each CTA keeps
+# its slice of the quantized rows in shared memory (32 rows x 128 bytes a
+# chunk) beside a ring of at least 4 weight stages of 16 KB and two 17 KB
+# buffers of partial sums, within the 227 KB a block may take: up to 31
+# chunks a slice.
+K_CHUNK, MAX_CLUSTER = 128, 8
+ONE_LAUNCH_MAX_K = MAX_CLUSTER * 31 * K_CHUNK
+
+
+@functools.lru_cache(maxsize=None)
+def one_launch_plan(K: int):
+    """The one-launch kernel's split of K: the cluster size and each CTA's
+    half-open range of 128-value chunks, as the kernel computes them (CTA r
+    of c takes chunks [r n / c, (r + 1) n / c) of the n = ceil(K / 128)),
+    so every chunk once and every CTA at least one. Cached: decode asks
+    for it at every linear."""
+    n = -(-K // K_CHUNK)
+    c = min(MAX_CLUSTER, n)
+    return c, tuple((r * n // c, (r + 1) * n // c) for r in range(c))
+
+
+def int8_route(M: int, K: int = 0) -> str:
+    """The route of ``int8_matmul_fused`` for M rows of K values:
     "one_launch" (the fused kernel) or "two_pass" (``quantize_rows`` then
-    ``int8_gemm``)."""
-    return "one_launch" if M <= ONE_LAUNCH_MAX_ROWS else "two_pass"
+    ``int8_gemm``). Rows decide, at any K up to ``ONE_LAUNCH_MAX_K``."""
+    one = M <= ONE_LAUNCH_MAX_ROWS and K <= ONE_LAUNCH_MAX_K
+    return "one_launch" if one else "two_pass"
 
 
 def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
@@ -126,7 +152,7 @@ def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
 
     CPU tensors run ``int8_matmul_fused_plain``; CUDA tensors (x bf16 or f32
     and contiguous, W int8 contiguous, f32 scale and bias, K a multiple of
-    32, N of 8) take the route ``int8_route`` names for their rows, or
+    32, N of 8) take the route ``int8_route`` names for their shape, or
     raise. Both raise under grad: the straight-through backward is not
     ported yet. ``launches`` counts the calls on the card, and
     ``route_launches`` each route's.
@@ -139,7 +165,7 @@ def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
     _check(x, w_q, w_scale, bias, activation, out_dtype)
     K, N = x.shape[-1], w_q.shape[0]
     M = x.numel() // K
-    route = int8_route(M)
+    route = int8_route(M, K)
     if route == "two_pass":
         x_q, x_scale = quantize_rows(x.reshape(M, K))
         out = int8_gemm(x_q, x_scale, w_q, w_scale, bias, activation,
@@ -153,7 +179,7 @@ def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
                 _cuda.ptr(w_scale),
                 _cuda.ptr(bias) if bias is not None else ctypes.c_void_p(None),
                 _cuda.ptr(out), int(out_dtype == torch.float32),
-                ACTIVATIONS[activation], M, N, K,
+                ACTIVATIONS[activation], M, N, K, one_launch_plan(K)[0],
                 _cuda.stream_handle(x.device),
             )
     int8_matmul_fused.launches += 1

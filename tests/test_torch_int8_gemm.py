@@ -110,12 +110,16 @@ def test_route_by_rows_over_the_main_path_shapes():
 
     path_cases = [c for c in chip_smoke.INT8_CASES if c[-1] is not None]
     assert len(path_cases) == 20
-    for what, M, *_ in path_cases:
+    for what, M, K, *_ in path_cases:
         one = "decode" in what or "lm_head" in what
-        assert Q.int8_route(M) == ("one_launch" if one else "two_pass"), what
+        assert Q.int8_route(M, K) == ("one_launch" if one else "two_pass"), what
     assert Q.int8_route(chip_smoke.CHAIN_M) == "two_pass"
     assert Q.int8_route(Q.ONE_LAUNCH_MAX_ROWS) == "one_launch"
     assert Q.int8_route(Q.ONE_LAUNCH_MAX_ROWS + 1) == "two_pass"
+    # past the K whose quantized slice the one-launch kernel can hold, the
+    # two passes take any rows
+    assert Q.int8_route(8, Q.ONE_LAUNCH_MAX_K) == "one_launch"
+    assert Q.int8_route(8, Q.ONE_LAUNCH_MAX_K + 32) == "two_pass"
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
@@ -131,3 +135,70 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert (Q.int8_matmul_fused.launches,
             dict(Q.int8_matmul_fused.route_launches),
             Q.quantize_rows.launches, Q.int8_gemm.launches) == before
+
+
+def _int8_case_ks():
+    import chip_smoke
+
+    return sorted({c[2] for c in chip_smoke.INT8_CASES})
+
+
+@pytest.mark.parametrize("K", _int8_case_ks() + [32, 96, 128, 1152, 13824,
+                                                 Q.ONE_LAUNCH_MAX_K])
+def test_one_launch_plan_covers_k_in_whole_chunks(K):
+    """The one-launch kernel's K split, at every K of ``chip_smoke.py``'s
+    int8 cases and at the edges: at most 8 CTAs, each a non-empty run of
+    whole 128-value chunks, together every chunk once and in order."""
+    cluster, slices = Q.one_launch_plan(K)
+    n = -(-K // Q.K_CHUNK)
+    assert 1 <= cluster <= Q.MAX_CLUSTER and cluster == len(slices)
+    assert cluster == min(Q.MAX_CLUSTER, n)
+    assert slices[0][0] == 0 and slices[-1][1] == n
+    for (lo, hi), (lo2, _) in zip(slices, slices[1:] + ((n, n),)):
+        assert lo < hi == lo2
+    # the last chunk is the only one K may cut short
+    assert (n - 1) * Q.K_CHUNK < K <= n * Q.K_CHUNK
+    # the slices the kernel keeps in shared memory: at most 31 chunks
+    assert max(hi - lo for lo, hi in slices) <= 31
+
+
+@pytest.mark.parametrize("M", [1, 8, 17, 32])
+@pytest.mark.parametrize("split", ["plan", "random", "reversed"])
+def test_split_k_partial_sums_give_the_fused_plain_bits(M, split):
+    """What the one-launch kernel rests on: each CTA of the cluster takes
+    the absmax and the int32 products of its own K slice only; the row
+    absmax is the max of the slices' maxima and the sum the sum of their
+    int32 partial sums, in whatever order the CTAs meet. For the plan's
+    slices, a random partition into whole 32-value pieces and the plan's
+    slices summed in reverse, the kernel's arithmetic (the epilogue in the
+    TPU kernel's order) gives ``int8_matmul_fused_plain``'s bits."""
+    rng = np.random.default_rng(3 + M)
+    K, N = 11008, 136
+    x = torch.from_numpy(_x(rng, max(M, 2), K)[-M:]).to(torch.bfloat16)
+    w_q = torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8))
+    w_scale = torch.from_numpy(
+        rng.uniform(0.5, 1.5, N).astype(np.float32) / (127 * K ** 0.5))
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    _, plan = Q.one_launch_plan(K)
+    bounds = [(lo * Q.K_CHUNK, min(hi * Q.K_CHUNK, K)) for lo, hi in plan]
+    if split == "random":
+        cuts = np.sort(rng.choice(np.arange(1, K // 32), 7, replace=False))
+        edges = [0, *(32 * cuts).tolist(), K]
+        bounds = list(zip(edges, edges[1:]))
+        rng.shuffle(bounds)
+    elif split == "reversed":
+        bounds = bounds[::-1]
+    amax = torch.zeros(M, 1)
+    for lo, hi in bounds:
+        amax = torch.maximum(amax, x[:, lo:hi].abs().amax(-1, keepdim=True)
+                             .float())
+    amax = amax.clamp_min(1e-8)
+    x_scale, inv = Q.exact_div(amax, 127.0), Q.exact_div(127.0, amax)
+    xq = torch.clamp(torch.round(x.float() * inv), -127, 127).long()
+    acc = torch.zeros(M, N, dtype=torch.int32)
+    for lo, hi in bounds:
+        acc += (xq[:, lo:hi] @ w_q[:, lo:hi].long().t()).to(torch.int32)
+    out = Q.apply_activation(
+        acc.float() * x_scale * w_scale + bias, "gelu_tanh").to(torch.bfloat16)
+    want = Q.int8_matmul_fused_plain(x, w_q, w_scale, bias, "gelu_tanh")
+    assert torch.equal(out, want)

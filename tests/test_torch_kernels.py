@@ -358,14 +358,30 @@ def _int8_weight(rng, N, K, dev):
     (3000, 1280, 3840, torch.bfloat16, True, "gelu"),  # SAM qkv, exact GELU
     (3000, 1280, 5120, torch.bfloat16, False, "gelu"),  # chain int8_gelu
     (39, 64, 96, torch.float32, True, "gelu"),  # tiny f32 preset, K % 64
+    # the one-launch route at decode down and the lm_head, every row count
+    # from one to the threshold
+    *[(M, K, N, torch.bfloat16, False, "none")
+      for K, N in ((11008, 4096), (4096, 32000)) for M in (1, 8, 17, 32)],
+    # K ragged against the cluster's slices, N against the column block
+    (32, 160, 136, torch.float32, True, "gelu_tanh"),
+    # the largest K the one-launch kernel takes (its slices fill shared
+    # memory), f32 x
+    (32, Q.ONE_LAUNCH_MAX_K, 136, torch.float32, False, "none"),
 ])
 def test_int8_kernel_matches_plain(dev, M, K, N, dtype, with_bias, act):
+    """The fused int8 matmul on either route against its plain version (bit
+    for bit without an activation, within one bf16 step with one), and
+    against the two-pass kernels on the same quantized rows: the one-launch
+    kernel sums the same int32 products and rounds the same epilogue, so
+    without an activation it gives kernel 8's bits (without a bias) and the
+    int8 GEMM's (with one)."""
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
         dev, dtype)
-    x[0] = 0.0  # a zero row writes act(bias)
-    x[1, :9] = torch.tensor([127.0, 2.5, 3.5, -2.5, 0.5, 1.5, -0.5, 126.5,
-                             -127.0])  # rounding ties
+    if M > 1:
+        x[0] = 0.0  # a zero row writes act(bias)
+        x[1, :9] = torch.tensor([127.0, 2.5, 3.5, -2.5, 0.5, 1.5, -0.5, 126.5,
+                                 -127.0])  # rounding ties
     w, scale = _int8_weight(rng, N, K, dev)
     bias = (torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
             if with_bias else None)
@@ -377,6 +393,11 @@ def test_int8_kernel_matches_plain(dev, M, K, N, dtype, with_bias, act):
     want = Q.int8_matmul_fused_plain(x, w, scale, bias, act).float()
     if act == "none":  # the same f32 operations in the same order
         assert torch.equal(out.float(), want)
+        xq, xs = Q.quantize_rows(x)
+        two = (Q.int8_gemm(xq, xs, w, scale, bias, act, dtype)
+               if with_bias else
+               Q.int8_matmul_prequant(xq, xs, w, scale, dtype, act))
+        assert torch.equal(out, two)
     err = (out.float() - want).abs()
     limit = 2.0 ** -7 * want.abs() + 1e-6 * want.abs().max()
     assert bool((err <= limit).all()), err.max().item()
@@ -395,7 +416,7 @@ def test_int8_routes_meet_at_the_threshold(dev, M, K, N):
     x = _ties_rows(rng, M, K, dev, torch.bfloat16)
     w, scale = _int8_weight(rng, N, K, dev)
     bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
-    route = Q.int8_route(M)
+    route = Q.int8_route(M, K)
     assert route == ("one_launch" if M <= 32 else "two_pass")
     for act, dtype in (("none", torch.bfloat16), ("gelu_tanh", torch.float32)):
         counts = (dict(Q.int8_matmul_fused.route_launches),
@@ -550,6 +571,10 @@ def test_int8_prequant_kernel_matches_plain(dev, M, K, N, dtype, act):
     ((257,), 5120, 1280, False, "none", torch.bfloat16),  # ViT-H lin2
     ((40,), 264, 392, True, "gelu_tanh", torch.float32),  # ragged tiles
     ((2, 5), 64, 24, False, "none", torch.bfloat16),
+    # more 128 x 256 tiles (32 x 20) than SMs: the persistent CTAs loop
+    ((4096,), 1280, 5120, True, "gelu", torch.bfloat16),
+    # fewer than 64 rows and 256 columns, K ragged against the 64-value chunk
+    ((33,), 200, 136, True, "none", torch.float32),
 ])
 def test_fused_dense_kernel_matches_plain(dev, lead, K, N, with_bias, act,
                                           dtype):
