@@ -130,9 +130,9 @@ def summary(lines):
         if "kernel_ms" in rec or "dq_ms" in rec:
             row = {k: rec.get(k) for k in (
                 "name", "shape", "route", "kernel_ms", "device_ms",
-                "quantize_ms",
-                "gemm_ms", "dq_ms", "dkv_ms", "backward_ms",
-                "kernel_ms_per_block", "err_over_limit") if k in rec}
+                "quantize_ms", "gemm_ms", "int8_gemm_ms", "dq_ms", "dkv_ms",
+                "backward_ms", "kernel_ms_per_block", "library_ms",
+                "library_device_ms", "err_over_limit") if k in rec}
             if "vs_f64" in rec:  # a backward case: each gradient's check
                 row["err_over_limit"] = {
                     g: {"plain": rec[g]["err_over_limit"],

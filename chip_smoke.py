@@ -8,11 +8,12 @@ prints no result, without them. Phases, each of which fails the run:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the ten hand-written kernel sources under
    ``interactvlm_tpu_torch/csrc/`` (flash forward, with its wgmma kernel
-   for head dim 128; flash backward dq and dk/dv; window and global rel-pos
-   attention; the one-launch fused int8 matmul, K split over a thread-block
-   cluster; the int8 row quantize and pre-quantized matmul; the wgmma int8
-   GEMM; the wgmma bf16 serving matmul; the tensor-core rate loop; the
-   window copy), one ``nvcc`` each, all started together;
+   for head dim 128; flash backward dq and dk/dv; window attention; global
+   rel-pos attention, with its wgmma kernel for head dim 80; the one-launch
+   fused int8 matmul, K split over a thread-block cluster; the int8 row
+   quantize; the wgmma int8 GEMM, which is also the pre-quantized matmul;
+   the wgmma bf16 serving matmul; the tensor-core rate loop; the window
+   copy), one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    serving, training and probe paths give it and at the edges of the wgmma
    kernels' tiles (the int8 matmul at the rows where its two routes meet,
@@ -140,7 +141,8 @@ TRAIN_STEPS = 5  # timed steps, after one warm-up step
 
 # each kernel's sources (the first holds its entry point), the TPU kernel
 # it replaces, its wrapper (whose launch count a path reads), its symbols in
-# a profile (one a route), and the path whose count the kernel line reports
+# a profile (one a route; int8_matmul_prequant launches the int8 GEMM, so it
+# shares int8_matmul's), and the path whose count the kernel line reports
 CSRC = "interactvlm_tpu_torch/csrc/"
 KERNELS = {
     "flash_attention": dict(
@@ -156,9 +158,11 @@ KERNELS = {
         wrapper=SA.window_attention, symbols=["window_kernel"],
         path="train_13b_lora"),
     "rel_attention": dict(
-        sources=[CSRC + "rel_attention.cu"],
+        sources=[CSRC + "rel_attention.cu", CSRC + "rel_attention_sm90.cuh",
+                 CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/sam_attention.py:39",
-        wrapper=SA.rel_attention, symbols=["rel_kernel"],
+        wrapper=SA.rel_attention,
+        symbols=["rel_kernel", "rel_fwd_sm90_kernel"],
         path="train_13b_lora"),
     "int8_matmul": dict(
         sources=[CSRC + "int8_gemm_sm90.cu", CSRC + "int8_prequant.cu",
@@ -183,9 +187,9 @@ KERNELS = {
         wrapper=Q.quantize_rows, symbols=["quantize_rows_kernel"],
         path="7b_int8"),
     "int8_matmul_prequant": dict(
-        sources=[CSRC + "int8_prequant.cu"],
+        sources=[CSRC + "int8_gemm_sm90.cu", CSRC + "gemm_sm90.cuh"],
         replaces="interactvlm_tpu/ops/int8_matmul.py:124",
-        wrapper=Q.int8_matmul_prequant, symbols=["prequant_matmul_kernel"],
+        wrapper=Q.int8_matmul_prequant, symbols=["int8_gemm_kernel"],
         path="probes"),
     "fused_dense": dict(
         sources=[CSRC + "serving_matmul.cu", CSRC + "gemm_sm90.cuh"],
@@ -231,14 +235,17 @@ def reset_launches():
     for w in KERNELS.values():
         w["wrapper"].launches = 0
     Q.int8_gemm.launches = 0
-    for route in Q.int8_matmul_fused.route_launches:
-        Q.int8_matmul_fused.route_launches[route] = 0
+    for counts in (Q.int8_matmul_fused.route_launches,
+                   SA.rel_attention.route_launches):
+        for route in counts:
+            counts[route] = 0
 
 
 def read_launches():
     return {**{n: w["wrapper"].launches for n, w in KERNELS.items()},
             "int8_routes": dict(Q.int8_matmul_fused.route_launches),
-            "int8_gemm": Q.int8_gemm.launches}
+            "int8_gemm": Q.int8_gemm.launches,
+            "rel_routes": dict(SA.rel_attention.route_launches)}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -462,34 +469,42 @@ def case_window(gen, name):
         bound_ms=t, bound_by=by)
 
 
-def case_global(gen, name):
-    """ViT-H global block, one image's 16 heads (L=4096, D=80): the plain
-    version over all 512 rows would need ~34 GB of f32 logits. The kernel is
-    also timed over all 512 rows of a block (``kernel_ms_per_block``)."""
-    hw, L, D = (64, 64), 4096, 80
+def case_global(gen, name, hw=(64, 64)):
+    """ViT-H global attention, one image's 16 heads (D=80), over the grid
+    ``hw``: 64 x 64 (L=4096) as on the main path, or a ragged grid at the
+    edges of the wgmma kernel's tiles (25 x 40: L=1000, no multiple of its
+    64-key tiles, and W != 64). The plain version over all 512 rows of a
+    block would need ~34 GB of f32 logits. At 64 x 64 the kernel is also
+    timed over all 512 rows (``kernel_ms_per_block``)."""
+    (H, W), D, R = hw, 80, 16
+    L = H * W
 
     def inputs(R):
         q, k, v = (rand_bf16(gen, (R, L, D)) for _ in range(3))
-        return q, k, v, rand_bf16(gen, (R, 64, L), 0.5), rand_bf16(
-            gen, (R, L, 64), 0.5)
+        return q, k, v, rand_bf16(gen, (R, H, L), 0.5), rand_bf16(
+            gen, (R, L, W), 0.5)
 
     def flops_bytes(R):
-        return 4 * R * L * L * D, 4 * R * L * D * 2 + 2 * R * 64 * L * 2
+        return 4 * R * L * L * D, 4 * R * L * D * 2 + R * (H + W) * L * 2
 
-    q, k, v, rh, rw = inputs(16)
+    q, k, v, rh, rw = inputs(R)
     got = SA.rel_attention(q, k, v, rh, rw, hw)
     want = SA.rel_attention_plain(q, k, v, rh, rw, hw)
     c = torch.arange(L, device="cuda")
-    bias = (rh[:, c // 64, :].transpose(1, 2) + rw[:, :, c % 64]).contiguous()
-    t, by = bound(*flops_bytes(16), name)
+    bias = (rh[:, c // W, :].transpose(1, 2) + rw[:, :, c % W]).contiguous()
+    t, by = bound(*flops_bytes(R), name)
+    main = hw == (64, 64)
     out = dict(
-        shape="R=16 L=4096 D=80 (ViT-H global block, one image)",
-        **compare(got, want),
+        shape=f"R={R} L={L} ({H}x{W}) D={D} " + (
+            "(ViT-H global block, one image)" if main else "(ragged grid)"),
+        route=SA.rel_route(D), **compare(got, want),
         kernel_ms=time_ms(lambda: SA.rel_attention(q, k, v, rh, rw, hw), 10),
         plain_ms=time_ms(lambda: SA.rel_attention_plain(q, k, v, rh, rw, hw), 3),
         library_ms=time_ms(lambda: sdpa()(q, k, v, attn_mask=bias), 10),
         bound_ms=t, bound_by=by)
     del q, k, v, rh, rw, bias, got, want
+    if not main:
+        return out
     big = inputs(B * V * 16)
     out["kernel_ms_per_block"] = time_ms(lambda: SA.rel_attention(*big, hw), 3, 1)
     out["bound_ms_per_block"] = bound(*flops_bytes(B * V * 16), name)[0]
@@ -753,7 +768,12 @@ def kernel_phase(name):
                                     "B=8 H=40 L=512 D=128 causal, kv lengths "
                                     f"{lens} (LLaMA-13B training, 1 layer)")],
              "window_attention": [case_window(gen, name)],
-             "rel_attention": [case_global(gen, name)]}
+             # the ragged grid from its own generator, so no other case's
+             # inputs move
+             "rel_attention": [
+                 case_global(gen, name),
+                 case_global(torch.Generator(device="cuda").manual_seed(2),
+                             name, (25, 40))]}
     torch.cuda.empty_cache()
     bwd = [case_flash_bwd(gen, name, "B=8 H=40 L=512 D=128 causal, kv "
                           f"lengths {lens} (LLaMA-13B training, 1 layer)",
@@ -862,25 +882,38 @@ def case_quantize(gen, name, M, K):
 def case_prequant(gen, name, M, K, N, act):
     """Kernel 8 at one of the chain's shapes: pre-quantized rows (kernel 7's
     output) times a random int8 weight. Without a GELU bit for bit; with one
-    within ``compare_int8``'s limits. Library yardstick: ``torch._int_mm``
-    on the same operands (the int32 product only)."""
+    within ``compare_int8``'s limits; in both, bit for bit the int8 GEMM
+    with no bias, the kernel it launches (``int8_gemm_ms`` times that call).
+    Library yardstick: ``torch._int_mm`` on the same operands (the int32
+    product only); both also by device time a call."""
     xq, xs = Q.quantize_rows(rand_bf16(gen, (M, K)))
     w, scale = int8_weight(gen, N, K)
-    got = Q.int8_matmul_prequant(xq, xs, w, scale, torch.bfloat16, act)
+
+    def kernel():
+        return Q.int8_matmul_prequant(xq, xs, w, scale, torch.bfloat16, act)
+
+    def gemm():
+        return Q.int8_gemm(xq, xs, w, scale, None, act, torch.bfloat16)
+
+    got = kernel()
     want = Q.int8_matmul_prequant_plain(xq, xs, w, scale, torch.bfloat16, act)
     res = (compare_exact([got], [want]) if act == "none"
            else compare_int8(got, want))
+    res["equals_int8_gemm"] = torch.equal(got, gemm())
+    res["ok"] = res["ok"] and res["equals_int8_gemm"]
     del got, want
     t, by = bound(2 * M * K * N, M * K + 4 * M + N * K + 4 * N + 2 * M * N,
                   name, int8=True)
+    dev_ms, launched = device_ms(kernel, 5)
     return dict(
         shape=f"M={M} K={K} N={N}{' +' + act if act != 'none' else ''} "
         f"(chain probe)", **res,
-        kernel_ms=time_ms(lambda: Q.int8_matmul_prequant(
-            xq, xs, w, scale, torch.bfloat16, act), 10),
+        kernel_ms=time_ms(kernel, 10), device_ms=dev_ms,
+        device_launches_per_call=launched, int8_gemm_ms=time_ms(gemm, 10),
         plain_ms=time_ms(lambda: Q.int8_matmul_prequant_plain(
             xq, xs, w, scale, torch.bfloat16, act), 2, 1),
         library_ms=time_ms(lambda: torch._int_mm(xq, w.t()), 10),
+        library_device_ms=device_ms(lambda: torch._int_mm(xq, w.t()), 5)[0],
         library="torch._int_mm (int32 product only)", bound_ms=t, bound_by=by)
 
 
@@ -1251,6 +1284,9 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
     for n in needed:
         if launches[n] <= 0:
             raise SystemExit(f"the {path} path never launched {n}")
+    if launches["rel_routes"] != {"mma": 0, "sm90": launches["rel_attention"]}:
+        raise SystemExit(f"the {path} path's global attention left the wgmma "
+                         f"route: {launches['rel_routes']}")
     if cfg.llama.weights_int8:
         # per batch: 7 projections a layer and the lm_head, at the prefill
         # and each of the T - 1 decode steps; 4 linears a SAM block when
@@ -1348,12 +1384,14 @@ def decode_by_cache(model, batch):
 def device_busy(fn):
     """One batch under torch.profiler: the share of its wall time in which
     the card ran a kernel or copy, and the operations with the most device
-    time, and the device time and count of each hand-written kernel. The
-    profiler's host-side cost lengthens the batch, so the share is a lower
-    bound. ``None`` where the trace holds no device activity."""
+    time, and the device time and count of each hand-written kernel whose
+    wrapper launched in the batch, in all and by symbol (route). The profiler's host-side cost lengthens
+    the batch, so the share is a lower bound. ``None`` where the trace holds
+    no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = {n: w["wrapper"].launches for n, w in KERNELS.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, ms = wall_ms(fn)
@@ -1367,16 +1405,26 @@ def device_busy(fn):
     avg = prof.key_averages()
     top = sorted(avg, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
-    ours = {}
+    ours, by_symbol = {}, {}
     for n, w in KERNELS.items():
-        evs = [e for e in avg if any(s in e.key for s in w["symbols"])]
+        # two wrappers may launch one symbol (the int8 GEMM): a kernel's
+        # time counts only where its own wrapper launched in this run
+        launched = w["wrapper"].launches > before[n]
+        evs = [e for e in avg if launched
+               and any(s in e.key for s in w["symbols"])]
         ours[n] = [sum(e.self_device_time_total for e in evs) / 1e3,
                    sum(e.count for e in evs)]
+        for sym in w["symbols"]:
+            hits = [e for e in evs if sym in e.key]
+            if hits:
+                by_symbol[sym] = [
+                    sum(e.self_device_time_total for e in hits) / 1e3,
+                    sum(e.count for e in hits)]
     return {"batch_ms": ms, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / ms if spans else None,
             "top_device_ms": [[e.key[:80], e.self_device_time_total / 1e3,
                                e.count] for e in top],
-            "kernel_device_ms": ours}
+            "kernel_device_ms": ours, "symbol_device_ms": by_symbol}
 
 
 def decode_split(model, batch, kv_cache):
@@ -1678,7 +1726,8 @@ def training_path_phase():
                  "rel_attention": n_global,
                  "int8_routes": {r: 0 for r in
                                  Q.int8_matmul_fused.route_launches},
-                 "int8_gemm": 0})
+                 "int8_gemm": 0,
+                 "rel_routes": {"mma": 0, "sm90": n_global}})
     log(json.dumps({"phase": "train_launches_per_step", "launches": launches,
                     "expected": want}))
     moved = {n: not torch.equal(p.detach(), watched[n])
@@ -1773,6 +1822,8 @@ def main() -> int:
                 "int8_gemm_launches_by_path": {p: c["int8_gemm"]
                                                for p, c in launches.items()}}
                if kname == "int8_matmul" else {}),
+            **({"launches_by_route": launches[path]["rel_routes"]}
+               if kname == "rel_attention" else {}),
             "max_abs_err": worst["max_abs_err"],
             "err_over_limit": worst["err_over_limit"], "tol": worst["tol"],
             "ms": first["kernel_ms"],

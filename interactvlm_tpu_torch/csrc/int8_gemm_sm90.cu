@@ -1,19 +1,24 @@
 // Int8 GEMM for Hopper (sm_90a) on wgmma fed by TMA: pre-quantized int8 x
 // (M, K) with per-row f32 scales times int8 W (N, K) with per-column f32
 // scales, int32 sums, then out = act(((f32(acc) * x_scale) * w_scale) + bias)
-// written as bf16 or f32.
+// written as bf16 or f32; with a null bias the `+ bias` step is left out.
 //
-// Pass 2 of the two-pass route of the fused int8 matmul (wrapper
-// ops/int8_matmul.py:int8_matmul_fused, rows above the one-launch kernel's
-// threshold); pass 1 is the row quantize of csrc/int8_prequant.cu. Together
-// they replace the Pallas TPU kernel interactvlm_tpu/ops/int8_matmul.py
-// `_kernel` / `_kernel_nobias` at those rows, with the same bits: the
-// quantize gives the fused kernel's bytes and scales, the sum is exact, and
-// the epilogue rounds the same products in the same order.
+// It replaces two Pallas TPU kernels of interactvlm_tpu/ops/int8_matmul.py:
+// - `_kernel` / `_kernel_nobias` (wrapper `int8_matmul_fused`) above the
+//   one-launch kernel's row threshold, as pass 2 of the two-pass route
+//   (wrapper ops/int8_matmul.py:int8_gemm); pass 1 is the row quantize of
+//   csrc/int8_prequant.cu. The pair gives the fused kernel's bits: the
+//   quantize gives its bytes and scales, the sum is exact, and the epilogue
+//   rounds the same products in the same order;
+// - `_mm_prequant_kernel` (wrapper `int8_matmul_prequant`, the chain
+//   probe's pre-quantized matmul): the same product with no bias,
+//   act((f32(acc) * x_scale) * w_scale), so that wrapper launches this
+//   kernel with a null bias and gives int8_gemm(..., bias=None)'s bits.
 //
 // What bounds it on the H100: at the SAM ViT-H encoder's shapes (M = 131 072
 // or 156 800, K x N = 1280 x 3840, 1280 x 1280, 1280 x 5120, 5120 x 1280)
-// and LLaMA-7B prefill's (M = 2552 or 10 208, K, N = 4096 and 11 008) the
+// LLaMA-7B prefill's (M = 2552 or 10 208, K, N = 4096 and 11 008) and the
+// chain probe's (M = 32 768, K x N = 1280 x 5120 and 5120 x 1280) the
 // int8 operations, 2 M K N against M K + N K + 2 M N bytes, 600-1500
 // operations a byte above the card's ~590. The fused kernel tops out near
 // half the int8 peak on mma.sync fed by cp.async and repeats each row's

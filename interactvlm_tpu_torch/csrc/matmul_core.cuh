@@ -1,10 +1,9 @@
 // Shared device code of the hand-written matmul kernels: cp.async copies
 // into shared memory, ldmatrix fragment loads, the int8 and bf16 mma.sync
-// products, one block tiling with its chunk loads, chunk products,
-// pipelined K loop and epilogue walk (the pre-quantized int8 matmul and the
-// tensor-core rate probe), the per-row int8 quantization (the row quantize
-// and the one-launch int8 matmul) and the epilogue arithmetic (rescale, GELU)
-// of every int8 and bf16 matmul kernel.
+// products, one block tiling with its chunk loads, chunk products and
+// epilogue walk (the tensor-core rate probe), the per-row int8 quantization
+// (the row quantize and the one-launch int8 matmul) and the epilogue
+// arithmetic (rescale, GELU) of every int8 and bf16 matmul kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -179,51 +178,6 @@ __device__ __forceinline__ void zero_acc(Acc (&acc)[MT][NT][4]) {
       for (int e = 0; e < 4; ++e) acc[a][b][e] = Acc(0);
 }
 
-// The whole K loop of a block whose two operands both stream through the
-// cp.async ring: x (M, K), W (N, K), the block's output tile at (m0, n0).
-// smem holds TL::kSmem bytes, 16-byte aligned. On return acc holds the
-// warp's sums.
-template <class TL>
-__device__ __forceinline__ void mainloop(typename TL::Acc (&acc)[TL::MT][TL::NT][4],
-                                         const typename TL::T* __restrict__ x,
-                                         const typename TL::T* __restrict__ w,
-                                         unsigned char* smem, int m0, int n0,
-                                         int M, int N, int K) {
-  using T = typename TL::T;
-  constexpr int BM = TL::BM, BN = TL::BN, BK = TL::BK, LDS = TL::kLds;
-  constexpr int STAGES = TL::STAGES, NTHREADS = TL::kThreads;
-  T(*x_s)[BM][LDS] = reinterpret_cast<T(*)[BM][LDS]>(smem);
-  T(*w_s)[BN][LDS] = reinterpret_cast<T(*)[BN][LDS]>(
-      smem + STAGES * BM * LDS * (int)sizeof(T));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp / TL::WARPS_N) * TL::WTM;
-  const int wn = (warp % TL::WARPS_N) * TL::WTN;
-  const int nchunks = (K + BK - 1) / BK;
-
-  auto load = [&](int slot, int c) {
-    load_chunk<T, BM, BK, LDS, NTHREADS>(x_s[slot], x, m0, M, c * BK, K, tid);
-    load_chunk<T, BN, BK, LDS, NTHREADS>(w_s[slot], w, n0, N, c * BK, K, tid);
-  };
-
-  zero_acc(acc);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks) load(s, s);
-    cp_async_commit();  // empty groups keep the count uniform
-  }
-  for (int c = 0; c < nchunks; ++c) {
-    // chunk c has landed; every warp has also finished reading the slot
-    // written below (chunk c - 1's)
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int cn = c + STAGES - 1;
-    if (cn < nchunks) load(cn % STAGES, cn);
-    cp_async_commit();
-    mma_chunk<TL>(acc, x_s[c % STAGES], w_s[c % STAGES], wm, wn, lane);
-  }
-  cp_async_wait<0>();
-}
-
 // Calls f(c, m, n, v0, v1) for each two neighbouring accumulator elements
 // of the warp inside (M, N): element e of tile (mt, nt) sits at row
 // g + 8 (e / 2), column 2 (lane % 4) + e % 2 of the 16 x 8 tile, so v0 and
@@ -355,18 +309,6 @@ __device__ __forceinline__ float rescale(int acc, float xs, float ws, float b,
   float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
   if (has_bias) v = __fadd_rn(v, b);
   return apply_act(v, act);
-}
-
-// Two neighbouring epilogue values written as f32 or bf16.
-__device__ __forceinline__ void store2(void* out, size_t o, bool f32, float v0,
-                                      float v1) {
-  if (f32) {
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-        make_float2(v0, v1);
-  } else {
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + o) =
-        __floats2bfloat162_rn(v0, v1);
-  }
 }
 
 }  // namespace ivlm

@@ -6,18 +6,20 @@
 // token grid (64 x 64 = 4096 tokens in ViT-H's global blocks) with
 //   bias[q, c] = rel_h[c / W, q] + rel_w[q, c % W],
 // rel_h (BH, H, L) and rel_w (BH, L, W) coming from two einsums outside the
-// kernel. Each CTA stages the rel_h columns and rel_w rows of its 64 query
-// rows in shared memory once and rebuilds every bias tile from them by index
-// arithmetic, so the (L, L) bias (4 GB in f32 for 512 rows) never exists.
+// kernel. Each CTA stages the rel_h columns and rel_w rows of its query
+// rows in shared memory once and rebuilds every bias tile from them, so the
+// (L, L) bias (4 GB in f32 for 512 rows) never exists.
 //
-// What bounds it on the H100: 4*L*L*D = 5.4 Gflop per (image, head) row
-// against about 2.6 MB of q/k/v/o and factors, ~2000 flops/byte: the bound
-// is the tensor-core rate. The design keeps Q in registers and runs both
-// products on bf16 mma.sync with f32 accumulation; the TPU's grid padding
-// (W -> Wp) and head-dim padding (80 -> 128) are gone, D = 80 runs as five
-// 16-wide k-steps. It does not yet use wgmma or TMA, so it runs below the
-// tensor-core bound.
+// Two routes, by head dim alone (ops/sam_attention.py:rel_route):
+// - "sm90", D = 80, the ViT-H head dim: the wgmma + TMA kernel of
+//   rel_attention_sm90.cuh, whose note says what bounds it and how;
+// - "mma", D = 16, 32, 64 (the tiny presets and card tests): this file's
+//   kernel, Q in registers and both products on bf16 mma.sync with f32
+//   accumulation, K and V staged by the threads 64 keys at a time.
+//   4 L^2 D flops a row against ~2 L D bytes: the tensor-core rate bounds
+//   it, which this kernel, with no wgmma or TMA, stays well below.
 #include "attention_core.cuh"
+#include "rel_attention_sm90.cuh"
 
 using namespace ivlm;
 
@@ -70,14 +72,14 @@ __global__ void __launch_bounds__(NTHREADS)
 }  // namespace
 
 // q/k/v/o: (BH, L, D) bf16 contiguous, L = H*W; rel_h: (BH, H, L) bf16;
-// rel_w: (BH, L, W) bf16. Returns the launch status (0 = launched).
+// rel_w: (BH, L, W) bf16. route 1 ("sm90") takes D = 80, route 0 ("mma")
+// D = 16, 32 or 64. Returns the launch status (0 = launched).
 extern "C" int ivlm_rel_attn(const void* q, const void* k, const void* v,
                              const void* rel_h, const void* rel_w, void* o,
-                             int bh, int L, int H, int W, int d, float scale,
-                             void* stream) {
+                             int bh, int L, int H, int W, int d, int route,
+                             float scale, void* stream) {
   if (bh <= 0 || L != H * W || H > MAXHW || W > MAXHW || L <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(bh, (L + BQ - 1) / BQ);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
@@ -85,6 +87,13 @@ extern "C" int ivlm_rel_attn(const void* q, const void* k, const void* v,
   const bf16* hp = static_cast<const bf16*>(rel_h);
   const bf16* wp = static_cast<const bf16*>(rel_w);
   bf16* op = static_cast<bf16*>(o);
+  if (route == 1) {
+    if (d != rel_sm90::kD) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        rel_sm90::launch(qp, kp, vp, hp, wp, op, bh, L, H, W, scale, st));
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(bh, (L + BQ - 1) / BQ);
 #define IVLM_LAUNCH(DIM)                                                     \
   case DIM:                                                                  \
     rel_kernel<DIM><<<grid, NTHREADS, 0, st>>>(qp, kp, vp, hp, wp, op, L, H, \
@@ -94,7 +103,6 @@ extern "C" int ivlm_rel_attn(const void* q, const void* k, const void* v,
     IVLM_LAUNCH(16)
     IVLM_LAUNCH(32)
     IVLM_LAUNCH(64)
-    IVLM_LAUNCH(80)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

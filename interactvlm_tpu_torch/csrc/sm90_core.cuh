@@ -6,8 +6,9 @@
 // cluster's pieces (the cluster barrier, distributed shared memory reads,
 // remote barrier arrivals and st.async stores). Used by the GEMM skeleton
 // (gemm_sm90.cuh: the int8 GEMM and the bf16 serving matmul), the one-launch
-// int8 matmul (int8_matmul.cu) and the D = 128 flash forward
-// (flash_fwd_sm90.cuh).
+// int8 matmul (int8_matmul.cu), the D = 128 flash forward
+// (flash_fwd_sm90.cuh) and the D = 80 global rel-pos attention
+// (rel_attention_sm90.cuh).
 //
 // The tensor map is encoded on the host at every launch from the tensors'
 // pointers (a few microseconds). cuTensorMapEncodeTiled is a driver-API
@@ -519,6 +520,30 @@ __device__ __forceinline__ void wgmma_bf16_rs_n128_tb(float (&d)[64],
         IVLM_ACC8_F32(d, 40),
         IVLM_ACC8_F32(d, 48),
         IVLM_ACC8_F32(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+// d (+)= a b, m64n80k16, bf16 x bf16 -> f32: a from registers as for
+// wgmma_bf16_rs_n128_tb, b from shared memory, MN-major (transposed);
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_bf16_rs_n80_tb(float (&d)[40],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : IVLM_ACC8_F32(d, 0),
+        IVLM_ACC8_F32(d, 8),
+        IVLM_ACC8_F32(d, 16),
+        IVLM_ACC8_F32(d, 24),
+        IVLM_ACC8_F32(d, 32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(scale_d));
 }

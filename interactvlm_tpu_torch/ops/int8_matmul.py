@@ -1,7 +1,8 @@
 """Int8 quantize + matmul: the one-launch CUDA kernel ``csrc/int8_matmul.cu``
 (K split over a thread-block cluster, ``one_launch_plan``),
-the row quantize and pre-quantized matmul ``csrc/int8_prequant.cu``, the
-wgmma int8 GEMM ``csrc/int8_gemm_sm90.cu``, and their plain PyTorch versions.
+the row quantize ``csrc/int8_prequant.cu``, the wgmma int8 GEMM
+``csrc/int8_gemm_sm90.cu`` (the two-pass route's second pass and the
+pre-quantized matmul), and their plain PyTorch versions.
 
 Ports of the Pallas TPU kernels of ``interactvlm_tpu/ops/int8_matmul.py``:
 ``_kernel`` / ``_kernel_nobias`` (wrapper ``int8_matmul_fused``),
@@ -248,8 +249,42 @@ def int8_matmul_prequant_plain(x_q, x_scale, w_q, w_scale,
     return apply_activation(out, activation).to(dtype)
 
 
-_PREQUANT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                      + [ctypes.c_void_p])
+_GEMM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p])
+
+
+def _launch_gemm(kernel, x_q, x_scale, w_q, w_scale, bias, activation, dtype):
+    """Check what the wgmma int8 GEMM takes, raise on anything else, launch
+    it (``bias`` None passes a null pointer) and return the output."""
+    M, K = x_q.shape
+    N = w_q.shape[0]
+    if w_q.dim() != 2 or w_q.shape[1] != K or K % 32 or N % 8:
+        raise ValueError(f"{kernel}: weight (N, {K}) with K a multiple of "
+                         f"32 and N of 8, got {tuple(w_q.shape)}")
+    f32 = [x_scale, w_scale] + ([bias] if bias is not None else [])
+    if (x_scale.numel() != M or w_scale.shape != (N,)
+            or (bias is not None and bias.shape != (N,))):
+        raise ValueError(f"{kernel}: scales ({M}, 1) and ({N},), bias "
+                         f"({N},), got {[tuple(t.shape) for t in f32]}")
+    if dtype not in X_DTYPES or activation not in ACTIVATIONS:
+        raise ValueError(f"{kernel}: output {dtype}, activation "
+                         f"{activation!r}")
+    _cuda.require_kernel_inputs(kernel, x_q, w_q, dtype=torch.int8)
+    _cuda.require_kernel_inputs(kernel, *f32, dtype=torch.float32)
+    if len({t.device for t in [x_q, w_q] + f32}) != 1:
+        raise ValueError(f"{kernel}: all inputs must be on one CUDA device")
+    out = torch.empty(M, N, dtype=dtype, device=x_q.device)
+    with torch.cuda.device(x_q.device):
+        _cuda.launch(
+            "int8_gemm_sm90", "ivlm_int8_gemm", _GEMM_ARGTYPES,
+            _cuda.ptr(x_q), _cuda.ptr(x_scale), _cuda.ptr(w_q),
+            _cuda.ptr(w_scale),
+            _cuda.ptr(bias) if bias is not None else ctypes.c_void_p(None),
+            _cuda.ptr(out), int(dtype == torch.float32),
+            ACTIVATIONS[activation], M, N, K,
+            _cuda.stream_handle(x_q.device),
+        )
+    return out
 
 
 def int8_matmul_prequant(x_q, x_scale, w_q, w_scale, dtype=torch.bfloat16,
@@ -259,47 +294,21 @@ def int8_matmul_prequant(x_q, x_scale, w_q, w_scale, dtype=torch.bfloat16,
     rescale and the activation fused (no bias).
 
     CPU tensors run ``int8_matmul_prequant_plain``; CUDA tensors launch the
-    kernel (contiguous int8 x_q and W, f32 scales, K a multiple of 32, N of
-    8, ``dtype`` bf16 or f32) or raise. Forward only."""
+    wgmma int8 GEMM with no bias, as ``int8_gemm(..., bias=None)`` does
+    (contiguous int8 x_q and W, f32 scales, K a multiple of 32, N of 8,
+    ``dtype`` bf16 or f32), or raise. ``launches`` counts this wrapper's
+    launches alone. Forward only."""
     _cuda.refuse_grad("int8_matmul_prequant", x_scale, w_scale)
     if not x_q.is_cuda:
         return int8_matmul_prequant_plain(x_q, x_scale, w_q, w_scale, dtype,
                                           activation)
-    M, K = x_q.shape
-    N = w_q.shape[0]
-    if w_q.dim() != 2 or w_q.shape[1] != K or K % 32 or N % 8:
-        raise ValueError(f"int8_matmul_prequant: weight (N, {K}) with K a "
-                         f"multiple of 32 and N of 8, got {tuple(w_q.shape)}")
-    if x_scale.numel() != M or w_scale.shape != (N,):
-        raise ValueError(f"int8_matmul_prequant: scales ({M}, 1) and ({N},), "
-                         f"got {tuple(x_scale.shape)} {tuple(w_scale.shape)}")
-    if dtype not in X_DTYPES or activation not in ACTIVATIONS:
-        raise ValueError(f"int8_matmul_prequant: output {dtype}, activation "
-                         f"{activation!r}")
-    _cuda.require_kernel_inputs("int8_matmul_prequant", x_q, w_q,
-                                dtype=torch.int8)
-    _cuda.require_kernel_inputs("int8_matmul_prequant", x_scale, w_scale,
-                                dtype=torch.float32)
-    if len({t.device for t in (x_q, w_q, x_scale, w_scale)}) != 1:
-        raise ValueError("int8_matmul_prequant: all inputs must be on one "
-                         "CUDA device")
-    out = torch.empty(M, N, dtype=dtype, device=x_q.device)
-    with torch.cuda.device(x_q.device):
-        _cuda.launch(
-            "int8_prequant", "ivlm_int8_prequant_matmul", _PREQUANT_ARGTYPES,
-            _cuda.ptr(x_q), _cuda.ptr(x_scale), _cuda.ptr(w_q),
-            _cuda.ptr(w_scale), _cuda.ptr(out), int(dtype == torch.float32),
-            ACTIVATIONS[activation], M, N, K, _cuda.stream_handle(x_q.device),
-        )
+    out = _launch_gemm("int8_matmul_prequant", x_q, x_scale, w_q, w_scale,
+                       None, activation, dtype)
     int8_matmul_prequant.launches += 1
     return out
 
 
 int8_matmul_prequant.launches = 0
-
-
-_GEMM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                  + [ctypes.c_void_p])
 
 
 def int8_gemm(x_q, x_scale, w_q, w_scale, bias=None, activation: str = "none",
@@ -316,34 +325,8 @@ def int8_gemm(x_q, x_scale, w_q, w_scale, bias=None, activation: str = "none",
     if not x_q.is_cuda:
         return int8_matmul_prequant_plain(x_q, x_scale, w_q, w_scale, dtype,
                                           activation, bias)
-    M, K = x_q.shape
-    N = w_q.shape[0]
-    if w_q.dim() != 2 or w_q.shape[1] != K or K % 32 or N % 8:
-        raise ValueError(f"int8_gemm: weight (N, {K}) with K a multiple of "
-                         f"32 and N of 8, got {tuple(w_q.shape)}")
-    f32 = [x_scale, w_scale] + ([bias] if bias is not None else [])
-    if (x_scale.numel() != M or w_scale.shape != (N,)
-            or (bias is not None and bias.shape != (N,))):
-        raise ValueError(f"int8_gemm: scales ({M}, 1) and ({N},), bias "
-                         f"({N},), got {[tuple(t.shape) for t in f32]}")
-    if dtype not in X_DTYPES or activation not in ACTIVATIONS:
-        raise ValueError(f"int8_gemm: output {dtype}, activation "
-                         f"{activation!r}")
-    _cuda.require_kernel_inputs("int8_gemm", x_q, w_q, dtype=torch.int8)
-    _cuda.require_kernel_inputs("int8_gemm", *f32, dtype=torch.float32)
-    if len({t.device for t in [x_q, w_q] + f32}) != 1:
-        raise ValueError("int8_gemm: all inputs must be on one CUDA device")
-    out = torch.empty(M, N, dtype=dtype, device=x_q.device)
-    with torch.cuda.device(x_q.device):
-        _cuda.launch(
-            "int8_gemm_sm90", "ivlm_int8_gemm", _GEMM_ARGTYPES,
-            _cuda.ptr(x_q), _cuda.ptr(x_scale), _cuda.ptr(w_q),
-            _cuda.ptr(w_scale),
-            _cuda.ptr(bias) if bias is not None else ctypes.c_void_p(None),
-            _cuda.ptr(out), int(dtype == torch.float32),
-            ACTIVATIONS[activation], M, N, K,
-            _cuda.stream_handle(x_q.device),
-        )
+    out = _launch_gemm("int8_gemm", x_q, x_scale, w_q, w_scale, bias,
+                       activation, dtype)
     int8_gemm.launches += 1
     return out
 

@@ -1,7 +1,8 @@
 """SAM encoder attention with the decomposed relative-position bias: the CUDA
-kernels ``csrc/window_attention.cu`` and ``csrc/rel_attention.cu`` and their
-plain PyTorch versions; and the window probe's copy kernel
-``csrc/window_copy.cu``.
+kernels ``csrc/window_attention.cu`` and ``csrc/rel_attention.cu`` (at head
+dim 80, ViT-H's, its wgmma + TMA route ``csrc/rel_attention_sm90.cuh``;
+``rel_route``) and their plain PyTorch versions; and the window probe's
+copy kernel ``csrc/window_copy.cu``.
 
 Ports of ``interactvlm_tpu/ops/sam_attention.py``: ``_window_kernel``
 (wrapper ``fused_window_attention``) for the 14x14 windows and ``_kernel``
@@ -27,6 +28,17 @@ from interactvlm_tpu_torch.ops import _cuda
 KERNEL_HEAD_DIMS = (16, 32, 64, 80)
 MAX_WINDOW_FACTORS = 64  # H + W of a window (window_attention.cu MAXF)
 MAX_GRID_SIDE = 64  # H and W of a global grid (rel_attention.cu MAXHW)
+# the global kernel's routes, by head dim alone (rel_route), as the C
+# launcher numbers them
+REL_ROUTES = {"mma": 0, "sm90": 1}
+SM90_HEAD_DIM = 80  # the ViT-H head dim (rel_attention_sm90.cuh kD)
+
+
+def rel_route(D: int) -> str:
+    """The route of ``rel_attention`` for head dim D: "sm90" (the wgmma +
+    TMA kernel of ``csrc/rel_attention_sm90.cuh``) at D = 80, "mma" (the
+    mma.sync kernel of ``csrc/rel_attention.cu``) at 16, 32 and 64."""
+    return "sm90" if D == SM90_HEAD_DIM else "mma"
 
 
 def rel_tables(rel_pos, size: int):
@@ -141,8 +153,9 @@ def rel_attention(q, k, v, rel_h, rel_w, hw):
     """Global attention with rel-pos factors over (R, L, D) rows.
 
     CPU tensors run ``rel_attention_plain``; CUDA tensors launch the kernel
-    (bf16, contiguous) or raise. Both raise under grad, as
-    ``window_attention`` does.
+    of the route ``rel_route(D)`` names (bf16, contiguous) or raise. Both
+    raise under grad, as ``window_attention`` does. ``launches`` counts the
+    launches, ``route_launches`` each route's.
     """
     _cuda.refuse_grad("rel_attention", q, k, v, rel_h, rel_w)
     if not q.is_cuda:
@@ -155,19 +168,22 @@ def rel_attention(q, k, v, rel_h, rel_w, hw):
     if H > MAX_GRID_SIDE or W > MAX_GRID_SIDE:
         raise ValueError(f"rel_attention: grid {hw} too large")
     _cuda.require_kernel_inputs("rel_attention", q, k, v, rel_h, rel_w)
+    route = rel_route(D)
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _cuda.launch(
-            "rel_attention", "ivlm_rel_attn", _argtypes(6, 5),
+            "rel_attention", "ivlm_rel_attn", _argtypes(6, 6),
             _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(rel_h),
-            _cuda.ptr(rel_w), _cuda.ptr(o), R, L, H, W, D, float(D ** -0.5),
-            _cuda.stream_handle(q.device),
+            _cuda.ptr(rel_w), _cuda.ptr(o), R, L, H, W, D, REL_ROUTES[route],
+            float(D ** -0.5), _cuda.stream_handle(q.device),
         )
     rel_attention.launches += 1
+    rel_attention.route_launches[route] += 1
     return o
 
 
 rel_attention.launches = 0
+rel_attention.route_launches = {r: 0 for r in REL_ROUTES}
 
 
 def window_copy_plain(q, k, v):

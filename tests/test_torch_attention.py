@@ -159,3 +159,19 @@ def test_cpu_tensors_take_the_plain_versions():
                        S.rel_attention_plain(q, k, v, rh, rw, (H, W)))
     assert counts == (F.flash_forward.launches, S.window_attention.launches,
                       S.rel_attention.launches)
+
+
+@pytest.mark.parametrize("D,route", [(80, "sm90"), (16, "mma"), (32, "mma"),
+                                     (64, "mma")])
+def test_rel_route_by_head_dim(D, route):
+    """The global kernel's route follows the head dim alone: the wgmma +
+    TMA kernel at ViT-H's 80, the mma.sync kernel at the tiny presets'
+    widths; a CPU call moves no route's count."""
+    assert S.rel_route(D) == route and route in S.REL_ROUTES
+    rng = np.random.default_rng(6)
+    H, W = 4, 4
+    q, k, v = (_t(_rand(rng, (1, H * W, D))) for _ in range(3))
+    rh, rw = _t(_rand(rng, (1, H, H * W))), _t(_rand(rng, (1, H * W, W)))
+    before = dict(S.rel_attention.route_launches)
+    S.rel_attention(q, k, v, rh, rw, (H, W))
+    assert S.rel_attention.route_launches == before

@@ -298,6 +298,31 @@ def test_global_kernel_matches_plain(dev, side):
     assert _close(out, want)
 
 
+@pytest.mark.parametrize("R,hw,D", [
+    (2, (25, 40), 80),  # L = 1000, no multiple of 64, and W != 64
+    (3, (64, 64), 80),  # an odd head count on the ViT-H grid
+    (1, (3, 64), 80),  # W = 64 with 3 key tiles; half the row block past L
+    (2, (5, 7), 80),  # one key tile, 29 keys masked, 93 rows past L
+    (2, (32, 32), 64),  # the mma.sync route still serves the other dims
+])
+def test_global_kernel_routes_match_plain(dev, R, hw, D):
+    """Each head dim on the route rel_route names, held to the plain
+    version at the ragged edges of the wgmma kernel's tiles."""
+    rng = np.random.default_rng(20)
+    H, W = hw
+    L = H * W
+    q, k, v = (_bf16(rng, (R, L, D), dev) for _ in range(3))
+    rh = _bf16(rng, (R, H, L), dev, 0.5)
+    rw = _bf16(rng, (R, L, W), dev, 0.5)
+    route = S.rel_route(D)
+    before = dict(S.rel_attention.route_launches)
+    out = S.rel_attention(q, k, v, rh, rw, hw)
+    torch.cuda.synchronize()
+    assert S.rel_attention.route_launches == {
+        r: n + (r == route) for r, n in before.items()}
+    assert _close(out, S.rel_attention_plain(q, k, v, rh, rw, hw))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """A CUDA tensor reaches the kernel or the call raises: no fallback."""
     rng = np.random.default_rng(3)
@@ -560,6 +585,8 @@ def test_int8_prequant_kernel_matches_plain(dev, M, K, N, dtype, act):
     err = (out.float() - want).abs()
     limit = 2.0 ** -7 * want.abs() + 1e-6 * want.abs().max()
     assert bool((err <= limit).all())
+    # it is the wgmma GEMM with no bias, bit for bit
+    assert torch.equal(out, Q.int8_gemm(xq, xs, w, scale, None, act, dtype))
     # the two-pass form gives the fused kernel's bits
     fused = Q.int8_matmul_fused(x, w, scale, None, act, dtype)
     assert torch.equal(Q.int8_matmul_prequant(xq, xs, w, scale, dtype, act),
