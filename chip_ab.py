@@ -15,6 +15,11 @@ kernels. Parts (all by default):
 - ``bwd_draws``: ``chip_smoke.case_flash_bwd`` at the LLaMA-13B training
   shape on eight draws (generator seeds 0-7), each with the backward
   kernels' distance from their plain version and from the f64 value;
+- ``bwd``: ``chip_smoke.case_flash_bwd`` alone at the two training shapes
+  of the backward kernels (the LLaMA-13B layer and the SAM decoder's
+  image -> token attention): each kernel's, the whole backward's and the
+  forward + backward's time beside SDPA's, the kernels' checks; only the
+  flash kernels are built;
 - ``matmuls``: the int8 matmul at the 7B-int8 path's decode and lm_head
   shapes (``chip_smoke.INT8_CASES`` up to ``ONE_LAUNCH_MAX_ROWS`` rows) and
   the bf16 serving matmul at the chain probe's, each timed by CUDA events
@@ -40,7 +45,7 @@ import subprocess
 import sys
 
 PARTS = ("kernels", "serving", "train", "bwd_draws", "matmuls",
-         "serving_int8")
+         "serving_int8", "bwd")
 ORDER = ("parent", "change", "change", "parent")
 
 # what one run does, in the checkout it starts in
@@ -50,8 +55,9 @@ import chip_smoke as c
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 name = torch.cuda.get_device_name(0)
-c._cuda.build()
 part = sys.argv[1]
+if part != "bwd":
+    c._cuda.build()
 if part == "kernels":
     c.kernel_phase(name)
     c.probe_kernel_phase(name)
@@ -107,6 +113,16 @@ elif part == "matmuls":
                                   "shape": f"M={M} K={k} N={n} {act}",
                                   "kernel_ms": c.time_ms(f, 10),
                                   "device_ms": dev_ms(f, 5)}), flush=True)
+elif part == "bwd":
+    lens = c.train_kv_lengths()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for what, args in (
+            ("LLaMA-13B training, 1 layer", (c.B, 40, 512, 512, 128, True,
+                                             lens)),
+            ("SAM decoder image->token", (c.B * c.V, 8, 4096, 9, 16, False,
+                                          None))):
+        r = c.case_flash_bwd(gen, name, what, *args)
+        print(json.dumps({"name": "flash_attention_bwd", **r}), flush=True)
 elif part == "bwd_draws":
     lens = c.train_kv_lengths()
     for seed in range(8):
@@ -131,7 +147,9 @@ def summary(lines):
             row = {k: rec.get(k) for k in (
                 "name", "shape", "route", "kernel_ms", "device_ms",
                 "quantize_ms", "gemm_ms", "int8_gemm_ms", "dq_ms", "dkv_ms",
-                "backward_ms", "kernel_ms_per_block", "library_ms",
+                "backward_ms", "port_fwd_bwd_ms", "library_fwd_bwd_ms",
+                "dkv_split", "dkv_device_ms_by_kernel", "kernel_ms_per_block",
+                "library_ms",
                 "library_device_ms", "err_over_limit") if k in rec}
             if "vs_f64" in rec:  # a backward case: each gradient's check
                 row["err_over_limit"] = {

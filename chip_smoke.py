@@ -8,7 +8,9 @@ prints no result, without them. Phases, each of which fails the run:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the ten hand-written kernel sources under
    ``interactvlm_tpu_torch/csrc/`` (flash forward, with its wgmma kernel
-   for head dim 128; flash backward dq and dk/dv; window attention; global
+   for head dim 128; flash backward dq, which also forms D = rowsum(dO O),
+   and dk/dv, with their wgmma kernels for head dim 128 and the split
+   query walk of dk/dv at short key lengths; window attention; global
    rel-pos attention, with its wgmma kernel for head dim 80; the one-launch
    fused int8 matmul, K split over a thread-block cluster; the int8 row
    quantize; the wgmma int8 GEMM, which is also the pre-quantized matmul;
@@ -172,14 +174,19 @@ KERNELS = {
         symbols=["int8_splitk_kernel", "int8_gemm_kernel"],
         path="7b_int8"),
     "flash_attention_bwd_dq": dict(
-        sources=[CSRC + "flash_attention_bwd.cu"],
+        sources=[CSRC + "flash_attention_bwd.cu", CSRC + "flash_bwd_sm90.cuh",
+                 CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:190",
-        wrapper=FA.flash_bwd_dq, symbols=["flash_bwd_dq_kernel"],
+        wrapper=FA.flash_bwd_dq,
+        symbols=["flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel"],
         path="train_13b_lora"),
     "flash_attention_bwd_dkv": dict(
-        sources=[CSRC + "flash_attention_bwd.cu"],
+        sources=[CSRC + "flash_attention_bwd.cu", CSRC + "flash_bwd_sm90.cuh",
+                 CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:243",
-        wrapper=FA.flash_bwd_dkv, symbols=["flash_bwd_dkv_kernel"],
+        wrapper=FA.flash_bwd_dkv,
+        symbols=["flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel",
+                 "flash_bwd_dkv_reduce_kernel"],
         path="train_13b_lora"),
     "quantize_rows": dict(
         sources=[CSRC + "int8_prequant.cu"],
@@ -236,7 +243,9 @@ def reset_launches():
         w["wrapper"].launches = 0
     Q.int8_gemm.launches = 0
     for counts in (Q.int8_matmul_fused.route_launches,
-                   SA.rel_attention.route_launches):
+                   SA.rel_attention.route_launches,
+                   FA.flash_bwd_dq.route_launches,
+                   FA.flash_bwd_dkv.route_launches):
         for route in counts:
             counts[route] = 0
 
@@ -245,7 +254,9 @@ def read_launches():
     return {**{n: w["wrapper"].launches for n, w in KERNELS.items()},
             "int8_routes": dict(Q.int8_matmul_fused.route_launches),
             "int8_gemm": Q.int8_gemm.launches,
-            "rel_routes": dict(SA.rel_attention.route_launches)}
+            "rel_routes": dict(SA.rel_attention.route_launches),
+            "bwd_dq_routes": dict(FA.flash_bwd_dq.route_launches),
+            "bwd_dkv_routes": dict(FA.flash_bwd_dkv.route_launches)}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -262,14 +273,12 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, warmup: int = 2):
-    """Device time of one call of ``fn`` in ms: torch.profiler over
-    ``iters`` calls, the summed device durations of every kernel, memset and
-    copy they ran, over the calls the trace holds (the most launches of one
-    name; the profiler may drop a call's events); and what ran, by name, per
-    call. None where the trace holds no device activity (time with
-    ``time_ms`` then). Unlike CUDA events around back-to-back calls it
-    leaves out the host's issue time between launches."""
+def device_ms_by_name(fn, iters: int, warmup: int = 2):
+    """What one call of ``fn`` runs on the card, by name (the first 60
+    characters): [device ms, launches] a call, from torch.profiler over
+    ``iters`` calls, every kernel, memset and copy, over the calls the
+    trace holds (the most launches of one name; the profiler may drop a
+    call's events). Empty where the trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -281,16 +290,27 @@ def device_ms(fn, iters: int, warmup: int = 2):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not evs:
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n = by.setdefault(e.name[:60], [0.0, 0])
+            n[0] += e.time_range.end - e.time_range.start
+            n[1] += 1
+    calls = max((c for _, c in by.values()), default=1)
+    return {n: [us / 1e3 / calls, c / calls] for n, (us, c) in by.items()}
+
+
+def device_ms(fn, iters: int, warmup: int = 2):
+    """Device time of one call of ``fn`` in ms (``device_ms_by_name``
+    summed) and what ran, by name, per call; None where the trace holds no
+    device activity (time with ``time_ms`` then). Unlike CUDA events around
+    back-to-back calls it leaves out the host's issue time between
+    launches."""
+    by = device_ms_by_name(fn, iters, warmup)
+    if not by:
         return None, None
-    counts = {}
-    for e in evs:
-        counts[e.name[:60]] = counts.get(e.name[:60], 0) + 1
-    # the calls the trace holds: it may drop a call's events
-    calls = max(counts.values())
-    us = sum(e.time_range.end - e.time_range.start for e in evs)
-    return us / 1e3 / calls, {n: c / calls for n, c in counts.items()}
+    return (sum(ms for ms, _ in by.values()),
+            {n: c for n, (_, c) in by.items()})
 
 
 def wall_ms(fn):
@@ -543,21 +563,42 @@ def float_mask(Bq, Lq, Lk, causal, lens):
     return torch.where(vis, 0.0, float("-inf")).to(torch.bfloat16)
 
 
+def compare_dsum(got, do, o):
+    """The dq kernel's D = rowsum(dO O) against the f32 torch rowsum of the
+    same bf16 inputs. Each product of two bf16 values is exact in f32, so
+    the two differ only in the order of their f32 additions: each element
+    within 2 D 2^-24 of the sum of the magnitudes of its terms, the bound
+    of any two orders of D additions."""
+    prod = do.float() * o.float()
+    want = prod.sum(-1).reshape(got.shape)
+    limit = (2 * do.shape[-1] * 2.0 ** -24
+             * prod.abs().sum(-1).reshape(got.shape)).clamp_min(1e-30)
+    err = (got - want).abs()
+    over = (err / limit).max().item()
+    return {"dsum_max_abs_err": err.max().item(), "dsum_err_over_limit": over,
+            "dsum_ok": over <= 1.0 and bool(torch.isfinite(got).all())}
+
+
 def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
     """Kernels 4 and 5 at one shape: (dq, dk, dv) from the port's forward
-    against ``flash_backward_plain``. Times: each kernel alone, the whole
-    backward (D = rowsum(dO O) and both kernels), the plain version, and,
-    as the library yardstick the port never calls, SDPA's backward alone
-    and SDPA forward + backward with the same explicit float mask against
-    the port's flash forward + backward. Bounds count this run's visible
-    (query, key) pairs: the dq kernel recomputes S and dP and forms dQ
-    (6 D flops a pair), the dk/dv kernel recomputes S and dP and forms dV
-    and dK (8); the whole backward needs 10 (S, dP, dV, dK, dQ) over the
-    bytes of q, k, v, o, dO, dq, dk and dv. ``vs_f64`` holds the kernels'
-    and the plain version's distance from the exact gradient (the plain
-    version in f64, which rounds neither P nor dS) in ``compare_grad``'s
-    units: not a check, it says which side of a failed comparison is
-    off."""
+    against ``flash_backward_plain``, and the dq kernel's D against the
+    torch rowsum (``compare_dsum``), and what a ``flash_backward`` call
+    runs on the card (only its kernels, no torch operation). Times: the dq kernel (D included) and
+    the dk/dv kernel alone, the whole backward (``flash_backward``: the two
+    launches, three with the split's reduce), the plain version, and, as
+    the library yardstick the port never calls, SDPA's backward alone and
+    SDPA forward + backward with the same explicit float mask against the
+    port's flash forward + backward. ``route`` is ``bwd_route(D)``;
+    ``dkv_split`` the mma.sync dk/dv kernel's (splits, query tiles a
+    split). Bounds count this run's visible (query, key) pairs: the dq
+    kernel recomputes S and dP and forms dQ (6 D flops a pair) over q, k,
+    v, dO, O, lse and dq, D; the dk/dv kernel recomputes S and dP and forms
+    dV and dK (8) over q, k, v, dO, lse, D and dk, dv; the whole backward
+    needs 10 (S, dP, dV, dK, dQ) over q, k, v, o, dO, lse and dq, dk, dv.
+    ``vs_f64`` holds the kernels' and the plain version's distance from the
+    exact gradient (the plain version in f64, which rounds neither P nor
+    dS) in ``compare_grad``'s units: not a check, it says which side of a
+    failed comparison is off."""
     q, do = rand_bf16(gen, (Bq, H, Lq, D)), rand_bf16(gen, (Bq, H, Lq, D))
     k, v = rand_bf16(gen, (Bq, H, Lk, D)), rand_bf16(gen, (Bq, H, Lk, D))
     kv = (None if lens is None
@@ -576,13 +617,22 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
               for n, g, w, e in zip(("dq", "dk", "dv"), got, want, exact)}
     del got, want, exact
     scale = D ** -0.5
-    dsum = (do.float() * o.float()).sum(-1).reshape(Bq * H, Lq)
+    _, dsum = FA.flash_bwd_dq(q, k, v, do, o, lse, causal, scale, kv)
+    cmp["dq"].update(compare_dsum(dsum, do, o))
+    # what a flash_backward call runs on the card: its kernels and nothing
+    # else (no torch operation; an empty trace shows nothing either way)
+    launched = device_ms_by_name(lambda: FA.flash_backward(
+        q, k, v, o, lse, do, causal, None, kv), 10)
+    cmp["dq"]["backward_runs_only_its_kernels"] = all(
+        "flash_bwd_" in n for n in launched)
+    cmp["dq"]["ok"] = (cmp["dq"]["ok"] and cmp["dq"]["dsum_ok"]
+                       and cmp["dq"]["backward_runs_only_its_kernels"])
     pairs = int(FA._visible(Bq, Lq, Lk, causal, kv, "cuda").sum().item()) * H
     BH = Bq * H
     qb, kb, rows = BH * Lq * D * 2, BH * Lk * D * 2, BH * Lq * 4
-    dq_t = bound(6 * D * pairs, 2 * qb + 2 * kb + 2 * rows + qb, name)
+    dq_t = bound(6 * D * pairs, 3 * qb + 2 * kb + 2 * rows + qb, name)
     dkv_t = bound(8 * D * pairs, 2 * qb + 2 * kb + 2 * rows + 2 * kb, name)
-    bwd_t = bound(10 * D * pairs, 3 * qb + 2 * kb + qb + 2 * kb, name)
+    bwd_t = bound(10 * D * pairs, 3 * qb + 2 * kb + rows + qb + 2 * kb, name)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     mask = float_mask(Bq, Lq, Lk, causal, kv)
     lib_out = sdpa()(*leaves, attn_mask=mask)
@@ -595,14 +645,22 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
         return torch.autograd.grad(sdpa()(*leaves, attn_mask=mask), leaves,
                                    do)
 
+    route = FA.bwd_route(D)
     out = dict(
-        shape=what, dq=cmp["dq"], dk=cmp["dk"], dv=cmp["dv"], vs_f64=vs_f64,
-        dq_ms=time_ms(lambda: FA.flash_bwd_dq(q, k, v, do, lse, dsum, causal,
+        shape=what, route=route,
+        dkv_split=FA.dkv_split(Lq, Lk) if route == "mma" else (1, None),
+        dq=cmp["dq"], dk=cmp["dk"], dv=cmp["dv"], vs_f64=vs_f64,
+        dq_ms=time_ms(lambda: FA.flash_bwd_dq(q, k, v, do, o, lse, causal,
                                               scale, kv), 20),
         dkv_ms=time_ms(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, dsum,
                                                 causal, scale, kv), 20),
+        # [device ms, launches] a call by kernel: the split's reduce pass
+        dkv_device_ms_by_kernel=device_ms_by_name(
+            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, scale,
+                                     kv), 20),
         backward_ms=time_ms(lambda: FA.flash_backward(
             q, k, v, o, lse, do, causal, None, kv), 20),
+        backward_device_ms_by_kernel=launched,
         plain_ms=time_ms(lambda: FA.flash_backward_plain(
             q, k, v, o, lse, do, causal, None, kv), 3),
         library_ms=time_ms(lambda: torch.autograd.grad(
@@ -623,8 +681,9 @@ def bwd_rows(case, which):
         worst = case["dq"]
     else:
         worst = max(case["dk"], case["dv"], key=lambda c: c["err_over_limit"])
-    return dict(shape=case["shape"], **worst,
-                kernel_ms=case[f"{which}_ms"], plain_ms=case["plain_ms"],
+    return dict(shape=case["shape"], route=case["route"], **worst,
+                kernel_ms=case[f"{which}_ms"],
+                backward_ms=case["backward_ms"], plain_ms=case["plain_ms"],
                 library_ms=case["library_ms"],
                 bound_ms=case[f"{which}_bound_ms"],
                 bound_by=case[f"{which}_bound_by"])
@@ -1727,7 +1786,9 @@ def training_path_phase():
                  "int8_routes": {r: 0 for r in
                                  Q.int8_matmul_fused.route_launches},
                  "int8_gemm": 0,
-                 "rel_routes": {"mma": 0, "sm90": n_global}})
+                 "rel_routes": {"mma": 0, "sm90": n_global},
+                 "bwd_dq_routes": {"sm90": layers, "mma": dec},
+                 "bwd_dkv_routes": {"sm90": layers, "mma": dec}})
     log(json.dumps({"phase": "train_launches_per_step", "launches": launches,
                     "expected": want}))
     moved = {n: not torch.equal(p.detach(), watched[n])
@@ -1824,6 +1885,9 @@ def main() -> int:
                if kname == "int8_matmul" else {}),
             **({"launches_by_route": launches[path]["rel_routes"]}
                if kname == "rel_attention" else {}),
+            **({"launches_by_route": launches[path][
+                "bwd_" + kname.rsplit("_", 1)[1] + "_routes"]}
+               if kname.startswith("flash_attention_bwd") else {}),
             "max_abs_err": worst["max_abs_err"],
             "err_over_limit": worst["err_over_limit"], "tol": worst["tol"],
             "ms": first["kernel_ms"],

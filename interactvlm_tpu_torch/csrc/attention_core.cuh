@@ -55,6 +55,27 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
          (uint32_t(__bfloat16_as_ushort(hi)) << 16);
 }
 
+// acc + the dot product of two pairs of bf16 (packed as by pack_bf16), in
+// f32, in order
+__device__ __forceinline__ float dot2(uint32_t a, uint32_t b, float acc) {
+  const float2 fx = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
+  const float2 fy = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&b));
+  return fmaf(fx.y, fy.y, fmaf(fx.x, fy.x, acc));
+}
+
+// acc + the dot product of two 16-byte vectors of 8 bf16, in f32, in order
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    acc = fmaf(fx.x, fy.x, acc);
+    acc = fmaf(fx.y, fy.y, acc);
+  }
+  return acc;
+}
+
 struct NoBias {
   static constexpr bool kActive = false;
   __device__ __forceinline__ float operator()(int, int) const { return 0.f; }

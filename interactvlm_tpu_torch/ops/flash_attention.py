@@ -1,6 +1,7 @@
 """Flash attention: the forward kernel ``csrc/flash_attention.cu``, the two
-backward kernels ``csrc/flash_attention_bwd.cu``, their plain PyTorch
-versions, and the autograd Function that joins them.
+backward kernels ``csrc/flash_attention_bwd.cu`` (head dim 128:
+``csrc/flash_bwd_sm90.cuh``), their plain PyTorch versions, and the
+autograd Function that joins them.
 
 Ports of ``interactvlm_tpu/ops/flash_attention.py``: ``_flash_kernel`` (the
 Pallas TPU kernel, wrapper ``_flash_forward``), ``_bwd_dq_kernel`` and
@@ -133,52 +134,100 @@ def flash_backward_plain(q, k, v, o, lse, do, causal=False, scale=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-_BWD_ARGTYPES = {
-    n: [ctypes.c_void_p] * n + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    for n in (8, 9)
-}
+def bwd_route(D):
+    """The backward kernels' route, by head dim alone (as the forward's and
+    ``sam_attention.rel_route``): "sm90", the wgmma + TMA kernels of
+    ``csrc/flash_bwd_sm90.cuh``, at 128 (the LLaMA shapes); "mma", the
+    mma.sync kernels of ``csrc/flash_attention_bwd.cu``, at 16, 32 and 64
+    (the SAM decoder's 16). Raises on any other head dim."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_backward: head dim {D} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    return "sm90" if D == 128 else "mma"
 
 
-def _bwd_args(q, k, kv_lengths, causal, scale):
-    B, H, Lq, D = q.shape
+# the mma.sync dk/dv kernel's query tiles, and at Lk <= DKV_SPLIT_MAX_LK
+# (one key tile) the most of them one block walks
+DKV_QUERY_TILE, DKV_SPLIT_MAX_LK, DKV_SPLIT_TILES = 64, 64, 8
+
+
+def dkv_split(Lq, Lk):
+    """The mma.sync dk/dv kernel's plan: (splits, query tiles a split).
+
+    Its blocks own 64 keys each and walk the query tiles. At Lk <= 64 one
+    block per (batch*head) would walk every query alone (Lq = 4096 at the
+    SAM decoder's Lk = 9: 256 blocks on 132 SMs), so the walk is cut into
+    runs of at most ``DKV_SPLIT_TILES`` tiles, one block each (2048 blocks
+    there), whose partial sums a second launch adds in order. Longer key
+    sequences give blocks enough already: one split over every tile."""
+    tiles = -(-Lq // DKV_QUERY_TILE)
+    if Lk > DKV_SPLIT_MAX_LK:
+        return 1, tiles
+    per = min(tiles, DKV_SPLIT_TILES)
+    return -(-tiles // per), per
+
+
+_DQ_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_DKV_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _lens_ptr(kv_lengths):
     return (_cuda.ptr(kv_lengths) if kv_lengths is not None
-            else ctypes.c_void_p(None),
-            B * H, H, Lq, k.shape[2], D, float(scale), int(bool(causal)),
-            _cuda.stream_handle(q.device))
+            else ctypes.c_void_p(None))
 
 
-def flash_bwd_dq(q, k, v, do, lse, dsum, causal, scale, kv_lengths):
+def flash_bwd_dq(q, k, v, do, o, lse, causal, scale, kv_lengths):
     """Launch the dq kernel (CUDA only; ``flash_backward`` checks the
-    inputs). lse and dsum are (B*H, Lq) f32; kv_lengths int32 or None."""
+    inputs), which also forms D = rowsum(dO * O) in f32. lse is (B*H, Lq)
+    f32, kv_lengths int32 or None. Returns (dq, dsum (B*H, Lq) f32)."""
+    B, H, Lq, D = q.shape
     dq = torch.empty_like(q)
+    dsum = torch.empty(B * H, Lq, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _cuda.launch(
-            "flash_attention_bwd", "ivlm_flash_bwd_dq", _BWD_ARGTYPES[8],
+            "flash_attention_bwd", "ivlm_flash_bwd_dq", _DQ_ARGTYPES,
             _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(do),
-            _cuda.ptr(lse), _cuda.ptr(dsum), _cuda.ptr(dq),
-            *_bwd_args(q, k, kv_lengths, causal, scale))
+            _cuda.ptr(o), _cuda.ptr(lse), _cuda.ptr(dsum), _cuda.ptr(dq),
+            _lens_ptr(kv_lengths), B * H, H, Lq, k.shape[2], D, float(scale),
+            int(bool(causal)), _cuda.stream_handle(q.device))
     flash_bwd_dq.launches += 1
-    return dq
+    flash_bwd_dq.route_launches[bwd_route(D)] += 1
+    return dq, dsum
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.route_launches = {"sm90": 0, "mma": 0}
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, scale, kv_lengths):
-    """Launch the dk/dv kernel (CUDA only, as ``flash_bwd_dq``)."""
+    """Launch the dk/dv kernel (CUDA only, as ``flash_bwd_dq``) after the
+    dq kernel that wrote dsum, on the same stream. On the mma.sync route
+    with more than one split (``dkv_split``) it allocates the f32 partial
+    sums and the C launcher adds a second launch that sums them."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    route = bwd_route(D)
+    splits, tiles = dkv_split(Lq, Lk) if route == "mma" else (1, 1)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part = (torch.empty(splits, 2, B * H, Lk, D, dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
         _cuda.launch(
-            "flash_attention_bwd", "ivlm_flash_bwd_dkv", _BWD_ARGTYPES[9],
+            "flash_attention_bwd", "ivlm_flash_bwd_dkv", _DKV_ARGTYPES,
             _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(do),
             _cuda.ptr(lse), _cuda.ptr(dsum), _cuda.ptr(dk), _cuda.ptr(dv),
-            *_bwd_args(q, k, kv_lengths, causal, scale))
+            _cuda.ptr(part) if part is not None else ctypes.c_void_p(None),
+            _lens_ptr(kv_lengths), B * H, H, Lq, Lk, D, float(scale),
+            int(bool(causal)), splits, tiles, _cuda.stream_handle(q.device))
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.route_launches[route] += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.route_launches = {"sm90": 0, "mma": 0}
 
 
 def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
@@ -187,9 +236,10 @@ def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
     output o and logsumexp lse (B*H, Lq), and the output gradient do.
 
     CPU tensors run ``flash_backward_plain``; CUDA tensors launch the dq and
-    the dk/dv kernels (bf16, contiguous, head dim in ``KERNEL_HEAD_DIMS``)
-    or raise. D = rowsum(dO * O) is taken in torch, in f32, outside the
-    kernels, as the JAX package takes it.
+    the dk/dv kernels of ``bwd_route(D)`` (bf16, contiguous, head dim in
+    ``KERNEL_HEAD_DIMS``) or raise. D = rowsum(dO * O), which the JAX
+    package takes in jnp outside its kernels, is formed by the dq kernel;
+    nothing here runs a torch operation on the card but allocations.
     """
     if not q.is_cuda:
         return flash_backward_plain(q, k, v, o, lse, do, causal, scale,
@@ -200,9 +250,7 @@ def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
             or do.shape != q.shape):
         raise ValueError(f"flash_backward: shapes q {q.shape} k {k.shape} "
                          f"v {v.shape} o {o.shape} do {do.shape}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_backward: head dim {D} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+    bwd_route(D)  # raises on a head dim no kernel takes
     _cuda.require_kernel_inputs("flash_backward", q, k, v, o, do)
     _cuda.require_kernel_inputs("flash_backward", lse, dtype=torch.float32)
     if lse.shape != (B * H, Lq) or lse.device != q.device:
@@ -214,8 +262,7 @@ def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
         if lens.shape != (B,):
             raise ValueError(f"flash_backward: kv_lengths shape {lens.shape}")
     scale = D ** -0.5 if scale is None else scale
-    dsum = (do.float() * o.float()).sum(-1).reshape(B * H, Lq)
-    dq = flash_bwd_dq(q, k, v, do, lse, dsum, causal, scale, lens)
+    dq, dsum = flash_bwd_dq(q, k, v, do, o, lse, causal, scale, lens)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, dsum, causal, scale, lens)
     return dq, dk, dv
 

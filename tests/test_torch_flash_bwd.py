@@ -31,6 +31,8 @@ def _rand(rng, shape):
     (2, 2, 384, 384, 64, False, (384, 250)),
     (1, 2, 130, 9, 16, False, None),  # the SAM decoder's Lk = 9, D = 16
     (1, 2, 64, 192, 32, True, None),  # causal Lq < Lk: bottom-right
+    (1, 2, 1000, 9, 16, False, None),  # Lk = 9, Lq off the dk/dv split
+    (1, 2, 200, 130, 128, True, (130,)),  # the sm90 route's head dim
 ])
 def test_plain_backward_matches_pallas_interpret(B, H, Lq, Lk, D, causal,
                                                  lens):
@@ -110,6 +112,62 @@ def test_backward_on_the_cpu_launches_nothing():
     assert (F.flash_forward.launches, F.flash_bwd_dq.launches,
             F.flash_bwd_dkv.launches) == before
     assert q.grad is not None and k.grad is not None and v.grad is not None
+
+
+@pytest.mark.parametrize("D", [16, 128])
+def test_backward_on_the_cpu_takes_no_route(D):
+    """On the CPU neither route's kernels launch, at either route's head
+    dim: the gradients come from the plain version."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(_rand(rng, (1, 2, 70, D))).requires_grad_()
+               for _ in range(3))
+    before = (dict(F.flash_bwd_dq.route_launches),
+              dict(F.flash_bwd_dkv.route_launches))
+    out = F.flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert (F.flash_bwd_dq.route_launches,
+            F.flash_bwd_dkv.route_launches) == before
+    o, lse = F.flash_forward_plain(q.detach(), k.detach(), v.detach(), True)
+    want = F.flash_backward_plain(q.detach(), k.detach(), v.detach(), o, lse,
+                                  2 * o, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("D,route", [(16, "mma"), (32, "mma"), (64, "mma"),
+                                     (128, "sm90")])
+def test_bwd_route_by_head_dim(D, route):
+    assert F.bwd_route(D) == route
+
+
+@pytest.mark.parametrize("D", [8, 48, 80, 256])
+def test_bwd_route_refuses_other_head_dims(D):
+    with pytest.raises(ValueError, match="head dim"):
+        F.bwd_route(D)
+
+
+@pytest.mark.parametrize("Lq,Lk", [
+    (4096, 9),  # the SAM decoder's image -> token attention
+    (1000, 9), (1, 9), (512, 64), (513, 64), (4096, 65), (512, 512),
+    (130, 70),
+])
+def test_dkv_split_covers_the_queries(Lq, Lk):
+    """The split query walk of the mma.sync dk/dv kernel: runs of whole
+    64-query tiles that cover [0, Lq) once each with no empty run; no split
+    where Lk > 64 (a block per key tile already); at the SAM decoder's shape
+    (B*H = 256) at least two blocks for each of the 132 SMs."""
+    splits, tiles = F.dkv_split(Lq, Lk)
+    tile = F.DKV_QUERY_TILE
+    runs = [(z * tiles * tile, min(Lq, (z + 1) * tiles * tile))
+            for z in range(splits)]
+    assert runs[0][0] == 0 and runs[-1][1] == Lq
+    assert all(a < b for a, b in runs)
+    assert all(runs[i][1] == runs[i + 1][0] for i in range(splits - 1))
+    assert tiles <= F.DKV_SPLIT_TILES or splits == 1
+    if Lk > F.DKV_SPLIT_MAX_LK:
+        assert splits == 1
+    if (Lq, Lk) == (4096, 9):
+        assert 256 * splits >= 2 * 132
 
 
 def test_forward_only_kernels_raise_under_grad_on_the_cpu_too():

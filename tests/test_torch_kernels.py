@@ -136,6 +136,19 @@ def _grad_close(got, want, atol_of_rms=GRAD_ATOL_OF_RMS):
     (1, 2, 70, 130, 64, True, None),  # causal, Lq < Lk
     (1, 2, 130, 70, 32, True, (70,)),  # causal, Lq > Lk: 60 rows see no key
     (2, 2, 100, 100, 32, True, (0, 37)),  # row 0 sees no key at all
+    # the mma.sync dk/dv kernel's split query walk at Lk <= 64: Lq not a
+    # multiple of a split's 512 rows; causal with Lq > Lk, where the first
+    # split's queries see no key
+    (1, 4, 1000, 9, 16, False, None),
+    (2, 2, 700, 40, 32, True, (40, 33)),
+    # head dim 128 runs the wgmma/TMA kernels: causal Lq < Lk, causal
+    # Lq > Lk with rows that see no key, kv lengths 0, 1 and full, Lq and Lk
+    # off the 128-row blocks and 64-row tiles, one (batch, head)
+    (1, 3, 70, 200, 128, True, None),
+    (2, 2, 300, 129, 128, True, None),
+    (3, 2, 129, 129, 128, True, (0, 1, 129)),
+    (2, 2, 319, 500, 128, False, (500, 77)),
+    (1, 1, 200, 200, 128, True, None),
 ])
 def test_flash_backward_kernels_match_plain(dev, B, H, Lq, Lk, D, causal,
                                             lens):
@@ -145,10 +158,16 @@ def test_flash_backward_kernels_match_plain(dev, B, H, Lq, Lk, D, causal,
     kv = None if lens is None else torch.tensor(lens, device=dev)
     o, lse = F.flash_forward(q, k, v, causal, None, kv)
     n_dq, n_dkv = F.flash_bwd_dq.launches, F.flash_bwd_dkv.launches
+    routes = (dict(F.flash_bwd_dq.route_launches),
+              dict(F.flash_bwd_dkv.route_launches))
     got = F.flash_backward(q, k, v, o, lse, do, causal, None, kv)
     torch.cuda.synchronize()
     assert (F.flash_bwd_dq.launches, F.flash_bwd_dkv.launches) == (
         n_dq + 1, n_dkv + 1)
+    route = F.bwd_route(D)
+    for before, after in zip(routes, (F.flash_bwd_dq.route_launches,
+                                      F.flash_bwd_dkv.route_launches)):
+        assert after == {r: n + (r == route) for r, n in before.items()}
     want = F.flash_backward_plain(q, k, v, o, lse, do, causal, None, kv)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
@@ -167,6 +186,36 @@ def test_flash_backward_kernels_match_plain(dev, B, H, Lq, Lk, D, causal,
     assert bool((got[0].float()[blind_rows[:, None].expand(B, H, Lq)] == 0).all())
     for g in got[1:]:
         assert bool((g.float()[unseen_keys[:, None].expand(B, H, Lk)] == 0).all())
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D,causal,lens", [
+    (2, 4, 512, 512, 128, True, (512, 300)),
+    (1, 3, 300, 129, 128, True, (0,)),  # rows that see no key still get D
+    (2, 8, 4096, 9, 16, False, None),
+    (1, 2, 130, 70, 32, True, (70,)),
+])
+def test_flash_bwd_dq_writes_the_row_sum(dev, B, H, Lq, Lk, D, causal, lens):
+    """The dq kernel's D = rowsum(dO O) against the f32 torch rowsum of the
+    same bf16 inputs: each bf16 product is exact in f32, so the two differ
+    only in the order of their additions, each element within 2 D 2^-24
+    of the sum of its terms' magnitudes (the bound for any two orders); and
+    its dq is the dq of the whole backward."""
+    rng = np.random.default_rng(11)
+    q, do = _bf16(rng, (B, H, Lq, D), dev), _bf16(rng, (B, H, Lq, D), dev)
+    k, v = _bf16(rng, (B, H, Lk, D), dev), _bf16(rng, (B, H, Lk, D), dev)
+    kv = None if lens is None else torch.tensor(lens, device=dev,
+                                                dtype=torch.int32)
+    o, lse = F.flash_forward(q, k, v, causal, None, kv)
+    dq, dsum = F.flash_bwd_dq(q, k, v, do, o, lse, causal, D ** -0.5, kv)
+    torch.cuda.synchronize()
+    assert dsum.shape == (B * H, Lq) and dsum.dtype == torch.float32
+    prod = do.float() * o.float()
+    want = prod.sum(-1).reshape(B * H, Lq)
+    limit = 2 * D * 2.0 ** -24 * prod.abs().sum(-1).reshape(B * H, Lq)
+    assert bool(torch.isfinite(dsum).all())
+    assert bool(((dsum - want).abs() <= limit).all())
+    assert torch.equal(dq, F.flash_backward(q, k, v, o, lse, do, causal,
+                                            None, kv)[0])
 
 
 def _units(got, ref):
