@@ -32,7 +32,8 @@ Each run's output goes to ``build/ab/logs/<n>_<side>_<part>.log`` under
 the directory it is started in; the script prints one JSON line per run
 with the lines that carry its numbers
 (kernel cases as name, shape and ``kernel_ms``; the paths' ``main_path``
-and ``legs_ms`` lines). Needs one CUDA card; exits non-zero if a run fails.
+and ``legs_ms`` lines; each profiled batch or step's device time, copy
+calls and hand-written kernels' device time). Needs one CUDA card; exits non-zero if a run fails.
 Compare two versions only within one call of this script: the card and
 the host differ between calls.
 """
@@ -149,7 +150,7 @@ def summary(lines):
                 "quantize_ms", "gemm_ms", "int8_gemm_ms", "dq_ms", "dkv_ms",
                 "backward_ms", "port_fwd_bwd_ms", "library_fwd_bwd_ms",
                 "dkv_split", "dkv_device_ms_by_kernel", "kernel_ms_per_block",
-                "library_ms",
+                "library_ms", "strided",
                 "library_device_ms", "err_over_limit") if k in rec}
             if "vs_f64" in rec:  # a backward case: each gradient's check
                 row["err_over_limit"] = {
@@ -160,6 +161,10 @@ def summary(lines):
             out.append(row)
         elif rec.get("phase") in ("main_path", "legs_ms"):
             out.append({k: v for k, v in rec.items() if k != "metrics"})
+        elif rec.get("phase") == "profile":  # a profiled batch or step
+            out.append({k: rec.get(k) for k in (
+                "phase", "path", "mode", "batch_ms", "device_busy_ms",
+                "copy_calls", "kernel_device_ms")})
     return out
 
 

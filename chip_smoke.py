@@ -10,8 +10,9 @@ prints no result, without them. Phases, each of which fails the run:
    ``interactvlm_tpu_torch/csrc/`` (flash forward, with its wgmma kernel
    for head dim 128; flash backward dq, which also forms D = rowsum(dO O),
    and dk/dv, with their wgmma kernels for head dim 128 and the split
-   query walk of dk/dv at short key lengths; window attention; global
-   rel-pos attention, with its wgmma kernel for head dim 80; the one-launch
+   query walk of dk/dv at short key lengths; window attention, with its
+   wgmma kernel for head dim 80 that reads q, k and v as strided views;
+   global rel-pos attention, with its wgmma kernel for head dim 80; the one-launch
    fused int8 matmul, K split over a thread-block cluster; the int8 row
    quantize; the wgmma int8 GEMM, which is also the pre-quantized matmul;
    the wgmma bf16 serving matmul; the tensor-core rate loop; the window
@@ -155,9 +156,12 @@ KERNELS = {
         symbols=["flash_fwd_kernel", "flash_fwd_sm90_kernel"],
         path="train_13b_lora"),
     "window_attention": dict(
-        sources=[CSRC + "window_attention.cu"],
+        sources=[CSRC + "window_attention.cu",
+                 CSRC + "window_attention_sm90.cuh", CSRC + "sm90_core.cuh",
+                 CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/sam_attention.py:117",
-        wrapper=SA.window_attention, symbols=["window_kernel"],
+        wrapper=SA.window_attention,
+        symbols=["window_kernel", "window_fwd_sm90_kernel"],
         path="train_13b_lora"),
     "rel_attention": dict(
         sources=[CSRC + "rel_attention.cu", CSRC + "rel_attention_sm90.cuh",
@@ -204,9 +208,10 @@ KERNELS = {
         wrapper=SM.fused_dense, symbols=["dense_gemm_kernel"],
         path="probes"),
     "mxu_loop": dict(
-        sources=[CSRC + "mxu_probe.cu"],
+        sources=[CSRC + "mxu_probe.cu", CSRC + "sm90_core.cuh"],
         replaces="scripts/mxu_probe.py:28",
-        wrapper=MX.mxu_loop, symbols=["_loop_kernel"], path="probes"),
+        wrapper=MX.mxu_loop, symbols=["wgmma_loop_kernel", "fma_loop_kernel"],
+        path="probes"),
     "window_copy": dict(
         sources=[CSRC + "window_copy.cu"],
         replaces="scripts/winattn_probe.py:123",
@@ -243,6 +248,7 @@ def reset_launches():
         w["wrapper"].launches = 0
     Q.int8_gemm.launches = 0
     for counts in (Q.int8_matmul_fused.route_launches,
+                   SA.window_attention.route_launches,
                    SA.rel_attention.route_launches,
                    FA.flash_bwd_dq.route_launches,
                    FA.flash_bwd_dkv.route_launches):
@@ -254,6 +260,7 @@ def read_launches():
     return {**{n: w["wrapper"].launches for n, w in KERNELS.items()},
             "int8_routes": dict(Q.int8_matmul_fused.route_launches),
             "int8_gemm": Q.int8_gemm.launches,
+            "window_routes": dict(SA.window_attention.route_launches),
             "rel_routes": dict(SA.rel_attention.route_launches),
             "bwd_dq_routes": dict(FA.flash_bwd_dq.route_launches),
             "bwd_dkv_routes": dict(FA.flash_bwd_dkv.route_launches)}
@@ -471,8 +478,15 @@ def case_flash_edge(gen, name, what, Bq, H, Lq, Lk, causal, lens):
 
 def case_window(gen, name):
     """ViT-H window block: 32 images x 25 windows x 16 heads = 12 800 rows,
-    L=196 (14x14), D=80, stacked factors (R, 28, 196)."""
-    R, hw, L, D = B * V * 25 * 16, (14, 14), 196, 80
+    L=196 (14x14), D=80, stacked factors (R, 28, 196), on the route
+    ``window_route`` names. q, k and v first as contiguous rows, then
+    (``strided``, from its own generator, so no other case's inputs move)
+    as the views of one (800, 196, 3 x 16 x 80) qkv tensor that the
+    encoder's qkv linear leaves, the layout the serving and training paths
+    give the kernel; its output must be a view whose transpose back to
+    tokens is contiguous. Each timed by events and by the profiler's device
+    time a call."""
+    R, hw, L, D, nH = B * V * 25 * 16, (14, 14), 196, 80, 16
     q, k, v = (rand_bf16(gen, (R, L, D)) for _ in range(3))
     f = rand_bf16(gen, (R, 28, L), 0.5)
     got = SA.window_attention(q, k, v, f, hw)
@@ -480,13 +494,32 @@ def case_window(gen, name):
     c = torch.arange(L, device="cuda")
     bias = (f[:, c // 14, :] + f[:, 14 + c % 14, :]).transpose(1, 2).contiguous()
     t, by = bound(4 * R * L * L * D, 4 * R * L * D * 2 + R * 28 * L * 2, name)
-    return dict(
+    res = dict(
         shape="R=12800 L=196 D=80 (ViT-H window block, all 32 images)",
-        **compare(got, want, atol=WINDOW_ATOL),
+        route=SA.window_route(D, hw), **compare(got, want, atol=WINDOW_ATOL),
         kernel_ms=time_ms(lambda: SA.window_attention(q, k, v, f, hw), 10),
+        device_ms=device_ms(lambda: SA.window_attention(q, k, v, f, hw), 5)[0],
         plain_ms=time_ms(lambda: SA.window_attention_plain(q, k, v, f, hw), 3),
         library_ms=time_ms(lambda: sdpa()(q, k, v, attn_mask=bias), 10),
         bound_ms=t, bound_by=by)
+    del q, k, v, got, want, bias
+    sgen = torch.Generator(device="cuda").manual_seed(3)
+    qkv = rand_bf16(sgen, (R // nH, L, 3 * nH * D))
+    qs, ks, vs = qkv.view(R // nH, L, 3, nH, D).permute(2, 0, 3, 1, 4).unbind(0)
+    got = SA.window_attention(qs, ks, vs, f, hw)
+    layout_ok = got.transpose(1, 2).is_contiguous()
+    strided = compare(got, SA.window_attention_plain(qs, ks, vs, f, hw),
+                      atol=WINDOW_ATOL)
+    res["strided"] = dict(
+        shape="BW=800 nH=16 L=196 D=80 views of one (800, 196, 3840) qkv "
+        "tensor", **strided, out_transpose_contiguous=layout_ok,
+        kernel_ms=time_ms(lambda: SA.window_attention(qs, ks, vs, f, hw), 10),
+        device_ms=device_ms(lambda: SA.window_attention(qs, ks, vs, f, hw),
+                            5)[0])
+    res["err_over_limit"] = max(res["err_over_limit"],
+                                strided["err_over_limit"])
+    res["ok"] = res["ok"] and strided["ok"] and layout_ok
+    return res
 
 
 def case_global(gen, name, hw=(64, 64)):
@@ -1346,6 +1379,10 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
     if launches["rel_routes"] != {"mma": 0, "sm90": launches["rel_attention"]}:
         raise SystemExit(f"the {path} path's global attention left the wgmma "
                          f"route: {launches['rel_routes']}")
+    if launches["window_routes"] != {"mma": 0,
+                                     "sm90": launches["window_attention"]}:
+        raise SystemExit(f"the {path} path's window attention left the wgmma "
+                         f"route: {launches['window_routes']}")
     if cfg.llama.weights_int8:
         # per batch: 7 projections a layer and the lm_head, at the prefill
         # and each of the T - 1 decode steps; 4 linears a SAM block when
@@ -1442,8 +1479,10 @@ def decode_by_cache(model, batch):
 
 def device_busy(fn):
     """One batch under torch.profiler: the share of its wall time in which
-    the card ran a kernel or copy, and the operations with the most device
-    time, and the device time and count of each hand-written kernel whose
+    the card ran a kernel or copy, the operations with the most device
+    time, the count of ``aten::copy_`` calls (each a copy the host asked
+    for: ``.contiguous()``, a reshape of a view, a dtype cast), and the
+    device time and count of each hand-written kernel whose
     wrapper launched in the batch, in all and by symbol (route). The profiler's host-side cost lengthens
     the batch, so the share is a lower bound. ``None`` where the trace holds
     no device activity."""
@@ -1479,8 +1518,10 @@ def device_busy(fn):
                 by_symbol[sym] = [
                     sum(e.self_device_time_total for e in hits) / 1e3,
                     sum(e.count for e in hits)]
+    copies = sum(e.count for e in avg if e.key == "aten::copy_")
     return {"batch_ms": ms, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / ms if spans else None,
+            "copy_calls": copies,
             "top_device_ms": [[e.key[:80], e.self_device_time_total / 1e3,
                                e.count] for e in top],
             "kernel_device_ms": ours, "symbol_device_ms": by_symbol}
@@ -1786,6 +1827,8 @@ def training_path_phase():
                  "int8_routes": {r: 0 for r in
                                  Q.int8_matmul_fused.route_launches},
                  "int8_gemm": 0,
+                 "window_routes": {"mma": 0, "sm90": cfg.sam.encoder_depth
+                                   - n_global},
                  "rel_routes": {"mma": 0, "sm90": n_global},
                  "bwd_dq_routes": {"sm90": layers, "mma": dec},
                  "bwd_dkv_routes": {"sm90": layers, "mma": dec}})
@@ -1873,7 +1916,7 @@ def main() -> int:
         path = meta["path"]
         rows.append({
             "name": kname, "route": "cuda", "source": meta["sources"][0],
-            "sources": meta["sources"],
+            "sources": meta["sources"], "symbols": meta["symbols"],
             "replaces": meta["replaces"], "launches_path": path,
             "launches": launches[path][kname],
             "launches_by_path": {p: c[kname] for p, c in launches.items()},
@@ -1885,6 +1928,8 @@ def main() -> int:
                if kname == "int8_matmul" else {}),
             **({"launches_by_route": launches[path]["rel_routes"]}
                if kname == "rel_attention" else {}),
+            **({"launches_by_route": launches[path]["window_routes"]}
+               if kname == "window_attention" else {}),
             **({"launches_by_route": launches[path][
                 "bwd_" + kname.rsplit("_", 1)[1] + "_routes"]}
                if kname.startswith("flash_attention_bwd") else {}),

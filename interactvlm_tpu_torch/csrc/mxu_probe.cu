@@ -1,61 +1,60 @@
 // The tensor-core rate probe for Hopper (sm_90a): out = f32(sum over `loops`
 // of x @ W^T), x (M, K), W (N, K), for four operand and accumulator types:
-//   0  bf16 x bf16 -> f32      (mma.sync m16n8k16, f32 accumulators)
-//   1  int8 x int8 -> int32    (mma.sync m16n8k32, int32 accumulators that
+//   0  bf16 x bf16 -> f32      (wgmma m64n256k16, f32 accumulators)
+//   1  int8 x int8 -> int32    (wgmma m64n256k32, int32 accumulators that
 //                               wrap as two's complement)
-//   2  int8 x int8 -> f32      (int32 products over each 128-element K
-//                               chunk, each added to an f32 accumulator:
-//                               Hopper's int8 tensor cores give int32 only;
-//                               so K / 128 roundings a loop where the TPU
-//                               kernel rounds once, the same sums while
-//                               they stay below 2^24)
+//   2  int8 x int8 -> f32      (wgmma m64n128k32: int32 products over each
+//                               128-element K chunk, each added to an f32
+//                               accumulator: Hopper's int8 tensor cores give
+//                               int32 only; so K / 128 roundings a loop
+//                               where the TPU kernel rounds once, the same
+//                               sums while they stay below 2^24)
 //   3  f32 x f32 -> f32        (fused multiply-adds on the CUDA cores: an
 //                               f32 product, not TF32)
 //
 // Replaces the Pallas TPU kernel scripts/mxu_probe.py `_kernel`, which ran
 // the dot `loops` times over x and W resident in VMEM to time the matrix
 // unit with no HBM traffic. x (1.3 MB in bf16) and W (3.3 MB) do not fit in
-// one SM's shared memory, so here each block owns a 64 x 64 output tile and
-// walks K in 128-byte chunks: a chunk of x and of W is staged in shared
-// memory once, and the block's share of the loops runs over it before the
-// next chunk, so the operands cross from L2 once per block and the loops
-// time the tensor cores fed from shared memory (ldmatrix fragments, as in a
-// GEMM's mainloop). At the probe's 512 x 1280 x 1280 there are only 160
-// tiles for 132 SMs, so the loops are split into `slices` over blocks
-// (grid z) and the slices' sums are added into the zeroed output with
-// atomics: 160 tiles x 33 slices = 40 blocks an SM. The TPU kernel's
-// anti-hoisting trick (adding min(|acc|, 0) to x) is not needed: the mma is
-// an asm volatile with a loop count known only at run time.
+// one SM's shared memory, so here each block owns an output tile and walks
+// K in 128-byte chunks: TMA stages a chunk of x and of W once, 128-byte
+// swizzled, the next chunk landing while the block's share of the loops
+// runs over this one, so the operands cross from L2 once per block and the
+// loops time the tensor cores fed from shared memory. The accumulators stay
+// in registers across the loops and chunks.
 //
 // What bounds it: the tensor cores (or, for f32, the CUDA cores) by
-// construction: 2 M K N operations a loop over the peak rate.
+// construction: 2 M K N operations a loop over the peak rate. The wgmma
+// combinations take 128 x 256 tiles (two warpgroups of 64 rows; 128 x 128
+// for combination 2, whose f32 sums and two int32 sets must fit beside
+// each other in registers): the widest product a warpgroup issues, so the
+// tensor cores, not the issue of products or shared memory's bandwidth,
+// set the pace. At the probe's 512 x 1280 x 1280 that is 20 tiles (40 for
+// combination 2) for 132 SMs, so the loops are split into `slices` over
+// blocks (grid z; ops/mxu.py:loop_slices makes tiles x slices a multiple
+// of the SM count) and the slices' sums are added into the zeroed output
+// with atomics. In combination 2 each loop's chunk product goes to one of
+// two int32 sets in turn: the other set's conversion and f32 add run under
+// this loop's products, and the conversion is exact integer arithmetic
+// (the int32 sum, below 2^21 in magnitude, added into the mantissa of
+// 1.5 * 2^23) where the int-to-float instruction runs at a quarter of the
+// f32 rate. The TPU kernel's anti-hoisting trick (adding min(|acc|, 0) to
+// x) is not needed: the products are asm volatile with a loop count known
+// only at run time.
+#include <type_traits>
+
 #include "matmul_core.cuh"
+#include "sm90_core.cuh"
 
 namespace {
 
 using namespace ivlm;
+using namespace ivlm::sm90;
 
 enum Combo { kBf16 = 0, kInt8 = 1, kInt8F32 = 2, kF32 = 3 };
 
-constexpr int BM = 64, BN = 64, NTHREADS = 128;  // 4 warps of 32 x 32
+constexpr int BM = 64, BN = 64, NTHREADS = 128;  // the f32 kernel's tile
 constexpr int CHUNK = 128;                       // bytes of K a chunk
-
-template <int C>
-struct Elem {
-  using T = bf16;
-};
-template <>
-struct Elem<kInt8> {
-  using T = int8_t;
-};
-template <>
-struct Elem<kInt8F32> {
-  using T = int8_t;
-};
-template <>
-struct Elem<kF32> {
-  using T = float;
-};
+constexpr int WM = 128, kWThreads = 256;  // the wgmma kernel: 2 x 64 rows
 
 __device__ __forceinline__ void loop_range(int loops, int& l0, int& l1) {
   const int z = blockIdx.z, S = gridDim.z;
@@ -63,70 +62,159 @@ __device__ __forceinline__ void loop_range(int loops, int& l0, int& l1) {
   l1 = (int)((long long)loops * (z + 1) / S);
 }
 
-// tensor-core combos: 0, 1, 2
-template <int C>
-__global__ void __launch_bounds__(NTHREADS)
-    mma_loop_kernel(const void* __restrict__ x, const void* __restrict__ w,
-                    void* __restrict__ out, int M, int N, int K, int loops) {
-  using T = typename Elem<C>::T;
-  // 4 warps of 32 x 32, K in chunks of CHUNK bytes
-  using TL = Tile<T, BM, BN, CHUNK / (int)sizeof(T), 2, 2, 1>;
-  constexpr int KCH = TL::BK, LDS = TL::kLds;
-  using Acc = typename TL::Acc;
+// The chunk's product for this warpgroup: four k steps of 32 bytes.
+template <int C, int N, typename Acc>
+__device__ __forceinline__ void chunk_product(Acc (&d)[N / 2], uint64_t dx,
+                                              uint64_t dw, int first) {
+#pragma unroll
+  for (int kk = 0; kk < CHUNK / 32; ++kk) {
+    const uint64_t a = desc_at(dx, kk * 32), b = desc_at(dw, kk * 32);
+    const int scale_d = kk > 0 || !first;
+    if constexpr (C == kBf16)
+      wgmma_bf16_ss_n256(d, a, b, scale_d);
+    else if constexpr (N == 256)
+      wgmma_s8_n256(d, a, b, scale_d);
+    else
+      wgmma_s8_n128(d, a, b, scale_d);
+  }
+}
 
-  __shared__ __align__(16) T x_s[BM][LDS];
-  __shared__ __align__(16) T w_s[BN][LDS];
+// f += the int32 chunk sums d, exactly for |d| < 2^22: d + 0x4B400000 is
+// the float 1.5 * 2^23 + d, and subtracting 1.5 * 2^23 leaves d.
+template <int N>
+__device__ __forceinline__ void add_exact(float (&f)[N], const int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    f[i] += __int_as_float(d[i] + 0x4B400000) - 12582912.f;
+}
 
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int wm = (warp / TL::WARPS_N) * TL::WTM;
-  const int wn = (warp % TL::WARPS_N) * TL::WTN;
+// TMA: chunk c of x's and W's tiles into buffer c % 2
+template <int kX, int kBuf, int kElems>
+__device__ __forceinline__ void load_chunk_tma(unsigned char* smem,
+                                               uint64_t* full,
+                                               const CUtensorMap* tx,
+                                               const CUtensorMap* tw, int c,
+                                               int m0, int n0) {
+  uint64_t* bar = &full[c & 1];
+  unsigned char* dst = smem + (c & 1) * kBuf;
+  mbar_arrive_expect_tx(bar, kBuf);
+  tma_load_2d(dst, tx, bar, c * kElems, m0);
+  tma_load_2d(dst + kX, tw, bar, c * kElems, n0);
+}
+
+// tensor-core combos 0, 1 (N = 256) and 2 (N = 128)
+template <int C, int N>
+__global__ void __launch_bounds__(kWThreads, 1)
+    wgmma_loop_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tw,
+                      void* __restrict__ out, int M, int Nout, int K,
+                      int loops) {
+  using Acc = typename std::conditional<C == kBf16, float, int>::type;
+  constexpr int kX = WM * CHUNK, kW = N * CHUNK, kBuf = kX + kW;
+  constexpr int kElems = C == kBf16 ? CHUNK / 2 : CHUNK;  // K a chunk
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * kBuf);
+  const int wg = threadIdx.x / 128;
+  const int n0 = blockIdx.x * N, m0 = blockIdx.y * WM;
   int l0, l1;
   loop_range(loops, l0, l1);
+  if (l0 == l1) return;  // this slice adds nothing
+  const int nchunks = K / kElems;
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    load_chunk_tma<kX, kBuf, kElems>(smem, full, &tx, &tw, 0, m0, n0);
 
-  Acc acc[TL::MT][TL::NT][4];
-  float accf[TL::MT][TL::NT][4];  // combo 2: the f32 sum of the int32 partials
-  zero_acc(acc);
-  zero_acc(accf);
-
-  for (int c0 = 0; c0 < K; c0 += KCH) {
-    __syncthreads();  // every warp is done with the previous chunk
-    load_chunk<T, BM, KCH, LDS, NTHREADS>(x_s, xp, m0, M, c0, K, tid);
-    load_chunk<T, BN, KCH, LDS, NTHREADS>(w_s, wp, n0, N, c0, K, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int l = l0; l < l1; ++l) {
-      mma_chunk<TL>(acc, x_s, w_s, wm, wn, lane);
-      if constexpr (C == kInt8F32) {
+  Acc acc[N / 2];      // combos 0, 1: the sums; combo 2: int32 set a
+  int acc2[N / 2];     // combo 2: int32 set b
+  float accf[N / 2];   // combo 2: the f32 sums
 #pragma unroll
-        for (int a = 0; a < TL::MT; ++a)
-#pragma unroll
-          for (int b = 0; b < TL::NT; ++b)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              accf[a][b][e] += __int2float_rn(acc[a][b][e]);
-              acc[a][b][e] = 0;
-            }
+  for (int i = 0; i < N / 2; ++i) {
+    acc[i] = 0;
+    acc2[i] = 0;
+    accf[i] = 0.f;
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    // the other buffer's chunk was finished by both warpgroups before the
+    // barrier that ended the last chunk
+    if (threadIdx.x == 0 && c + 1 < nchunks)
+      load_chunk_tma<kX, kBuf, kElems>(smem, full, &tx, &tw, c + 1, m0, n0);
+    mbar_wait(&full[c & 1], (c >> 1) & 1);
+    const uint32_t base = smem_addr(smem + (c & 1) * kBuf);
+    const uint64_t dx = desc_kmajor(base + wg * 64 * CHUNK);
+    const uint64_t dw = desc_kmajor(base + kX);
+    if constexpr (C != kInt8F32) {
+      wgmma_fence();
+      for (int l = l0; l < l1; ++l) {
+        chunk_product<C, N>(acc, dx, dw, 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+    } else {
+      // loop l's product into set a (even l - l0) or b; the other set,
+      // the loop before's, is added into accf while it runs. Unrolled by
+      // two, so each set keeps its registers.
+      wgmma_fence();
+      chunk_product<C, N>(acc, dx, dw, 1);
+      wgmma_commit();
+      int l = l0 + 1;
+      for (; l + 1 < l1; l += 2) {
+        wgmma_fence();
+        chunk_product<C, N>(acc2, dx, dw, 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(acc);
+        add_exact(accf, acc);
+        wgmma_fence();
+        chunk_product<C, N>(acc, dx, dw, 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(acc2);
+        add_exact(accf, acc2);
+      }
+      if (l < l1) {  // the last loop, into b
+        wgmma_fence();
+        chunk_product<C, N>(acc2, dx, dw, 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(acc);
+        add_exact(accf, acc);
+        wgmma_wait<0>();
+        fence_regs(acc2);
+        add_exact(accf, acc2);
+      } else {
+        wgmma_wait<0>();
+        fence_regs(acc);
+        add_exact(accf, acc);
       }
     }
+    __syncthreads();  // both warpgroups are done with this buffer
   }
 
-  // the slices' sums are added into the zeroed output
-  auto none = [](int) { return 0; };
-  auto add = [&](int, int m, int n, auto v0, auto v1) {
-    using V = decltype(v0);
-    V* o = static_cast<V*>(out) + (size_t)m * N + n;
-    atomicAdd(o, v0);
-    atomicAdd(o + 1, v1);
-  };
-  if constexpr (C == kInt8F32) {
-    for_each_pair<TL>(accf, m0, n0, M, N, none, add);
-  } else {
-    for_each_pair<TL>(acc, m0, n0, M, N, none, add);
-  }
+  // the slices' sums are added into the zeroed output: element 4 j + e of
+  // a thread sits at row 16 warp + g + 8 (e / 2), column 8 j + 2 t + e % 2
+  const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
+  const int r0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int c0 = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e >> 1), col = c0 + 8 * j + (e & 1);
+      if (r >= M || col >= Nout) continue;
+      const size_t i = (size_t)r * Nout + col;
+      if constexpr (C == kInt8F32)
+        atomicAdd(static_cast<float*>(out) + i, accf[4 * j + e]);
+      else
+        atomicAdd(static_cast<Acc*>(out) + i, acc[4 * j + e]);
+    }
 }
 
 // f32 x f32 on the CUDA cores: each thread owns 4 rows x 8 columns of the
@@ -185,37 +273,68 @@ __global__ void __launch_bounds__(NTHREADS)
     }
 }
 
+
+template <int C, int N>
+cudaError_t launch_wgmma(const void* x, const void* w, void* out, int M,
+                         int Nout, int K, int loops, int slices,
+                         cudaStream_t st) {
+  const int elem = C == kBf16 ? 2 : 1;
+  const CUtensorMapDataType t = C == kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dx[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t dw[2] = {(cuuint64_t)K, (cuuint64_t)Nout};
+  const cuuint64_t stride[1] = {(cuuint64_t)K * elem};
+  const cuuint32_t bx[2] = {(cuuint32_t)(CHUNK / elem), WM};
+  const cuuint32_t bw[2] = {(cuuint32_t)(CHUNK / elem), N};
+  CUtensorMap tx, tw;
+  if (!encode_sw128(&tx, t, 2, x, dx, stride, bx) ||
+      !encode_sw128(&tw, t, 2, w, dw, stride, bw))
+    return cudaErrorInvalidValue;
+  constexpr int kSmem = 1024 + 2 * (WM + N) * CHUNK + 16;
+  const auto kernel = wgmma_loop_kernel<C, N>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((Nout + N - 1) / N, (M + WM - 1) / WM, slices);
+  kernel<<<grid, kWThreads, kSmem, st>>>(tx, tw, out, M, Nout, K, loops);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (M, K), w: (N, K), both of the combo's input type, contiguous and
 // 16-byte aligned; out: (M, N) f32 (int32 for combo 1), zero on entry.
-// M % 64 == 0, N % 64 == 0, K a multiple of 128 bytes of the input type.
-// `slices` splits the loops over the grid's z dimension. Returns the launch
-// status (0 = launched).
+// K a multiple of 128 bytes of the input type; combo 3 (f32) also M % 64
+// == 0 and N % 64 == 0, the wgmma combos any M and N (tiles of 128 x 256,
+// 128 x 128 for combo 2, zero-filled past the edge). `slices` splits the
+// loops over the grid's z dimension. Returns the launch status
+// (0 = launched).
 extern "C" int ivlm_mxu_loop(const void* x, const void* w, void* out, int combo,
                              int M, int N, int K, int loops, int slices,
                              void* stream) {
   const int elem = combo == kBf16 ? 2 : combo == kF32 ? 4 : 1;
-  if (combo < 0 || combo > 3 || M <= 0 || N <= 0 || K <= 0 || M % BM != 0 ||
-      N % BN != 0 || (K * elem) % CHUNK != 0 || loops < 0 || slices < 1 ||
-      slices > 65535 || M / BM > 65535)
+  if (combo < 0 || combo > 3 || M <= 0 || N <= 0 || K <= 0 ||
+      (K * elem) % CHUNK != 0 || loops < 0 || slices < 1 ||
+      slices > 65535 || (M + BM - 1) / BM > 65535 ||
+      (combo == kF32 && (M % BM != 0 || N % BN != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(N / BN, M / BM, slices);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (combo) {
     case kBf16:
-      mma_loop_kernel<kBf16><<<grid, NTHREADS, 0, st>>>(x, w, out, M, N, K, loops);
-      break;
+      return static_cast<int>(
+          launch_wgmma<kBf16, 256>(x, w, out, M, N, K, loops, slices, st));
     case kInt8:
-      mma_loop_kernel<kInt8><<<grid, NTHREADS, 0, st>>>(x, w, out, M, N, K, loops);
-      break;
+      return static_cast<int>(
+          launch_wgmma<kInt8, 256>(x, w, out, M, N, K, loops, slices, st));
     case kInt8F32:
-      mma_loop_kernel<kInt8F32><<<grid, NTHREADS, 0, st>>>(x, w, out, M, N, K, loops);
-      break;
-    default:
+      return static_cast<int>(
+          launch_wgmma<kInt8F32, 128>(x, w, out, M, N, K, loops, slices, st));
+    default: {
+      const dim3 grid(N / BN, M / BM, slices);
       fma_loop_kernel<<<grid, NTHREADS, 0, st>>>(
           static_cast<const float*>(x), static_cast<const float*>(w),
           static_cast<float*>(out), M, N, K, loops);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

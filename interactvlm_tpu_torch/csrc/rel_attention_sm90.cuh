@@ -96,20 +96,6 @@ struct Params {
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 
-// 2^x on the special-function unit; results below 2^-126 flush to 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A wgmma descriptor `bytes` further on in shared memory: the low word
-// holds the address / 16, and no step inside a tile carries out of it.
-__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t bytes) {
-  return (d & 0xFFFFFFFF00000000ull) |
-         static_cast<uint32_t>(static_cast<uint32_t>(d) + (bytes >> 4));
-}
-
 // S = Q K^T for one warpgroup's 64 rows and a 64-key tile: five k16 steps
 // over the head dim, four in the first panel (32 bytes apart inside a
 // swizzled row) and one in the second. dq, dk: K-major descriptors of the

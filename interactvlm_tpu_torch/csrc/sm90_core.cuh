@@ -7,8 +7,9 @@
 // remote barrier arrivals and st.async stores). Used by the GEMM skeleton
 // (gemm_sm90.cuh: the int8 GEMM and the bf16 serving matmul), the one-launch
 // int8 matmul (int8_matmul.cu), the D = 128 flash forward
-// (flash_fwd_sm90.cuh) and the D = 80 global rel-pos attention
-// (rel_attention_sm90.cuh).
+// (flash_fwd_sm90.cuh), the D = 80 global rel-pos attention
+// (rel_attention_sm90.cuh), the D = 80 window attention
+// (window_attention_sm90.cuh) and the tensor-core rate loop (mxu_probe.cu).
 //
 // The tensor map is encoded on the host at every launch from the tensors'
 // pointers (a few microseconds). cuTensorMapEncodeTiled is a driver-API
@@ -52,20 +53,30 @@ inline EncodeTiled encode_tiled_fn() {
   return fn;
 }
 
-// A row-major tensor of `rank` dimensions (dims innermost first, strides in
-// bytes of dimensions 1..rank-1) cut into boxes of `box` elements, the
-// innermost box row exactly 128 bytes, 128-byte swizzled in shared memory.
-// Reads outside the tensor fill zeros. Returns false if the driver refuses.
-inline bool encode_sw128(CUtensorMap* map, CUtensorMapDataType type,
-                         int rank, const void* base, const cuuint64_t* dims,
-                         const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor of `rank` dimensions (dims innermost first, the innermost of
+// unit stride, strides in bytes of dimensions 1..rank-1, any order) cut
+// into boxes of `box` elements, the innermost box row as wide as the
+// swizzle span (128 or 32 bytes), swizzled so in shared memory. Reads
+// outside the tensor fill zeros. Returns false if the driver refuses.
+inline bool encode_swizzled(CUtensorMap* map, CUtensorMapDataType type,
+                            int rank, const void* base,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box, CUtensorMapSwizzle sw) {
   const EncodeTiled fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// encode_swizzled with rows of exactly 128 bytes, 128-byte swizzled.
+inline bool encode_sw128(CUtensorMap* map, CUtensorMapDataType type,
+                         int rank, const void* base, const cuuint64_t* dims,
+                         const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_swizzled(map, type, rank, base, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The card's SM count, read once per device.
@@ -157,6 +168,40 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// A bulk copy (no tensor map) of `bytes` (a multiple of 16) from device
+// memory at src into shared memory at dst, both 16-byte aligned;
+// completion is reported to `bar` as transferred bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -285,6 +330,32 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
   return desc_sw128(addr, 16, 1024);
 }
 
+// The same for a 32-byte-swizzled tile (layout 3; tiles start on 256-byte
+// boundaries): K-major, rows of 32 bytes (one k16 step of bf16), groups of
+// 8 rows `sbo` = 256 bytes apart; MN-major, rows of 32 bytes along M or N
+// (16 bf16), one row a K index, `sbo` = 256 between groups of 8 K rows,
+// `lbo` between 32-byte panels along M or N.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32) | (3ull << 62);
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A wgmma descriptor `bytes` further on in shared memory: the low word
+// holds the address / 16, and no step inside a tile carries out of it.
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t bytes) {
+  return (d & 0xFFFFFFFF00000000ull) |
+         static_cast<uint32_t>(static_cast<uint32_t>(d) + (bytes >> 4));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -381,6 +452,35 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t a, uint64_
         IVLM_ACC8_S32(d, 120)
       : "l"(a), "l"(b), "r"(scale_d));
 }
+
+// d (+)= a b, m64n128k32, s8 x s8 -> s32, both operands from shared memory
+// (K-major); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p;\n}\n"
+      : IVLM_ACC8_S32(d, 0),
+        IVLM_ACC8_S32(d, 8),
+        IVLM_ACC8_S32(d, 16),
+        IVLM_ACC8_S32(d, 24),
+        IVLM_ACC8_S32(d, 32),
+        IVLM_ACC8_S32(d, 40),
+        IVLM_ACC8_S32(d, 48),
+        IVLM_ACC8_S32(d, 56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 
 // d += a b, m64nNk32 for N = 8, 16, 32, s8 x s8 -> s32, both operands from
 // shared memory (K-major).
@@ -544,6 +644,165 @@ __device__ __forceinline__ void wgmma_bf16_rs_n80_tb(float (&d)[40],
         IVLM_ACC8_F32(d, 16),
         IVLM_ACC8_F32(d, 24),
         IVLM_ACC8_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+// d = a b, m64n224k16 and m64n256k16, bf16 x bf16 -> f32, both operands
+// from shared memory, K-major: the first step of a product, which reads
+// nothing of d.
+
+__device__ __forceinline__ void wgmma_bf16_ss_n224_set(float (&d)[112], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111"
+      "}, "
+      "%112, %113, p, 1, 1, 0, 0;\n}\n"
+      : IVLM_OUT8_F32(d, 0),
+        IVLM_OUT8_F32(d, 8),
+        IVLM_OUT8_F32(d, 16),
+        IVLM_OUT8_F32(d, 24),
+        IVLM_OUT8_F32(d, 32),
+        IVLM_OUT8_F32(d, 40),
+        IVLM_OUT8_F32(d, 48),
+        IVLM_OUT8_F32(d, 56),
+        IVLM_OUT8_F32(d, 64),
+        IVLM_OUT8_F32(d, 72),
+        IVLM_OUT8_F32(d, 80),
+        IVLM_OUT8_F32(d, 88),
+        IVLM_OUT8_F32(d, 96),
+        IVLM_OUT8_F32(d, 104)
+      : "l"(a), "l"(b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss_n256_set(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : IVLM_OUT8_F32(d, 0),
+        IVLM_OUT8_F32(d, 8),
+        IVLM_OUT8_F32(d, 16),
+        IVLM_OUT8_F32(d, 24),
+        IVLM_OUT8_F32(d, 32),
+        IVLM_OUT8_F32(d, 40),
+        IVLM_OUT8_F32(d, 48),
+        IVLM_OUT8_F32(d, 56),
+        IVLM_OUT8_F32(d, 64),
+        IVLM_OUT8_F32(d, 72),
+        IVLM_OUT8_F32(d, 80),
+        IVLM_OUT8_F32(d, 88),
+        IVLM_OUT8_F32(d, 96),
+        IVLM_OUT8_F32(d, 104),
+        IVLM_OUT8_F32(d, 112),
+        IVLM_OUT8_F32(d, 120)
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// d (+)= a b, m64n224k16, as wgmma_bf16_ss_n256; scale_d = 0 overwrites d.
+
+__device__ __forceinline__ void wgmma_bf16_ss_n224(float (&d)[112], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111"
+      "}, "
+      "%112, %113, p, 1, 1, 0, 0;\n}\n"
+      : IVLM_ACC8_F32(d, 0),
+        IVLM_ACC8_F32(d, 8),
+        IVLM_ACC8_F32(d, 16),
+        IVLM_ACC8_F32(d, 24),
+        IVLM_ACC8_F32(d, 32),
+        IVLM_ACC8_F32(d, 40),
+        IVLM_ACC8_F32(d, 48),
+        IVLM_ACC8_F32(d, 56),
+        IVLM_ACC8_F32(d, 64),
+        IVLM_ACC8_F32(d, 72),
+        IVLM_ACC8_F32(d, 80),
+        IVLM_ACC8_F32(d, 88),
+        IVLM_ACC8_F32(d, 96),
+        IVLM_ACC8_F32(d, 104)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a b, m64n64k16 and m64n16k16, bf16 x bf16 -> f32: a from
+// registers as for wgmma_bf16_rs_n128_tb, b from shared memory, MN-major
+// (transposed); scale_d = 0 overwrites d.
+
+__device__ __forceinline__ void wgmma_bf16_rs_n64_tb(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : IVLM_ACC8_F32(d, 0),
+        IVLM_ACC8_F32(d, 8),
+        IVLM_ACC8_F32(d, 16),
+        IVLM_ACC8_F32(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs_n16_tb(float (&d)[8],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : IVLM_ACC8_F32(d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(scale_d));
 }

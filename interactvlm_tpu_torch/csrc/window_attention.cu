@@ -6,19 +6,23 @@
 // row attends over its L = H*W tokens with
 //   bias[q, c] = f[c / W, q] + f[H + c % W, q],
 // where f (R, H+W, L) stacks rel_h and rel_w, the two factor einsums that
-// stay outside the kernel. The L x L bias is rebuilt from f in shared
-// memory by index arithmetic and never exists in device memory.
+// stay outside the kernel. The L x L bias is rebuilt from f by index
+// arithmetic and never exists in device memory.
 //
-// What bounds it on the H100: at ViT-H's 14x14 windows (L = 196, D = 80,
-// R = 12 800 rows per block) a row does 4*L*L*D = 12.3 Mflop against
-// 4*L*D*2 + 28*L*2 = 136 KB, about 90 flops/byte: the bound is bytes. The
-// design reads every q/k/v/factor byte from device memory once per 64-row
-// query tile at its natural shape (L = 196 and D = 80 masked at the tile
-// edges in-kernel, no host padding, which was the cost the TPU design had to
-// remove) and keeps logits and probabilities in registers: the 196 x 196 f32
-// logits tile (154 KB) is never materialised, because the key loop runs the
-// same online softmax as the flash kernel over 64-key tiles.
+// Two routes, by shape alone (ops/sam_attention.py:window_route):
+// - "sm90", D = 80 (ViT-H's head dim) and windows up to 16 x 16: the
+//   wgmma + TMA kernel of window_attention_sm90.cuh, which reads q, k and v
+//   as strided views of the qkv linear's output and whose note says what
+//   bounds it and how;
+// - "mma", D = 16, 32, 64 (the tiny presets, ViT-B/L's head dim), and 80
+//   in windows past 16 x 16: this
+//   file's kernel on the mma.sync core of attention_core.cuh, one CTA a
+//   64-row query tile, contiguous (R, L, D) rows. At ~90 flops a byte the
+//   bytes bound it; the core runs the flash kernel's online softmax over
+//   64-key tiles, staging K and V by the threads, and each of a row's query
+//   tiles reads the row's K and V again.
 #include "attention_core.cuh"
+#include "window_attention_sm90.cuh"
 
 using namespace ivlm;
 
@@ -62,21 +66,38 @@ __global__ void __launch_bounds__(NTHREADS)
 
 }  // namespace
 
-// q/k/v/o: (R, L, D) bf16 contiguous, L = H*W; factors: (R, H+W, L) bf16.
-// Returns the launch status (0 = launched).
+// route 1 ("sm90"): q/k/v (bw, nh, L, 80) bf16 views with element strides
+// sq, sk, sv = (window, head, token), unit stride on the head dim; o
+// (bw, L, nh, 80) contiguous. route 0 ("mma"): q/k/v/o (bw * nh, L, D)
+// contiguous, D = 16, 32, 64 or 80; the strides are not read. Both: L = H*W,
+// factors (bw * nh, H+W, L) bf16 contiguous. Returns the launch status
+// (0 = launched).
 extern "C" int ivlm_window_attn(const void* q, const void* k, const void* v,
-                                const void* factors, void* o, int rows, int L,
-                                int H, int W, int d, float scale,
-                                void* stream) {
-  if (rows <= 0 || L != H * W || H + W > MAXF || L <= 0)
+                                const void* factors, void* o, int bw, int nh,
+                                int L, int H, int W, int d, int route,
+                                long long sq0, long long sq1, long long sq2,
+                                long long sk0, long long sk1, long long sk2,
+                                long long sv0, long long sv1, long long sv2,
+                                float scale, void* stream) {
+  const long long rows = (long long)bw * nh;
+  if (bw <= 0 || nh <= 0 || L != H * W || H + W > MAXF || L <= 0 ||
+      rows > (1ll << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(rows, (L + BQ - 1) / BQ);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const bf16* fp = static_cast<const bf16*>(factors);
   bf16* op = static_cast<bf16*>(o);
+  if (route == 1) {
+    if (d != win_sm90::kD) return static_cast<int>(cudaErrorInvalidValue);
+    const long long sq[3] = {sq0, sq1, sq2}, sk[3] = {sk0, sk1, sk2},
+                    sv[3] = {sv0, sv1, sv2};
+    return static_cast<int>(win_sm90::launch(qp, kp, vp, sq, sk, sv, fp, op,
+                                             bw, nh, L, H, W, scale, st));
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)rows, (L + BQ - 1) / BQ);
 #define IVLM_LAUNCH(DIM)                                                     \
   case DIM:                                                                  \
     window_kernel<DIM><<<grid, NTHREADS, 0, st>>>(qp, kp, vp, fp, op, L, H,  \

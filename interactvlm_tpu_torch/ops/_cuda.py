@@ -27,7 +27,7 @@ SOURCES = ("flash_attention", "flash_attention_bwd", "window_attention",
            "serving_matmul", "mxu_probe", "window_copy")
 _HEADERS = ("attention_core.cuh", "matmul_core.cuh", "sm90_core.cuh",
             "gemm_sm90.cuh", "flash_fwd_sm90.cuh", "rel_attention_sm90.cuh",
-            "flash_bwd_sm90.cuh")
+            "flash_bwd_sm90.cuh", "window_attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -136,6 +136,25 @@ def require_kernel_inputs(kernel: str, *tensors: torch.Tensor,
             raise ValueError(f"{kernel}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: inputs must be 16-byte aligned")
+
+
+def require_strided_rows(kernel: str, *tensors: torch.Tensor,
+                         dtype=torch.bfloat16) -> None:
+    """Validate views a TMA kernel reads in place: one CUDA device, the
+    dtype, unit stride on the last dim, every other stride a multiple of 16
+    bytes, 16-byte aligned; raise on anything else."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{kernel}: all inputs must be on one CUDA device")
+        if t.dtype != dtype:
+            raise ValueError(f"{kernel}: expected {dtype}, got {t.dtype}")
+        step = 16 // t.element_size()
+        if t.stride(-1) != 1 or any(s % step for s in t.stride()[:-1]):
+            raise ValueError(f"{kernel}: strides {t.stride()} are not unit "
+                             f"on the last dim and 16-byte multiples")
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel}: inputs must be 16-byte aligned")
 

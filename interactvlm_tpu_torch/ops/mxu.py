@@ -25,10 +25,21 @@ import torch
 
 from interactvlm_tpu_torch.ops import _cuda
 
-TILE = 64  # the kernel's output tile: M and N must be multiples of it
+TILE = 64  # the f32 kernel's output tile: M and N must be multiples of it
 CHUNK_BYTES = 128  # the kernel's K chunk: K must be a multiple of it in bytes
 COMBOS = {(torch.bfloat16, torch.float32): 0, (torch.int8, torch.int32): 1,
           (torch.int8, torch.float32): 2, (torch.float32, torch.float32): 3}
+F32_COMBO = 3  # on the CUDA cores; the others on wgmma
+# each combination's output tile (mxu_probe.cu): two warpgroups of 64 rows
+# by the widest wgmma product that fits in registers beside the sums
+TILES = {0: (128, 256), 1: (128, 256), 2: (128, 128), 3: (TILE, TILE)}
+
+
+def tile_count(combo: int, M: int, N: int) -> int:
+    """Output tiles of the kernel for ``combo`` over an (M, N) output; the
+    wgmma tiles cover a ragged edge, zero-filled."""
+    bm, bn = TILES[combo]
+    return -(-M // bm) * -(-N // bn)
 
 
 def mxu_loop_plain(x, w, loops: int, acc_dtype=torch.float32):
@@ -62,8 +73,8 @@ def mxu_loop(x, w, loops: int, acc_dtype=torch.float32):
     """f32(sum over ``loops`` of x (M, K) @ W (N, K)^T) -> (M, N) f32.
 
     CPU tensors run ``mxu_loop_plain``; CUDA tensors launch the kernel (x
-    and W of one of bf16, int8, f32, contiguous; M and N multiples of 64, K
-    a multiple of 128 bytes) or raise."""
+    and W of one of bf16, int8, f32, contiguous; K a multiple of 128 bytes;
+    for f32, M and N multiples of 64) or raise."""
     _cuda.refuse_grad("mxu_loop", x, w)
     if not x.is_cuda:
         return mxu_loop_plain(x, w, loops, acc_dtype)
@@ -72,15 +83,15 @@ def mxu_loop(x, w, loops: int, acc_dtype=torch.float32):
     N = w.shape[0]
     if combo is None:
         raise ValueError(f"mxu_loop: no kernel for {x.dtype} -> {acc_dtype}")
-    if (w.shape != (N, K) or M % TILE or N % TILE
-            or (K * x.element_size()) % CHUNK_BYTES or loops < 0):
-        raise ValueError(f"mxu_loop: M, N multiples of {TILE} and K of "
-                         f"{CHUNK_BYTES} bytes, got {tuple(x.shape)} "
-                         f"{tuple(w.shape)}")
+    if (w.shape != (N, K) or (K * x.element_size()) % CHUNK_BYTES
+            or loops < 0 or (combo == F32_COMBO and (M % TILE or N % TILE))):
+        raise ValueError(f"mxu_loop: K a multiple of {CHUNK_BYTES} bytes (and "
+                         f"for f32, M and N multiples of {TILE}), got "
+                         f"{tuple(x.shape)} {tuple(w.shape)}")
     _cuda.require_kernel_inputs("mxu_loop", x, w, dtype=x.dtype)
     out = torch.zeros(M, N, dtype=acc_dtype, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    slices = loop_slices((M // TILE) * (N // TILE), loops, sms)
+    slices = loop_slices(tile_count(combo, M, N), loops, sms)
     with torch.cuda.device(x.device):
         _cuda.launch(
             "mxu_probe", "ivlm_mxu_loop", _ARGTYPES,

@@ -1,8 +1,9 @@
 """SAM encoder attention with the decomposed relative-position bias: the CUDA
 kernels ``csrc/window_attention.cu`` and ``csrc/rel_attention.cu`` (at head
-dim 80, ViT-H's, its wgmma + TMA route ``csrc/rel_attention_sm90.cuh``;
-``rel_route``) and their plain PyTorch versions; and the window probe's
-copy kernel ``csrc/window_copy.cu``.
+dim 80, ViT-H's, their wgmma + TMA routes ``csrc/window_attention_sm90.cuh``
+and ``csrc/rel_attention_sm90.cuh``; ``window_route``, ``rel_route``) and
+their plain PyTorch versions; and the window probe's copy kernel
+``csrc/window_copy.cu``.
 
 Ports of ``interactvlm_tpu/ops/sam_attention.py``: ``_window_kernel``
 (wrapper ``fused_window_attention``) for the 14x14 windows and ``_kernel``
@@ -32,6 +33,10 @@ MAX_GRID_SIDE = 64  # H and W of a global grid (rel_attention.cu MAXHW)
 # launcher numbers them
 REL_ROUTES = {"mma": 0, "sm90": 1}
 SM90_HEAD_DIM = 80  # the ViT-H head dim (rel_attention_sm90.cuh kD)
+# the window kernel's routes, by head dim and window (window_route), as the
+# C launcher numbers them
+WINDOW_ROUTES = {"mma": 0, "sm90": 1}
+SM90_MAX_WINDOW_SIDE = 16  # window_attention_sm90.cuh kMaxSide
 
 
 def rel_route(D: int) -> str:
@@ -39,6 +44,20 @@ def rel_route(D: int) -> str:
     TMA kernel of ``csrc/rel_attention_sm90.cuh``) at D = 80, "mma" (the
     mma.sync kernel of ``csrc/rel_attention.cu``) at 16, 32 and 64."""
     return "sm90" if D == SM90_HEAD_DIM else "mma"
+
+
+def window_route(D: int, hw) -> str:
+    """The route of ``window_attention`` for head dim D and window hw =
+    (H, W): "sm90" (the wgmma + TMA kernel of
+    ``csrc/window_attention_sm90.cuh``, which reads q, k and v as strided
+    views) at D = 80 with H and W up to 16 (ViT-H's 14 x 14; for SAM's
+    square windows every L <= 256), "mma" (the mma.sync kernel of
+    ``csrc/window_attention.cu``, contiguous rows) otherwise. The sm90
+    kernel lays keys out 16 slots a window row, hence the bound on each
+    side rather than on L."""
+    H, W = hw
+    return ("sm90" if D == SM90_HEAD_DIM and max(H, W) <= SM90_MAX_WINDOW_SIDE
+            else "mma")
 
 
 def rel_tables(rel_pos, size: int):
@@ -83,13 +102,14 @@ def _attend(q, k, v, bias, scale):
 
 
 def window_attention_plain(q, k, v, factors, hw):
-    """Plain version of the window kernel: q/k/v (R, L, D), factors
-    (R, H+W, L) -> (R, L, D)."""
+    """Plain version of the window kernel: q/k/v (R, L, D) or (BW, nH, L, D)
+    views of any strides, factors (R, H+W, L) with R = BW nH -> an output of
+    q's shape."""
     H, W = hw
-    L = q.shape[1]
+    L = q.shape[-2]
     c = torch.arange(L, device=q.device)
-    f = factors.float()
-    bias = (f[:, c // W, :] + f[:, H + c % W, :]).transpose(1, 2)
+    f = factors.float().reshape(*q.shape[:-2], H + W, L)
+    bias = (f[..., c // W, :] + f[..., H + c % W, :]).transpose(-1, -2)
     return _attend(q, k, v, bias, q.shape[-1] ** -0.5)
 
 
@@ -117,36 +137,69 @@ def _check_qkv(kernel, q, k, v):
     return R, L, D
 
 
+_WINDOW_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                    + [ctypes.c_longlong] * 9
+                    + [ctypes.c_float, ctypes.c_void_p])
+
+
 def window_attention(q, k, v, factors, hw):
-    """Window attention with stacked rel-pos factors over (R, L, D) rows.
+    """Window attention with stacked rel-pos factors (R, H+W, L) over q/k/v
+    rows (R, L, D) or (BW, nH, L, D), R = BW nH.
 
     CPU tensors run ``window_attention_plain``; CUDA tensors launch the
-    kernel (bf16, contiguous) or raise. Both raise under grad: the kernel
-    has no backward, and its only caller is the frozen SAM encoder.
+    kernel of the route ``window_route(D, hw)`` names (bf16) or raise. The
+    "sm90" route takes views of any strides with unit stride on D and the
+    others multiples of 16 bytes (q, k and v as the qkv linear leaves them)
+    and returns the (BW, nH, L, D) view of an output stored (BW, L, nH, D),
+    whose ``transpose(1, 2)`` is contiguous; the "mma" route takes and
+    returns contiguous tensors. Both raise under grad: the kernels have no
+    backward, and their only caller is the frozen SAM encoder.
+    ``launches`` counts the launches, ``route_launches`` each route's.
     """
     _cuda.refuse_grad("window_attention", q, k, v, factors)
     if not q.is_cuda:
         return window_attention_plain(q, k, v, factors, hw)
     H, W = hw
-    R, L, D = _check_qkv("window_attention", q, k, v)
+    if q.dim() not in (3, 4) or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"window_attention: shapes {q.shape} {k.shape} {v.shape}")
+    q4, k4, v4 = (t if t.dim() == 4 else t.unsqueeze(1) for t in (q, k, v))
+    BW, nH, L, D = q4.shape
+    R = BW * nH
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"window_attention: head dim {D} not in "
+                         f"{KERNEL_HEAD_DIMS}")
     if L != H * W or factors.shape != (R, H + W, L):
         raise ValueError(f"window_attention: factors {factors.shape} for {hw}")
     if H + W > MAX_WINDOW_FACTORS:
         raise ValueError(f"window_attention: window {hw} too large")
-    _cuda.require_kernel_inputs("window_attention", q, k, v, factors)
-    o = torch.empty_like(q)
+    _cuda.require_kernel_inputs("window_attention", factors)
+    route = window_route(D, hw)
+    if route == "sm90":
+        _cuda.require_strided_rows("window_attention", q4, k4, v4)
+        o = torch.empty(BW, L, nH, D, dtype=q.dtype, device=q.device)
+        strides = [s for t in (q4, k4, v4) for s in t.stride()[:3]]
+    else:
+        _cuda.require_kernel_inputs("window_attention", q, k, v)
+        o = torch.empty_like(q)
+        strides = [0] * 9
     with torch.cuda.device(q.device):
         _cuda.launch(
-            "window_attention", "ivlm_window_attn", _argtypes(5, 5),
+            "window_attention", "ivlm_window_attn", _WINDOW_ARGTYPES,
             _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(factors),
-            _cuda.ptr(o), R, L, H, W, D, float(D ** -0.5),
-            _cuda.stream_handle(q.device),
+            _cuda.ptr(o), BW, nH, L, H, W, D, WINDOW_ROUTES[route], *strides,
+            float(D ** -0.5), _cuda.stream_handle(q.device),
         )
     window_attention.launches += 1
-    return o
+    window_attention.route_launches[route] += 1
+    if route == "mma":
+        return o
+    out = o.transpose(1, 2)
+    return out if q.dim() == 4 else out.squeeze(1)
 
 
 window_attention.launches = 0
+window_attention.route_launches = {r: 0 for r in WINDOW_ROUTES}
 
 
 def rel_attention(q, k, v, rel_h, rel_w, hw):
@@ -222,13 +275,16 @@ window_copy.launches = 0
 
 def fused_window_attention(q, k, v, rel_pos_h, rel_pos_w, hw):
     """(BW, nH, L, D) window attention with decomposed rel-pos bias
-    (port of ``fused_window_attention``)."""
+    (port of ``fused_window_attention``). On the "sm90" route q, k and v go
+    to ``window_attention`` as they come (on the SAM encoder's path, views
+    of the qkv linear's output), and the output is a (BW, nH, L, D) view of
+    (BW, L, nH, D) storage; the "mma" route takes contiguous rows."""
     BW, nH, L, D = q.shape
+    f = window_factors(q, rel_pos_h, rel_pos_w, hw)
+    if window_route(D, hw) == "sm90":
+        return window_attention(q, k, v, f, hw)
     rows = [t.reshape(BW * nH, L, D).contiguous() for t in (q, k, v)]
-    out = window_attention(
-        *rows, window_factors(q, rel_pos_h, rel_pos_w, hw), hw
-    )
-    return out.reshape(BW, nH, L, D)
+    return window_attention(*rows, f, hw).reshape(BW, nH, L, D)
 
 
 def fused_rel_attention(q, k, v, rel_pos_h, rel_pos_w, hw):

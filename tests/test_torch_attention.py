@@ -175,3 +175,74 @@ def test_rel_route_by_head_dim(D, route):
     before = dict(S.rel_attention.route_launches)
     S.rel_attention(q, k, v, rh, rw, (H, W))
     assert S.rel_attention.route_launches == before
+
+
+@pytest.mark.parametrize("D,hw,route", [
+    (80, (14, 14), "sm90"),  # ViT-H's windows
+    (80, (7, 7), "sm90"),
+    (80, (9, 13), "sm90"),
+    (80, (16, 16), "sm90"),  # L = 256, the largest square window it takes
+    (80, (17, 17), "mma"),
+    (80, (8, 32), "mma"),  # L = 256, but a side past its 16 key slots
+    (64, (14, 14), "mma"),  # ViT-B/L's head dim
+    (16, (4, 4), "mma"),  # the tiny presets
+    (32, (14, 14), "mma"),
+])
+def test_window_route_by_head_dim_and_window(D, hw, route):
+    """The window kernel's route follows the shape alone: the wgmma + TMA
+    kernel at ViT-H's head dim 80 for windows up to 16 x 16, the mma.sync
+    kernel otherwise; a CPU call moves no route's count."""
+    assert S.window_route(D, hw) == route and route in S.WINDOW_ROUTES
+    rng = np.random.default_rng(7)
+    H, W = hw
+    q, k, v = (_t(_rand(rng, (1, 2, H * W, D))) for _ in range(3))
+    f = _t(_rand(rng, (2, H + W, H * W)))
+    before = dict(S.window_attention.route_launches)
+    S.window_attention(q, k, v, f, hw)
+    assert S.window_attention.route_launches == before
+
+
+def _qkv_views(qkv, nH, D):
+    """q, k, v (BW, nH, L, D) as the SAM encoder's qkv linear leaves them:
+    permuted views of one (BW, L, 3 nH D) tensor."""
+    BW, L = qkv.shape[:2]
+    return qkv.view(BW, L, 3, nH, D).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+@pytest.mark.parametrize("hw", [(14, 14), (9, 13)])
+def test_window_plain_on_qkv_views_matches_pallas_interpret(hw):
+    """The plain window version on strided (BW, nH, L, D) views cut from one
+    qkv tensor, the layout the sm90 route reads in place, against the JAX
+    ``fused_window_attention`` in interpret mode on the same values (TOL:
+    f32 on both sides)."""
+    rng = np.random.default_rng(8)
+    (H, W), BW, nH, D = hw, 2, 3, 80
+    L = H * W
+    qkv = _rand(rng, (BW, L, 3 * nH * D))
+    rh, rw = _rand(rng, (2 * H - 1, D), 0.5), _rand(rng, (2 * W - 1, D), 0.5)
+    q, k, v = _qkv_views(_t(qkv), nH, D)
+    assert not q.is_contiguous()
+    f = S.window_factors(q, _t(rh), _t(rw), hw)
+    got = S.window_attention_plain(q, k, v, f, hw)
+    jq, jk, jv = (np.ascontiguousarray(t.numpy()) for t in (q, k, v))
+    want = jax_fused_window(*(jnp.asarray(x) for x in (jq, jk, jv, rh, rw)),
+                            hw, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_fused_window_attention_on_views_equals_contiguous_copies():
+    """``fused_window_attention`` passes q, k and v to the sm90 route as
+    the views they are; the result equals the call on contiguous copies."""
+    rng = np.random.default_rng(9)
+    (H, W), BW, nH, D = (14, 14), 2, 4, 80
+    qkv = _t(_rand(rng, (BW, H * W, 3 * nH * D)))
+    rh, rw = _t(_rand(rng, (2 * H - 1, D), 0.5)), _t(_rand(rng, (2 * W - 1, D),
+                                                          0.5))
+    views = _qkv_views(qkv, nH, D)
+    got = S.fused_window_attention(*views, rh, rw, (H, W))
+    want = S.fused_window_attention(*(t.contiguous() for t in views), rh, rw,
+                                    (H, W))
+    assert got.shape == (BW, nH, H * W, D)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
+                               rtol=1e-6)

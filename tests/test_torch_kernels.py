@@ -332,6 +332,74 @@ def test_window_kernel_matches_plain(dev):
     assert _close(out, S.window_attention_plain(q, k, v, f, hw), WINDOW_ATOL)
 
 
+def _qkv_views(rng, BW, nH, L, D, dev):
+    """q, k, v (BW, nH, L, D) as the SAM encoder's qkv linear leaves them:
+    permuted views of one (BW, L, 3 nH D) tensor."""
+    qkv = _bf16(rng, (BW, L, 3 * nH * D), dev)
+    return qkv.view(BW, L, 3, nH, D).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+@pytest.mark.parametrize("BW,nH,hw", [
+    (4, 16, (14, 14)),  # R = 64 rows of ViT-H's window block
+    (3, 5, (7, 7)),  # one query tile; key slots past W and grid rows past H
+    (2, 3, (9, 13)),  # ragged both ways, two query tiles
+    (2, 4, (16, 16)),  # the 256-slot, one-stage variant
+])
+def test_window_sm90_route_matches_plain(dev, BW, nH, hw):
+    """The wgmma + TMA window kernel on strided q/k/v views (as the qkv
+    linear leaves them) against the plain version on the same views; its
+    output is a view of (BW, L, nH, D) storage, and contiguous copies of
+    the inputs give the same bits."""
+    rng = np.random.default_rng(30)
+    (H, W), D = hw, 80
+    L = H * W
+    q, k, v = _qkv_views(rng, BW, nH, L, D, dev)
+    f = _bf16(rng, (BW * nH, H + W, L), dev, 0.5)
+    assert S.window_route(D, hw) == "sm90"
+    before = dict(S.window_attention.route_launches)
+    out = S.window_attention(q, k, v, f, hw)
+    torch.cuda.synchronize()
+    assert S.window_attention.route_launches == {
+        r: n + (r == "sm90") for r, n in before.items()}
+    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+    assert _close(out, S.window_attention_plain(q, k, v, f, hw), WINDOW_ATOL)
+    rows = [t.contiguous() for t in (q, k, v)]
+    assert torch.equal(S.window_attention(*rows, f, hw), out)
+
+
+@pytest.mark.parametrize("D,hw", [(64, (14, 14)), (80, (17, 17))])
+def test_window_mma_route_matches_plain(dev, D, hw):
+    """Head dims other than 80, and windows past 16 x 16, stay on the
+    mma.sync kernel, which takes contiguous rows."""
+    rng = np.random.default_rng(31)
+    H, W = hw
+    R, L = 6, H * W
+    q, k, v = (_bf16(rng, (R, L, D), dev) for _ in range(3))
+    f = _bf16(rng, (R, H + W, L), dev, 0.5)
+    assert S.window_route(D, hw) == "mma"
+    before = dict(S.window_attention.route_launches)
+    out = S.window_attention(q, k, v, f, hw)
+    torch.cuda.synchronize()
+    assert S.window_attention.route_launches == {
+        r: n + (r == "mma") for r, n in before.items()}
+    assert _close(out, S.window_attention_plain(q, k, v, f, hw), WINDOW_ATOL)
+    with pytest.raises(ValueError, match="contiguous"):
+        S.window_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                           v, f, hw)
+
+
+def test_window_sm90_route_refuses_misaligned_views(dev):
+    """The TMA route reads views in place: a head dim that is not unit
+    stride or a stride off 16 bytes raises."""
+    rng = np.random.default_rng(32)
+    q = _bf16(rng, (2, 196, 2 * 80 + 8), dev)[:, :, 8:88]  # 16-byte offset
+    f = _bf16(rng, (2, 28, 196), dev)
+    S.window_attention(q, q, q, f, (14, 14))  # 16-byte steps are fine
+    odd = _bf16(rng, (2, 196, 84), dev)[:, :, :80]  # rows 168 bytes apart
+    with pytest.raises(ValueError, match="strides"):
+        S.window_attention(odd, odd, odd, f, (14, 14))
+
+
 @pytest.mark.parametrize("side", [32, 64])
 def test_global_kernel_matches_plain(dev, side):
     rng = np.random.default_rng(2)
@@ -674,7 +742,8 @@ def test_fused_dense_kernel_matches_plain(dev, lead, K, N, with_bias, act,
     (torch.bfloat16, torch.float32), (torch.int8, torch.int32),
     (torch.int8, torch.float32), (torch.float32, torch.float32)])
 @pytest.mark.parametrize("shape,loops", [((512, 1280, 1280), 4),
-                                         ((64, 256, 128), 3)])
+                                         ((64, 256, 128), 3),
+                                         ((512, 1280, 1280), 1)])
 def test_mxu_kernel_matches_plain(dev, in_dtype, acc_dtype, shape, loops):
     from interactvlm_tpu_torch.probes.mxu import make_inputs
 
@@ -685,6 +754,30 @@ def test_mxu_kernel_matches_plain(dev, in_dtype, acc_dtype, shape, loops):
     assert X.mxu_loop.launches == before + 1
     want = X.mxu_loop_plain(x, w, loops, acc_dtype)
     assert out.dtype == torch.float32 and out.shape == want.shape
+    if in_dtype == torch.int8:
+        assert torch.equal(out, want)
+    else:
+        err = (out - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("in_dtype,acc_dtype", [
+    (torch.bfloat16, torch.float32), (torch.int8, torch.int32),
+    (torch.int8, torch.float32)])
+@pytest.mark.parametrize("shape,loops", [((200, 384, 328), 4),
+                                         ((70, 128, 136), 1),
+                                         ((64, 256, 128), 7)])
+def test_mxu_wgmma_kernel_ragged_tiles(dev, in_dtype, acc_dtype, shape,
+                                       loops):
+    """The wgmma combinations at M and N off their 128 x 256 (128 x 128)
+    tiles, zero-filled past the edge, and at an odd loop count (combination
+    2 alternates two int32 sets a loop)."""
+    from interactvlm_tpu_torch.probes.mxu import make_inputs
+
+    x, w = make_inputs(in_dtype, shape, dev)
+    out = X.mxu_loop(x, w, loops, acc_dtype)
+    torch.cuda.synchronize()
+    want = X.mxu_loop_plain(x, w, loops, acc_dtype)
     if in_dtype == torch.int8:
         assert torch.equal(out, want)
     else:
@@ -719,7 +812,9 @@ def test_probe_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="scales"):
         Q.int8_matmul_prequant(xq, xs[:8], w, scale)
     with pytest.raises(ValueError, match="multiples of 64"):
-        X.mxu_loop(x, x, 2)
+        X.mxu_loop(x.float(), x.float(), 2)  # the f32 kernel's 64 x 64 tiles
+    with pytest.raises(ValueError, match="128 bytes"):
+        X.mxu_loop(_bf16(rng, (16, 72), dev), _bf16(rng, (16, 72), dev), 2)
     with pytest.raises(ValueError, match="no kernel"):
         X.mxu_loop(x, x, 2, torch.int32)
     with pytest.raises(ValueError, match="shapes"):

@@ -43,7 +43,14 @@ from interactvlm_tpu.ops.int8_matmul import quantize_rows as jax_quantize_rows
 from interactvlm_tpu.ops.quant import quantize_int8 as jax_quantize_int8
 from interactvlm_tpu.ops.serving_matmul import fused_dense as jax_fused_dense
 from interactvlm_tpu_torch.ops import sam_attention as sa
-from interactvlm_tpu_torch.ops.mxu import loop_slices, mxu_loop, mxu_loop_plain
+from interactvlm_tpu_torch.ops.mxu import (
+    COMBOS,
+    TILES,
+    loop_slices,
+    mxu_loop,
+    mxu_loop_plain,
+    tile_count,
+)
 from interactvlm_tpu_torch.probes import chain, mxu, winattn
 from interactvlm_tpu_torch.utils.weights import (
     int8_weight_from_jax,
@@ -104,6 +111,22 @@ def test_mxu_loop_plain_wraps_int32_sums():
     want = (exact + 2 ** 31) % 2 ** 32 - 2 ** 31
     assert mxu_loop_plain(x, w, loops, torch.int32).item() == float(want)
     assert mxu_loop_plain(x, w, loops, torch.float32).item() > 2 ** 31
+
+
+@pytest.mark.parametrize("combo,M,N,tiles", [
+    (0, 512, 1280, 20),  # the probe's shape in 128 x 256 tiles
+    (1, 512, 1280, 20),
+    (2, 512, 1280, 40),  # 128 x 128: two int32 sets beside the f32 sums
+    (3, 512, 1280, 160),  # the f32 kernel's 64 x 64
+    (0, 200, 328, 4),  # ragged edges take a whole tile each
+    (2, 70, 136, 2),
+])
+def test_tile_count_by_combination(combo, M, N, tiles):
+    """The rate loop's output tiles, whose count sets how many slices the
+    loops split into: every combination in ``COMBOS`` has its tile."""
+    assert set(TILES) == set(COMBOS.values())
+    assert tile_count(combo, M, N) == tiles
+    assert (tiles * loop_slices(tiles, 2048, 132)) % 132 == 0
 
 
 def test_loop_slices_even_out_the_sms():
@@ -277,3 +300,13 @@ def test_probes_default_to_the_gpu(run):
         pytest.skip("a GPU is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         run()
+
+
+def test_kernel_variants_edit_the_current_sources():
+    """Every knock-out of the window kernel's variant probe still finds each
+    text it edits exactly once in the sources it would build."""
+    from interactvlm_tpu_torch.probes import kernel_variants as kv
+
+    for name in kv.VARIANTS:
+        edited = kv.edited_sources(name)
+        assert set(edited) == set(kv.VARIANTS[name])
