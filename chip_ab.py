@@ -10,8 +10,11 @@ kernels. Parts (all by default):
 - ``kernels``: ``chip_smoke.kernel_phase`` and ``probe_kernel_phase``,
   every kernel case of that checkout with its ``kernel_ms``;
 - ``serving``: ``chip_smoke.serving_path_phase`` for the 13B bf16 and the
-  7B-int8 paths (images/s, legs, decode split, profile);
+  7B-int8 paths (images/s, legs, decode split, profile), on the lift maps
+  ``chip_smoke.real_lift_maps`` builds;
 - ``train``: ``chip_smoke.training_path_phase``, the 13B LoRA step;
+- ``train_qlora``: the same for the 7B QLoRA step (with the
+  straight-through backward's device time);
 - ``bwd_draws``: ``chip_smoke.case_flash_bwd`` at the LLaMA-13B training
   shape on eight draws (generator seeds 0-7), each with the backward
   kernels' distance from their plain version and from the f64 value;
@@ -25,8 +28,8 @@ kernels. Parts (all by default):
   the bf16 serving matmul at the chain probe's, each timed by CUDA events
   (``kernel_ms``) and by the profiler's device time per call
   (``device_ms``), with the timing code here, the same for both sides;
-- ``serving_int8``: ``chip_smoke.serving_path_phase`` for the 7B-int8 path
-  alone.
+- ``serving_int8`` / ``serving_int4``: ``chip_smoke.serving_path_phase``
+  for the 7B-int8 or the 7B-int4 path alone.
 
 Each run's output goes to ``build/ab/logs/<n>_<side>_<part>.log`` under
 the directory it is started in; the script prints one JSON line per run
@@ -45,8 +48,8 @@ import os
 import subprocess
 import sys
 
-PARTS = ("kernels", "serving", "train", "bwd_draws", "matmuls",
-         "serving_int8", "bwd")
+PARTS = ("kernels", "serving", "train", "train_qlora", "bwd_draws",
+         "matmuls", "serving_int8", "serving_int4", "bwd")
 ORDER = ("parent", "change", "change", "parent")
 
 # what one run does, in the checkout it starts in
@@ -62,17 +65,24 @@ if part != "bwd":
 if part == "kernels":
     c.kernel_phase(name)
     c.probe_kernel_phase(name)
-elif part == "serving":
+elif part.startswith(("serving", "train")):
+    lift = c.real_lift_maps()
+if part.startswith("serving"):
+    paths = {"serving": [("13b_bf16", c.config_13b, "dense", c.B),
+                         ("7b_int8", c.config_7b_int8, "int8",
+                          c.B_CACHED_INT8)],
+             "serving_int8": [("7b_int8", c.config_7b_int8, "int8",
+                               c.B_CACHED_INT8)],
+             "serving_int4": [("7b_int4", c.config_7b_int4, "int8",
+                               c.B_CACHED_INT8)]}[part]
     with torch.inference_mode():
-        c.serving_path_phase("13b_bf16", c.config_13b(), "dense", c.B)
-        c.serving_path_phase("7b_int8", c.config_7b_int8(), "int8",
-                             c.B_CACHED_INT8)
-elif part == "serving_int8":
-    with torch.inference_mode():
-        c.serving_path_phase("7b_int8", c.config_7b_int8(), "int8",
-                             c.B_CACHED_INT8)
+        for path, cfg, kv, b_cached in paths:
+            c.serving_path_phase(path, cfg(), kv, b_cached, lift)
 elif part == "train":
-    c.training_path_phase()
+    c.training_path_phase("train_13b_lora", c.config_13b_train(), lift[0])
+elif part == "train_qlora":
+    c.training_path_phase("train_7b_qlora", c.config_7b_qlora_train(),
+                          lift[0])
 elif part == "matmuls":
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

@@ -6,7 +6,7 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero, and
 prints no result, without them. Phases, each of which fails the run:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the ten hand-written kernel sources under
+2. build: the hand-written kernel sources under
    ``interactvlm_tpu_torch/csrc/`` (flash forward, with its wgmma kernel
    for head dim 128; flash backward dq, which also forms D = rowsum(dO O),
    and dk/dv, with their wgmma kernels for head dim 128 and the split
@@ -23,7 +23,8 @@ prints no result, without them. Phases, each of which fails the run:
    flash at head dim 128 with ragged lengths and rows that see no key),
    inputs from a seeded generator, with the kernel's, the plain version's
    and one library call's time beside the least time the card could take
-   (``bound_ms``); the int8 matmul's two-pass route also times each pass,
+   (``bound_ms``); the int8 matmul also at the 7B QLoRA step's and the
+   int4 path's shapes (f32 x); its two-pass route also times each pass,
    and the int8 and bf16 matmul cases add each call's device time from the
    profiler (``device_ms``, with what launched per call) beside the
    yardsticks' (``library_device_ms``, ``bf16_linear_device_ms``): CUDA
@@ -34,35 +35,50 @@ prints no result, without them. Phases, each of which fails the run:
    x 1280) and the window-attention probe (nine variants at 200 windows and
    the 64 x 64 global grid), each variant's line printed; every chain
    variant must launch each of its kernels twice an iteration;
-5. reference: the ``interactvlm_tiny`` pipeline on the card against the same
-   weights on the CPU, dense (bf16 SAM) and int8 (int8 LLaMA in f32 with the
-   int8 KV cache, int8 bf16 SAM);
-6. the 13B path: ``interactvlm_13b`` at full width and depth in bf16 with
+5. the lift maps: a UV sphere of SMPL's 6890 vertices under the first four
+   ``4MV-Z_Vitru_mv2`` cameras, rasterized at 1024^2 on the card by the
+   port (``geometry/rasterizer.py``), checked against the CPU's at 128^2,
+   and turned into gather form (256 pixels a vertex and view): the maps of
+   every path below;
+6. reference: the ``interactvlm_tiny`` pipeline on the card against the same
+   weights on the CPU, dense (bf16 SAM), int8 (int8 LLaMA in f32 with the
+   int8 KV cache, int8 bf16 SAM) and int4 (int4 LLaMA, otherwise as int8);
+7. the 13B path: ``interactvlm_13b`` at full width and depth in bf16 with
    seeded random weights, B=8 images x V=4 views, a 64-token prompt, 32
    greedy decode steps, 1024^2 masks and a 6890-vertex lift, through
    ``evaluate_batch`` in streaming and in cached-view mode;
-7. the 7B-int8 path, the JAX package's chip serving configuration
+8. the 7B-int8 path, the JAX package's chip serving configuration
    (``bench.py``): LLaMA-7B with int8 weights and the int8 KV cache, CLIP
    ViT-L/14, SAM ViT-H with int8 weights and tanh GELU, all bf16; streaming
    at B=8 and cached at B=32, otherwise as the 13B path;
-8. the training reference: one LoRA training step of ``interactvlm_tiny``
-   on the card in bf16 (a 259-token spliced prompt, so LLaMA's attention
-   runs the flash forward and both backward kernels) against the same step
-   on the CPU in f32 from the same weights: each loss term, and the cosine
-   and norm of every trainable's gradient;
-9. the 13B LoRA training path, the JAX trainer's default preset
+9. the 7B-int4 path (``bench.py`` with ``BENCH_WQ=int4``): the 7B-int8
+   path with the LLaMA weights packed int4, kernel 6 on each call's
+   unpacked weight; also the unpack's and the kernel's device time a
+   decode step;
+10. the training reference: one LoRA and one QLoRA (int8 base) training
+   step of ``interactvlm_tiny`` on the card in bf16 (a 259-token spliced
+   prompt, so LLaMA's attention runs the flash forward and both backward
+   kernels) against the same step on the CPU in f32 from the same
+   weights: each loss term, and the cosine and norm of every trainable's
+   gradient;
+11. the 13B LoRA training path, the JAX trainer's default preset
    (``scripts/run_train.sh`` hcontact-damon): LLaMA-13B bf16 with LoRA rank
    8 on q/v and remat, CLIP ViT-L/14, SAM ViT-H, B=8 hcontact rows of 512
-   spliced tokens (two right-padded), 1024^2 masks and a 6890-vertex 3D
-   contact loss, AdamW with the preset's schedule: one warm-up step, then
-   timed steps through ``TrainStep``.
+   spliced tokens (two right-padded), 1024^2 masks and the 6890-vertex 3D
+   contact loss on the real maps, AdamW with the preset's schedule: one
+   warm-up step, then timed steps through ``TrainStep``;
+12. the 7B QLoRA training path, the JAX package's one-chip training
+   configuration: LLaMA-7B with a frozen int8 base (kernel 6 forward, the
+   straight-through backward), otherwise as the 13B path; also the
+   backward's device time (the W_q cast and the bf16 GEMM).
 
 Each serving path reports images/s, the time of each leg, peak memory, the
 decode host/device split and each kernel's launches over its run; the 7B
-path also times decode with the int8 against the dense cache, and checks
-the int8 matmul's calls by route: the encoder's and the prefill's through
-the row quantize and the GEMM, decode's and the lm_head's through the
-one-launch kernel. The training
+paths also check the int8 matmul's calls by route (the int4 path's equal
+the int8 path's): the encoder's and the prefill's through the row quantize
+and the GEMM, decode's and the lm_head's through the one-launch kernel;
+the int8 path also times decode with the int8 against the dense cache.
+The training
 path reports step time, images/s and tokens/s, peak memory, the
 forward/backward/optimizer split, the device's busy share and each
 kernel's launches per step.
@@ -98,15 +114,23 @@ from interactvlm_tpu_torch.config import (
 from interactvlm_tpu_torch.eval.evaluate import evaluate_batch
 from interactvlm_tpu_torch.geometry.lift import (
     build_gather_maps,
+    corner_major,
     lift_multiview_soft_gather,
 )
+from interactvlm_tpu_torch.geometry.rasterizer import (
+    build_lift_maps,
+    pick_window,
+    uv_sphere,
+)
+from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS
 from interactvlm_tpu_torch.models.generate import greedy_generate
 from interactvlm_tpu_torch.models.interactvlm import InteractVLM, lift_human
-from interactvlm_tpu_torch.models.layers import Int8Linear
+from interactvlm_tpu_torch.models.layers import Int4Linear, Int8Linear
 from interactvlm_tpu_torch.ops import _cuda
 from interactvlm_tpu_torch.ops import flash_attention as FA
 from interactvlm_tpu_torch.ops import int8_matmul as Q
 from interactvlm_tpu_torch.ops import mxu as MX
+from interactvlm_tpu_torch.ops import quant as QT
 from interactvlm_tpu_torch.ops import sam_attention as SA
 from interactvlm_tpu_torch.ops import serving_matmul as SM
 from interactvlm_tpu_torch.probes import chain as chain_probe
@@ -136,7 +160,10 @@ B, V, L_TEXT, T, MASK = 8, 4, 64, 32, 1024
 B_CACHED_INT8 = 32  # the 7B-int8 cached batch (bench.py's default)
 REPEATS = 3  # timed batches per mode and path, after one warm-up batch each
 LEG_REPEATS = 2
-N_VERTS, MAX_K, BACKGROUND = 6890, 256, 0.7
+# the lift maps: a UV sphere of SMPL's 6890 vertices under the first V
+# cameras of the canonical body view set, 1024^2, gather form with MAX_K
+# pixels a vertex and view (bench.py's)
+N_VERTS, MAX_K, SPHERE, VIEW_SET = 6890, 256, (83, 84), "4MV-Z_Vitru_mv2"
 # the 13B training path: the preset's batch of 8, 257 text tokens (512
 # spliced), rows 0 and 1 right-padded to these text lengths
 L_TRAIN, TRAIN_PADDED = 257, (200, 129)
@@ -224,7 +251,14 @@ TRAINING_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                     "flash_attention_bwd_dkv")
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase's JSON line gains ``t_s``, the seconds since
+    the script started."""
+    if len(a) == 1 and str(a[0]).startswith('{"phase"'):
+        a = ('{"t_s": %.1f, %s' % (time.perf_counter() - T0, a[0][1:]),)
     print(*a, flush=True)
 
 
@@ -764,6 +798,19 @@ INT8_CASES = [
     ("route threshold, two passes", Q.ONE_LAUNCH_MAX_ROWS + 1, 160, 136,
      True, "gelu_tanh", None),
 ]
+# kernel 6 on the 7B QLoRA step (bf16 x, M = B x 512 rows, forward and
+# remat: 64 calls a step for gate/up, 32 for down) and on the 7B-int4 path
+# (f32 x * rf on the unpacked weight, calls per streaming and cached batch)
+NEW_PATH_INT8_CASES = [
+    ("LLaMA-7B QLoRA training gate/up", B * 512, 4096, 11008, False, "none",
+     None),
+    ("LLaMA-7B QLoRA training down", B * 512, 11008, 4096, False, "none",
+     None),
+    ("LLaMA-7B int4 decode down, B=8, f32 x", B, 11008, 4096, False, "none",
+     (32 * (T - 1), 0), torch.float32),
+    ("LLaMA-7B int4 prefill gate/up, f32 x", PREFILL, 4096, 11008, False,
+     "none", (64, 0), torch.float32),
+]
 
 
 def compare_int8(got, want):
@@ -784,33 +831,38 @@ def compare_int8(got, want):
     return res
 
 
-def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
-    """One int8 matmul shape of the 7B-int8 path (``calls`` per streaming
-    and cached batch) or of the chain probe or the route threshold
-    (``calls`` None): bf16 x, random int8 W with per-column scales of the
-    init's magnitude. ``route`` is the wrapper's route at M; on the
+def case_int8(gen, name, what, M, K, N, with_bias, act, calls,
+              x_dtype=torch.bfloat16):
+    """One int8 matmul shape of the 7B-int8 or int4 path (``calls`` per
+    streaming and cached batch) or of the QLoRA step, the chain probe or
+    the route threshold (``calls`` None): x in ``x_dtype`` (bf16; the int4
+    path's f32), random int8 W with per-column scales of the init's
+    magnitude. ``route`` is the wrapper's route at M; on the
     two-pass route each pass is also timed alone (``quantize_ms``,
     ``gemm_ms``). Library
     yardsticks: ``torch._int_mm`` on the pre-quantized operands (int32 out,
     no quantization or epilogue; it refuses M <= 16) and a bf16
     ``F.linear`` at the same shape; the port calls neither."""
-    x = rand_bf16(gen, (M, K))
+    x = rand_bf16(gen, (M, K)).to(x_dtype)
     w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
                       dtype=torch.int8)
     scale = torch.full((N,), 1.0 / (127.0 * K ** 0.5), device="cuda")
     bias = rand_bf16(gen, (N,), 0.1).float() if with_bias else None
-    got = Q.int8_matmul_fused(x, w, scale, bias, act)
-    want = Q.int8_matmul_fused_plain(x, w, scale, bias, act)
+    # the int4 path writes the layer dtype from f32 x
+    out_dtype = torch.bfloat16
+    got = Q.int8_matmul_fused(x, w, scale, bias, act, out_dtype)
+    want = Q.int8_matmul_fused_plain(x, w, scale, bias, act, out_dtype)
     res = compare_int8(got, want)
     del got, want
     big = M * K * N > 1e11
-    kernel_ms = time_ms(lambda: Q.int8_matmul_fused(x, w, scale, bias, act),
-                        10 if big else 50)
-    dev_ms, launched = device_ms(
-        lambda: Q.int8_matmul_fused(x, w, scale, bias, act), 5 if big else 20)
-    plain_ms = time_ms(
-        lambda: Q.int8_matmul_fused_plain(x, w, scale, bias, act), 2, 1)
-    nbytes = 2 * M * K + N * K + 4 * N * (2 if with_bias else 1) + 2 * M * N
+    kernel_ms = time_ms(lambda: Q.int8_matmul_fused(
+        x, w, scale, bias, act, out_dtype), 10 if big else 50)
+    dev_ms, launched = device_ms(lambda: Q.int8_matmul_fused(
+        x, w, scale, bias, act, out_dtype), 5 if big else 20)
+    plain_ms = time_ms(lambda: Q.int8_matmul_fused_plain(
+        x, w, scale, bias, act, out_dtype), 2, 1)
+    nbytes = (x.element_size() * M * K + N * K
+              + 4 * N * (2 if with_bias else 1) + 2 * M * N)
     t, by = bound(2 * M * K * N, nbytes, name, int8=True)
     lib = lib_dev = None
     if M > 16:
@@ -827,14 +879,15 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls):
         passes["quantize_ms"] = time_ms(lambda: Q.quantize_rows(x),
                                         10 if big else 50)
         passes["gemm_ms"] = time_ms(lambda: Q.int8_gemm(
-            xq, xs, w, scale, bias, act, x.dtype), 10 if big else 50)
+            xq, xs, w, scale, bias, act, out_dtype), 10 if big else 50)
         del xq, xs
-    wb = rand_bf16(gen, (N, K))
-    linear_ms = time_ms(lambda: torch.nn.functional.linear(x, wb),
+    wb, xb = rand_bf16(gen, (N, K)), x.to(torch.bfloat16)
+    linear_ms = time_ms(lambda: torch.nn.functional.linear(xb, wb),
                         10 if big else 50)
-    linear_dev = device_ms(lambda: torch.nn.functional.linear(x, wb),
+    linear_dev = device_ms(lambda: torch.nn.functional.linear(xb, wb),
                            5 if big else 20)[0]
     return dict(shape=f"{what}: M={M} K={K} N={N}"
+                f"{' f32 x' if x_dtype == torch.float32 else ''}"
                 f"{' +bias' if with_bias else ''}"
                 f"{' +' + act if act != 'none' else ''}",
                 route=route,
@@ -886,7 +939,7 @@ def kernel_phase(name):
                                                  for c in bwd]
     torch.cuda.empty_cache()
     cases["int8_matmul"] = []
-    for c in INT8_CASES:
+    for c in INT8_CASES + NEW_PATH_INT8_CASES:
         cases["int8_matmul"].append(case_int8(gen, name, *c))
         torch.cuda.empty_cache()
     # drawn last, so every earlier case keeps its inputs
@@ -1199,26 +1252,90 @@ def synthetic_batch(cfg, batch, prompt_len, device, seed):
     }
 
 
-def synthetic_lift_maps(hw, n_verts, device, seed):
+def synthetic_lift_maps(hw, n_verts, device, seed, background=0.7):
     """Corner-major pixel -> vertex maps (3, V, hw, hw) over ``n_verts``
     vertices with a share of background (-1) pixels, and barycentric
-    weights that sum to 1 over the three corners."""
+    weights that sum to 1 over the three corners: the tiny reference
+    pipeline's maps, whose mesh (``num_human_vertices``) no rasterizer
+    draws."""
     gen = torch.Generator(device=device).manual_seed(seed)
     shape = (3, V, hw, hw)
     p2v = torch.randint(0, n_verts, shape, generator=gen, device=device,
                         dtype=torch.int32)
-    bg = torch.rand(shape[1:], generator=gen, device=device) < BACKGROUND
+    bg = torch.rand(shape[1:], generator=gen, device=device) < background
     p2v = torch.where(bg[None], -1, p2v)
     bary = torch.rand(shape, generator=gen, device=device) + 0.05
     return {"p2v": p2v, "bary": bary / bary.sum(0, keepdim=True),
             "num_vertices": n_verts}
 
 
+@torch.no_grad()
+def real_lift_maps():
+    """The lift maps of the card paths: a UV sphere of SMPL's 6890 vertices
+    (``SPHERE``) under the first V cameras of ``VIEW_SET``, rasterized at
+    MASK^2 on the card by the port (``bench.py`` builds its maps so, on
+    the host), with the smallest safe window (``pick_window``). Checks the
+    maps (ids in range, barycentrics summing to 1 on covered pixels, the
+    card's maps equal the CPU's at 128^2) and returns the corner-major maps,
+    their gather form (MAX_K pixels a vertex and view) and which vertices
+    have at most MAX_K pixels in every view. Built outside inference mode:
+    the training paths' losses keep the barycentrics for their backward."""
+    verts, faces = uv_sphere(*SPHERE)
+    cams = HUMAN_VIEWS[VIEW_SET].cam_params()[:V]
+    window = max(pick_window(verts, faces, c, MASK) for c in cams)
+    small = [build_lift_maps(verts, faces, cams, 128, max(
+        pick_window(verts, faces, c, 128) for c in cams), device=d)
+        for d in ("cuda", "cpu")]
+    same_as_cpu = (torch.equal(small[0][0].cpu(), small[1][0])
+                   and torch.equal(small[0][2].cpu(), small[1][2])
+                   and (small[0][1].cpu() - small[1][1]).abs().max().item()
+                   <= 1e-6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2v, bary, p2f = build_lift_maps(verts, faces, cams, MASK, window,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    covered = p2f >= 0
+    counts = torch.stack([torch.bincount(p2v[v][covered[v]].reshape(-1).long(),
+                                         minlength=N_VERTS)
+                          for v in range(V)])
+    fits = (counts <= MAX_K).all(0)
+    t0 = time.perf_counter()
+    gidx, gw = build_gather_maps(p2v.cpu().numpy(), bary.cpu().numpy(),
+                                 N_VERTS, max_k=MAX_K)
+    gather_s = time.perf_counter() - t0
+    sums = bary.sum(-1)[covered]
+    res = {"phase": "lift_maps", "mesh": f"uv_sphere{SPHERE}",
+           "vertices": len(verts), "faces": len(faces), "views": VIEW_SET,
+           "size": MASK, "window": window, "candidates": len(faces) * window ** 2,
+           "build_s": build_s, "gather_form_s": gather_s,
+           "background_share": 1.0 - covered.float().mean().item(),
+           "background_share_by_view": [
+               1.0 - c.float().mean().item() for c in covered],
+           "vertices_seen": int((counts > 0).any(0).sum()),
+           "max_pixels_a_vertex_and_view": int(counts.max()),
+           "vertices_over_max_k": int((~fits).sum()),
+           "equal_to_cpu_at_128": same_as_cpu}
+    log(json.dumps(res))
+    ok = (same_as_cpu and len(verts) == N_VERTS
+          and bool(((p2v >= 0) == covered[..., None]).all())
+          and int(p2v.max()) < N_VERTS
+          and bool(torch.isfinite(bary).all())
+          and (sums - 1).abs().max().item() < 1e-3
+          and 0.05 < res["background_share"] < 0.95)
+    if not ok:
+        raise SystemExit(f"the lift maps are malformed: {res}")
+    maps = {"p2v": corner_major(p2v), "bary": corner_major(bary),
+            "num_vertices": N_VERTS}
+    return maps, torch.from_numpy(gidx).cuda(), torch.from_numpy(gw).cuda(), fits
+
+
 def let_seg_token_appear(model, batch, device, kv_cache):
     """Random weights almost never emit [SEG], and without it the mask and
     lift legs return zeros. Make the seg token's lm_head row 1.5x that of
     the token most often emitted, so that it wins wherever that token did
-    (for an int8 head: the same int8 row with 1.5x its scale)."""
+    (for an int8 or int4 head: the same row with 1.5x its scale)."""
     llava, seg = model.llava, model.config.seg_token_idx
     ids = torch.as_tensor(batch["input_ids"], device=device)
     px = torch.as_tensor(batch["images_clip"], device=device).to(
@@ -1231,11 +1348,14 @@ def let_seg_token_appear(model, batch, device, kv_cache):
         if isinstance(head, Int8Linear):
             head.weight[seg] = head.weight[mode]
             head.weight_scale[seg] = 1.5 * head.weight_scale[mode]
+        elif isinstance(head, Int4Linear):
+            head.weight_q4[seg] = head.weight_q4[mode]
+            head.weight_scale[seg] = 1.5 * head.weight_scale[mode]
         else:
             head.weight[seg] = 1.5 * head.weight[mode]
 
 
-def reference_phase(int8: bool):
+def reference_phase(weights: str):
     """interactvlm_tiny on the card against the same weights in f32 on the
     CPU, through evaluate_batch. LLaMA and CLIP run f32 on both sides (the
     generated ids must match); SAM runs bf16 on the card (the window kernel
@@ -1243,16 +1363,21 @@ def reference_phase(int8: bool):
     and contacts to 5e-2 absolute: bf16 keeps ~3 significant digits through
     two encoder blocks, the decoder and the lift's sigmoid.
 
-    ``int8``: int8 LLaMA weights with the int8 KV cache, and the int8 SAM
-    encoder. On the card every int8 linear launches the int8 kernel; on the
+    ``weights`` "dense"; "int8": int8 LLaMA weights with the int8 KV
+    cache, and the int8 SAM encoder; "int4": packed int4 LLaMA weights
+    (the lm_head too), otherwise as "int8". On the card every int8 and int4
+    linear launches the int8 kernel (int4 on the unpacked weight); on the
     CPU the JAX package's composition runs, which rounds x / (amax / 127)
     where the kernel rounds x * (127 / amax): they differ only on a rounding
     tie, so the ids must still match."""
-    kv = "int8" if int8 else "dense"
-    cpu_cfg = interactvlm_tiny(llama=llama_tiny(weights_int8=int8),
-                               sam=sam_tiny(weights_int8=int8))
+    quant = weights != "dense"
+    kv = "int8" if quant else "dense"
+    cpu_cfg = interactvlm_tiny(
+        llama=llama_tiny(weights_int8=weights == "int8",
+                         weights_int4=weights == "int4"),
+        sam=sam_tiny(weights_int8=quant))
     gpu_cfg = dataclasses.replace(cpu_cfg, sam=sam_tiny(
-        dtype=torch.bfloat16, weights_int8=int8))
+        dtype=torch.bfloat16, weights_int8=quant))
     cpu = init_params(InteractVLM(cpu_cfg, device="cpu"),
                       torch.Generator().manual_seed(1))
     batch = synthetic_batch(cpu_cfg, 2, 12, "cpu", 1)
@@ -1276,12 +1401,12 @@ def reference_phase(int8: bool):
     mask_err = max_err(got["pred_masks"].cpu(), want["pred_masks"]) / max(scale, 1e-6)
     contact_err = max_err(got["pred_contact_3d"].cpu(), want["pred_contact_3d"])
     res = dict(phase="reference", config="interactvlm_tiny",
-               weights="int8" if int8 else "dense", kv_cache=kv,
+               weights=weights, kv_cache=kv,
                ids_equal=ids_equal, has_seg=int(want["has_seg"].sum()),
                mask_rel_err=mask_err, contact_abs_err=contact_err,
                launches=launched)
     log(json.dumps(res))
-    needed = ["window_attention"] + (["int8_matmul"] if int8 else [])
+    needed = ["window_attention"] + (["int8_matmul"] if quant else [])
     if not (ids_equal and mask_err < 5e-2 and contact_err < 5e-2
             and all(launched[n] > 0 for n in needed)
             and bool(want["has_seg"].any())):
@@ -1309,9 +1434,19 @@ def config_7b_int8():
         img_emb_len=clip_vit_l_14().num_patches - 1)
 
 
-def serving_path_phase(path, cfg, kv_cache, b_cached):
+def config_7b_int4():
+    """``bench.py``'s chip configuration with ``BENCH_WQ=int4``: as
+    ``config_7b_int8`` with the LLaMA weights packed int4 (the lm_head
+    too), the int8 KV cache and the int8 SAM encoder with tanh GELU."""
+    cfg = config_7b_int8()
+    return dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, weights_int8=False, weights_int4=True))
+
+
+def serving_path_phase(path, cfg, kv_cache, b_cached, lift):
     """Drive ``evaluate_batch`` at full width and depth in streaming (B=8)
-    and cached (``b_cached``) mode. The cached batch is the streaming batch
+    and cached (``b_cached``) mode, on the real lift maps ``lift``
+    (``real_lift_maps``). The cached batch is the streaming batch
     repeated, so every copy must generate the streaming ids. Launches are
     counted from 0 over the first round (one streaming and one cached
     batch), and per mode for the int8 kernel."""
@@ -1333,13 +1468,7 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
         "labels": np.tile(batch["labels"], (reps, 1)),
         "images_clip": batch["images_clip"].repeat(reps, 1, 1, 1),
         "cam_params": batch["cam_params"].repeat(reps, 1, 1)}}
-    maps = synthetic_lift_maps(MASK, N_VERTS, "cuda", 3)
-    t0 = time.perf_counter()
-    gidx, gw = build_gather_maps(maps["p2v"].permute(1, 2, 3, 0).cpu().numpy(),
-                                 maps["bary"].permute(1, 2, 3, 0).cpu().numpy(),
-                                 N_VERTS, max_k=MAX_K)
-    gidx, gw = torch.from_numpy(gidx).cuda(), torch.from_numpy(gw).cuda()
-    log(json.dumps({"phase": "gather_maps", "s": time.perf_counter() - t0}))
+    maps, gidx, gw, fits = lift
     # the canonical renders are fixed: cached serving encodes them once
     cached = model.encode_sam_images(batch["sam_images"][:1])
 
@@ -1371,7 +1500,8 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
             launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     needed = ["flash_attention", "window_attention", "rel_attention"]
-    if cfg.llama.weights_int8:
+    quantized = cfg.llama.weights_int8 or cfg.llama.weights_int4
+    if quantized:
         needed.append("int8_matmul")
     for n in needed:
         if launches[n] <= 0:
@@ -1383,8 +1513,9 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
                                      "sm90": launches["window_attention"]}:
         raise SystemExit(f"the {path} path's window attention left the wgmma "
                          f"route: {launches['window_routes']}")
-    if cfg.llama.weights_int8:
-        # per batch: 7 projections a layer and the lm_head, at the prefill
+    if quantized:
+        # per batch (int8 or int4 weights alike): 7 projections a layer and
+        # the lm_head, at the prefill
         # and each of the T - 1 decode steps; 4 linears a SAM block when
         # the encoder runs (streaming only). The prefill's projections and
         # the encoder's linears take the two passes (a row quantize and a
@@ -1427,7 +1558,7 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
                        ids.repeat(reps, 1)):
         raise SystemExit(f"{path}: streaming and cached runs generated "
                          f"different ids")
-    runs = [leg_times(model, batch, maps, gidx, gw, outs["streaming"],
+    runs = [leg_times(model, batch, maps, gidx, gw, fits, outs["streaming"],
                       kv_cache) for _ in range(LEG_REPEATS)]
     legs = {k: spread([r[k] for r in runs]) for k in runs[0]}
     log(json.dumps({"phase": "legs_ms", "path": path, **legs,
@@ -1435,9 +1566,12 @@ def serving_path_phase(path, cfg, kv_cache, b_cached):
     log(json.dumps({"phase": "decode_host_device_ms", "path": path,
                     "kv_cache": kv_cache,
                     **decode_split(model, batch, kv_cache)}))
-    if kv_cache == "int8":
+    if kv_cache == "int8" and cfg.llama.weights_int8:
         log(json.dumps({"phase": "decode_int8_vs_dense_cache_ms",
                         "path": path, **decode_by_cache(model, batch)}))
+    if cfg.llama.weights_int4:
+        log(json.dumps({"phase": "int4_costs", "path": path,
+                        **int4_costs(cfg.llama)}))
     log(json.dumps({"phase": "profile", "path": path, "mode": "streaming",
                     **device_busy(lambda: run("streaming"))}))
     del model, cached, outs
@@ -1527,11 +1661,145 @@ def device_busy(fn):
             "kernel_device_ms": ours, "symbol_device_ms": by_symbol}
 
 
+def device_or_event_ms(fn, iters):
+    """``device_ms`` of one call, or CUDA events (``time_ms``) where the
+    profiler's trace holds no device activity; and which it was."""
+    ms = device_ms(fn, iters)[0]
+    return (ms, "device") if ms is not None else (time_ms(fn, iters),
+                                                  "events")
+
+
+def _cycled(make, nbytes):
+    """Copies of ``make()``'s tensors enough to pass the 50 MB L2 between
+    reuses (the serving and training paths stream their weights from
+    memory), and a function that returns the next copy each call."""
+    copies = [make() for _ in range(max(1, min(16, -(-200_000_000
+                                                     // nbytes))))]
+    it = iter(range(1 << 62))
+    return lambda: copies[next(it) % len(copies)]
+
+
+def linear_shapes(lcfg):
+    """The LLaMA's linears: what -> (N, K, calls per layer)."""
+    h, i = lcfg.hidden_size, lcfg.intermediate_size
+    return {"q/k/v/o": (h, h, 4), "gate/up": (i, h, 2), "down": (h, i, 1)}
+
+
+@torch.no_grad()
+def int4_costs(lcfg):
+    """Device time a call (``device_ms``) of what ``int4_matmul`` runs at
+    the 7B decode shapes (B rows, bf16 x): the unpack of the packed weight
+    into a transient (N, K) int8 copy (nibble extraction and a cat: what a
+    fused int4 kernel would not write), kernel 6 on it (f32 x * rf), and
+    the whole call; each beside the bytes bound of the unpack (N K / 2
+    read, N K written), and summed over one decode step's calls. Weights
+    are cycled past the L2, as decode streams them."""
+    name = torch.cuda.get_device_name(0)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = {k: (N, K, n * lcfg.num_layers)
+              for k, (N, K, n) in linear_shapes(lcfg).items()}
+    shapes["lm_head"] = (lcfg.padded_vocab_size, lcfg.hidden_size, 1)
+    rows, step = {}, {"unpack_ms": 0.0, "kernel_ms": 0.0,
+                      "int4_matmul_ms": 0.0, "unpack_bound_ms": 0.0}
+    for what, (N, K, n) in shapes.items():
+        def make():
+            return (torch.randint(-127, 128, (N, K // 2), generator=gen,
+                                  device="cuda", dtype=torch.int8),
+                    torch.full((N,), 1.0 / (7.0 * K ** 0.5), device="cuda"),
+                    torch.ones(K, device="cuda"))
+
+        nxt = _cycled(make, N * K // 2)
+        x = rand_bf16(gen, (B, K))
+        unpack, how = device_or_event_ms(
+            lambda: torch.cat(QT.unpack_int4(nxt()[0]), 1), 20)
+        ws = _cycled(lambda: torch.cat(QT.unpack_int4(nxt()[0]), 1), N * K)
+        xr = x.float()
+        cs = torch.full((N,), 1.0 / (7.0 * K ** 0.5), device="cuda")
+        kernel, how_k = device_or_event_ms(lambda: Q.int8_matmul_fused(
+            xr, ws(), cs, out_dtype=torch.bfloat16), 20)
+        whole, how_w = device_or_event_ms(
+            lambda: QT.int4_matmul(x, *nxt()), 20)
+        t, _ = bound(0, N * K // 2 + N * K, name)
+        rows[what] = {"N": N, "K": K, "calls_per_decode_step": n,
+                      "unpack_ms": unpack, "unpack_bound_ms": t,
+                      "kernel_ms": kernel, "int4_matmul_ms": whole,
+                      "timed_by": [how, how_k, how_w]}
+        for k, v in (("unpack_ms", unpack), ("kernel_ms", kernel),
+                     ("int4_matmul_ms", whole), ("unpack_bound_ms", t)):
+            step[k] += n * v
+        del nxt, ws
+        torch.cuda.empty_cache()
+    return {"rows": B, "by_shape": rows, "per_decode_step": step}
+
+
+@torch.no_grad()
+def ste_backward_costs(lcfg, rows):
+    """Device time a call (``device_ms``) of the straight-through backward
+    (``ops/quant.py:ste_input_grad``) at the QLoRA step's shapes (``rows``
+    = B x 512, bf16 g): the transient bf16 copy of W_q, the bf16 GEMM with
+    an f32 output, and the whole call; the GEMM beside its operations bound
+    and a bf16-output ``torch.mm`` (a yardstick, whose rounding the
+    backward must not take), and each summed over one step's calls (every
+    int8 linear of every layer once)."""
+    name = torch.cuda.get_device_name(0)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out, step = {}, {"w_cast_ms": 0.0, "gemm_ms": 0.0, "ste_backward_ms": 0.0}
+    for what, (N, K, n) in linear_shapes(lcfg).items():
+        n *= lcfg.num_layers
+        g = rand_bf16(gen, (rows, N))
+        w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        scale = torch.full((N,), 1.0 / (127.0 * K ** 0.5), device="cuda")
+        gs = (g.float() * scale).to(torch.bfloat16)
+        wb = w.to(torch.bfloat16)
+        cast, how = device_or_event_ms(lambda: w.to(torch.bfloat16), 10)
+        gemm, how_g = device_or_event_ms(
+            lambda: torch.mm(gs, wb, out_dtype=torch.float32), 10)
+        whole, how_w = device_or_event_ms(
+            lambda: QT.ste_input_grad(g, w, scale, torch.bfloat16), 10)
+        bf16_mm, how_b = device_or_event_ms(lambda: torch.mm(gs, wb), 10)
+        t, by = bound(2 * rows * N * K, 2 * rows * N + 2 * N * K + 4 * rows * K,
+                      name)
+        out[what] = {"M": rows, "N": N, "K": K, "calls_per_step": n,
+                     "w_cast_ms": cast, "gemm_ms": gemm,
+                     "gemm_bound_ms": t, "gemm_bound_by": by,
+                     "bf16_out_mm_ms": bf16_mm, "ste_backward_ms": whole,
+                     "timed_by": [how, how_g, how_w, how_b]}
+        for k, v in (("w_cast_ms", cast), ("gemm_ms", gemm),
+                     ("ste_backward_ms", whole)):
+            step[k] += n * v
+        del g, w, gs, wb
+        torch.cuda.empty_cache()
+    return {"by_shape": out, "per_step": step}
+
+
+def device_busy_ms(fn):
+    """The card's busy time in ms over one call of ``fn``: the union of the
+    intervals of its kernels, copies and memsets, from a trace of the
+    card's activity alone, read from the profiler's raw events (a trace
+    with the host's operations, as ``device_busy`` takes, costs a minute
+    to read for one generate call); None where the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_ms(fn)
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy_ns, end = 0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_ns += b - max(a, end)
+            end = b
+    return busy_ns / 1e6 if spans else None
+
+
 def decode_split(model, batch, kv_cache):
     """Where the decode leg's time goes, in one call: the synchronised wall
     time of greedy_generate, the host time until it returns, and the card's
-    busy time (torch.profiler); prefill's are subtracted to leave the 31
-    decode steps."""
+    busy time (``device_busy_ms``); prefill's are subtracted to leave the
+    31 decode steps."""
     llava, cfg = model.llava, model.config
     ids = torch.as_tensor(batch["input_ids"], device="cuda")
     px = batch["images_clip"]
@@ -1546,7 +1814,7 @@ def decode_split(model, batch, kv_cache):
 
     walls = {n: wall_ms(f)[1] for n, f in (("p", prefill), ("g", generate))}
     issue = {n: issue_ms(f) for n, f in (("p", prefill), ("g", generate))}
-    busy = {n: device_busy(f)["device_busy_ms"]
+    busy = {n: device_busy_ms(f)
             for n, f in (("p", prefill), ("g", generate))}
     return {"decode_wall": walls["g"] - walls["p"],
             "decode_host_issue": issue["g"] - issue["p"],
@@ -1555,11 +1823,14 @@ def decode_split(model, batch, kv_cache):
             "generate_device_busy": busy["g"]}
 
 
-def leg_times(model, batch, maps, gidx, gw, ref, kv_cache):
+def leg_times(model, batch, maps, gidx, gw, fits, ref, kv_cache):
     """Each leg of one streaming batch, host clock around a synchronised
     call. The gather-form lift (the bench's) is held to the scatter form
-    that evaluate_batch runs, 1e-5 absolute: both sum the same f32 terms
-    in a different order, and no vertex has more than MAX_K pixels."""
+    that evaluate_batch runs, 1e-5 absolute, on the vertices with at most
+    MAX_K pixels in every view (``fits``): there both sum the same f32
+    terms in a different order. The gather form keeps MAX_K pixels of a
+    vertex and view, as ``bench.py``'s does, and the real maps give the
+    sphere's poles and near-silhouette rings more."""
     cfg = model.config
     ids = torch.as_tensor(batch["input_ids"], device="cuda")
     px = batch["images_clip"]
@@ -1586,7 +1857,7 @@ def leg_times(model, batch, maps, gidx, gw, ref, kv_cache):
         lambda: lift_human(masks, maps["p2v"], maps["bary"], N_VERTS))
     gathered, lift_gather = wall_ms(lambda: torch.stack(
         [lift_multiview_soft_gather(m, gidx, gw) for m in masks]))
-    diff = max_err(scatter, gathered)
+    diff = max_err(scatter[:, fits], gathered[:, fits])
     if not diff < 1e-5:
         raise SystemExit(f"gather-form lift disagrees with the scatter form: {diff}")
     return {"clip_prefill": prefill, "decode": generate - prefill,
@@ -1628,9 +1899,11 @@ def train_kv_lengths():
     return tuple(n - 1 + P for n in text)
 
 
-def train_reference_phase():
+def train_reference_phase(qlora: bool):
     """One LoRA training forward and backward of ``interactvlm_tiny`` (rank
-    4, remat on) on the card in bf16 against the same on the CPU in f32,
+    4, remat on; with ``qlora`` over a frozen int8 LLaMA base, the
+    straight-through backward) on the card in bf16 against the same on the
+    CPU in f32,
     from the same weights (LoRA B drawn non-zero so A has a gradient). A
     256-token prompt (259 spliced, one row right-padded to 200) makes
     LLaMA's causal attention launch the flash forward (twice a layer under
@@ -1640,9 +1913,15 @@ def train_reference_phase():
     moves by well under a percent, a gradient's direction by a fraction of
     one (cosine >= 0.99), and a small leaf's norm, summed over few terms,
     by a few percent (so 10 %). The trainable leaves stay f32 on the card
-    (cast_frozen_params), as in training."""
+    (cast_frozen_params), as in training. Under ``qlora`` the card's int8
+    linears quantize bf16 activations with kernel 6 and the CPU's f32 ones
+    with the composition: besides the rounding-tie difference of the int8
+    tiny pipeline (``reference_phase``), an activation one bf16 step off
+    moves its int8 value by one where it sits near a rounding boundary,
+    noise of the size of bf16's own (one part in 254 against 256), which
+    the same limits hold."""
     bf16 = torch.bfloat16
-    llama = llama_tiny(lora_rank=4, remat=True)
+    llama = llama_tiny(lora_rank=4, remat=True, weights_int8=qlora)
     cpu_cfg = interactvlm_tiny(llama=llama)
     gpu_cfg = interactvlm_tiny(llama=dataclasses.replace(llama, dtype=bf16),
                                sam=sam_tiny(dtype=bf16))
@@ -1692,7 +1971,8 @@ def train_reference_phase():
             worst_cos = min(worst_cos, cos)
             worst_norm = max(worst_norm, abs(g.norm().item()
                                              / w.norm().item() - 1))
-    res = dict(phase="train_reference", config="interactvlm_tiny lora 4",
+    res = dict(phase="train_reference",
+               config=f"interactvlm_tiny {'qlora' if qlora else 'lora'} 4",
                losses=losses, grads_held=n_held,
                grads_total=sum(mask.values()), worst_cos=worst_cos,
                worst_norm_rel_err=worst_norm, grads_finite=finite,
@@ -1701,9 +1981,12 @@ def train_reference_phase():
                     "grad_norm_rtol": GRAD_NORM_RTOL,
                     "grad_floor": GRAD_FLOOR})
     log(json.dumps(res))
+    needed = TRAINING_KERNELS + (("int8_matmul",) if qlora else ())
+    int8_frozen = all(p.grad is None for n, p in gpu.named_parameters()
+                      if p.dtype == torch.int8)
     if not (all(v["err"] <= LOSS_RTOL for v in losses.values()) and finite
             and worst_cos >= GRAD_COS and worst_norm <= GRAD_NORM_RTOL
-            and all(launched[n] > 0 for n in TRAINING_KERNELS)):
+            and int8_frozen and all(launched[n] > 0 for n in needed)):
         raise SystemExit(f"the card's training step disagrees with the "
                          f"CPU's: {res}")
     del cpu, gpu, got, want
@@ -1724,6 +2007,20 @@ def config_13b_train():
         img_emb_len=clip_vit_l_14().num_patches - 1)
 
 
+def config_7b_qlora_train():
+    """The JAX package's one-chip training configuration
+    (``scripts/train_step_probe.py`` with ``PROBE_INT8=1``) at full width:
+    LLaMA-7B with a frozen int8 base and LoRA rank 8 (alpha 16) on q/v,
+    remat, the lm_head in bf16 (it trains); CLIP ViT-L/14 and SAM ViT-H in
+    bf16 (exact GELU, no int8)."""
+    bf16 = torch.bfloat16
+    llama = llama_7b(dtype=bf16, lora_rank=8, lora_alpha=16.0,
+                     weights_int8=True)
+    return dataclasses.replace(
+        config_13b_train(), llama=llama,
+        seg_token_idx=min(llama.vocab_size - 1, 32000))
+
+
 def frozen_fingerprint(model):
     """Per frozen parameter, two sums over its raw bits (plain and
     position-weighted): any changed element changes them."""
@@ -1740,13 +2037,15 @@ def frozen_fingerprint(model):
     return torch.stack(sums).cpu()
 
 
-def training_path_phase():
-    """The 13B LoRA training step of the preset at B=8: one warm-up step
-    (step 0 of the warm-up, lr 0), then TRAIN_STEPS timed steps, each
-    phase's end synchronised (``TrainStep``'s ``mark``); launches counted
-    from 0 over the first timed step; one more step under the profiler."""
+def training_path_phase(path, cfg, maps):
+    """A LoRA (or QLoRA) training step at B=8 on the real lift maps
+    ``maps`` (the human 3D loss's): one warm-up step (step 0 of the
+    warm-up, lr 0), then TRAIN_STEPS timed steps, each phase's end
+    synchronised (``TrainStep``'s ``mark``); launches counted from 0 over
+    the first timed step; one more step under the profiler. Under
+    ``weights_int8`` (QLoRA) also the straight-through backward's device
+    time (``ste_backward_costs``)."""
     t0 = time.perf_counter()
-    cfg = config_13b_train()
     model = InteractVLM(cfg, device="cuda")
     init_params(model, torch.Generator(device="cuda").manual_seed(0))
     cast_frozen_params(model, torch.bfloat16)
@@ -1754,7 +2053,7 @@ def training_path_phase():
     step = TrainStep(model, opt, sched)
     n_train = sum(p.numel() for p in step.params)
     torch.cuda.synchronize()
-    log(json.dumps({"phase": "init", "path": "train_13b_lora",
+    log(json.dumps({"phase": "init", "path": path,
                     "params": sum(p.numel() for p in model.parameters()),
                     "trainable": n_train, "s": time.perf_counter() - t0}))
 
@@ -1762,6 +2061,7 @@ def training_path_phase():
     batch = make_synthetic_batch(cfg, B=B, L=L_TRAIN, tasks=(2,),
                                  mask_size=MASK, seed=0, device="cuda")
     batch["attn_mask"] = torch.ones_like(batch["input_ids"])
+    batch["human_p2v"], batch["human_bary"] = maps["p2v"], maps["bary"]
     for row, n in enumerate(TRAIN_PADDED):
         right_pad(batch, row, n, cfg.seg_token_idx)
     lens = tuple((batch["attn_mask"].sum(1) - 1
@@ -1804,29 +2104,37 @@ def training_path_phase():
     metrics = [{k: float(v) for k, v in m.items()} for m in steps]
     tokens = sum(lens)
     med = float(np.median(secs))
-    res = dict(phase="main_path", path="train_13b_lora", batch=B,
+    res = dict(phase="main_path", path=path, batch=B,
                spliced_tokens=tokens, step_ms=spread([x * 1e3 for x in secs]),
                images_per_s=B / med, tokens_per_s=tokens / med,
                peak_gb=peak_gb, split_ms={k: spread(v) for k, v in split.items()},
                sam_encode_in_forward_ms=sam_ms, metrics=metrics,
                lr_last=opt.param_groups[0]["lr"], updates=step.step)
     log(json.dumps(res))
-    log(json.dumps({"phase": "profile", "path": "train_13b_lora",
+    log(json.dumps({"phase": "profile", "path": path,
                     **device_busy(lambda: step(batch))}))
+    qlora = cfg.llama.weights_int8
+    if qlora:
+        log(json.dumps({"phase": "ste_backward_costs", "path": path,
+                        **ste_backward_costs(cfg.llama, B * (
+                            L_TRAIN - 1 + cfg.clip.num_patches))}))
 
     layers, dec = cfg.llama.num_layers, cfg.sam.decoder_depth
     n_global = len(cfg.sam.encoder_global_attn_indexes)
     # each layer's flash forward runs again in the backward under remat;
-    # the SAM decoder's image->token attention (Lq = 4096) once a block
+    # the SAM decoder's image->token attention (Lq = 4096) once a block;
+    # under QLoRA each layer's 7 int8 linears twice too (forward and
+    # remat), all on the two-pass route (B x 512 rows)
+    two = 2 * 7 * layers if qlora else 0
     want = {n: 0 for n in KERNELS}
     want.update({"flash_attention": 2 * layers + dec,
                  "flash_attention_bwd_dq": layers + dec,
                  "flash_attention_bwd_dkv": layers + dec,
                  "window_attention": cfg.sam.encoder_depth - n_global,
                  "rel_attention": n_global,
-                 "int8_routes": {r: 0 for r in
-                                 Q.int8_matmul_fused.route_launches},
-                 "int8_gemm": 0,
+                 "int8_matmul": two, "quantize_rows": two,
+                 "int8_routes": {"one_launch": 0, "two_pass": two},
+                 "int8_gemm": two,
                  "window_routes": {"mma": 0, "sm90": cfg.sam.encoder_depth
                                    - n_global},
                  "rel_routes": {"mma": 0, "sm90": n_global},
@@ -1856,7 +2164,7 @@ def training_path_phase():
                     "mask_decoder_params": sum("mask_decoder" in n
                                                for n in moved)}))
     if not all(checks.values()):
-        raise SystemExit(f"the 13B training path failed: {checks}")
+        raise SystemExit(f"the {path} training path failed: {checks}")
     del model, opt, sched, step, batch, watched
     gc.collect()
     torch.cuda.empty_cache()
@@ -1895,19 +2203,29 @@ def main() -> int:
     launches = {"probes": probes_phase()}
     log(json.dumps({"phase": "probes_done",
                     "s": time.perf_counter() - t_start}))
+    lift = real_lift_maps()
     paths = {"13b_bf16": (config_13b(), "dense", B),
-             "7b_int8": (config_7b_int8(), "int8", B_CACHED_INT8)}
+             "7b_int8": (config_7b_int8(), "int8", B_CACHED_INT8),
+             "7b_int4": (config_7b_int4(), "int8", B_CACHED_INT8)}
     with torch.inference_mode():
-        reference_phase(int8=False)
-        reference_phase(int8=True)
+        for weights in ("dense", "int8", "int4"):
+            reference_phase(weights)
         for path, (cfg, kv, b_cached) in paths.items():
-            launches[path] = serving_path_phase(path, cfg, kv, b_cached)
+            launches[path] = serving_path_phase(path, cfg, kv, b_cached, lift)
             log(json.dumps({"phase": f"{path}_done",
                             "s": time.perf_counter() - t_start}))
-    train_reference_phase()
-    launches["train_13b_lora"] = training_path_phase()
-    log(json.dumps({"phase": "train_13b_lora_done",
-                    "s": time.perf_counter() - t_start}))
+    # kernel 6 takes the same routes on int4 weights as on int8 ones
+    routes = {p: launches[p]["int8_routes"] for p in ("7b_int8", "7b_int4")}
+    log(json.dumps({"phase": "int4_routes_as_int8", **routes}))
+    if routes["7b_int4"] != routes["7b_int8"]:
+        raise SystemExit(f"the int4 path's int8 routes differ: {routes}")
+    for qlora in (False, True):
+        train_reference_phase(qlora)
+    for path, cfg in (("train_13b_lora", config_13b_train()),
+                      ("train_7b_qlora", config_7b_qlora_train())):
+        launches[path] = training_path_phase(path, cfg, lift[0])
+        log(json.dumps({"phase": f"{path}_done",
+                        "s": time.perf_counter() - t_start}))
 
     rows = []
     for kname, meta in KERNELS.items():

@@ -142,10 +142,10 @@ class LlamaConfig:
     remat: bool = True
     lora_rank: int = 0
     lora_alpha: float = 16.0
-    # lora_rank > 0 puts LoRA on q_proj/v_proj over the bf16 base
-    # (training); quantized serving weights: int8 is ported (Int8Linear);
-    # int4, and int8 with lora_rank > 0 (QLoRA), are not yet, and the port
-    # raises when they are set
+    # lora_rank > 0 puts LoRA on q_proj/v_proj (training) over the bf16
+    # base, or with weights_int8 over a frozen int8 base (QLoRA,
+    # Int8LoraLinear); quantized serving weights: int8 (Int8Linear) and
+    # packed int4 (Int4Linear, which takes precedence over int8)
     weights_int8: bool = False
     weights_int4: bool = False
 

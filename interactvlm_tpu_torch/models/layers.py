@@ -1,6 +1,7 @@
 """Linear, LayerNorm, transposed-convolution and embedding layers with a
 compute dtype apart from their parameters' dtype, the LoRA linear of
-training, and the int8 linear layer of the serving path.
+training, the int8 linear layer (serving, and QLoRA's frozen base with an
+adapter) and the int4 linear layer of serving.
 
 Like flax's ``nn.Dense(dtype=...)``, each layer casts its input and its
 parameters to its compute ``dtype`` at every call: the dtype it was built
@@ -23,7 +24,7 @@ from interactvlm_tpu_torch.ops.int8_matmul import (
     apply_activation,
     int8_matmul_fused,
 )
-from interactvlm_tpu_torch.ops.quant import int8_matmul
+from interactvlm_tpu_torch.ops.quant import int4_matmul, int8_matmul_ste
 
 
 def _cast(t, dtype):
@@ -124,21 +125,22 @@ class Int8Linear(nn.Module):
     ``weight_scale`` f32 (out,), both frozen; ``bias`` (out,) is f32. The
     ``activation`` ("none", "gelu", "gelu_tanh") follows the bias.
 
-    On a CUDA tensor every call launches the fused int8 kernel
-    (``ops/int8_matmul.py``), which quantizes x per row, multiplies on the
-    int8 tensor cores and applies scale, bias and activation in f32 before
-    the cast to the layer dtype. The JAX package's conditions for its TPU
-    kernel (rows >= 4096, K * N <= 7 Mi) exist because that kernel keeps the
-    whole weight in VMEM, which the card's kernel does not. On a CPU tensor
-    it runs what the JAX package runs on the CPU: the composition
-    ``ops/quant.int8_matmul`` cast to the layer dtype, then the bias and
-    the exact or tanh GELU in that dtype. The kernel and the composition
-    differ only where x * (127 / amax) and x / (amax / 127) fall on opposite
-    sides of a rounding tie, and in where they round to the layer dtype.
+    The product is ``ops/quant.py:int8_matmul_ste`` on both devices: on a
+    CUDA tensor kernel 6 (``ops/int8_matmul.py``), which quantizes x per
+    row and multiplies on the int8 tensor cores, on a CPU tensor what the
+    JAX package runs on the CPU, the composition ``ops/quant.int8_matmul``;
+    the bias and the exact or tanh GELU follow in the layer dtype. Without
+    grad, a CUDA call with a bias or an activation fuses them into the
+    kernel's f32 epilogue instead (the serving encoder). The JAX package's
+    conditions for its TPU kernel (rows >= 4096, K * N <= 7 Mi) exist
+    because that kernel keeps the whole weight in VMEM, which the card's
+    kernel does not. The kernel and the composition differ only where x *
+    (127 / amax) and x / (amax / 127) fall on opposite sides of a rounding
+    tie, and in where they round to the layer dtype.
 
-    Under grad it raises on both devices: the straight-through backward of
-    the JAX package (``ops/quant.py:33-67``) is not ported yet, and the
-    output would carry no gradient.
+    Under grad, x gets the straight-through gradient of the JAX package
+    (``ops/quant.py:_int8_matmul_bwd``), and the frozen weight none: the
+    QLoRA base.
     """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = False,
@@ -159,13 +161,14 @@ class Int8Linear(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
-        if x.is_cuda:  # int8_matmul_fused refuses grad
+        fused = self.bias is not None or self.activation != "none"
+        if fused and x.is_cuda and not (torch.is_grad_enabled()
+                                        and x.requires_grad):
             return int8_matmul_fused(
                 x.reshape(-1, self.in_features), self.weight,
                 self.weight_scale, self.bias, self.activation, self.dtype,
             ).reshape(*x.shape[:-1], self.out_features)
-        _cuda.refuse_grad("Int8Linear", x)
-        y = int8_matmul(x, self.weight, self.weight_scale, dtype=self.dtype)
+        y = int8_matmul_ste(x, self.weight, self.weight_scale, self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return apply_activation(y, self.activation)
@@ -174,3 +177,60 @@ class Int8Linear(nn.Module):
         return (f"in_features={self.in_features}, "
                 f"out_features={self.out_features}, "
                 f"bias={self.bias is not None}, activation={self.activation}")
+
+
+class Int8LoraLinear(Int8Linear):
+    """A frozen bias-free int8 base plus a low-rank adapter, y = base(x) +
+    ((x A^T) B^T) * alpha / r: the port of the JAX package's ``LoraDense(
+    int8=True)`` (``interactvlm_tpu/models/llama.py:172-210``), QLoRA's
+    q/v projection. ``weight`` (int8) and ``weight_scale`` are the base's,
+    ``lora_A.weight`` (r, K) and ``lora_B.weight`` (N, r) the adapter's, as
+    in ``LoraLinear``; the base's gradient to x is the straight-through
+    one."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 alpha: float, dtype=torch.bfloat16, device=None):
+        super().__init__(in_features, out_features, dtype=dtype, device=device)
+        self.scaling = alpha / rank
+        self.lora_A = LoraFactor(rank, in_features, 0.02, dtype, device)
+        self.lora_B = LoraFactor(out_features, rank, 0.0, dtype, device)
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        a = self.lora_A.weight.to(x.dtype)
+        b = self.lora_B.weight.to(x.dtype)
+        return super().forward(x) + F.linear(F.linear(x, a), b) * self.scaling
+
+
+class Int4Linear(nn.Module):
+    """Bias-free linear layer with a packed split-half int4 weight: the port
+    of ``interactvlm_tpu/models/llama.py:Int4Dense``. ``weight_q4`` (out,
+    in/2) int8 holds two nibbles a byte (``ops/quant.py``), ``weight_scale``
+    (out,) f32 the per-column scales and ``weight_rf`` (in,) f32 the rank-1
+    group row factor that multiplies x. Runs ``ops/quant.int4_matmul``:
+    kernel 6 on the unpacked weight on a CUDA tensor, the JAX package's
+    composition on a CPU one. Serving only: raises under grad."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.dtype = dtype
+        self.weight_q4 = nn.Parameter(
+            torch.zeros(out_features, in_features // 2, dtype=torch.int8,
+                        device=device), requires_grad=False)
+        self.weight_scale = nn.Parameter(
+            torch.ones(out_features, dtype=torch.float32, device=device),
+            requires_grad=False)
+        self.weight_rf = nn.Parameter(
+            torch.ones(in_features, dtype=torch.float32, device=device),
+            requires_grad=False)
+
+    def forward(self, x):
+        _cuda.refuse_grad("Int4Linear", x)
+        return int4_matmul(x, self.weight_q4, self.weight_scale,
+                           self.weight_rf, self.dtype)
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}")

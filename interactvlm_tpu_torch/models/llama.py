@@ -1,4 +1,4 @@
-"""LLaMA decoder in PyTorch with a dense or int8 KV cache, and LoRA.
+"""LLaMA decoder in PyTorch with a dense or int8 KV cache, LoRA and QLoRA.
 
 Port of ``interactvlm_tpu/models/llama.py`` (serving and training paths):
 RMSNorm in f32, HF rotate-half rotary embeddings, SwiGLU MLP, and attention
@@ -10,10 +10,15 @@ launches the flash kernel on CUDA with per-row kv lengths
 (``models/llama.py:409-420``), differentiable through its backward kernels.
 Under ``weights_int8`` every projection, the MLP and the lm_head are
 ``Int8Linear`` (int8 ``weight`` plus ``weight_scale``), which on CUDA launch
-the fused int8 kernel. With ``lora_rank > 0`` q_proj and v_proj are
-``LoraLinear`` (peft's ``lora_A`` / ``lora_B``) over a bf16 base; with
-``remat`` each decoder layer is recomputed in the backward
-(``nn.remat(LlamaBlock)``), which launches its flash forward a second time.
+the fused int8 kernel; under ``weights_int4`` they are ``Int4Linear``
+(packed ``weight_q4``, ``weight_scale``, ``weight_rf``), kernel 6 on the
+unpacked weight. With ``lora_rank > 0`` q_proj and v_proj are
+``LoraLinear`` (peft's ``lora_A`` / ``lora_B``) over a bf16 base, or under
+``weights_int8`` ``Int8LoraLinear`` over a frozen int8 base (QLoRA: the
+straight-through backward), and the lm_head stays in the compute dtype and
+trains; with ``remat`` each decoder layer is recomputed in the backward
+(``nn.remat(LlamaBlock)``), which launches its flash forward, and its
+int8 linears, a second time.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from torch.utils.checkpoint import checkpoint
 from interactvlm_tpu_torch.config import LlamaConfig
 from interactvlm_tpu_torch.models.layers import (
     Embedding,
+    Int4Linear,
     Int8Linear,
+    Int8LoraLinear,
     Linear,
     LoraLinear,
 )
@@ -78,16 +85,27 @@ def apply_rope(x, cos, sin):
 
 
 def linear(config: LlamaConfig, in_features: int, out_features: int, device,
-           lora: bool = False):
-    """A bias-free projection: ``Int8Linear`` under ``weights_int8``,
-    ``LoraLinear`` where ``lora`` and ``lora_rank > 0``."""
-    if lora and config.lora_rank > 0:
-        return LoraLinear(in_features, out_features, config.lora_rank,
-                          config.lora_alpha, dtype=config.dtype, device=device)
-    if config.weights_int8:
-        return Int8Linear(in_features, out_features, dtype=config.dtype,
+           lora: bool = False, int8: bool = None, int4: bool = None):
+    """A bias-free projection (the JAX package's ``_dense`` and
+    ``LoraDense``): where ``lora`` and ``lora_rank > 0``, ``Int8LoraLinear``
+    under ``weights_int8`` (QLoRA) and ``LoraLinear`` over a float base
+    otherwise; else ``Int4Linear`` under ``weights_int4`` (which takes
+    precedence), ``Int8Linear`` under ``weights_int8``. ``int8`` / ``int4``
+    override the config's flags (the lm_head's)."""
+    c = config
+    int8 = c.weights_int8 if int8 is None else int8
+    int4 = c.weights_int4 if int4 is None else int4
+    if lora and c.lora_rank > 0:
+        cls = Int8LoraLinear if c.weights_int8 else LoraLinear
+        return cls(in_features, out_features, c.lora_rank, c.lora_alpha,
+                   dtype=c.dtype, device=device)
+    if int4:
+        return Int4Linear(in_features, out_features, dtype=c.dtype,
                           device=device)
-    return Linear(in_features, out_features, bias=False, dtype=config.dtype,
+    if int8:
+        return Int8Linear(in_features, out_features, dtype=c.dtype,
+                          device=device)
+    return Linear(in_features, out_features, bias=False, dtype=c.dtype,
                   device=device)
 
 
@@ -277,18 +295,17 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, device="cuda"):
         super().__init__()
-        if config.weights_int4:
-            raise NotImplementedError("int4 weights are not ported yet")
-        if config.weights_int8 and config.lora_rank:
-            raise NotImplementedError(
-                "LoRA over the int8 base (QLoRA) is not ported yet")
         device = resolve_device(device)
         self.config = config
         self.model = LlamaModel(config, device)
-        # int8 under weights_int8 (lora_rank 0, as the JAX package's serving
-        # head); with lora_rank > 0 it stays in the compute dtype and trains
+        # int8 / int4 as the serving weights are (lora_rank 0, the JAX
+        # package's serving head); with lora_rank > 0 (QLoRA included) it
+        # stays in the compute dtype and trains
+        serving = config.lora_rank == 0
         self.lm_head = linear(config, config.hidden_size,
-                             config.padded_vocab_size, device)
+                              config.padded_vocab_size, device,
+                              int8=config.weights_int8 and serving,
+                              int4=config.weights_int4 and serving)
 
     def logits(self, h):
         """lm_head with the vocab-pad columns masked to -1e30."""

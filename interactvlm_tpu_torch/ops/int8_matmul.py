@@ -154,9 +154,11 @@ def int8_matmul_fused(x, w_q, w_scale, bias=None, activation: str = "none",
     CPU tensors run ``int8_matmul_fused_plain``; CUDA tensors (x bf16 or f32
     and contiguous, W int8 contiguous, f32 scale and bias, K a multiple of
     32, N of 8) take the route ``int8_route`` names for their shape, or
-    raise. Both raise under grad: the straight-through backward is not
-    ported yet. ``launches`` counts the calls on the card, and
-    ``route_launches`` each route's.
+    raise. Both raise under grad, since the output would carry no
+    gradient: the straight-through backward is ``ops/quant.py:
+    Int8MatmulSTE``, whose forward calls this with grad off.
+    ``launches`` counts the calls on the card, and ``route_launches`` each
+    route's.
     """
     _cuda.refuse_grad("int8_matmul", x, bias)
     out_dtype = out_dtype or x.dtype

@@ -1,9 +1,13 @@
-"""Int8 quantization: weights, activations and the KV cache.
+"""Int8 and int4 quantization: weights, activations and the KV cache.
 
-Port of ``interactvlm_tpu/ops/quant.py`` (the int8 parts, forward only):
-symmetric per-slice int8 with f32 scales, rounding half to even. Weights are
-in the port's (N, K) layout, K-contiguous per output column, with one f32
-scale per output column, (N,); the JAX package keeps (K, N) and (1, N).
+Port of ``interactvlm_tpu/ops/quant.py``: symmetric per-slice int8 with f32
+scales, rounding half to even; the int8 matmul with its straight-through
+backward (QLoRA training over a frozen int8 base); packed split-half int4
+weights with rank-1 group scales (serving only). Weights are in the port's
+(N, K) layout, K-contiguous per output column, with one f32 scale per
+output column, (N,); the JAX package keeps (K, N) and (1, N). A packed int4
+weight is (N, K/2) int8: byte j of a row holds w[j] in its low nibble and
+w[j + K/2] in its high one (the JAX (K/2, N) layout, transposed).
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
+
+from interactvlm_tpu_torch.ops import _cuda
 
 SCALE_FLOOR = 1e-8
 
@@ -56,9 +62,142 @@ def int_matmul_exact(a_q, w_q):
 def int8_matmul(x, w_q, w_scale, dtype=torch.bfloat16):
     """x (..., K) @ int8 W (N, K) with per-output-column scales (N,): the
     JAX package's composition (quantize x per row, int8 x int8 -> int32,
-    rescale by both scales), the path it takes on the CPU. Forward only."""
+    rescale by both scales), the path it takes on the CPU. Forward only;
+    ``int8_matmul_ste`` is the differentiable form."""
     x_q, x_scale = quantize_int8(x, axis=-1)
     return (int_matmul_exact(x_q, w_q) * x_scale * w_scale).to(dtype)
+
+
+def _int8_forward(x, w_q, w_scale, dtype):
+    """The forward of ``int8_matmul_ste``: on a CUDA tensor kernel 6
+    (``ops/int8_matmul.py:int8_matmul_fused``, on the route its row count
+    picks), on a CPU tensor the composition ``int8_matmul``."""
+    if not x.is_cuda:
+        return int8_matmul(x, w_q, w_scale, dtype)
+    return _kernel6(x, w_q, w_scale, dtype)
+
+
+def _kernel6(x, w_q, w_scale, dtype):
+    """``int8_matmul_fused`` on the rows of x (..., K), no bias."""
+    # imported here: ops/int8_matmul.py imports this module
+    from interactvlm_tpu_torch.ops.int8_matmul import int8_matmul_fused
+
+    K, N = x.shape[-1], w_q.shape[0]
+    return int8_matmul_fused(x.reshape(-1, K), w_q, w_scale,
+                             out_dtype=dtype).reshape(*x.shape[:-1], N)
+
+
+def ste_input_grad(g, w_q, w_scale, dtype):
+    """The straight-through activation gradient of x @ dequant(W): dx =
+    ((g * w_scale) rounded to bf16) @ W_q, the bf16 products summed in f32,
+    the f32 result cast to ``dtype`` (``interactvlm_tpu/ops/quant.py:
+    _int8_matmul_bwd``). The scale is folded into g, so no dequantized
+    weight is made; W_q is widened to a transient bf16 copy (exact: |q| <=
+    127). On the card one bf16 GEMM with an f32 output (``torch.mm``'s
+    ``out_dtype``), which the JAX package also leaves to the compiler's
+    dot; on the CPU an f32 product of the bf16 values (each product exact,
+    as in the JAX CPU dot)."""
+    N, K = w_q.shape
+    gs = (g.float() * w_scale).to(torch.bfloat16).reshape(-1, N)
+    w = w_q.to(torch.bfloat16)
+    if g.is_cuda:
+        dx = torch.mm(gs, w, out_dtype=torch.float32)
+    else:
+        dx = torch.mm(gs.float(), w.float())
+    return dx.reshape(*g.shape[:-1], K).to(dtype)
+
+
+class Int8MatmulSTE(torch.autograd.Function):
+    """x (..., K) @ int8 W (N, K) -> (..., N) in ``dtype``, differentiable
+    in x by the straight-through estimator of the JAX package's
+    ``_int8_matmul_core`` (``custom_vjp``, ``ops/quant.py:33-67``): the
+    forward is ``_int8_forward``, the backward ``ste_input_grad``, and the
+    int8 weight and its scales get no gradient (the base is frozen). Grad is
+    off inside ``forward``, so kernel 6's wrappers, which refuse grad when
+    called directly, run there. Saves W_q and its scales, not x."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, w_scale, dtype):
+        ctx.save_for_backward(w_q, w_scale)
+        ctx.x_dtype = x.dtype
+        return _int8_forward(x, w_q, w_scale, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, w_scale = ctx.saved_tensors
+        return ste_input_grad(g, w_q, w_scale, ctx.x_dtype), None, None, None
+
+
+def int8_matmul_ste(x, w_q, w_scale, dtype=torch.bfloat16):
+    """``Int8MatmulSTE`` where x needs a gradient; otherwise its forward
+    alone, without the autograd Function's cost on the host (decode issues
+    225 of these a step)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return Int8MatmulSTE.apply(x, w_q, w_scale, dtype)
+    return _int8_forward(x, w_q, w_scale, dtype)
+
+
+# --- int4: packed split-half nibbles, rank-1 group scales -----------------
+# W[n, k] ~= row_factor[k] * col_scale[n] * q[n, k], q in [-8, 7]: the row
+# factor rides the activation before its int8 quantization, the column
+# scale rescales the int32 sum (``interactvlm_tpu/ops/quant.py:124-149``).
+
+
+def quantize_int4(w, group: int = 128):
+    """Quantize an (N, K) weight to packed split-half int4: returns (q4 int8
+    (N, K/2), col_scale f32 (N,), row_factor f32 (K,)). K must be even;
+    where ``group`` divides K (and K >= 2 group) the row factor is the
+    per-group mean over the columns of each group's absmax, else 1. The
+    JAX package's ``quantize_int4`` on the transposed weight."""
+    N, K = w.shape
+    if K % 2:
+        raise ValueError(f"int4 packing needs even K, got {K}")
+    wf = w.float()
+    if group > 0 and K % group == 0 and K >= 2 * group:
+        amax_g = wf.abs().reshape(N, K // group, group).amax(-1)  # (N, G)
+        r_g = amax_g.mean(0).clamp_min(SCALE_FLOOR)  # (G,)
+        rf = r_g.repeat_interleave(group)
+    else:
+        rf = torch.ones(K, dtype=torch.float32, device=w.device)
+    wn = wf / rf
+    col_scale = exact_div(wn.abs().amax(1).clamp_min(SCALE_FLOOR), 7.0)
+    q = torch.clamp(torch.round(wn / col_scale[:, None]), -8, 7)
+    q = q.to(torch.int16)
+    packed = (q[:, :K // 2] & 0x0F) | (q[:, K // 2:] << 4)
+    return packed.to(torch.int8), col_scale, rf
+
+
+def unpack_int4(packed):
+    """Split a packed (N, K/2) int8 weight into its (lo, hi) int8 nibbles,
+    sign-extended: lo holds columns [0, K/2), hi [K/2, K)."""
+    lo = ((packed & 0x0F) ^ 8) - 8
+    return lo, packed >> 4
+
+
+def dequantize_int4(packed, col_scale, row_factor, dtype=torch.float32):
+    """The dense (N, K) weight (tests and conversion checks only)."""
+    q = torch.cat(unpack_int4(packed), dim=1).float()
+    return (q * row_factor * col_scale[:, None]).to(dtype)
+
+
+def int4_matmul(x, packed, col_scale, row_factor, dtype=torch.bfloat16):
+    """x (..., K) @ packed-int4 W (N, K/2) -> (..., N) in ``dtype``: x times
+    the row factor in f32, quantized per row to int8, an exact int32 sum
+    over both halves of K, times the row scale and the column scale.
+
+    On a CPU tensor the JAX package's composition (its two half-K int8
+    products are one exact sum here). On a CUDA tensor kernel 6
+    (``int8_matmul_fused``) on the f32 product x * rf and the unpacked
+    (N, K) int8 weight, a transient copy each call; the kernel quantizes x
+    with x * (127 / amax) where the composition divides by amax / 127 (a
+    rounding tie apart). Serving only: raises under grad."""
+    _cuda.refuse_grad("int4_matmul", x)
+    xr = x.float() * row_factor
+    w = torch.cat(unpack_int4(packed), dim=1)
+    if x.is_cuda:
+        return _kernel6(xr, w, col_scale, dtype)
+    x_q, x_scale = quantize_int8(xr, axis=-1)
+    return (int_matmul_exact(x_q, w) * x_scale * col_scale).to(dtype)
 
 
 def init_kv_cache_int8(config, batch: int, max_len: int,

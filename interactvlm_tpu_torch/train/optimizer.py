@@ -12,10 +12,12 @@ is optax's rule, which ``clip_by_global_norm`` applies: unchanged below
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Sequence, Set
 
 import torch
 import torch.nn as nn
+
+from interactvlm_tpu_torch.models.layers import Int4Linear, Int8Linear
 
 TRAINABLE_SUBSTRINGS = (
     "mask_decoder", "text_hidden_fcs", "cam_pose_encoder",
@@ -65,11 +67,28 @@ def trainable_mask(names: Iterable[str]) -> Dict[str, bool]:
     return {n: decide(n) for n in names}
 
 
+def quantized_params(model: nn.Module) -> Set[str]:
+    """Names of the int8 and int4 layers' own parameters (the packed or
+    int8 weight, its f32 scales and row factors, a bias): a frozen base,
+    which no mask trains and no cast touches. A QLoRA projection's adapter
+    is not among them."""
+    names = set()
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, (Int8Linear, Int4Linear)):
+            names.update(f"{prefix}.{leaf}" if prefix else leaf
+                         for leaf, _ in mod.named_parameters(recurse=False))
+    return names
+
+
 def apply_trainable_mask(model: nn.Module) -> Dict[str, bool]:
     """Set each parameter's ``requires_grad`` from ``trainable_mask``, so
     autograd never enters the frozen towers (the JAX step's stop-gradient
-    closure). Returns the mask."""
-    mask = trainable_mask(n for n, _ in model.named_parameters())
+    closure) and never gives the int8 base a gradient (the JAX step's
+    float0 cotangents); quantized parameters are frozen whatever their
+    name. Returns the mask."""
+    quantized = quantized_params(model)
+    mask = {n: m and n not in quantized for n, m in trainable_mask(
+        n for n, _ in model.named_parameters()).items()}
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])
     return mask
@@ -79,11 +98,15 @@ def cast_frozen_params(model: nn.Module, dtype: torch.dtype,
                        min_size: int = 2 ** 16) -> nn.Module:
     """Store frozen float parameters of at least ``min_size`` elements in
     the compute ``dtype`` and every trainable one in f32 (Adam's master
-    copy), in place. Layers cast their parameters to their compute dtype at
-    every use, so a frozen bf16 weight computes as its f32 original did."""
+    copy), in place; int8 and int4 layers keep their parameters as they
+    are. Layers cast their parameters to their compute dtype at every use,
+    so a frozen bf16 weight computes as its f32 original did."""
     mask = trainable_mask(n for n, _ in model.named_parameters())
+    quantized = quantized_params(model)
     with torch.no_grad():
         for name, p in model.named_parameters():
+            if name in quantized:
+                continue
             if mask[name]:
                 p.data = p.data.float()
             elif p.is_floating_point() and p.numel() >= min_size:

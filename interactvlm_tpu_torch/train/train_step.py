@@ -6,7 +6,10 @@ optax's global-norm clip, AdamW and the schedule, with gradient
 accumulation as the mean of the micro-batch gradients and the NaN guard of
 the reference (``train.py:547-551``): a non-finite loss or gradient norm
 skips the update, leaving the parameters, Adam's moments, the schedule and
-the step counter as they were.
+the step counter as they were. The JAX step routes frozen parameters (the
+QLoRA int8 base among them) around autodiff; here they have
+``requires_grad`` off (``train/optimizer.py:apply_trainable_mask``), so
+none of them takes a ``.grad``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Weights of the PyTorch port: seeded initialisation on the device,
-conversion of the JAX package's flax parameter trees, and the int8 serving
-layouts.
+conversion of the JAX package's flax parameter trees, and the int8 and int4
+serving and QLoRA training layouts.
 
 The port's parameter names are the reference's torch checkpoint keys (HF
 LLaMA / CLIP, the SAM ``.pth``, the merged InteractVLM checkpoint), so
@@ -9,9 +9,12 @@ converters: Dense ``kernel`` (in, out) -> ``weight`` (out, in); Conv HWIO ->
 OIHW; ConvTranspose taps flipped back to torch's (in, out, kh, kw);
 LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``. An
 int8 Dense (``kernel_q`` (in, out) int8, ``kernel_scale`` (1, out) f32)
-becomes ``weight`` (out, in) int8 and ``weight_scale`` (out,) f32. A LoRA
-Dense (``base/kernel``, ``lora_a`` (in, r), ``lora_b`` (r, out)) becomes
-``weight``, ``lora_A.weight`` (r, in) and ``lora_B.weight`` (out, r).
+becomes ``weight`` (out, in) int8 and ``weight_scale`` (out,) f32; an int4
+Dense (``kernel_q4`` (in/2, out), ``kernel_scale``, ``kernel_rf`` (in,))
+becomes ``weight_q4`` (out, in/2), ``weight_scale`` and ``weight_rf``. A
+LoRA Dense (``base/kernel``, or ``base/kernel_q`` for QLoRA, ``lora_a``
+(in, r), ``lora_b`` (r, out)) becomes ``weight`` (and ``weight_scale``),
+``lora_A.weight`` (r, in) and ``lora_B.weight`` (out, r).
 Applied to a gradient tree of the JAX package, ``from_jax_params`` gives the
 gradients under the port's names.
 """
@@ -24,9 +27,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from interactvlm_tpu_torch.models.layers import Int8Linear, LoraFactor
+from interactvlm_tpu_torch.models.layers import (
+    Int4Linear,
+    Int8Linear,
+    LoraFactor,
+)
 from interactvlm_tpu_torch.models.llama import RMSNorm
-from interactvlm_tpu_torch.ops.quant import quantize_int8
+from interactvlm_tpu_torch.ops.quant import quantize_int4, quantize_int8
 
 
 @torch.no_grad()
@@ -35,7 +42,9 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     scales 1, biases 0, Linear/Conv weights lecun-normal (std
     fan_in^-1/2, as flax initialises them), int8 weights uniform integers
     in [-127, 127] with scales 1 / (127 fan_in^1/2) (the JAX package's
-    ``Int8Dense`` init), every other parameter (embeddings, tokens,
+    ``Int8Dense`` init, QLoRA's base included), packed int4 weights the
+    same bytes (two random nibbles each) with scales 1 / (7 fan_in^1/2)
+    and row factors 1 (``Int4Dense``), every other parameter (embeddings, tokens,
     positional and rel-pos tables) N(0, 0.02), the SAM Fourier matrix
     N(0, 1), LoRA A N(0, 0.02) and LoRA B 0 (the JAX package's
     ``LoraDense``)."""
@@ -50,6 +59,13 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 p.random_(-127, 128, generator=generator)
             elif isinstance(mod, Int8Linear) and leaf == "weight_scale":
                 p.fill_(1.0 / (127.0 * mod.in_features ** 0.5))
+            elif isinstance(mod, Int4Linear):
+                if leaf == "weight_q4":
+                    p.random_(-127, 128, generator=generator)
+                elif leaf == "weight_scale":
+                    p.fill_(1.0 / (7.0 * mod.in_features ** 0.5))
+                else:  # weight_rf
+                    p.fill_(1.0)
             elif isinstance(mod, (nn.LayerNorm, RMSNorm)) and leaf == "weight":
                 p.fill_(1.0)
             elif leaf == "bias":
@@ -97,6 +113,10 @@ def _dense(node, prefix, sd):
     elif "kernel_q" in node:
         sd[prefix + "weight"], sd[prefix + "weight_scale"] = \
             int8_weight_from_jax(node["kernel_q"], node["kernel_scale"])
+    elif "kernel_q4" in node:  # Int4Dense: packed (K/2, N), (1, N), (K,)
+        sd[prefix + "weight_q4"], sd[prefix + "weight_scale"] = \
+            int8_weight_from_jax(node["kernel_q4"], node["kernel_scale"])
+        sd[prefix + "weight_rf"] = _t(node["kernel_rf"])
     else:
         sd[prefix + "weight"] = linear_weight_from_jax(node["kernel"])
     if "bias" in node:
@@ -281,17 +301,65 @@ def int8_serving_state_dict(sd: Dict[str, torch.Tensor],
     (out, in) layout) and the same f32 scales. Like it, it converts every
     target it is given, so pass the LLaMA's entries only.
     """
+    return _convert(sd, lambda mod: mod.rpartition(".")[2] in targets, _int8)
+
+
+def _int8(mod, w):
+    q, scale = quantize_int8(w, axis=-1)
+    return {mod + ".weight": q, mod + ".weight_scale": scale[:, 0]}
+
+
+def _int4(mod, w):
+    q4, scale, rf = quantize_int4(w)
+    return {mod + ".weight_q4": q4, mod + ".weight_scale": scale,
+            mod + ".weight_rf": rf}
+
+
+def _convert(sd, chosen, fmt):
+    """Replace each 2-D float ``<mod>.weight`` whose module ``chosen``
+    picks by the entries ``fmt(mod, weight)`` makes; keep the rest."""
     out = {}
     for key, t in sd.items():
         mod, _, leaf = key.rpartition(".")
-        if leaf == "weight" and mod.rpartition(".")[2] in targets \
-                and t.dim() == 2 and t.is_floating_point():
-            q, scale = quantize_int8(t, axis=-1)
-            out[key] = q
-            out[mod + ".weight_scale"] = scale[:, 0]
+        if leaf == "weight" and chosen(mod) and t.dim() == 2 \
+                and t.is_floating_point():
+            out.update(fmt(mod, t))
         else:
             out[key] = t
     return out
+
+
+def int4_serving_state_dict(sd: Dict[str, torch.Tensor],
+                            targets: Sequence[str] = INT8_TARGETS
+                            ) -> Dict[str, torch.Tensor]:
+    """A port state dict with bf16/f32 LLaMA weights -> the layout of a
+    model built with ``LlamaConfig(weights_int4=True)``: each targeted
+    ``<name>.weight`` (out, in) becomes packed ``weight_q4`` (out, in/2),
+    ``weight_scale`` (out,) and ``weight_rf`` (in,) (``ops/quant.py:
+    quantize_int4``). The port of ``interactvlm_tpu/utils/weights.py:
+    int4_serving_params``, over the same targets: the same bytes, scales and
+    row factors. Merge LoRA first, and pass the LLaMA's entries only."""
+    return _convert(sd, lambda mod: mod.rpartition(".")[2] in targets, _int4)
+
+
+QLORA_INT8_TARGETS = ("k_proj", "o_proj", "gate_proj", "up_proj",
+                      "down_proj")
+
+
+def qlora_training_state_dict(sd: Dict[str, torch.Tensor]
+                              ) -> Dict[str, torch.Tensor]:
+    """A port state dict of a LLaMA with LoRA adapters (bf16/f32) -> the
+    QLoRA training layout of ``LlamaConfig(weights_int8=True, lora_rank >
+    0)``: the k, o, gate, up and down weights and the base weight of each
+    LoRA projection (q and v) become int8 plus per-column scales; the
+    adapters, the lm_head and the embeddings stay as they are. The port of
+    ``interactvlm_tpu/utils/weights.py:qlora_training_params``, whose
+    ``base`` target is here the module that has a ``lora_A.weight``
+    beside its ``weight``. Pass the LLaMA's entries only."""
+    bases = {k[:-len(".lora_A.weight")] for k in sd
+             if k.endswith(".lora_A.weight")}
+    return _convert(sd, lambda mod: (mod in bases or mod.rpartition(".")[2]
+                                     in QLORA_INT8_TARGETS), _int8)
 
 
 def int8_sam_encoder_state_dict(sd: Dict[str, torch.Tensor],

@@ -43,7 +43,11 @@ from interactvlm_tpu_torch.config import (
 )
 from interactvlm_tpu_torch.eval.evaluate import evaluate_batch
 from interactvlm_tpu_torch.models.interactvlm import InteractVLM
-from interactvlm_tpu_torch.models.layers import Int8Linear
+from interactvlm_tpu_torch.models.layers import (
+    Int4Linear,
+    Int8Linear,
+    Int8LoraLinear,
+)
 from interactvlm_tpu_torch.models.llama import LlamaForCausalLM
 from interactvlm_tpu_torch.models.sam.image_encoder import ImageEncoderViT
 from interactvlm_tpu_torch.models.sam.sam import Sam
@@ -134,14 +138,53 @@ def test_llama_int8_greedy_ids_with_int8_cache_match_jax(llama):
     assert (caches[1]["valid"] == 1).all()
 
 
-def test_int4_and_lora_still_raise():
-    """int4, and LoRA over the int8 base (QLoRA), are not ported; LoRA over
-    the bf16/f32 base is."""
-    for kw in (dict(weights_int4=True), dict(weights_int8=True, lora_rank=8)):
-        with pytest.raises(NotImplementedError):
-            LlamaForCausalLM(llama_tiny(**kw), device="cpu")
+def test_qlora_and_int4_models_build_with_their_layers():
+    """QLoRA (LoRA over the int8 base) and int4 build: the layer types,
+    parameter names and dtypes of the JAX package's ``LoraDense(int8=True)``
+    and ``Int4Dense``; LoRA over the bf16/f32 base as before."""
+    q = LlamaForCausalLM(llama_tiny(weights_int8=True, lora_rank=8),
+                         device="cpu")
+    attn = q.model.layers[0].self_attn
+    assert isinstance(attn.q_proj, Int8LoraLinear)
+    assert isinstance(attn.v_proj, Int8LoraLinear)
+    assert type(attn.k_proj) is Int8Linear
+    sd = q.state_dict()
+    p = "model.layers.0.self_attn.v_proj."
+    assert sd[p + "weight"].dtype == torch.int8
+    assert sd[p + "weight_scale"].dtype == torch.float32
+    assert sd[p + "lora_A.weight"].shape == (8, 64)
+    assert sd[p + "lora_B.weight"].shape == (64, 8)
+    assert sd["lm_head.weight"].dtype == torch.float32  # trains
+    i4 = LlamaForCausalLM(llama_tiny(weights_int4=True), device="cpu")
+    sd = i4.state_dict()
+    assert sd["model.layers.1.mlp.up_proj.weight_q4"].shape == (128, 32)
+    assert sd["model.layers.1.mlp.up_proj.weight_q4"].dtype == torch.int8
+    assert sd["model.layers.1.mlp.up_proj.weight_rf"].shape == (64,)
+    assert sd["lm_head.weight_scale"].dtype == torch.float32
+    assert isinstance(i4.lm_head, Int4Linear)
     m = LlamaForCausalLM(llama_tiny(lora_rank=8), device="cpu")
     assert m.model.layers[0].self_attn.q_proj.lora_A.weight.shape == (8, 64)
+
+
+def test_int4_linear_and_raw_kernel_wrappers_raise_under_grad():
+    """The int4 layer serves only, and kernel 6's wrappers called directly
+    have no backward: under grad they raise rather than cut the gradient.
+    The int8 layer takes the straight-through gradient instead."""
+    from interactvlm_tpu_torch.ops import int8_matmul as Q
+
+    x = torch.randn(3, 64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        Int4Linear(64, 16, dtype=torch.float32)(x)
+    w = torch.ones(8, 64, dtype=torch.int8)
+    for call in (lambda: Q.int8_matmul_fused(x, w, torch.ones(8)),
+                 lambda: Q.quantize_rows(x),
+                 lambda: Q.int8_gemm(w[:3], x[:, :1], w, torch.ones(8))):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    lin = Int8Linear(64, 8, dtype=torch.float32)
+    lin.weight.data.fill_(1)
+    lin(x).sum().backward()
+    assert x.grad is not None and lin.weight.grad is None
 
 
 def test_init_params_draws_int8_weights_the_jax_way():

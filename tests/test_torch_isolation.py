@@ -19,6 +19,8 @@ from interactvlm_tpu.models.interactvlm import InteractVLM as JaxIVLM
 from interactvlm_tpu.utils.testing import make_synthetic_batch
 from interactvlm_tpu.utils.weights import convert_interactvlm_checkpoint
 from interactvlm_tpu_torch import config as C
+from interactvlm_tpu_torch.geometry.rasterizer import build_lift_maps, uv_sphere
+from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS
 from interactvlm_tpu_torch.models.clip_vit import CLIPVisionTower
 from interactvlm_tpu_torch.models.interactvlm import InteractVLM
 from interactvlm_tpu_torch.models.llama import LlamaForCausalLM
@@ -56,6 +58,10 @@ print("PROBES", all(m in sys.modules for m in (
     "interactvlm_tpu_torch.ops.serving_matmul", "interactvlm_tpu_torch.ops.mxu",
     "interactvlm_tpu_torch.probes.chain", "interactvlm_tpu_torch.probes.mxu",
     "interactvlm_tpu_torch.probes.winattn")))
+print("GEOMETRY", all(m in sys.modules for m in (
+    "interactvlm_tpu_torch.geometry.cameras",
+    "interactvlm_tpu_torch.geometry.views",
+    "interactvlm_tpu_torch.geometry.rasterizer")))
 print("BAD", bad)
 """
 
@@ -67,10 +73,11 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     n = int(res.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 42, res.stdout  # every submodule was imported
+    assert n >= 45, res.stdout  # every submodule was imported
     assert "INT8 True" in res.stdout, res.stdout
     assert "TRAIN True" in res.stdout, res.stdout
     assert "PROBES True" in res.stdout, res.stdout
+    assert "GEOMETRY True" in res.stdout, res.stdout
 
 
 @pytest.mark.parametrize("build", [
@@ -83,9 +90,15 @@ def test_port_and_chip_smoke_import_no_jax():
     lambda: ImageEncoderViT(C.sam_tiny(weights_int8=True)),
     lambda: LlamaForCausalLM(C.llama_tiny(lora_rank=4)),
     lambda: make_port_batch(C.interactvlm_tiny()),
+    lambda: LlamaForCausalLM(C.llama_tiny(weights_int8=True, lora_rank=4)),
+    lambda: LlamaForCausalLM(C.llama_tiny(weights_int4=True)),
+    lambda: build_lift_maps(*uv_sphere(8, 8), HUMAN_VIEWS[
+        "4MV-Z_Vitru_mv2"].cam_params(), 16, 8),
 ], ids=["InteractVLM", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
         "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8",
-        "LlamaForCausalLM-lora", "make_synthetic_batch"])
+        "LlamaForCausalLM-lora", "make_synthetic_batch",
+        "LlamaForCausalLM-qlora", "LlamaForCausalLM-int4",
+        "build_lift_maps"])
 def test_entry_points_default_to_the_gpu(build):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")

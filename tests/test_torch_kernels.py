@@ -819,3 +819,97 @@ def test_probe_kernels_refuse_what_they_do_not_take(dev):
         X.mxu_loop(x, x, 2, torch.int32)
     with pytest.raises(ValueError, match="shapes"):
         S.window_copy(x[None], x[None], x[None, :8])
+
+
+# ------------------------------------------------ QLoRA, int4, lift maps
+# The straight-through int8 matmul (kernel 6 forward, a bf16 GEMM with an
+# f32 output backward) and int4_matmul (kernel 6 on the unpacked weight)
+# against their plain versions on the CPU. Forward: the kernel and the plain
+# version share the quantization and the exact integer sum, so each element
+# within one bf16 step plus 1e-6 of the largest (as the int8 cases above).
+# dx: bf16 products exact in f32 on both sides, f32 sums in another order,
+# then x's dtype: within 1e-5 of the largest magnitude in f32, one bf16
+# step more in bf16.
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (8, 512, 384, torch.bfloat16),  # one launch
+    (1024, 4096, 4096, torch.bfloat16),  # the 7B QLoRA step's q/k/v/o
+    (512, 11008, 4096, torch.bfloat16),  # its down projection
+    (40, 64, 96, torch.float32),  # the tiny f32 preset, two passes
+])
+def test_int8_ste_on_the_card_matches_the_cpu(dev, M, K, N, dtype):
+    from interactvlm_tpu_torch.ops import quant as QT
+
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        dev, dtype).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((M, N)).astype(np.float32)).to(
+        dev, dtype)
+    w, scale = _int8_weight(rng, N, K, dev)
+    before = Q.int8_matmul_fused.launches
+    y = QT.int8_matmul_ste(x, w, scale, dtype)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert Q.int8_matmul_fused.launches == before + 1
+    assert y.dtype == dtype and x.grad.dtype == dtype and w.grad is None
+    want = Q.int8_matmul_fused_plain(x.detach().cpu(), w.cpu(), scale.cpu(),
+                                     out_dtype=dtype).float()
+    err = (y.detach().float().cpu() - want).abs()
+    assert bool((err <= 2.0 ** -7 * want.abs()
+                 + 1e-6 * want.abs().max()).all()), err.max().item()
+    want_dx = QT.ste_input_grad(g.cpu(), w.cpu(), scale.cpu(),
+                                torch.float32)
+    err = (x.grad.float().cpu() - want_dx).abs()
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    assert bool((err <= step * want_dx.abs()
+                 + 1e-5 * want_dx.abs().max()).all()), err.max().item()
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 4096), (32, 11008, 4096),
+                                   (40, 4096, 11008), (512, 4096, 4096)])
+def test_int4_matmul_on_the_card_matches_plain(dev, M, K, N):
+    """Kernel 6 on the unpacked int4 weight, on both routes, against the
+    fused kernel's plain version on the CPU on the same f32 x * rf and
+    unpacked weight."""
+    from interactvlm_tpu_torch.ops import quant as QT
+
+    rng = np.random.default_rng(22)
+    w = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32))
+    w *= torch.from_numpy(np.exp(rng.standard_normal(K)).astype(np.float32))
+    q4, cs, rf = QT.quantize_int4(w)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        torch.bfloat16)
+    routes = dict(Q.int8_matmul_fused.route_launches)
+    with torch.no_grad():
+        got = QT.int4_matmul(x.to(dev), q4.to(dev), cs.to(dev), rf.to(dev))
+    torch.cuda.synchronize()
+    route = Q.int8_route(M, K)
+    assert Q.int8_matmul_fused.route_launches[route] == routes[route] + 1
+    want = Q.int8_matmul_fused_plain(
+        x.float() * rf, torch.cat(QT.unpack_int4(q4), 1), cs,
+        out_dtype=torch.bfloat16).float()
+    err = (got.float().cpu() - want).abs()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert bool((err <= 2.0 ** -7 * want.abs()
+                 + 1e-6 * want.abs().max()).all()), err.max().item()
+
+
+@pytest.mark.parametrize("size", [128, 1024])
+def test_build_lift_maps_on_the_card_equals_the_cpu(dev, size):
+    """The same torch operations on both devices, each rounded as IEEE
+    prescribes, the cameras on the host: ids exact, barycentrics within
+    1e-6."""
+    from interactvlm_tpu_torch.geometry import rasterizer as R
+    from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS
+
+    verts, faces = R.uv_sphere(83, 84)
+    cams = HUMAN_VIEWS["4MV-Z_Vitru_mv2"].cam_params()[:4]
+    win = max(R.pick_window(verts, faces, c, size) for c in cams)
+    card = R.build_lift_maps(verts, faces, cams, size, win, device=dev)
+    cpu = R.build_lift_maps(verts, faces, cams, size, win, device="cpu")
+    assert all(t.is_cuda for t in card)
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[2].cpu(), cpu[2])
+    assert (card[1].cpu() - cpu[1]).abs().max().item() <= 1e-6
+    assert 0.3 < (cpu[2] < 0).float().mean().item() < 0.8

@@ -226,3 +226,148 @@ def test_converters_give_the_jax_bytes(part, dtype):
             assert got[key].dtype == t.dtype, key
         np.testing.assert_array_equal(got[key].float().numpy(),
                                       t.float().numpy(), err_msg=key)
+
+
+# ------------------------------------------------------------------ int4
+# Tolerances: the int4 bytes exact, scales and row factors within two f32
+# ulps (the row factor's mean over the columns is summed in another order
+# than XLA's); unpack exact, and dequantize on the same inputs; int4_matmul
+# within 1e-6 of the output's largest magnitude, as int8_matmul (an exact
+# integer sum on both sides, the same f32 rescale).
+
+
+def _int4_weight(rng, K, N, rows_scaled=True):
+    """A (K, N) weight with structured row energies (so the group row
+    factors differ from 1), as bf16-exact f32."""
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    if rows_scaled:
+        w *= np.exp(rng.standard_normal((K, 1))).astype(np.float32)
+    return _bf16_exact(w)
+
+
+@pytest.mark.parametrize("K,N", [(64, 24), (256, 40), (512, 136)])
+def test_quantize_int4_is_byte_identical(K, N):
+    rng = np.random.default_rng(K)
+    w = _int4_weight(rng, K, N)
+    jq4, js, jrf = jq.quantize_int4(jnp.asarray(w))
+    tq4, ts, trf = tq.quantize_int4(torch.from_numpy(w.T.copy()))
+    assert tq4.dtype == torch.int8 and tq4.shape == (N, K // 2)
+    np.testing.assert_array_equal(tq4.numpy(), np.asarray(jq4).T)
+    # the group row factor is an f32 mean over the N columns, summed by XLA
+    # and torch in different orders: within two ulps, and the column
+    # scales with it
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js)[0], rtol=2 ** -22,
+                               atol=0)
+    np.testing.assert_allclose(trf.numpy(), np.asarray(jrf), rtol=2 ** -22,
+                               atol=0)
+    assert (K >= 256) == bool((trf != 1).any())  # group factors where K allows
+    lo, hi = tq.unpack_int4(tq4)
+    jlo, jhi = jq.unpack_int4(jq4)
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo).T)
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi).T)
+    assert int(min(lo.min(), hi.min())) == -7  # symmetric: amax maps to 7
+    assert int(max(lo.max(), hi.max())) == 7
+    np.testing.assert_allclose(
+        tq.dequantize_int4(tq4, ts, trf).numpy(),
+        np.asarray(jq.dequantize_int4(jq4, js, jrf)).T, rtol=2 ** -21, atol=0)
+    # on the same bytes and scales, dequantize is exact
+    np.testing.assert_array_equal(
+        tq.dequantize_int4(tq4, torch.from_numpy(np.asarray(js)[0].copy()),
+                           torch.from_numpy(np.asarray(jrf).copy())).numpy(),
+        np.asarray(jq.dequantize_int4(jq4, js, jrf)).T)
+
+
+def test_unpack_int4_covers_every_byte():
+    packed = torch.arange(-128, 128, dtype=torch.int8)[None]
+    lo, hi = tq.unpack_int4(packed)
+    jlo, jhi = jq.unpack_int4(jnp.asarray(packed.numpy().T))
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo).T)
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi).T)
+
+
+@pytest.mark.parametrize("lead,K", [((6,), 256), ((2, 5), 64)])
+def test_int4_matmul_matches_jax(lead, K):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(lead + (K,)).astype(np.float32)
+    jq4, js, jrf = jq.quantize_int4(jnp.asarray(_int4_weight(rng, K, 40)))
+    for dtype in ("float32", "bfloat16"):
+        want = np.asarray(jq.int4_matmul(jnp.asarray(x, dtype), jq4, js, jrf,
+                                         getattr(jnp, dtype)), np.float32)
+        got = tq.int4_matmul(torch.from_numpy(x).to(getattr(torch, dtype)),
+                             torch.from_numpy(np.asarray(jq4).T.copy()),
+                             torch.from_numpy(np.asarray(js)[0].copy()),
+                             torch.from_numpy(np.asarray(jrf).copy()),
+                             getattr(torch, dtype))
+        assert got.shape == lead + (40,) and got.dtype == getattr(torch, dtype)
+        scale = np.abs(want).max()
+        # bf16 outputs: one rounding step of the value where the f32
+        # results straddle a bf16 boundary
+        tol = (1e-6 * scale if dtype == "float32"
+               else BF16_STEP * np.abs(want) + 1e-6 * scale)
+        assert np.all(np.abs(got.float().numpy() - want) <= tol)
+
+
+def test_int4_matmul_refuses_grad():
+    x = torch.randn(3, 64, requires_grad=True)
+    q4, s, rf = tq.quantize_int4(torch.randn(8, 64))
+    with pytest.raises(RuntimeError, match="no backward"):
+        tq.int4_matmul(x, q4, s, rf)
+    with torch.no_grad():
+        assert tq.int4_matmul(x, q4, s, rf).shape == (3, 8)
+
+
+# ------------------------------------------------------------------- STE
+# The straight-through int8 matmul against the JAX custom_vjp: forward
+# within 1e-6 of the output's largest magnitude (as int8_matmul), dx within
+# 1e-6 relative (bf16 products exact in f32 on both sides; only the f32
+# summation order differs).
+
+
+@pytest.mark.parametrize("lead", [(5,), (2, 3)])
+def test_int8_ste_forward_and_input_grad_match_jax(lead):
+    rng = np.random.default_rng(3)
+    K, N = 96, 40
+    x = rng.standard_normal(lead + (K,)).astype(np.float32)
+    g = rng.standard_normal(lead + (N,)).astype(np.float32)
+    wq, ws = jq.quantize_int8(jnp.asarray(rng.standard_normal((K, N)),
+                                          jnp.float32), axis=0)
+
+    def f(xx):
+        return jnp.sum(jq.int8_matmul(xx, wq, ws, jnp.float32) * g)
+
+    want_y = np.asarray(jq.int8_matmul(jnp.asarray(x), wq, ws, jnp.float32))
+    want_dx = np.asarray(jax.grad(f)(jnp.asarray(x)))
+    tw = torch.from_numpy(np.asarray(wq).T.copy())
+    ts = torch.from_numpy(np.asarray(ws)[0].copy())
+    tx = torch.from_numpy(x).requires_grad_()
+    y = tq.int8_matmul_ste(tx, tw, ts, torch.float32)
+    assert y.grad_fn is not None
+    (y * torch.from_numpy(g)).sum().backward()
+    assert np.abs(y.detach().numpy() - want_y).max() <= 1e-6 * np.abs(
+        want_y).max()
+    np.testing.assert_allclose(tx.grad.numpy(), want_dx, rtol=1e-6,
+                               atol=1e-6 * np.abs(want_dx).max())
+    assert not tw.requires_grad and tw.grad is None
+    # without grad the forward alone runs, and gives the same values
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            tq.int8_matmul_ste(tx, tw, ts, torch.float32).numpy(),
+            y.detach().numpy())
+
+
+def test_int8_ste_grad_keeps_the_input_dtype():
+    """dx comes back in x's dtype from an f32 product (a bf16 matmul
+    would round it first)."""
+    rng = np.random.default_rng(4)
+    wq, ws = tq.quantize_int8(torch.from_numpy(
+        rng.standard_normal((16, 64)).astype(np.float32)), axis=-1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.standard_normal((3, 64)).astype(
+            np.float32)).to(dtype).requires_grad_()
+        tq.int8_matmul_ste(x, wq, ws[:, 0], dtype).sum().backward()
+        assert x.grad.dtype == dtype
+        g = torch.ones(3, 16)
+        want = tq.ste_input_grad(g, wq, ws[:, 0], torch.float32)
+        np.testing.assert_allclose(x.grad.float().numpy(), want.numpy(),
+                                   rtol=2 ** -8 if dtype != torch.float32
+                                   else 0)
