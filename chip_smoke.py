@@ -20,7 +20,9 @@ prints no result, without them. Phases, each of which fails the run:
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    serving, training and probe paths give it and at the edges of the wgmma
    kernels' tiles (the int8 matmul at the rows where its two routes meet,
-   flash at head dim 128 with ragged lengths and rows that see no key),
+   flash at head dim 128 with ragged lengths and rows that see no key; the
+   flash forward and backward at the fusion's full-width shape, D = 16,
+   Lq = 4096, Lk = 512),
    inputs from a seeded generator, with the kernel's, the plain version's
    and one library call's time beside the least time the card could take
    (``bound_ms``); the int8 matmul also at the 7B QLoRA step's and the
@@ -39,10 +41,15 @@ prints no result, without them. Phases, each of which fails the run:
    ``4MV-Z_Vitru_mv2`` cameras, rasterized at 1024^2 on the card by the
    port (``geometry/rasterizer.py``), checked against the CPU's at 128^2,
    and turned into gather form (256 pixels a vertex and view): the maps of
-   every path below;
+   every path below; for the interaction path also the sphere under the
+   first four ``4MV-Z_Vitru`` cameras and a 2048-vertex sphere under the
+   four ``4MV-Z_HM_BM`` object cameras;
 6. reference: the ``interactvlm_tiny`` pipeline on the card against the same
    weights on the CPU, dense (bf16 SAM), int8 (int8 LLaMA in f32 with the
-   int8 KV cache, int8 bf16 SAM) and int4 (int4 LLaMA, otherwise as int8);
+   int8 KV cache, int8 bf16 SAM) and int4 (int4 LLaMA, otherwise as int8); then
+   the interaction branches (Gen-Hu-Obj-DifDe, vi_v1 cams, K = 2 seg
+   slots, answers carrying [HSEG] and [OSEG], per-sample object maps): the
+   K-slot masks and both lifts;
 7. the 13B path: ``interactvlm_13b`` at full width and depth in bf16 with
    seeded random weights, B=8 images x V=4 views, a 64-token prompt, 32
    greedy decode steps, 1024^2 masks and a 6890-vertex lift, through
@@ -55,19 +62,28 @@ prints no result, without them. Phases, each of which fails the run:
    path with the LLaMA weights packed int4, kernel 6 on each call's
    unpacked weight; also the unpack's and the kernel's device time a
    decode step;
-10. the training reference: one LoRA and one QLoRA (int8 base) training
+10. the interaction path (``13b_hoi``), the JAX package's hcontact-ocontact
+   preset: the 13B path with ``Gen-Hu-Obj`` tokens, ``vi_v1`` cams and K = 2
+   seg slots, streaming only (object views are per-sample renders), the
+   human maps of ``4MV-Z_Vitru`` and per-sample object maps (3, B, V,
+   1024, 1024) of the 2048-vertex sphere; each row's slots fold into one
+   SAM decode over B*K*V = 64 images;
+11. the training reference: one LoRA and one QLoRA (int8 base) training
    step of ``interactvlm_tiny`` on the card in bf16 (a 259-token spliced
    prompt, so LLaMA's attention runs the flash forward and both backward
    kernels) against the same step on the CPU in f32 from the same
    weights: each loss term, and the cosine and norm of every trainable's
-   gradient;
-11. the 13B LoRA training path, the JAX trainer's default preset
+   gradient; and one K = 2 step of the interaction branches with the DifDe
+   decoders and the fusion, held so too, whose splitter, cam encoder,
+   three decoders and fusion are also held as whole gradients from an f32
+   step on the card;
+12. the 13B LoRA training path, the JAX trainer's default preset
    (``scripts/run_train.sh`` hcontact-damon): LLaMA-13B bf16 with LoRA rank
    8 on q/v and remat, CLIP ViT-L/14, SAM ViT-H, B=8 hcontact rows of 512
    spliced tokens (two right-padded), 1024^2 masks and the 6890-vertex 3D
    contact loss on the real maps, AdamW with the preset's schedule: one
    warm-up step, then timed steps through ``TrainStep``;
-12. the 7B QLoRA training path, the JAX package's one-chip training
+13. the 7B QLoRA training path, the JAX package's one-chip training
    configuration: LLaMA-7B with a frozen int8 base (kernel 6 forward, the
    straight-through backward), otherwise as the 13B path; also the
    backward's device time (the W_q cast and the bf16 GEMM).
@@ -111,7 +127,11 @@ from interactvlm_tpu_torch.config import (
     sam_tiny,
     sam_vit_h,
 )
-from interactvlm_tpu_torch.eval.evaluate import evaluate_batch
+from interactvlm_tpu_torch.eval.evaluate import (
+    evaluate_batch,
+    lift_objects_per_sample,
+    seg_slots,
+)
 from interactvlm_tpu_torch.geometry.lift import (
     build_gather_maps,
     corner_major,
@@ -122,7 +142,7 @@ from interactvlm_tpu_torch.geometry.rasterizer import (
     pick_window,
     uv_sphere,
 )
-from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS
+from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS, OBJECT_VIEWS
 from interactvlm_tpu_torch.models.generate import greedy_generate
 from interactvlm_tpu_torch.models.interactvlm import InteractVLM, lift_human
 from interactvlm_tpu_torch.models.layers import Int4Linear, Int8Linear
@@ -164,6 +184,16 @@ LEG_REPEATS = 2
 # cameras of the canonical body view set, 1024^2, gather form with MAX_K
 # pixels a vertex and view (bench.py's)
 N_VERTS, MAX_K, SPHERE, VIEW_SET = 6890, 256, (83, 84), "4MV-Z_Vitru_mv2"
+# the interaction path (13b_hoi), the JAX package's hcontact-ocontact
+# preset: K seg-token slots a row; the human maps under the preset's
+# hC_sam_view_type, the object maps of a 2048-vertex sphere (34 x 62, the
+# preset's num_object_points) under its oC_sam_view_type
+K_HOI, HOI_HUMAN_VIEWS, HOI_OBJECT_VIEWS = 2, "4MV-Z_Vitru", "4MV-Z_HM_BM"
+OBJ_SPHERE, N_OBJ = (34, 62), 2048
+# the tiny interaction reference: seg ids 500 / 501 / 502 of the 512-token
+# tiny vocabulary
+HOI_TINY = dict(token_type="Gen-Hu-Obj-DifDe", cam_encoder_type="vi_v1",
+                hseg_token_idx=501, oseg_token_idx=502, max_seg_tokens=K_HOI)
 # the 13B training path: the preset's batch of 8, 257 text tokens (512
 # spliced), rows 0 and 1 right-padded to these text lengths
 L_TRAIN, TRAIN_PADDED = 257, (200, 129)
@@ -445,10 +475,13 @@ def case_flash_prefill(gen, name, L, lens, what):
         bound_ms=t, bound_by=by)
 
 
-def case_flash_sam(gen, name):
-    """SAM decoder image -> token attention: B*V=32, H=8, Lq=4096, Lk=9,
-    D=16, non-causal."""
-    R, H, Lq, Lk, D = B * V, 8, 4096, 9, 16
+def case_flash_sam(gen, name, Lk=9,
+                   what="B=32 H=8 Lq=4096 Lk=9 D=16 (SAM decoder image->token)"):
+    """D = 16 over the 64 x 64 SAM grid: B*V=32, H=8, Lq=4096, non-causal,
+    no kv lengths. Lk=9: the SAM decoder's image -> token attention; Lk=512:
+    the fusion's image -> LLaVA attention at full width (its padded
+    positions are not masked, as in the JAX package)."""
+    R, H, Lq, D = B * V, 8, 4096, 16
     q = rand_bf16(gen, (R, H, Lq, D))
     k, v = rand_bf16(gen, (R, H, Lk, D)), rand_bf16(gen, (R, H, Lk, D))
     got, lse = FA.flash_forward(q, k, v)
@@ -457,8 +490,7 @@ def case_flash_sam(gen, name):
                   (2 * R * H * Lq * D + 2 * R * H * Lk * D) * 2
                   + R * H * Lq * 4, name)
     return dict(
-        shape="B=32 H=8 Lq=4096 Lk=9 D=16 (SAM decoder image->token)",
-        **compare(got, want, lse, lse_want),
+        shape=what, **compare(got, want, lse, lse_want),
         kernel_ms=time_ms(lambda: FA.flash_forward(q, k, v), 20),
         plain_ms=time_ms(lambda: FA.flash_forward_plain(q, k, v), 5),
         library_ms=time_ms(lambda: sdpa()(q, k, v), 20),
@@ -901,6 +933,9 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls,
                 bound_ms=t, bound_by=by)
 
 
+FUSION_SHAPE = "B=32 H=8 Lq=4096 Lk=512 D=16 (fusion, full width)"
+
+
 def kernel_phase(name):
     gen = torch.Generator(device="cuda").manual_seed(0)
     L_serve, lens = L_TEXT - 1 + 256, train_kv_lengths()
@@ -932,6 +967,11 @@ def kernel_phase(name):
                           "B=8 H=40 L=512 D=128 causal, kv lengths "
                           f"{lens} (LLaMA-13B training, second draw)",
                           B, 40, 512, 512, 128, True, lens)]
+    # the fusion's attention at full width (training runs its backward),
+    # from its own generator, so no other case's inputs move
+    bwd.append(case_flash_bwd(
+        torch.Generator(device="cuda").manual_seed(3), name,
+        FUSION_SHAPE + ", training", B * V, 8, 4096, 512, 16, False, None))
     for c in bwd:
         log(json.dumps({"name": "flash_attention_bwd", **c}))
     for which in ("dq", "dkv"):
@@ -945,6 +985,9 @@ def kernel_phase(name):
     # drawn last, so every earlier case keeps its inputs
     cases["flash_attention"] += [case_flash_edge(gen, name, *c)
                                  for c in FLASH_EDGE_CASES]
+    cases["flash_attention"].append(case_flash_sam(
+        torch.Generator(device="cuda").manual_seed(4), name, 512,
+        FUSION_SHAPE))
     for kname, rows in cases.items():
         for row in rows:
             log(json.dumps({"name": kname, **row}))
@@ -1270,18 +1313,22 @@ def synthetic_lift_maps(hw, n_verts, device, seed, background=0.7):
 
 
 @torch.no_grad()
-def real_lift_maps():
-    """The lift maps of the card paths: a UV sphere of SMPL's 6890 vertices
-    (``SPHERE``) under the first V cameras of ``VIEW_SET``, rasterized at
-    MASK^2 on the card by the port (``bench.py`` builds its maps so, on
-    the host), with the smallest safe window (``pick_window``). Checks the
-    maps (ids in range, barycentrics summing to 1 on covered pixels, the
-    card's maps equal the CPU's at 128^2) and returns the corner-major maps,
-    their gather form (MAX_K pixels a vertex and view) and which vertices
-    have at most MAX_K pixels in every view. Built outside inference mode:
-    the training paths' losses keep the barycentrics for their backward."""
-    verts, faces = uv_sphere(*SPHERE)
-    cams = HUMAN_VIEWS[VIEW_SET].cam_params()[:V]
+def real_lift_maps(sphere=SPHERE, view_set=VIEW_SET, gather=True,
+                   n_expected=N_VERTS):
+    """The lift maps of the card paths: a UV sphere (by default ``SPHERE``,
+    SMPL's 6890 vertices) under the first V cameras of ``view_set``,
+    rasterized at MASK^2 on the card by the port (``bench.py`` builds its
+    maps so, on the host), with the smallest safe window (``pick_window``).
+    Checks the maps (ids in range, barycentrics summing to 1 on covered
+    pixels, the card's maps equal the CPU's at 128^2) and returns the
+    corner-major maps, their gather form (MAX_K pixels a vertex and view;
+    None without ``gather``) and which vertices have at most MAX_K pixels
+    in every view; ``n_expected`` is the sphere's vertex count. Built
+    outside inference mode: the training paths' losses keep the
+    barycentrics for their backward."""
+    verts, faces = uv_sphere(*sphere)
+    n_verts = len(verts)
+    cams = {**HUMAN_VIEWS, **OBJECT_VIEWS}[view_set].cam_params()[:V]
     window = max(pick_window(verts, faces, c, MASK) for c in cams)
     small = [build_lift_maps(verts, faces, cams, 128, max(
         pick_window(verts, faces, c, 128) for c in cams), device=d)
@@ -1298,18 +1345,21 @@ def real_lift_maps():
     build_s = time.perf_counter() - t0
     covered = p2f >= 0
     counts = torch.stack([torch.bincount(p2v[v][covered[v]].reshape(-1).long(),
-                                         minlength=N_VERTS)
+                                         minlength=n_verts)
                           for v in range(V)])
     fits = (counts <= MAX_K).all(0)
+    gidx = gw = None
     t0 = time.perf_counter()
-    gidx, gw = build_gather_maps(p2v.cpu().numpy(), bary.cpu().numpy(),
-                                 N_VERTS, max_k=MAX_K)
+    if gather:
+        gidx, gw = build_gather_maps(p2v.cpu().numpy(), bary.cpu().numpy(),
+                                     n_verts, max_k=MAX_K)
+        gidx, gw = torch.from_numpy(gidx).cuda(), torch.from_numpy(gw).cuda()
     gather_s = time.perf_counter() - t0
     sums = bary.sum(-1)[covered]
-    res = {"phase": "lift_maps", "mesh": f"uv_sphere{SPHERE}",
-           "vertices": len(verts), "faces": len(faces), "views": VIEW_SET,
+    res = {"phase": "lift_maps", "mesh": f"uv_sphere{sphere}",
+           "vertices": n_verts, "faces": len(faces), "views": view_set,
            "size": MASK, "window": window, "candidates": len(faces) * window ** 2,
-           "build_s": build_s, "gather_form_s": gather_s,
+           "build_s": build_s, "gather_form_s": gather_s if gather else None,
            "background_share": 1.0 - covered.float().mean().item(),
            "background_share_by_view": [
                1.0 - c.float().mean().item() for c in covered],
@@ -1318,17 +1368,17 @@ def real_lift_maps():
            "vertices_over_max_k": int((~fits).sum()),
            "equal_to_cpu_at_128": same_as_cpu}
     log(json.dumps(res))
-    ok = (same_as_cpu and len(verts) == N_VERTS
+    ok = (same_as_cpu and n_verts == n_expected
           and bool(((p2v >= 0) == covered[..., None]).all())
-          and int(p2v.max()) < N_VERTS
+          and int(p2v.max()) < n_verts
           and bool(torch.isfinite(bary).all())
           and (sums - 1).abs().max().item() < 1e-3
           and 0.05 < res["background_share"] < 0.95)
     if not ok:
         raise SystemExit(f"the lift maps are malformed: {res}")
     maps = {"p2v": corner_major(p2v), "bary": corner_major(bary),
-            "num_vertices": N_VERTS}
-    return maps, torch.from_numpy(gidx).cuda(), torch.from_numpy(gw).cuda(), fits
+            "num_vertices": n_verts}
+    return maps, gidx, gw, fits
 
 
 def let_seg_token_appear(model, batch, device, kv_cache):
@@ -1411,6 +1461,125 @@ def reference_phase(weights: str):
             and all(launched[n] > 0 for n in needed)
             and bool(want["has_seg"].any())):
         raise SystemExit(f"the card disagrees with the CPU reference: {res}")
+
+
+def let_both_seg_tokens_appear(model, batch, device, steps):
+    """Random weights almost never emit [HSEG] and [OSEG], let alone as the
+    first two seg tokens of one answer, which a K = 2 path needs. Rank the
+    tokens the model emits in ``steps`` greedy steps by count; give [HSEG]
+    1.5x the lm_head row of one of the most emitted, then [OSEG] 1.5x the
+    row of a token that follows [HSEG] in the new answers (the most common
+    first), until some answer's first two seg tokens are one of each (at
+    most 4 x 4 tries). The lm_head is a bf16 or f32 Linear."""
+    llava, cfg = model.llava, model.config
+    ids = torch.as_tensor(batch["input_ids"], device=device)
+    px = torch.as_tensor(batch["images_clip"], device=device).to(
+        cfg.clip.dtype)
+    seg_ids = torch.tensor(model.seg_ids, device=device)
+    hseg, oseg = cfg.hseg_token_idx, cfg.oseg_token_idx
+
+    def generate():
+        return greedy_generate(llava, ids, px, max_new_tokens=steps,
+                               eos_id=-1)["generated_ids"]
+
+    def ranked(tokens):
+        counts = torch.bincount(tokens.flatten().long())
+        order = torch.argsort(counts, descending=True, stable=True)
+        return [t for t in order.tolist() if counts[t] > 0
+                and t not in model.seg_ids]
+
+    head = llava.lm.lm_head.weight
+    with torch.no_grad():
+        for a in ranked(generate())[:4]:
+            head[hseg] = 1.5 * head[a]
+            gen = generate()
+            after = gen[:, 1:][gen[:, :-1] == hseg]
+            for b in ranked(after)[:4]:
+                head[oseg] = 1.5 * head[b]
+                gen = generate()
+                is_seg = torch.isin(gen, seg_ids)
+                _, tok, valid = seg_slots(gen, is_seg, gen[..., None].float(),
+                                          K_HOI)
+                both = (((tok == hseg) & valid).any(1)
+                        & ((tok == oseg) & valid).any(1))
+                if bool(both.any()):
+                    return {"hseg_row_of": a, "oseg_row_of": b,
+                            "answers_with_both": int(both.sum())}
+    raise SystemExit("no answer's first seg tokens are [HSEG] and [OSEG]")
+
+
+def hoi_reference_phase():
+    """The interaction branches of interactvlm_tiny (Gen-Hu-Obj-DifDe,
+    vi_v1 cams, K = 2 slots) on the card against the same weights in f32 on
+    the CPU, through evaluate_batch with ``max_seg_tokens=2``: the human
+    maps shared, the object maps per sample. LLaMA and CLIP run f32 on both
+    sides (the ids must match); SAM runs bf16 on the card, so the K-slot
+    masks are held to 5e-2 of their largest magnitude and both lifts to
+    5e-2 absolute, as in ``reference_phase``. Some answer must carry both
+    [HSEG] and [OSEG] (``let_both_seg_tokens_appear``)."""
+    cpu_cfg = interactvlm_tiny(**HOI_TINY)
+    gpu_cfg = dataclasses.replace(cpu_cfg,
+                                  sam=sam_tiny(dtype=torch.bfloat16))
+    cpu = init_params(InteractVLM(cpu_cfg, device="cpu"),
+                      torch.Generator().manual_seed(6))
+    batch = synthetic_batch(cpu_cfg, 2, 12, "cpu", 6)
+    batch["sam_images"] = batch["sam_images"].float()
+    chosen = let_both_seg_tokens_appear(cpu, batch, "cpu", 8)
+    gpu = InteractVLM(gpu_cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    human = synthetic_lift_maps(64, cpu_cfg.num_human_vertices, "cpu", 2)
+    objs = [synthetic_lift_maps(64, cpu_cfg.num_object_points, "cpu", 3 + b,
+                                background=0.3) for b in range(2)]
+    batch["obj_p2v"] = torch.stack([o["p2v"] for o in objs], 1)
+    batch["obj_bary"] = torch.stack([o["bary"] for o in objs], 1)
+    batch["gt_ocontact"] = torch.zeros(2, cpu_cfg.num_object_points)
+    gpu_batch = {k: torch.as_tensor(x).cuda() if torch.is_tensor(x) else x
+                 for k, x in batch.items()}
+    gpu_human = {k: x.cuda() if torch.is_tensor(x) else x
+                 for k, x in human.items()}
+    kw = dict(max_new_tokens=8, eos_id=-1, max_seg_tokens=K_HOI)
+    want = evaluate_batch(cpu, batch, 64, human_maps=human, **kw)
+    reset_launches()
+    got = evaluate_batch(gpu, gpu_batch, 64, human_maps=gpu_human, **kw)
+    launched = read_launches()
+    ids_equal = torch.equal(got["generated_ids"].cpu(), want["generated_ids"])
+    scale = want["pred_masks_k"].abs().max().item()
+    mask_err = max_err(got["pred_masks_k"].cpu(),
+                       want["pred_masks_k"]) / max(scale, 1e-6)
+    lifts = {k: None if want[k] is None or got[k] is None
+             else max_err(got[k].cpu(), want[k])
+             for k in ("pred_hcontact_3d", "pred_ocontact_3d")}
+    tok, valid = want["token_ids_k"], want["valid_k"]
+    both = (((tok == cpu_cfg.hseg_token_idx) & valid).any(1)
+            & ((tok == cpu_cfg.oseg_token_idx) & valid).any(1))
+    res = dict(phase="hoi_reference", config="interactvlm_tiny "
+               "Gen-Hu-Obj-DifDe vi_v1 K=2", seg_rows=chosen,
+               ids_equal=ids_equal, token_ids_k=tok.tolist(),
+               rows_with_both=int(both.sum()), mask_k_rel_err=mask_err,
+               lift_abs_err=lifts, launches=launched)
+    log(json.dumps(res))
+    if not (ids_equal and bool(both.any()) and mask_err < 5e-2
+            and all(e is not None and e < 5e-2 for e in lifts.values())
+            and launched["window_attention"] > 0):
+        raise SystemExit(f"the card's interaction branches disagree with "
+                         f"the CPU reference: {res}")
+
+
+def config_13b_hoi():
+    """The JAX package's interaction preset (``scripts/run_train.sh``
+    hcontact-ocontact: ``--token_type Gen-Hu-Obj --cam_encoder_type vi_v1``,
+    K = 2 by ``train/train.py``) at full width in bf16: LLaMA-13B, CLIP
+    ViT-L/14, SAM ViT-H; [SEG] / [HSEG] / [OSEG] at 32000 / 32001 / 32002
+    of the reference tokenizer's 32003 (padded to 32128)."""
+    bf16 = torch.bfloat16
+    return dataclasses.replace(
+        interactvlm_13b(), llama=llama_13b(dtype=bf16, vocab_size=32003),
+        clip=clip_vit_l_14(dtype=bf16), sam=sam_vit_h(dtype=bf16),
+        token_type="Gen-Hu-Obj", cam_encoder_type="vi_v1",
+        max_seg_tokens=K_HOI, seg_token_idx=32000, hseg_token_idx=32001,
+        oseg_token_idx=32002, hC_sam_view_type=HOI_HUMAN_VIEWS,
+        oC_sam_view_type=HOI_OBJECT_VIEWS, num_object_points=N_OBJ,
+        img_emb_len=clip_vit_l_14().num_patches - 1)
 
 
 def config_13b():
@@ -1865,6 +2034,155 @@ def leg_times(model, batch, maps, gidx, gw, fits, ref, kv_cache):
             "lift_gather": lift_gather, "lift_gather_vs_scatter": diff}
 
 
+def hoi_path_phase(path, cfg, human, obj):
+    """The interaction path: ``config_13b_hoi`` through ``evaluate_batch``
+    with ``max_seg_tokens=K_HOI`` in streaming mode (object views are
+    per-sample renders, so no cached embedding) at B=8, V=4, T=32, 1024^2
+    masks: one warm-up batch, then REPEATS timed ones, launches counted
+    from 0 over the first. Each row's K slots fold into one SAM decode over
+    B*K*V images; the [HSEG] slots lift onto the human maps ``human``, the
+    [OSEG] slots onto ``obj`` given as per-sample maps (3, B, V, H, W).
+    Checks: some answer carries both tokens, every output finite, contacts
+    in [0, 1], and each of kernels 1, 2 and 3 launched as many times as
+    the path has calls for it, on its wgmma route."""
+    t0 = time.perf_counter()
+    model = InteractVLM(cfg, device="cuda")
+    init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    model.eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    log(json.dumps({"phase": "init", "path": path,
+                    "params": sum(p.numel() for p in model.parameters()),
+                    "s": time.perf_counter() - t0}))
+    batch = synthetic_batch(cfg, B, L_TEXT, "cuda", 0)
+    batch["images_clip"] = batch["images_clip"].to(cfg.clip.dtype)
+    chosen = let_both_seg_tokens_appear(model, batch, "cuda", T)
+    # the object's maps as a batch of its renders carries them: one copy a
+    # sample, (3, B, V, H, W), the layout the ocontact lift reads
+    objs = {k: obj[k][:, None].expand((3, B) + obj[k].shape[1:]).contiguous()
+            for k in ("p2v", "bary")}
+    batch["obj_p2v"], batch["obj_bary"] = objs["p2v"], objs["bary"]
+    batch["gt_ocontact"] = torch.zeros(B, N_OBJ, device="cuda")
+    maps_gb = sum(t.numel() * t.element_size() for t in objs.values()) / 1e9
+
+    def run():
+        return evaluate_batch(model, batch, MASK, "hcontact",
+                              max_new_tokens=T, human_maps=human, eos_id=-1,
+                              max_seg_tokens=K_HOI)
+
+    run()  # warm-up: cuBLAS handles, allocator
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for rnd in range(REPEATS):
+        if rnd == 0:
+            reset_launches()
+        o, ms = wall_ms(run)
+        secs.append(ms / 1e3)
+        if rnd == 0:
+            launches, out = read_launches(), o
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_global = len(cfg.sam.encoder_global_attn_indexes)
+    n_window = cfg.sam.encoder_depth - n_global
+    # kernel 1: each LLaMA layer's prefill and each SAM decoder block's
+    # image -> token attention, one call over all B*K*V slot images
+    want = {"flash_attention": cfg.llama.num_layers + cfg.sam.decoder_depth,
+            "window_attention": n_window, "rel_attention": n_global,
+            "window_routes": {"mma": 0, "sm90": n_window},
+            "rel_routes": {"mma": 0, "sm90": n_global}}
+    tok, valid = out["token_ids_k"], out["valid_k"]
+    both = (((tok == cfg.hseg_token_idx) & valid).any(1)
+            & ((tok == cfg.oseg_token_idx) & valid).any(1))
+    h3d, o3d, masks = (out["pred_hcontact_3d"], out["pred_ocontact_3d"],
+                       out["pred_masks_k"])
+    checks = {
+        "launches_as_expected": all(launches[k] == v
+                                    for k, v in want.items()),
+        "a_row_with_both_slots": bool(both.any()),
+        "masks_k_shape_finite": (tuple(masks.shape)
+                                 == (B, K_HOI, V, MASK, MASK)
+                                 and bool(torch.isfinite(masks).all())),
+        "contacts_in_0_1": all(
+            c is not None and bool(torch.isfinite(c).all())
+            and float(c.min()) >= 0.0 and float(c.max()) <= 1.0
+            for c in (h3d, o3d)),
+        "contact_shapes": (h3d is not None and o3d is not None
+                           and tuple(h3d.shape) == (B, N_VERTS)
+                           and tuple(o3d.shape) == (B, N_OBJ)),
+    }
+    med = float(np.median(secs))
+    log(json.dumps({"phase": "main_path", "path": path, "mode": "streaming",
+                    "batch": B, "slots": K_HOI, "seg_rows": chosen,
+                    "images_per_s": B / med,
+                    "images_per_s_min": B / max(secs),
+                    "images_per_s_max": B / min(secs), "batch_s": secs,
+                    "peak_gb": peak_gb, "object_maps_gb": maps_gb,
+                    "token_ids_k": tok.tolist(),
+                    "rows_with_both": int(both.sum()),
+                    "hcontact_mean": float(h3d.mean()) if h3d is not None
+                    else None,
+                    "ocontact_mean": float(o3d.mean()) if o3d is not None
+                    else None,
+                    "launches": launches, "expected": want, **checks}))
+    if not all(checks.values()):
+        raise SystemExit(f"the {path} path failed: {checks}")
+    runs = [hoi_leg_times(model, batch, human) for _ in range(LEG_REPEATS)]
+    legs = {k: spread([r[k] for r in runs]) for k in runs[0]}
+    log(json.dumps({"phase": "legs_ms", "path": path, **legs,
+                    "peak_gb": peak_gb}))
+    log(json.dumps({"phase": "decode_host_device_ms", "path": path,
+                    "kv_cache": "dense",
+                    **decode_split(model, batch, "dense")}))
+    # the card's busy time over one batch, from a trace of the card alone:
+    # the 13B path's profile (with the host's operations, over a minute to
+    # read) already gives these kernels' device times
+    busy = device_busy_ms(run)
+    log(json.dumps({"phase": "profile", "path": path, "mode": "streaming",
+                    "device_busy_ms": busy,
+                    "device_busy_share_of_median_batch":
+                        None if busy is None else busy / (med * 1e3)}))
+    del model, batch, objs, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hoi_leg_times(model, batch, human):
+    """Each leg of one streaming batch of the interaction path, host clock
+    around a synchronised call: CLIP + prefill, decode, the SAM encode, the
+    K-slot mask tail (text projection, cam conditioning, the splitter, one
+    decode over B*K*V images, the upsampling), the human lift of each row's
+    [HSEG] slot and the per-sample object lift of its [OSEG] slot."""
+    cfg = model.config
+    ids = torch.as_tensor(batch["input_ids"], device="cuda")
+    px = batch["images_clip"]
+    Lp = L_TEXT - 1 + cfg.clip.num_patches
+    llava = model.llava
+    _, prefill = wall_ms(lambda: llava.prefill(ids, px, Lp + T))
+    gen, generate = wall_ms(lambda: greedy_generate(
+        llava, ids, px, max_new_tokens=T, eos_id=-1))
+    gen_ids = gen["generated_ids"]
+    is_seg = torch.isin(gen_ids, torch.tensor(model.seg_ids, device="cuda"))
+    seg_h, tok, valid = seg_slots(gen_ids, is_seg, gen["step_hidden"], K_HOI)
+    emb, encode = wall_ms(lambda: model.encode_sam_images(batch["sam_images"]))
+    cams = batch["cam_params"]
+
+    def tail():
+        low = model.multi_seg_low_res_masks(seg_h, tok, valid, emb, cams)
+        return model.upsample_masks(low.flatten(0, 1), MASK).unflatten(
+            0, (B, K_HOI))
+
+    masks, mask_tail = wall_ms(tail)
+    rows = torch.arange(B, device="cuda")
+    h_slot = ((tok == cfg.hseg_token_idx) & valid).int().argmax(1)
+    o_slot = ((tok == cfg.oseg_token_idx) & valid).int().argmax(1)
+    _, lift_h = wall_ms(lambda: lift_human(
+        masks[rows, h_slot], human["p2v"], human["bary"], N_VERTS))
+    _, lift_o = wall_ms(lambda: lift_objects_per_sample(
+        masks[rows, o_slot], batch, N_OBJ, "cuda"))
+    return {"clip_prefill": prefill, "decode": generate - prefill,
+            "sam_encode": encode, "mask_tail_k": mask_tail,
+            "human_lift": lift_h, "object_lift": lift_o}
+
+
 # --------------------------------------------------------------- training
 # training reference phase: each loss term within LOSS_RTOL of the CPU's
 # (relative, or absolute below 1e-2); each trainable's gradient with a
@@ -1877,13 +2195,16 @@ LOSS_RTOL, GRAD_COS, GRAD_NORM_RTOL, GRAD_FLOOR = 2e-2, 0.99, 1e-1, 1e-3
 REF_TRAIN_L, REF_TRAIN_PADDED = 256, 200
 
 
-def right_pad(batch, row, length, seg):
+def right_pad(batch, row, length, seg, hseg=None):
     """Right-pad one row of a ``make_synthetic_batch`` batch to ``length``
-    text tokens: its [SEG] token and its three supervised positions move
-    inside the length (as the batch lays them out at the end of a row),
-    the rest becomes padding (id 0, mask 0, label ignored)."""
+    text tokens: its [SEG] token (with ``hseg``, K-slot batches' [HSEG] two
+    positions before it) and its three supervised positions move inside
+    the length (as the batch lays them out at the end of a row), the rest
+    becomes padding (id 0, mask 0, label ignored)."""
     ids, labels = batch["input_ids"], batch["labels"]
     ids[row, length - 2] = seg
+    if hseg is not None:
+        ids[row, length - 4] = hseg
     labels[row] = IGNORE_INDEX
     labels[row, length - 3:length] = ids[row, length - 3:length]
     labels[row, length - 3] = 9
@@ -1899,11 +2220,77 @@ def train_kv_lengths():
     return tuple(n - 1 + P for n in text)
 
 
-def train_reference_phase(qlora: bool):
+def one_seg_pair_a_row(batch, seg_ids):
+    """Keep one [HSEG] and one [OSEG] a row of a K-slot synthetic batch
+    (at L - 4 and L - 2), as the preset's answers carry: its random prompt
+    ids hit the seg ids of the tiny vocabulary, and the first two marked
+    positions would then be stray ones."""
+    ids, labels = batch["input_ids"], batch["labels"]
+    stray = torch.isin(ids, torch.tensor(seg_ids))
+    stray[:, -4] = stray[:, -2] = False
+    ids[stray] = 7
+    labels[stray & (labels != IGNORE_INDEX)] = 7
+
+
+HOI_HEADS = ("attention_splitter.", "cam_pose_encoder.",
+             "sam.human_mask_decoder.", "sam.object_mask_decoder.",
+             "sam.mask_decoder.", "fusion.", "text_hidden_fcs.")
+
+
+def by_head(card, cpu):
+    """Each of ``HOI_HEADS``' gradient as one vector, the card's against
+    the CPU's (name -> flat gradient): the CPU norm, the cosine and the
+    norm's relative error."""
+    out = {}
+    for head in HOI_HEADS:
+        g, w = (torch.cat([v.flatten() for n, v in d.items()
+                           if n.startswith(head)]) for d in (card, cpu))
+        out[head] = {"cpu_norm": w.norm().item(),
+                     "cos": (g @ w / (g.norm() * w.norm())).item(),
+                     "norm_rel_err": abs(g.norm().item() / w.norm().item()
+                                         - 1)}
+    return out
+
+
+def heads_in_f32(cpu, cfg, mask):
+    """The interaction heads' gradients (``HOI_HEADS``, each as one vector)
+    from one K = 2 step on the card in f32 against the CPU's, at the
+    training reference's cosine and norm limits. The bf16 step cannot hold
+    them (its ``bf16_grads_by_head`` are logged): at the tiny widths a
+    rounding flips ReLU and GELU kinks of the 32-wide decoders, and
+    LLaMA's token tables set the per-leaf floor above the decoders'
+    leaves. A 64-token prompt keeps LLaMA's attention below the flash
+    prefill's 256 spliced tokens, and the SAM embedding is the CPU's (the
+    window kernel takes bf16 only), so every operation is the card's f32
+    version of what the CPU runs: the splitter, the cam encoder, the three
+    decoders by route, the fusion, the losses and their backward."""
+    batch = make_synthetic_batch(cfg, B=2, L=64, tasks=(2, 3), mask_size=64,
+                                 seed=7, device="cpu")
+    one_seg_pair_a_row(batch, cpu.seg_ids)
+    cpu.zero_grad(set_to_none=True)
+    emb = cpu.encode_sam_images(batch["sam_images"])
+    cpu(batch)["loss"].backward()
+    gpu = InteractVLM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    apply_trainable_mask(gpu)
+    gpu.encode_sam_images = lambda px: emb.cuda()
+    gpu({k: v.cuda() for k, v in batch.items()})["loss"].backward()
+    card, ref = ({n: (p.grad if p.grad is not None else torch.zeros_like(p)
+                      ).float().cpu()
+                  for n, p in m.named_parameters() if mask[n]}
+                 for m in (gpu, cpu))
+    del gpu
+    return by_head(card, ref)
+
+
+def train_reference_phase(kind: str):
     """One LoRA training forward and backward of ``interactvlm_tiny`` (rank
-    4, remat on; with ``qlora`` over a frozen int8 LLaMA base, the
-    straight-through backward) on the card in bf16 against the same on the
-    CPU in f32,
+    4, remat on; ``kind`` "qlora" over a frozen int8 LLaMA base, the
+    straight-through backward; "hoi" the interaction branches with K = 2
+    slots, the DifDe decoders and the fusion: ``HOI_TINY`` with
+    ``use_fusion``, an hcontact and an oafford row, each with [HSEG] and
+    [OSEG], so all three decoders train) on the card in bf16 against the
+    same on the CPU in f32,
     from the same weights (LoRA B drawn non-zero so A has a gradient). A
     256-token prompt (259 spliced, one row right-padded to 200) makes
     LLaMA's causal attention launch the flash forward (twice a layer under
@@ -1919,12 +2306,16 @@ def train_reference_phase(qlora: bool):
     tiny pipeline (``reference_phase``), an activation one bf16 step off
     moves its int8 value by one where it sits near a rounding boundary,
     noise of the size of bf16's own (one part in 254 against 256), which
-    the same limits hold."""
+    the same limits hold. Under "hoi" the heads' and decoders' gradients
+    are also held as whole vectors from an f32 step on the card
+    (``heads_in_f32``): in bf16 only the per-leaf check holds them."""
     bf16 = torch.bfloat16
+    qlora = kind == "qlora"
+    heads = dict(HOI_TINY, use_fusion=True) if kind == "hoi" else {}
     llama = llama_tiny(lora_rank=4, remat=True, weights_int8=qlora)
-    cpu_cfg = interactvlm_tiny(llama=llama)
+    cpu_cfg = interactvlm_tiny(llama=llama, **heads)
     gpu_cfg = interactvlm_tiny(llama=dataclasses.replace(llama, dtype=bf16),
-                               sam=sam_tiny(dtype=bf16))
+                               sam=sam_tiny(dtype=bf16), **heads)
     cpu = init_params(InteractVLM(cpu_cfg, device="cpu"),
                       torch.Generator().manual_seed(4))
     with torch.no_grad():
@@ -1937,7 +2328,12 @@ def train_reference_phase(qlora: bool):
     batch = make_synthetic_batch(cpu_cfg, B=2, L=REF_TRAIN_L, tasks=(2, 3),
                                  mask_size=64, seed=4, device="cpu")
     batch["attn_mask"] = torch.ones_like(batch["input_ids"])
-    right_pad(batch, 1, REF_TRAIN_PADDED, cpu_cfg.seg_token_idx)
+    if kind == "hoi":
+        one_seg_pair_a_row(batch, cpu.seg_ids)
+        right_pad(batch, 1, REF_TRAIN_PADDED, cpu_cfg.oseg_token_idx,
+                  cpu_cfg.hseg_token_idx)
+    else:
+        right_pad(batch, 1, REF_TRAIN_PADDED, cpu_cfg.seg_token_idx)
     mask = apply_trainable_mask(cpu)
     apply_trainable_mask(gpu)
     want = cpu(batch)
@@ -1960,6 +2356,7 @@ def train_reference_phase(qlora: bool):
     cpu_grads = {n: grad(p) for n, p in cpu.named_parameters() if mask[n]}
     floor = GRAD_FLOOR * max(g.norm().item() for g in cpu_grads.values())
     worst_cos, worst_norm, finite, n_held = 1.0, 0.0, True, 0
+    worst_leaf = {}
     for n, p in gpu.named_parameters():
         if not mask[n]:
             continue
@@ -1968,14 +2365,27 @@ def train_reference_phase(qlora: bool):
         if w.norm().item() > floor:
             n_held += 1
             cos = (g.flatten() @ w.flatten() / (g.norm() * w.norm())).item()
+            norm_err = abs(g.norm().item() / w.norm().item() - 1)
+            if cos < worst_cos:
+                worst_leaf["cos"] = [n, cos, w.norm().item()]
+            if norm_err > worst_norm:
+                worst_leaf["norm"] = [n, norm_err, w.norm().item()]
             worst_cos = min(worst_cos, cos)
-            worst_norm = max(worst_norm, abs(g.norm().item()
-                                             / w.norm().item() - 1))
-    res = dict(phase="train_reference",
-               config=f"interactvlm_tiny {'qlora' if qlora else 'lora'} 4",
+            worst_norm = max(worst_norm, norm_err)
+    bf16_heads = f32_heads = {}
+    if kind == "hoi":
+        bf16_heads = by_head({n: grad(p) for n, p in gpu.named_parameters()
+                              if mask[n]}, cpu_grads)
+        f32_heads = heads_in_f32(cpu, cpu_cfg, mask)
+    heads_ok = all(h["cpu_norm"] > 0 and h["cos"] >= GRAD_COS
+                   and h["norm_rel_err"] <= GRAD_NORM_RTOL
+                   for h in f32_heads.values())
+    res = dict(phase="train_reference", config=f"interactvlm_tiny {kind} 4",
                losses=losses, grads_held=n_held,
+               bf16_grads_by_head=bf16_heads, f32_grads_by_head=f32_heads,
                grads_total=sum(mask.values()), worst_cos=worst_cos,
-               worst_norm_rel_err=worst_norm, grads_finite=finite,
+               worst_norm_rel_err=worst_norm, worst_leaf=worst_leaf,
+               grads_finite=finite,
                launches=launched,
                tol={"loss_rtol": LOSS_RTOL, "grad_cos": GRAD_COS,
                     "grad_norm_rtol": GRAD_NORM_RTOL,
@@ -1986,7 +2396,8 @@ def train_reference_phase(qlora: bool):
                       if p.dtype == torch.int8)
     if not (all(v["err"] <= LOSS_RTOL for v in losses.values()) and finite
             and worst_cos >= GRAD_COS and worst_norm <= GRAD_NORM_RTOL
-            and int8_frozen and all(launched[n] > 0 for n in needed)):
+            and int8_frozen and all(launched[n] > 0 for n in needed)
+            and heads_ok):
         raise SystemExit(f"the card's training step disagrees with the "
                          f"CPU's: {res}")
     del cpu, gpu, got, want
@@ -2204,23 +2615,32 @@ def main() -> int:
     log(json.dumps({"phase": "probes_done",
                     "s": time.perf_counter() - t_start}))
     lift = real_lift_maps()
+    hoi_human = real_lift_maps(view_set=HOI_HUMAN_VIEWS, gather=False)[0]
+    hoi_object = real_lift_maps(OBJ_SPHERE, HOI_OBJECT_VIEWS, gather=False,
+                                n_expected=N_OBJ)[0]
     paths = {"13b_bf16": (config_13b(), "dense", B),
              "7b_int8": (config_7b_int8(), "int8", B_CACHED_INT8),
              "7b_int4": (config_7b_int4(), "int8", B_CACHED_INT8)}
     with torch.inference_mode():
         for weights in ("dense", "int8", "int4"):
             reference_phase(weights)
+        hoi_reference_phase()
         for path, (cfg, kv, b_cached) in paths.items():
             launches[path] = serving_path_phase(path, cfg, kv, b_cached, lift)
             log(json.dumps({"phase": f"{path}_done",
                             "s": time.perf_counter() - t_start}))
+        launches["13b_hoi"] = hoi_path_phase("13b_hoi", config_13b_hoi(),
+                                             hoi_human, hoi_object)
+        log(json.dumps({"phase": "13b_hoi_done",
+                        "s": time.perf_counter() - t_start}))
+        del hoi_human, hoi_object
     # kernel 6 takes the same routes on int4 weights as on int8 ones
     routes = {p: launches[p]["int8_routes"] for p in ("7b_int8", "7b_int4")}
     log(json.dumps({"phase": "int4_routes_as_int8", **routes}))
     if routes["7b_int4"] != routes["7b_int8"]:
         raise SystemExit(f"the int4 path's int8 routes differ: {routes}")
-    for qlora in (False, True):
-        train_reference_phase(qlora)
+    for kind in ("lora", "qlora", "hoi"):
+        train_reference_phase(kind)
     for path, cfg in (("train_13b_lora", config_13b_train()),
                       ("train_7b_qlora", config_7b_qlora_train())):
         launches[path] = training_path_phase(path, cfg, lift[0])

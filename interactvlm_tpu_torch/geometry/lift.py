@@ -10,6 +10,12 @@ averaged per vertex over the views that saw it; the result is clamped to
 form (per-vertex pixel lists from ``build_gather_maps``) is numerically the
 same whenever no vertex has more than ``max_k`` candidates.
 
+The per-sample object lifts take one sample's maps: the thresholded
+barycentric lift onto an object mesh (reference
+``ObjectMeshContact3DPredictor``, components.py:445-489) and the point-cloud
+lift through a pixel -> point map (``ObjectPCAfford3DPredictor``,
+components.py:318-347).
+
 The batched lifts of the training losses (``lift_batch_soft``,
 ``lift_batch_thresholded``, ``lift_batch_points``) fold the batch into the
 segment ids of one ``index_add`` and are differentiable in the logits.
@@ -76,6 +82,40 @@ def lift_multiview_soft(logits, p2v3, bary3, num_vertices: int):
         values.reshape(-1), weights.reshape(-1), ids.reshape(-1).long(), V,
         num_vertices)
     return out.clamp(0.0, 1.0)
+
+
+def lift_multiview_thresholded(logits, p2v3, bary3, num_vertices: int,
+                               threshold: float = 0.3):
+    """Thresholded lift onto an object mesh: logits (V, H, W), corner-major
+    maps (3, V, H, W). Pixels whose probability exceeds ``threshold``
+    scatter it with barycentric weights; each view is normalised by its
+    scattered weight, then views are averaged over those that saw the
+    vertex. The selection carries no gradient. Returns (num_vertices,)."""
+    V = logits.shape[0]
+    probs = torch.sigmoid(logits.float())
+    sel = (probs > threshold).float().detach()
+    ids, weights = _flat_ids_and_weights(p2v3, bary3.float(), V, num_vertices,
+                                         sel)
+    values = probs[None].expand(p2v3.shape).reshape(-1)
+    out, _ = _per_view_normalized_scatter(values, weights, ids, V,
+                                          num_vertices)
+    return out
+
+
+def lift_multiview_points(values, p2p, num_points: int):
+    """Point-cloud lift: per-pixel values (V, H, W) are averaged per point
+    and view through the pixel -> point map p2p (V, H, W) (-1 invalid),
+    then over the views in which the point is visible. Returns
+    (num_points,)."""
+    V = values.shape[0]
+    valid = (p2p >= 0) & (p2p < num_points)
+    view = torch.arange(V, device=p2p.device).view(V, 1, 1)
+    ids = torch.where(valid, view * num_points + p2p.clamp(0, num_points - 1),
+                      V * num_points).reshape(-1).long()
+    out, _ = _per_view_normalized_scatter(
+        values.float().reshape(-1), valid.float().reshape(-1), ids, V,
+        num_points)
+    return out
 
 
 def build_gather_maps(p2v, bary, num_vertices: int, max_k: int = None):

@@ -1,10 +1,13 @@
 """SAM prompt encoder with the InteractVLM ``text_embeds`` path.
 
-Port of ``interactvlm_tpu/models/sam/prompt_encoder.py`` for what the
-generate-mode path runs: projected [SEG] embeddings as the sparse prompt,
-the random-Fourier dense positional encoding, and the ``no_mask`` dense
-embedding. The point, box and mask-downscaling parameters are kept so the
-SAM checkpoint loads by key, but their prompt paths are not ported yet.
+Port of ``interactvlm_tpu/models/sam/prompt_encoder.py``: projected [SEG]
+embeddings as sparse prompts (the InteractVLM extension), point and box
+prompts (random-Fourier encodings of their pixel coordinates plus a learned
+embedding per label or corner), and as the dense prompt either a low-res
+mask through ``mask_downscaling`` or the ``no_mask`` embedding broadcast
+over the embedding grid. The sparse parts keep the JAX order: points, boxes,
+text. Masks are channels-last (B, 4g, 4g, 1), as in the JAX package; the
+convolutions permute to channels-first around the call.
 """
 
 from __future__ import annotations
@@ -72,10 +75,58 @@ class PromptEncoder(nn.Module):
         g = self.config.image_embedding_size
         return self.pe_layer.grid(g, g)  # (g, g, C)
 
-    def forward(self, text_embeds):
+    def _embed_points(self, points, labels, pad: bool):
+        """points (B, N, 2) pixel (x, y), labels (B, N): 1 foreground, 0
+        background, -1 not a point. Without boxes a padding point labelled
+        -1 is appended (reference prompt_encoder.py:76-84)."""
+        points = points.float() + 0.5
+        if pad:
+            points = torch.cat([points, torch.zeros_like(points[:, :1])], 1)
+            labels = torch.cat([labels, -torch.ones_like(labels[:, :1])], 1)
+        pe = self.pe_layer(points / float(self.config.img_size))
+        lab = labels[..., None]
+        emb = [e.weight[0].float() for e in self.point_embeddings]
+        return torch.where(lab == -1, self.not_a_point_embed.weight[0].float(),
+                           pe + torch.where(lab == 1, emb[1], emb[0]))
+
+    def _embed_boxes(self, boxes):
+        """boxes (B, 4) pixel (x0, y0, x1, y1) -> two corner tokens
+        (B, 2, C)."""
+        corner = self.pe_layer((boxes.float() + 0.5).reshape(-1, 2, 2)
+                               / float(self.config.img_size))
+        return torch.stack(
+            [corner[:, 0] + self.point_embeddings[2].weight[0].float(),
+             corner[:, 1] + self.point_embeddings[3].weight[0].float()], 1)
+
+    def _embed_masks(self, masks):
+        """(B, 4g, 4g, 1) -> (B, g, g, C)."""
+        conv0, ln0, act0, conv1, ln1, act1, conv2 = self.mask_downscaling
+
+        def conv(layer, x):  # channels-last around an NCHW convolution
+            return layer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+        x = act0(ln0(conv(conv0, masks.to(conv0.weight.dtype))))
+        x = act1(ln1(conv(conv1, x)))
+        return conv(conv2, x)
+
+    def forward(self, text_embeds=None, points=None, point_labels=None,
+                boxes=None, masks=None):
         """Returns (sparse (B, N, C), dense (B, g, g, C))."""
         cfg = self.config
+        parts = []
+        if points is not None:
+            parts.append(self._embed_points(points, point_labels,
+                                            pad=boxes is None))
+        if boxes is not None:
+            parts.append(self._embed_boxes(boxes))
+        if text_embeds is not None:
+            parts.append(text_embeds)
+        if not parts:
+            raise ValueError("at least one prompt type required")
+        sparse = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if masks is not None:
+            return sparse, self._embed_masks(masks)
         g = cfg.image_embedding_size
         dense = self.no_mask_embed.weight[0].expand(
-            text_embeds.shape[0], g, g, cfg.prompt_embed_dim)
-        return text_embeds, dense
+            sparse.shape[0], g, g, cfg.prompt_embed_dim)
+        return sparse, dense

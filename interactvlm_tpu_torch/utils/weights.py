@@ -217,7 +217,12 @@ def _sam(t, prefix, sd):
         conv = "kernel" in layer
         (_conv if conv else _ln)(layer, f"{p}mask_downscaling.{j}.", sd)
 
-    d, p = t["mask_decoder"], prefix + "mask_decoder."
+    for name in ("mask_decoder", "human_mask_decoder", "object_mask_decoder"):
+        if name in t:
+            _mask_decoder(t[name], f"{prefix}{name}.", sd)
+
+
+def _mask_decoder(d, p, sd):
     sd[p + "iou_token.weight"] = _t(d["iou_token"])
     sd[p + "mask_tokens.weight"] = _t(d["mask_tokens"])
     _conv_transpose(d["upscale_conv1"], p + "output_upscaling.0.", sd)
@@ -249,6 +254,22 @@ def _llava(t, prefix, sd):
     _llama(t["lm"], prefix + "lm.", sd)
 
 
+HEADS = ("cam_pose_encoder", "attention_splitter", "fusion", "uncertainty")
+
+
+def _heads(t, sd):
+    """The composite's heads that a tree holds: ``text_hidden_fcs``, and
+    each Dense of the others under its JAX name (``linear1``, ``spatial1``,
+    ``view_0``, ``query_human``, ``sam_proj`` ...) below the reference's
+    attribute name."""
+    if "text_hidden_fcs" in t:
+        _dense(t["text_hidden_fcs"]["fc1"], "text_hidden_fcs.0.0.", sd)
+        _dense(t["text_hidden_fcs"]["fc2"], "text_hidden_fcs.0.2.", sd)
+    for head in HEADS:
+        for name, node in t.get(head, {}).items():
+            _dense(node, f"{head}.{name}.", sd)
+
+
 def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
     """A flax parameter tree of the JAX package (numpy leaves, boxes
     unwrapped) -> the port's ``state_dict`` (f32 tensors; int8 weights
@@ -258,18 +279,27 @@ def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
     parts: ``LlavaModel``, ``LlamaForCausalLM``, ``CLIPVisionTower`` or
     ``Sam``. The SAM mask-downscaling convolutions, which the text-prompt
     path never initialises in the JAX package, are absent from the result
-    unless the tree has them.
+    unless the tree has them; so are the uncertainty head's parameters,
+    which the JAX package builds and never calls (a port model loaded with
+    ``strict=False`` keeps its own values for them, ``init_params``'s draw
+    when it made one). Under DifDe the two domain decoders
+    (``sam.human_mask_decoder.``, ``sam.object_mask_decoder.``) take
+    ``mask_decoder.``'s layout.
+
+    The heads other than ``text_hidden_fcs`` and ``simple``'s
+    ``cam_pose_encoder.linear1`` (the two that the JAX package's checkpoint
+    converter maps) are named by their JAX parameter names under the
+    reference's attribute names: ``attention_splitter.``,
+    ``cam_pose_encoder.`` (``view_index`` / ``vi_v1``), ``fusion.`` and
+    ``uncertainty.``. Whether the reference checkpoint names them so could
+    not be checked without that checkpoint.
     """
     t = tree.get("params", tree)
     sd: Dict[str, torch.Tensor] = {}
     if "llava" in t:
         _llava(t["llava"], "llava.", sd)
         _sam(t["sam"], "sam.", sd)
-        _dense(t["text_hidden_fcs"]["fc1"], "text_hidden_fcs.0.0.", sd)
-        _dense(t["text_hidden_fcs"]["fc2"], "text_hidden_fcs.0.2.", sd)
-        if "cam_pose_encoder" in t:
-            _dense(t["cam_pose_encoder"]["linear1"],
-                   "cam_pose_encoder.linear1.", sd)
+        _heads(t, sd)
     elif "vision_tower" in t:
         _llava(t, "", sd)
     elif "lm_head" in t:

@@ -33,6 +33,11 @@ from interactvlm_tpu_torch.utils.testing import (
 from interactvlm_tpu_torch.utils.weights import from_jax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# every head and decoder the port builds: the interaction token type with
+# the DifDe decoders, vi_v1 cams, K = 2 slots, fusion and uncertainty
+HOI = dict(token_type="Gen-Hu-Obj-DifDe", cam_encoder_type="vi_v1",
+           hseg_token_idx=501, oseg_token_idx=502, max_seg_tokens=2,
+           use_fusion=True, use_uncertainty=True)
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -82,6 +87,7 @@ def test_port_and_chip_smoke_import_no_jax():
 
 @pytest.mark.parametrize("build", [
     lambda: InteractVLM(C.interactvlm_tiny()),
+    lambda: InteractVLM(C.interactvlm_tiny(**HOI)),
     lambda: LlavaModel(C.llama_tiny(), C.clip_tiny()),
     lambda: LlamaForCausalLM(C.llama_tiny()),
     lambda: CLIPVisionTower(C.clip_tiny()),
@@ -94,7 +100,7 @@ def test_port_and_chip_smoke_import_no_jax():
     lambda: LlamaForCausalLM(C.llama_tiny(weights_int4=True)),
     lambda: build_lift_maps(*uv_sphere(8, 8), HUMAN_VIEWS[
         "4MV-Z_Vitru_mv2"].cam_params(), 16, 8),
-], ids=["InteractVLM", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
+], ids=["InteractVLM", "InteractVLM-hoi", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
         "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8",
         "LlamaForCausalLM-lora", "make_synthetic_batch",
         "LlamaForCausalLM-qlora", "LlamaForCausalLM-int4",
@@ -150,3 +156,32 @@ def test_state_dict_round_trips_through_the_jax_converters():
     assert set(want) <= set(back), sorted(set(want) - set(back))
     for path, arr in want.items():
         np.testing.assert_array_equal(back[path], arr, err_msg=path)
+
+
+def test_from_jax_params_fills_every_parameter_of_the_interaction_model():
+    """Every parameter of a Gen-Hu-Obj-DifDe + vi_v1 + fusion port model
+    gets a value from the JAX tree, and nothing is left over; the only keys
+    missing are those the JAX tree cannot have: the mask-downscaling
+    convolutions (no text-prompt path reaches them) and the uncertainty
+    head (built, and called nowhere)."""
+    jcfg = jax_tiny(**HOI)
+    batch = make_synthetic_batch(jcfg, B=2, L=12, mask_size=32)
+    tree = jax.tree.map(np.asarray, nn.meta.unbox(
+        JaxIVLM(jcfg).init(jax.random.PRNGKey(4), batch)))
+    assert "uncertainty" not in tree["params"]
+    sd = from_jax_params(tree)
+    tm = InteractVLM(C.interactvlm_tiny(**HOI), device="cpu")
+    missing, unexpected = tm.load_state_dict(sd, strict=False)
+    assert not unexpected
+    assert missing and all("mask_downscaling" in k or k.startswith(
+        "uncertainty.") for k in missing), missing
+    assert {k.split(".")[0] for k in missing if "mask_downscaling" not in k
+            } == {"uncertainty"}
+    for head in ("attention_splitter.query_human", "cam_pose_encoder.view_3",
+                 "fusion.sam_proj", "sam.human_mask_decoder.iou_token",
+                 "sam.object_mask_decoder.transformer.layers.1.norm4"):
+        assert any(k.startswith(head + ".") for k in sd), head
+    # the values are the tree's, in the port's layout
+    np.testing.assert_array_equal(
+        sd["fusion.q_proj.weight"].numpy(),
+        tree["params"]["fusion"]["q_proj"]["kernel"].T)

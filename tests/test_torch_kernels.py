@@ -300,6 +300,31 @@ def test_flash_backward_refuses_what_the_kernels_do_not_take(dev):
         F.flash_backward(q48, q48, q48, q48, lse, q48)
 
 
+def test_fusion_attention_launches_the_flash_kernels_at_full_width(dev):
+    """The fusion head in bf16 on a 64 x 64 SAM grid (Lq = 4096 >= 512,
+    D = 16, Lk = 300 LLaVA positions, none masked): its attention launches
+    the flash forward once, and its backward both backward kernels once,
+    with no fallback to the plain attention; outputs and every parameter's
+    gradient are finite."""
+    from interactvlm_tpu_torch.models.components import LLaVASAMFusion
+
+    torch.manual_seed(0)
+    m = LLaVASAMFusion(256, 5120, torch.bfloat16, dev)
+    rng = np.random.default_rng(10)
+    sam = _bf16(rng, (2, 64, 64, 256), dev)
+    llava = _bf16(rng, (2, 300, 5120), dev)
+    before = (F.flash_forward.launches, F.flash_bwd_dq.launches,
+              F.flash_bwd_dkv.launches)
+    out = m(sam, llava)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert (F.flash_forward.launches, F.flash_bwd_dq.launches,
+            F.flash_bwd_dkv.launches) == tuple(b + 1 for b in before)
+    assert bool(torch.isfinite(out).all())
+    for n, p in m.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
+
+
 def test_forward_only_kernels_raise_under_grad(dev):
     """The window, rel-pos and int8 kernels have no backward: under grad
     they raise instead of returning a tensor without a gradient."""
