@@ -86,7 +86,20 @@ prints no result, without them. Phases, each of which fails the run:
 13. the 7B QLoRA training path, the JAX package's one-chip training
    configuration: LLaMA-7B with a frozen int8 base (kernel 6 forward, the
    straight-through backward), otherwise as the 13B path; also the
-   backward's device time (the W_q cast and the bf16 GEMM).
+   backward's device time (the W_q cast and the bf16 GEMM);
+14. the DAMON workflow (``damon_workflow_phase``), the first real input
+   pipeline on the card: the port's DAMON recipe writes a 1024^2 tree of
+   16 photos on the card; the training CLI (``train/train.py:main``, 13B
+   LoRA, B=8, 8 loader threads) takes 4 steps from it, each step's wall
+   and data seconds, the loader-wait share and the launches a step
+   printed; the CLI's step is split against ``TrainStep`` on one real
+   batch (resident on the card, or copied each step) and against the CLI
+   with one loader thread; ``validate`` runs on the trained model (2
+   batches of 8, the cached view encode); then the tiny chain at 64^2
+   (train with eval and saving, resume, export, the eval CLI on the card
+   and on the CPU from one run directory, their reports held together,
+   and the restored model's mask logits and lifted contacts held card
+   against CPU).
 
 Each serving path reports images/s, the time of each leg, peak memory, the
 decode host/device split and each kernel's launches over its run; the 7B
@@ -107,9 +120,12 @@ the path named in ``KERNELS`` and on every path. The last line is
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -127,10 +143,18 @@ from interactvlm_tpu_torch.config import (
     sam_tiny,
     sam_vit_h,
 )
+from interactvlm_tpu_torch.data.collate import collate, to_device
+from interactvlm_tpu_torch.data.datasets import ValDataset, build_dataset
+from interactvlm_tpu_torch.datagen.recipes import generate_damon_tree
+from interactvlm_tpu_torch.eval import evaluate as eval_cli
 from interactvlm_tpu_torch.eval.evaluate import (
+    damon_binary_contact,
+    damon_semantic_contact,
     evaluate_batch,
     lift_objects_per_sample,
     seg_slots,
+    truncate_at_answer,
+    validate,
 )
 from interactvlm_tpu_torch.geometry.lift import (
     build_gather_maps,
@@ -156,6 +180,11 @@ from interactvlm_tpu_torch.ops import serving_matmul as SM
 from interactvlm_tpu_torch.probes import chain as chain_probe
 from interactvlm_tpu_torch.probes import mxu as mxu_probe
 from interactvlm_tpu_torch.probes import winattn as winattn_probe
+from interactvlm_tpu_torch.runtime import native_image
+from interactvlm_tpu_torch.runtime.prefetch import iter_sample_batches
+from interactvlm_tpu_torch.train import export as export_cli
+from interactvlm_tpu_torch.train import train as train_cli
+from interactvlm_tpu_torch.train.checkpoints import CheckpointManager
 from interactvlm_tpu_torch.train.optimizer import (
     apply_trainable_mask,
     cast_frozen_params,
@@ -2448,6 +2477,35 @@ def frozen_fingerprint(model):
     return torch.stack(sums).cpu()
 
 
+def train_launches_expected(cfg, steps: int = 1):
+    """Each kernel's launches over ``steps`` training steps of ``cfg``
+    (B=8 rows of 512 spliced tokens, LLaMA's head dim 128)."""
+    layers, dec = cfg.llama.num_layers, cfg.sam.decoder_depth
+    n_global = len(cfg.sam.encoder_global_attn_indexes)
+    qlora = cfg.llama.weights_int8
+    # each layer's flash forward runs again in the backward under remat;
+    # the SAM decoder's image->token attention (Lq = 4096) once a block;
+    # under QLoRA each layer's 7 int8 linears twice too (forward and
+    # remat), all on the two-pass route (B x 512 rows)
+    two = 2 * 7 * layers if qlora else 0
+    want = {n: 0 for n in KERNELS}
+    want.update({"flash_attention": 2 * layers + dec,
+                 "flash_attention_bwd_dq": layers + dec,
+                 "flash_attention_bwd_dkv": layers + dec,
+                 "window_attention": cfg.sam.encoder_depth - n_global,
+                 "rel_attention": n_global,
+                 "int8_matmul": two, "quantize_rows": two,
+                 "int8_routes": {"one_launch": 0, "two_pass": two},
+                 "int8_gemm": two,
+                 "window_routes": {"mma": 0, "sm90": cfg.sam.encoder_depth
+                                   - n_global},
+                 "rel_routes": {"mma": 0, "sm90": n_global},
+                 "bwd_dq_routes": {"sm90": layers, "mma": dec},
+                 "bwd_dkv_routes": {"sm90": layers, "mma": dec}})
+    return {k: ({r: steps * c for r, c in v.items()} if isinstance(v, dict)
+                else steps * v) for k, v in want.items()}
+
+
 def training_path_phase(path, cfg, maps):
     """A LoRA (or QLoRA) training step at B=8 on the real lift maps
     ``maps`` (the human 3D loss's): one warm-up step (step 0 of the
@@ -2530,27 +2588,8 @@ def training_path_phase(path, cfg, maps):
                         **ste_backward_costs(cfg.llama, B * (
                             L_TRAIN - 1 + cfg.clip.num_patches))}))
 
-    layers, dec = cfg.llama.num_layers, cfg.sam.decoder_depth
-    n_global = len(cfg.sam.encoder_global_attn_indexes)
-    # each layer's flash forward runs again in the backward under remat;
-    # the SAM decoder's image->token attention (Lq = 4096) once a block;
-    # under QLoRA each layer's 7 int8 linears twice too (forward and
-    # remat), all on the two-pass route (B x 512 rows)
-    two = 2 * 7 * layers if qlora else 0
-    want = {n: 0 for n in KERNELS}
-    want.update({"flash_attention": 2 * layers + dec,
-                 "flash_attention_bwd_dq": layers + dec,
-                 "flash_attention_bwd_dkv": layers + dec,
-                 "window_attention": cfg.sam.encoder_depth - n_global,
-                 "rel_attention": n_global,
-                 "int8_matmul": two, "quantize_rows": two,
-                 "int8_routes": {"one_launch": 0, "two_pass": two},
-                 "int8_gemm": two,
-                 "window_routes": {"mma": 0, "sm90": cfg.sam.encoder_depth
-                                   - n_global},
-                 "rel_routes": {"mma": 0, "sm90": n_global},
-                 "bwd_dq_routes": {"sm90": layers, "mma": dec},
-                 "bwd_dkv_routes": {"sm90": layers, "mma": dec}})
+    want = train_launches_expected(cfg)
+    layers = cfg.llama.num_layers
     log(json.dumps({"phase": "train_launches_per_step", "launches": launches,
                     "expected": want}))
     moved = {n: not torch.equal(p.detach(), watched[n])
@@ -2579,7 +2618,429 @@ def training_path_phase(path, cfg, maps):
     del model, opt, sched, step, batch, watched
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, med * 1e3
+
+
+# --------------------------------------------------------------- DAMON
+# the DAMON workflow: a tree of DAMON_IMAGES photos, two objects each (one a
+# 'supporting' contact, which yields the foot_ground subset), written by the
+# port's recipe on the card; the 13B LoRA CLI at B = DAMON_B for
+# DAMON_STEPS steps with DAMON_WORKERS loader threads; validate over
+# DAMON_VAL_BATCHES batches of DAMON_B; then the tiny chain at 64^2 on the
+# 178-vertex sphere (tests/test_datagen_recipes.py:sphere_mesh's shape)
+DAMON_IMAGES, DAMON_B, DAMON_STEPS, DAMON_WORKERS = 16, 8, 4, 8
+DAMON_VAL_BATCHES = 2
+DAMON_OBJECTS = ("chair", "bicycle", "skateboard", "cup", "bench",
+                 "surfboard", "motorcycle", "bed")
+TINY_SPHERE, TINY_SIZE, TINY_IMAGES = (12, 16), 64, 8
+# the tiny chain, card against CPU on the restored model: the mask logits
+# and the lifted contacts (sigmoid means) within these. SAM runs bf16 on
+# the card (its kernels take bf16 only), f32 on the CPU; measured on an
+# H100: logits 0.0239 (trained) and 0.0244 (forced) apart, contacts
+# 0.00155 and 6.9e-6; the limits are about 4 and 6 times those
+TINY_LOGIT_TOL, TINY_CONTACT_TOL = 0.1, 0.01
+# the eval CLI's batches in the tiny chain; the forced copy's logit offset
+TINY_EVAL_B, TINY_EVAL_BATCHES, MASK_BIAS = 4, 2, 8.0
+# loader-off legs of the CLI's step split: rounds of (resident, copied)
+SPLIT_ROUNDS, SPLIT_STEPS = 2, 2
+WORKDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "damon_workflow")
+
+
+def body_parts_of(n):
+    """A fabricated body-part segmentation of an n-vertex sphere (top to
+    bottom), the feet last."""
+    cut = [0, n // 4, n // 2, n - n // 8, n - n // 16, n]
+    names = ("head", "torso", "legs", "left foot", "right foot")
+    return {k: list(range(a, b)) for k, a, b in zip(names, cut, cut[1:])}
+
+
+def write_damon_tree(root, sphere, size, n_images, device="cuda"):
+    """A DAMON tree under ``root``: ``n_images`` seeded 640 x 480 JPEG
+    photos, each with one object's contact and a 'supporting' one (feet
+    and legs), through the port's ``generate_damon_tree`` on ``device``.
+    Returns (seconds of the recipe, bytes written, samples)."""
+    from PIL import Image
+
+    verts, faces = uv_sphere(*sphere)
+    n = len(verts)
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    annot = {}
+    for i in range(n_images):
+        name = f"img{i:02d}.jpg"
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), np.uint8)).save(
+            os.path.join(root, "images", name), quality=90)
+        start = (i * 397) % n
+        annot[name] = {
+            DAMON_OBJECTS[i % len(DAMON_OBJECTS)]:
+                np.arange(start, start + n // 10) % n,
+            "supporting": np.concatenate([
+                np.arange(n // 2 + 7 * i, n // 2 + 7 * i + n // 20),
+                np.arange(n - n // 12, n)])}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate_damon_tree(root, annot, verts, faces, HUMAN_VIEWS[VIEW_SET],
+                              size, body_parts_of(n), device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(root) for f in fs)
+    samples = sum(len(v) for v in out["annot"].values())
+    if not all("foot_ground" in v for v in out["annot"].values()):
+        raise SystemExit("the DAMON recipe wrote no foot_ground subset")
+    return secs, nbytes, samples
+
+
+def cli_train(argv):
+    """``train_cli.main(argv)`` from a clean card. Returns the trainer, the
+    CLI's seconds, the launches, the peak GB and the image loads by
+    decoder and format."""
+    loads0 = collections.Counter(native_image.loads)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(argv)
+    secs = time.perf_counter() - t0
+    return (trainer, secs, read_launches(),
+            torch.cuda.max_memory_allocated() / 1e9,
+            dict(native_image.loads - loads0))
+
+
+def cli_step_ms(trainer):
+    """The CLI's steps after the new model's first, less the wait for the
+    batch (ms): the copy to the card and the step, synchronised."""
+    return [(h["batch_s"] - h["data_s"]) * 1e3 for h in trainer.history[1:]]
+
+
+def step_split_ms(step, batch):
+    """``TrainStep`` on one real pinned batch with no loader running, each
+    step synchronised as the CLI's: the batch resident on the card (copied
+    once), or copied each step as the CLI copies it. SPLIT_ROUNDS rounds
+    of SPLIT_STEPS steps each, the two alternating."""
+    resident = to_device(batch, "cuda")
+    out = {"resident": [], "copied": []}
+    for _ in range(SPLIT_ROUNDS):
+        for leg in out:
+            for _ in range(SPLIT_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(resident if leg == "resident" else to_device(batch,
+                                                                  "cuda"))
+                torch.cuda.synchronize()
+                out[leg].append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def tiny_masks_card_and_cpu(run, tree):
+    """The restored tiny model of ``run`` on the card and on the CPU, on
+    the eval CLI's batches of the test split (TINY_EVAL_BATCHES of
+    TINY_EVAL_B) through its path (the first batch's view encode cached,
+    then ``evaluate_batch``). Returns, card against CPU: whether the
+    generated ids are equal, the rows with a seg token, and the largest
+    difference, the CPU's range and the card's distance from the threshold
+    of the mask logits (0) and of the lifted contacts (0.5) on those
+    rows."""
+    outs, batches = {}, None
+    for dev in ("cuda", "cpu"):
+        model, cfg, targs, cfg_json = eval_cli.restore_run(run, dev)
+        if batches is None:
+            tok, _ = train_cli.make_tokenizer(targs, cfg_json["tokenizer"],
+                                              cfg_json.get("version"))
+            ds = ValDataset(build_dataset("hcontact", tree, "test", targs))
+            batches = [collate(samples, tok, max_len=targs.model_max_length,
+                               num_human_vertices=cfg.num_human_vertices)[0]
+                       for samples in iter_sample_batches(
+                           ds, TINY_EVAL_B,
+                           limit=TINY_EVAL_BATCHES * TINY_EVAL_B)]
+        maps = train_cli._load_human_maps(tree, dev)
+        maps["num_vertices"] = cfg.num_human_vertices
+        outs[dev] = []
+        with torch.inference_mode():
+            emb = model.encode_sam_images(
+                batches[0]["sam_images"][:1].to(model.device, cfg.sam.dtype))
+            for batch in batches:
+                out = evaluate_batch(model, batch, targs.image_size,
+                                     max_new_tokens=16, human_maps=maps,
+                                     cached_image_emb=emb)
+                outs[dev].append({k: out[k].float().cpu() for k in (
+                    "generated_ids", "pred_masks", "pred_contact_3d",
+                    "has_seg")})
+        del model, maps, emb, out
+    card, cpu = outs["cuda"], outs["cpu"]
+    rows = [o["has_seg"] > 0 for o in cpu]
+
+    def cat(side, key):
+        return torch.cat([o[key][r].flatten() for o, r in zip(side, rows)])
+
+    res = {"seg_rows": int(sum(r.sum() for r in rows)),
+           "ids_equal": all(torch.equal(a["generated_ids"],
+                                        b["generated_ids"])
+                            for a, b in zip(card, cpu))}
+    for name, key, at in (("logit", "pred_masks", 0.0),
+                          ("contact", "pred_contact_3d", 0.5)):
+        c, p = cat(card, key), cat(cpu, key)
+        res[name] = {"max_diff": (c - p).abs().max().item(),
+                     "cpu_range": [p.min().item(), p.max().item()],
+                     "cpu_above": (p > at).float().mean().item(),
+                     "card_margin": (c - at).abs().min().item()}
+    return res
+
+
+def force_mask_bias(run, dst):
+    """A run directory ``dst`` holding ``run``'s pretrained config and its
+    best checkpoint with every mask decoder's logits raised by about
+    MASK_BIAS: hypernetwork output channel 0 set to 1 and upscaled feature
+    channel 0 to the constant GELU(MASK_BIAS), so each mask's channel-0
+    term is that constant (every mask full, its contacts near 1)."""
+    os.makedirs(dst)
+    shutil.copy(os.path.join(run, "pretrained_config.json"), dst)
+    state = CheckpointManager(run).restore_best()
+    sd = state["model"]
+    up = ".output_upscaling.3."
+    for key in [k for k in sd if k.endswith(up + "weight")]:
+        dec = key[:-len(up + "weight")]
+        sd[key][:, 0] = 0.0  # ConvTranspose2d weight (in, out, k, k)
+        sd[dec + up + "bias"][0] = MASK_BIAS
+        heads = {k.rsplit(".layers.", 1)[0] for k in sd if k.startswith(
+            dec + ".output_hypernetworks_mlps.")}
+        for head in heads:
+            last = max(int(k.rsplit(".layers.", 1)[1].split(".")[0])
+                       for k in sd if k.startswith(head + ".layers."))
+            sd[f"{head}.layers.{last}.weight"][0] = 0.0
+            sd[f"{head}.layers.{last}.bias"][0] = 1.0
+    CheckpointManager(dst).save_best(state["step"], state, 0.0)
+
+
+def damon_workflow_phase(train_step_ms):
+    """The DAMON workflow through the port's entry points: (1) a 1024^2
+    DAMON tree of the 6890-vertex sphere written on the card; (2) the
+    training CLI at full width (13B LoRA, the hcontact-damon defaults, the
+    whitespace tokenizer) for one epoch of DAMON_STEPS steps, no save, no
+    eval: each step's wall and data seconds and the share the card waited
+    on the loader, the peak memory and each kernel's launches a step, the
+    PNG and JPEG loads, and the CLI's step against ``train_step_ms`` (the
+    TrainStep path's median in this run); the CLI's step split against
+    ``TrainStep`` on one real batch with no loader (resident on the card,
+    or copied each step); (3) ``validate`` on the trained model over the
+    tree's test split, cached view encode, 32 new tokens, after
+    ``let_seg_token_appear``: images/s, seg_rate, every metric finite;
+    the CLI again with one loader thread; (4) the tiny chain: a 64^2
+    tree, ``train.main`` for two epochs with eval and saving,
+    ``--resume`` for a third, ``export.main``, and ``eval.evaluate.main``
+    on the card and on the CPU from the same run directory, their reports
+    equal; the restored model's mask logits and lifted contacts on the
+    card and the CPU within TINY_LOGIT_TOL and TINY_CONTACT_TOL. Returns
+    the launches of the training and the validation runs."""
+    shutil.rmtree(WORKDIR, ignore_errors=True)
+    tree = os.path.join(WORKDIR, "damon_1024")
+    runs = os.path.join(WORKDIR, "runs")
+    secs, nbytes, samples = write_damon_tree(tree, SPHERE, MASK, DAMON_IMAGES)
+    log(json.dumps({"phase": "damon_tree", "size": MASK, "images":
+                    DAMON_IMAGES, "samples": samples, "s": secs,
+                    "bytes": nbytes, "decoder": native_image.decoder(),
+                    "decoder_build_error": native_image.build_error}))
+
+    # (2) the training CLI at full width
+    argv = ["--model_scale", "full", "--tokenizer", "whitespace",
+            "--dataset", "hcontact", "--dataset_dir", tree,
+            "--batch_size", str(DAMON_B), "--data_workers",
+            str(DAMON_WORKERS), "--epochs", "1", "--steps_per_epoch",
+            str(DAMON_STEPS), "--no_eval", "--save_every", "2",
+            "--log_base_dir", runs, "--exp_name", "damon_13b",
+            "--no_tensorboard"]
+    trainer, cli_s, launches, peak_gb, loads = cli_train(argv)
+    hist = trainer.history
+    steady = cli_step_ms(trainer)
+    want = train_launches_expected(trainer.cfg, DAMON_STEPS)
+    per_step = {n: launches[n] / DAMON_STEPS for n in TRAINING_KERNELS
+                + ("window_attention", "rel_attention")}
+    res = {"phase": "damon_train", "argv": argv, "cli_s": cli_s,
+           "first_batch_s": trainer.first_batch_s,
+           "steps": [{"step_s": h["batch_s"] - h["data_s"],
+                      "data_s": h["data_s"], "wall_s": h["batch_s"],
+                      "loader_wait_share": h["loader_wait_share"],
+                      "loss": h["loss"]} for h in hist],
+           "step_ms_after_first": spread(steady),
+           "train_step_path_ms": train_step_ms,
+           "cli_over_train_step": float(np.median(steady)) / train_step_ms,
+           "peak_gb": peak_gb, "launches_per_step": per_step,
+           "image_loads": loads, "decoder": native_image.decoder()}
+    log(json.dumps(res))
+    # each sample reads its V mask PNGs, then its photo (a JPEG), after
+    # the dataset's V render PNGs; the loader may have read ahead, and has
+    # finished every sample it started once the CLI returns
+    V = trainer.cfg.multiview_channels
+    pngs = loads.get(native_image.decoder() + "_png", 0)
+    jpegs = loads.get("pil_jpeg", 0)
+    checks = {
+        "steps": trainer.step.step == DAMON_STEPS and len(hist) == DAMON_STEPS,
+        "losses_finite": all(np.isfinite(h["loss"]) for h in hist),
+        "none_skipped": all(h["skipped_nonfinite"] == 0.0 for h in hist),
+        "launches_as_expected": launches == want,
+        "nothing_saved": not os.path.exists(os.path.join(runs, "damon_13b",
+                                                         "ckpt")),
+        "loaded_pngs": (jpegs >= DAMON_STEPS * DAMON_B
+                        and pngs == V * (jpegs + 1)
+                        and sum(loads.values()) == pngs + jpegs),
+    }
+    log(json.dumps({"phase": "damon_train_checks", **checks,
+                    "expected": want, "launches": launches}))
+    if not all(checks.values()):
+        raise SystemExit(f"the DAMON training CLI failed: {checks}")
+
+    # the CLI's step against TrainStep on one real batch, no loader running
+    args = train_cli.parse_args(argv)
+    loader = train_cli.real_batch_iter(args, trainer.cfg, trainer.tokenizer,
+                                       "cuda")
+    batch = next(loader)
+    loader.close()
+    split = step_split_ms(trainer.step, batch)
+    del batch
+
+    # (3) validate at full width on the trained model
+    model, tokenizer = trainer.model, trainer.tokenizer
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.requires_grad_(False)
+    with torch.inference_mode():
+        ds = ValDataset(build_dataset("hcontact", tree, "test", args))
+        maps = train_cli._load_human_maps(tree, "cuda")
+        maps["num_vertices"] = model.config.num_human_vertices
+        n_val = DAMON_VAL_BATCHES * DAMON_B
+
+        def batches():
+            for samples in iter_sample_batches(ds, DAMON_B, limit=n_val,
+                                               num_workers=DAMON_WORKERS):
+                yield collate(samples, tokenizer,
+                              max_len=args.model_max_length,
+                              num_human_vertices=maps["num_vertices"],
+                              human_maps=maps)
+
+        first, _ = next(batches())
+        ids, _ = truncate_at_answer(first["input_ids"].numpy(),
+                                    first["labels"].numpy())
+        let_seg_token_appear(model, {"input_ids": ids,
+                                     "images_clip": first["images_clip"]},
+                             "cuda", "dense")
+        del first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        results, saved = validate(batches(), model, "hcontact", MASK,
+                                  human_maps=maps, cache_view_encode=True,
+                                  max_new_tokens=T,
+                                  max_batches=DAMON_VAL_BATCHES)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        val_launches = read_launches()
+        binary = damon_binary_contact(saved)
+        semantic = damon_semantic_contact(saved)["weighted_f1"]
+    layers = model.config.llama.num_layers
+    want_val = {n: 0 for n in KERNELS}
+    want_val.update({"flash_attention": DAMON_VAL_BATCHES * (
+        layers + model.config.sam.decoder_depth),
+        "window_attention": 28, "rel_attention": 4})
+    res = {"phase": "damon_validate", "images": n_val, "s": val_s,
+           "images_per_s": n_val / val_s, "results": results,
+           "damon_binary": binary, "damon_semantic_weighted_f1": semantic,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {n: val_launches[n] for n in want_val}}
+    log(json.dumps(res))
+    finite = all(np.isfinite(v) for v in results.values())
+    if not (finite and results.get("seg_rate", 0) > 0
+            and len(saved["pred"]) == n_val
+            and all(val_launches[n] == c for n, c in want_val.items())):
+        raise SystemExit(f"the DAMON validation failed: {res}")
+    del model, maps, ds, saved
+
+    # the CLI with one loader thread: its step, the wait apart
+    argv_w1 = list(argv)
+    argv_w1[argv.index("--data_workers") + 1] = "1"
+    argv_w1[argv.index("--exp_name") + 1] = "damon_13b_w1"
+    trainer, _, launches_w1, _, _ = cli_train(argv_w1)
+    res = {"phase": "damon_step_split", "train_step_path_ms": train_step_ms,
+           "cli_ms": spread(steady),
+           "cli_one_worker_ms": spread(cli_step_ms(trainer)),
+           "cli_one_worker_data_s": [h["data_s"] for h in trainer.history],
+           "train_step_resident_ms": spread(split["resident"]),
+           "train_step_copied_ms": spread(split["copied"]),
+           "all_ms": {"cli": steady, "cli_one_worker": cli_step_ms(trainer),
+                      **split}}
+    log(json.dumps(res))
+    if not (trainer.step.step == DAMON_STEPS
+            and all(np.isfinite(h["loss"]) for h in trainer.history)
+            and launches_w1 == want):
+        raise SystemExit(f"the one-worker DAMON CLI failed: {res}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) the tiny chain, the card against the CPU
+    t0 = time.perf_counter()
+    tiny = os.path.join(WORKDIR, "damon_64")
+    write_damon_tree(tiny, TINY_SPHERE, TINY_SIZE, TINY_IMAGES)
+    run = os.path.join(runs, "tiny")
+    common = ["--model_scale", "tiny", "--tokenizer", "whitespace",
+              "--dataset", "hcontact", "--dataset_dir", tiny,
+              "--image_size", str(TINY_SIZE), "--clip_size", "28",
+              "--num_human_vertices", "178", "--model_max_length", "384",
+              "--hC_question_type", "simple", "--fixed_templates",
+              "--batch_size", "2", "--steps_per_epoch", "4", "--lr", "1e-2",
+              "--warmup_steps", "1", "--val_batches", "2",
+              "--data_workers", "2", "--log_base_dir", runs,
+              "--exp_name", "tiny", "--no_tensorboard"]
+    first = train_cli.main(common + ["--epochs", "2"])
+    resumed = train_cli.main(common + ["--epochs", "3", "--resume"])
+    sd = export_cli.main(["--run_dir", run, "--out_dir",
+                          os.path.join(WORKDIR, "export")])
+    # the trained model's logits and contacts, card against CPU, before
+    # any threshold; then the reports of a copy whose masks are all full
+    # (every logit about MASK_BIAS): no value lies near its threshold
+    # there, so the card's and the CPU's reports must be equal
+    masks = tiny_masks_card_and_cpu(run, tiny)
+    forced = os.path.join(runs, "tiny_forced")
+    force_mask_bias(run, forced)
+    forced_masks = tiny_masks_card_and_cpu(forced, tiny)
+    ev = ["--run_dir", forced, "--dataset_dir", tiny, "--batch_size",
+          str(TINY_EVAL_B), "--max_batches", str(TINY_EVAL_BATCHES),
+          "--max_new_tokens", "16"]
+    card = eval_cli.main(ev)
+    cpu = eval_cli.main(ev + ["--device", "cpu"])
+    diffs = {f"{part}.{k}": abs(card[part][k] - v)
+             for part in cpu for k, v in cpu[part].items()}
+    res = {"phase": "damon_tiny_chain", "s": time.perf_counter() - t0,
+           "steps": [first.step.step, resumed.step.step],
+           "saved_steps": CheckpointManager(run).steps(),
+           "best": os.path.exists(os.path.join(run, "ckpt_best")),
+           "exported_keys": len(sd), "masks": masks,
+           "forced_masks": forced_masks, "card": card, "cpu": cpu,
+           "report_max_diff": max(diffs.values()),
+           "tol": [TINY_LOGIT_TOL, TINY_CONTACT_TOL]}
+    log(json.dumps(res))
+    held = all(m["seg_rows"] > 0 and m["ids_equal"]
+               and m["logit"]["max_diff"] <= TINY_LOGIT_TOL
+               and m["contact"]["max_diff"] <= TINY_CONTACT_TOL
+               for m in (masks, forced_masks))
+    clear = (forced_masks["logit"]["card_margin"] > TINY_LOGIT_TOL
+             and forced_masks["contact"]["card_margin"] > TINY_CONTACT_TOL
+             and forced_masks["logit"]["cpu_above"] == 1.0)
+    if not (first.step.step == 8 and resumed.step.step == 12
+            and res["saved_steps"] == [8, 12] and res["best"]
+            and not any("lora_" in k for k in sd)
+            and held and clear and card["metrics"]["seg_rate"] > 0
+            and card["metrics"]["f1"] > 0 and card.keys() == cpu.keys()
+            and all(d == 0 for d in diffs.values())):
+        raise SystemExit(f"the tiny DAMON chain failed: {res}")
+    del first, resumed, sd
+    shutil.rmtree(WORKDIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, val_launches
 
 
 def main() -> int:
@@ -2641,11 +3102,18 @@ def main() -> int:
         raise SystemExit(f"the int4 path's int8 routes differ: {routes}")
     for kind in ("lora", "qlora", "hoi"):
         train_reference_phase(kind)
+    step_ms = {}
     for path, cfg in (("train_13b_lora", config_13b_train()),
                       ("train_7b_qlora", config_7b_qlora_train())):
-        launches[path] = training_path_phase(path, cfg, lift[0])
+        launches[path], step_ms[path] = training_path_phase(path, cfg,
+                                                            lift[0])
         log(json.dumps({"phase": f"{path}_done",
                         "s": time.perf_counter() - t_start}))
+    del lift
+    launches["damon_train"], launches["damon_validate"] = \
+        damon_workflow_phase(step_ms["train_13b_lora"])
+    log(json.dumps({"phase": "damon_workflow_done",
+                    "s": time.perf_counter() - t_start}))
 
     rows = []
     for kname, meta in KERNELS.items():

@@ -1,6 +1,8 @@
-"""Generate-mode evaluation of one batch (port of
-``interactvlm_tpu/eval/evaluate.py:evaluate_batch`` and
-``_evaluate_batch_multiseg``).
+"""Evaluation: generate-mode inference of one batch, the validation loop,
+the DAMON contact reports and the evaluation CLI (port of
+``interactvlm_tpu/eval/evaluate.py``: ``evaluate_batch``,
+``_evaluate_batch_multiseg``, ``validate``, ``damon_binary_contact``,
+``damon_semantic_contact`` and ``main``).
 
 The path mirrors the reference ``model.evaluate`` (InteractVLM.py:510-637):
 cut each prompt before its answer, greedy-decode with hidden capture, take
@@ -15,11 +17,13 @@ the demo's path).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import warnings
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from interactvlm_tpu_torch.eval import metrics as M
 from interactvlm_tpu_torch.geometry.lift import (
     lift_multiview_points,
     lift_multiview_thresholded,
@@ -31,7 +35,11 @@ from interactvlm_tpu_torch.models.interactvlm import (
     lift_object,
 )
 from interactvlm_tpu_torch.models.sam.sam import postprocess_masks
-from interactvlm_tpu_torch.utils.constants import IGNORE_INDEX
+from interactvlm_tpu_torch.utils.constants import (
+    DAMON_CATEGORIES_MAPPING,
+    IGNORE_INDEX,
+)
+from interactvlm_tpu_torch.utils.meters import AverageMeter, Summary
 
 
 def truncate_at_answer(input_ids: np.ndarray, labels: np.ndarray,
@@ -277,3 +285,494 @@ def _evaluate_batch_multiseg(model: InteractVLM, batch: Dict, mask_size: int,
         "pred_contact_3d": pred_h3d if "hcontact" in contact_type else pred_o3d,
         "has_seg": has_seg,
     }
+
+
+def _host(x):
+    return None if x is None else _numpy(x)
+
+
+@torch.inference_mode()
+def validate(batch_iter, model: InteractVLM, ds_name: str, mask_size: int,
+             inference_type: str = "generate",
+             human_maps: Optional[Dict] = None,
+             object_maps: Optional[Dict] = None,
+             dist_matrix: Optional[np.ndarray] = None,
+             max_batches: Optional[int] = None, kv_cache: str = "dense",
+             cache_view_encode: Optional[bool] = None,
+             max_new_tokens: Optional[int] = None,
+             max_seg_tokens: Optional[int] = None):
+    """The eval loop (port of ``interactvlm_tpu/eval/evaluate.py:validate``,
+    reference evaluate.py:41-248) over ``(batch, meta)`` pairs on the
+    model's device. Returns (metrics dict, saved results for the DAMON
+    reports): gIoU / cIoU, ``seg_rate`` (the share of rows that emitted a
+    seg token; generate mode), and F1 / precision / recall / geodesic error
+    for hcontact and ocontact, SIM / MAE / AUC / aIoU for oafford.
+
+    ``inference_type`` "generate" decodes answers (``evaluate_batch``);
+    "forward" runs the teacher-forced ``forward_train``.
+    ``cache_view_encode``: encode the canonical view renders once and reuse
+    the frozen-encoder embedding for every batch (valid when all samples
+    share fixed renders -- hcontact's Vitruvian views). None: on for
+    hcontact, off for per-sample-render object tasks.
+    ``max_new_tokens``: generation budget per answer; None = 512 like the
+    reference eval (evaluate.py:104). ``max_seg_tokens``: K seg-token slots
+    decoded per answer; None = the model config's."""
+    cfg = model.config
+    dev = model.device
+    if max_new_tokens is None:
+        max_new_tokens = 512  # reference evaluate.py:104
+    if max_seg_tokens is None:
+        max_seg_tokens = int(getattr(cfg, "max_seg_tokens", 1) or 1)
+    inter_m = AverageMeter("Intersec", summary_type=Summary.SUM)
+    union_m = AverageMeter("Union", summary_type=Summary.SUM)
+    giou_m = AverageMeter("gIoU")
+    f1_m = AverageMeter("F1")
+    prec_m = AverageMeter("Prec")
+    rec_m = AverageMeter("Rec")
+    geo_m = AverageMeter("Geo")
+    seg_m = AverageMeter("SegRate")
+    sim_m = AverageMeter("SIM")
+    mae_m = AverageMeter("MAE")
+    auc_m = AverageMeter("AUC")
+    aiou_m = AverageMeter("aIoU")
+
+    saved = {"imgnames": [], "pred": [], "gt": [], "f1": [], "geo": [],
+             "objnames": []}
+
+    is_h = "hcontact" in ds_name and "h2d" not in ds_name
+    is_oa = "oafford" in ds_name
+    is_oc = "ocontact" in ds_name
+    # real-photo 2D segmentation: score in the ORIGINAL image frame
+    # (reference validate scores postprocessed masks vs the label)
+    is_2d = any(k in ds_name for k in
+                ("h2dcontact", "refer_seg", "reason_seg", "sem_seg"))
+    if cache_view_encode is None:
+        cache_view_encode = is_h  # fixed canonical renders (see docstring)
+    cached_emb = None
+
+    for bi, (batch, meta) in enumerate(batch_iter):
+        if max_batches is not None and bi >= max_batches:
+            break
+        if cache_view_encode and cached_emb is None:
+            # frozen encoder + identical per-sample renders => constant.
+            # Encode one sample's V views and broadcast over every batch.
+            cached_emb = model.encode_sam_images(
+                _dev(batch["sam_images"][:1], dev).to(cfg.sam.dtype))
+        if inference_type == "generate":
+            out = evaluate_batch(
+                model, batch, mask_size, contact_type=ds_name,
+                max_new_tokens=max_new_tokens, human_maps=human_maps,
+                object_maps=object_maps, kv_cache=kv_cache,
+                meta=meta if is_2d else None,
+                cached_image_emb=cached_emb, max_seg_tokens=max_seg_tokens)
+            pred_masks = _numpy(out["pred_masks"])
+            pred_3d = _host(out["pred_contact_3d"])
+            # fraction of rows that emitted a seg token: the first thing
+            # to check when generate-mode metrics come back zero
+            seg_m.update(float(np.mean(_numpy(out["has_seg"]))))
+            if is_2d and out["pred_masks_original"] is not None:
+                for b, pm in enumerate(out["pred_masks_original"]):
+                    gt = np.asarray(meta["label_list"][b])
+                    i, u, acc = M.segmentation_metrics(_numpy(pm)[None],
+                                                       gt[None])
+                    inter_m.update(i)
+                    union_m.update(u)
+                    giou_m.update(acc)
+                continue
+        else:
+            fwd = model.forward_train(batch)
+            pred_masks = fwd["pred_masks"]
+            pred_3d = None
+            if is_h and human_maps is not None:
+                pred_3d = lift_human(
+                    pred_masks, _dev(human_maps["p2v"], dev),
+                    _dev(human_maps["bary"], dev), cfg.num_human_vertices)
+            elif is_oa and "obj_p2p" in batch:
+                pred_3d = torch.stack([
+                    lift_multiview_points(m, p, cfg.num_object_points)
+                    for m, p in zip(torch.sigmoid(pred_masks),
+                                    _dev(batch["obj_p2p"], dev))])
+            elif is_oc and "obj_p2v" in batch:
+                pred_3d = lift_objects_per_sample(
+                    pred_masks, batch, batch["gt_ocontact"].shape[1], dev)
+            pred_masks, pred_3d = _numpy(pred_masks), _host(pred_3d)
+
+        gt_masks = _numpy(batch["gt_masks"])
+        if gt_masks.ndim == 5:
+            # K-slot training batches (collate max_seg_tokens>1): score
+            # the first-token pred against slot 0's GT
+            gt_masks = gt_masks[:, 0]
+        if pred_masks.ndim == 5:
+            pred_masks = pred_masks[:, 0]
+        for b in range(pred_masks.shape[0]):
+            i, u, acc = M.segmentation_metrics(pred_masks[b], gt_masks[b])
+            inter_m.update(i)
+            union_m.update(u)
+            giou_m.update(acc)
+
+        if is_h and pred_3d is not None:
+            gt3d = _numpy(batch["gt_hcontact"])
+            f1, p, r = M.contact_f1(gt3d, pred_3d)
+            f1_m.update(f1)
+            prec_m.update(p)
+            rec_m.update(r)
+            if dist_matrix is not None:
+                geo, _ = M.geodesic_contact_errors(pred_3d, gt3d, dist_matrix)
+                geo_m.update(geo)
+            for b in range(pred_3d.shape[0]):
+                saved["imgnames"].append([meta["image_paths"][b]])
+                saved["pred"].append(pred_3d[b] >= 0.5)
+                saved["gt"].append(gt3d[b] > 0)
+                saved["f1"].append(
+                    M.contact_f1(gt3d[b:b + 1], pred_3d[b:b + 1])[0])
+                # per-sample geodesic FP distance (reference stores it per
+                # image for the DAMON reports, eval_utils.py:127-151)
+                geo_b = 0.0
+                if dist_matrix is not None:
+                    geo_b, _ = M.geodesic_contact_errors(
+                        pred_3d[b:b + 1], gt3d[b:b + 1], dist_matrix)
+                saved["geo"].append(geo_b)
+                saved["objnames"].append(
+                    [[meta["sampled_classes_list"][b][0]
+                      if meta["sampled_classes_list"][b] else "unknown"]])
+        if is_oa and pred_3d is not None:
+            gt3d = _numpy(batch["gt_oafford"])
+            sim, mae, auc, aiou, _ = M.affordance_metrics(gt3d, pred_3d)
+            sim_m.update(sim)
+            mae_m.update(mae)
+            auc_m.update(auc)
+            aiou_m.update(aiou)
+        if is_oc:
+            if "gt_ocontact" not in batch:
+                # never silently score object contact against human GT
+                warnings.warn(
+                    "ocontact batch lacks gt_ocontact; skipping F1 "
+                    "(enable include_object_maps in collate)")
+            elif pred_3d is not None:
+                gt3d = _numpy(batch["gt_ocontact"])
+                f1, p, r = M.contact_f1(gt3d, pred_3d)
+                f1_m.update(f1)
+                prec_m.update(p)
+                rec_m.update(r)
+
+    iou_class = np.asarray(inter_m.sum) / (np.asarray(union_m.sum) + 1e-10)
+    results = {
+        "giou": float(np.asarray(giou_m.avg).reshape(-1)[-1]),
+        "ciou": float(iou_class.reshape(-1)[-1]),
+    }
+    if seg_m.count:
+        results["seg_rate"] = float(seg_m.avg)
+    if is_h or is_oc:
+        results.update(
+            f1=float(f1_m.avg), precision=float(prec_m.avg),
+            recall=float(rec_m.avg), geo=float(geo_m.avg))
+    if is_oa:
+        results.update(
+            sim=float(sim_m.avg), mae=float(mae_m.avg),
+            auc=float(auc_m.avg), aiou=float(aiou_m.avg))
+    return results, saved
+
+
+def damon_binary_contact(saved: Dict, threshold: float = 0.5) -> Dict:
+    """Image-wise union of per-object contacts -> binary F1
+    (reference evaluate.py:427-468)."""
+    imgwise = {}
+    for i, name in enumerate(saved["imgnames"]):
+        key = name[0]
+        pred = np.asarray(saved["pred"][i]).astype(bool)
+        gt = np.asarray(saved["gt"][i]).astype(bool)
+        if key not in imgwise:
+            imgwise[key] = {"pred": pred, "gt": gt, "geo": saved["geo"][i]}
+        else:
+            imgwise[key]["pred"] |= pred
+            imgwise[key]["gt"] |= gt
+            imgwise[key]["geo"] = max(imgwise[key]["geo"], saved["geo"][i])
+
+    f1s, geos = [], []
+    tp = pred_pos = gt_pos = 0
+    for v in imgwise.values():
+        tpi = np.sum(v["pred"] & v["gt"])
+        ppi = np.sum(v["pred"])
+        gpi = np.sum(v["gt"])
+        prec = tpi / ppi if ppi else 0
+        rec = tpi / gpi if gpi else 0
+        f1s.append(2 * prec * rec / (prec + rec) if (prec + rec) else 0)
+        geos.append(v["geo"])
+        tp += tpi
+        pred_pos += ppi
+        gt_pos += gpi
+    return {
+        "f1": float(np.mean(f1s)) if f1s else 0.0,
+        "precision": float(tp / pred_pos) if pred_pos else 0.0,
+        "recall": float(tp / gt_pos) if gt_pos else 0.0,
+        "geo": float(np.mean(geos)) if geos else 0.0,
+        "num_images": len(imgwise),
+    }
+
+
+def damon_semantic_contact(saved: Dict) -> Dict:
+    """Object-wise + category-wise semantic contact metrics
+    (reference evaluate.py:355-424)."""
+    objnames = [o[0][0].lower() for o in saved["objnames"]]
+    by_obj: Dict[str, List[int]] = {}
+    for i, obj in enumerate(objnames):
+        by_obj.setdefault(obj, []).append(i)
+
+    def group_stats(indices):
+        preds = [saved["pred"][i] for i in indices]
+        gts = [saved["gt"][i] for i in indices]
+        tp = sum(np.sum(np.logical_and(p, g)) for p, g in zip(preds, gts))
+        pp = sum(np.sum(p) for p in preds)
+        gp = sum(np.sum(g) for g in gts)
+        return {
+            "num_samples": len(indices),
+            "avg_f1": float(np.mean([saved["f1"][i] for i in indices])),
+            "precision": float(tp / pp) if pp else 0.0,
+            "recall": float(tp / gp) if gp else 0.0,
+            "geo": float(np.mean([saved["geo"][i] for i in indices])),
+        }
+
+    semantic = {obj: group_stats(idx) for obj, idx in by_obj.items()}
+    total = sum(r["num_samples"] for r in semantic.values())
+    weighted_f1 = (
+        sum(r["avg_f1"] * r["num_samples"] for r in semantic.values()) / total
+        if total else 0.0
+    )
+
+    categories = {}
+    for cat, objs in DAMON_CATEGORIES_MAPPING.items():
+        idx = [i for i, o in enumerate(objnames) if o in objs]
+        if idx:
+            categories[cat] = group_stats(idx)
+
+    return {
+        "objectwise": semantic,
+        "weighted_f1": weighted_f1,
+        "categories": categories,
+    }
+
+
+@torch.no_grad()
+def quantize_dequantize_llama_(model: InteractVLM, min_size: int = 2 ** 16):
+    """``--quantize_weights``: every LLaMA linear weight of at least
+    ``min_size`` elements rounded to int8 (one scale per output row) and
+    back, in place (the JAX package's ``quantize_params_int8`` then
+    ``dequantize_params`` over ``llava/lm``; the reference's bitsandbytes
+    role, run_demo.py:106-129)."""
+    from interactvlm_tpu_torch.ops.quant import dequantize_int8, quantize_int8
+
+    for mod in model.llava.lm.modules():
+        w = getattr(mod, "weight", None)
+        if (isinstance(mod, torch.nn.Linear) and w is not None
+                and w.dim() == 2 and w.numel() >= min_size):
+            q, s = quantize_int8(w, axis=1)
+            w.copy_(dequantize_int8(q, s, w.dtype))
+
+
+def restore_run(run_dir: str, device):
+    """A training run directory's model on ``device``: the training config
+    re-hydrated from ``pretrained_config.json`` (reference
+    eval_utils.py:215-244), with the seg-token ids persisted at train time,
+    and the best (else the latest) checkpoint's weights. Returns (model,
+    config, the training args, the config JSON)."""
+    from interactvlm_tpu_torch.train.checkpoints import (
+        CheckpointManager,
+        load_config,
+    )
+    from interactvlm_tpu_torch.train.train import (
+        build_model_and_config,
+        parse_args,
+    )
+
+    cfg_json = load_config(run_dir, "pretrained_config.json")
+    train_args = parse_args([])
+    for k, v in cfg_json.items():
+        if hasattr(train_args, k):
+            setattr(train_args, k, v)
+    # token registry persisted at train time (tokens precede the model build)
+    token_kw = {
+        k: cfg_json[k]
+        for k in ("vocab_size", "seg_token_idx",
+                  "hseg_token_idx", "oseg_token_idx")
+        if k in cfg_json
+    }
+    model, cfg = build_model_and_config(train_args, device=device,
+                                        **token_kw)
+    ckpt = CheckpointManager(run_dir)
+    state = ckpt.restore_best(map_location=device) or ckpt.restore(
+        map_location=device)
+    if state is None:
+        raise FileNotFoundError(f"no checkpoint in {run_dir}")
+    model.load_state_dict(state["model"])
+    return model, cfg, train_args, cfg_json
+
+
+def main(argv=None):
+    """Eval CLI (reference ``evaluate.py main_eval``, :486-601): re-hydrate
+    the training config from the run dir (eval_utils.py:215-244), restore
+    the best (else the latest) checkpoint, run validation on the requested
+    dataset, and emit the DAMON reports. Runs on the card unless
+    ``--device cpu``.
+
+        python -m interactvlm_tpu_torch.eval.evaluate --run_dir <run> \\
+            --dataset_dir <tree> [--device cpu]
+    """
+    import argparse
+    import json
+
+    from interactvlm_tpu_torch.runtime.hostmem import tune_host_allocator
+    from interactvlm_tpu_torch.utils.device import resolve_device
+
+    p = argparse.ArgumentParser("interactvlm_tpu_torch evaluation")
+    p.add_argument("--run_dir", required=True,
+                   help="training run dir (config + checkpoints)")
+    p.add_argument("--dataset_dir", default="./data")
+    p.add_argument("--val_dataset", default="hcontact")
+    p.add_argument("--inference_type", default="generate",
+                   choices=["generate", "forward"])
+    p.add_argument("--max_batches", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--kv_cache", default="dense", choices=["dense", "int8"],
+                   help="KV-cache precision for the decode loop")
+    p.add_argument("--quantize_weights", action="store_true",
+                   help="round the large LLaMA weights to int8 and back "
+                        "(the reference's bitsandbytes role, "
+                        "run_demo.py:106-129)")
+    p.add_argument("--geodesic_npy", default=None,
+                   help="path to smpl_neutral_geodesic_dist.npy (6890^2 "
+                        "geodesic matrix; reference eval_utils.py:15) -- "
+                        "enables the geodesic FP/FN columns")
+    p.add_argument("--distributed", action="store_true",
+                   help="shard eval batches over several cards (reference "
+                        "DistributedSampler, evaluate.py:346): not ported "
+                        "yet")
+    p.add_argument("--cache_view_encode", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="encode the fixed canonical view renders once and "
+                        "reuse the frozen-encoder embedding every batch "
+                        "(auto: on for hcontact, off for per-sample-render "
+                        "object tasks)")
+    p.add_argument("--max_new_tokens", type=int, default=512,
+                   help="generation budget per answer (reference "
+                        "evaluate.py:104 uses 512)")
+    p.add_argument("--max_seg_tokens", type=int, default=0,
+                   help="seg-token mask sets decoded per answer; 0 = "
+                        "auto from the re-hydrated token_type (2 for "
+                        "Gen-Hu-Obj/Gen-Int)")
+    p.add_argument("--out", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: the card unless 'cpu'")
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    if args.distributed:
+        from interactvlm_tpu_torch.train.train import DISTRIBUTED_ITEM
+
+        raise NotImplementedError(
+            "--distributed: sharded evaluation is not ported to "
+            f"interactvlm_tpu_torch yet ({DISTRIBUTED_ITEM})")
+    tune_host_allocator()
+
+    from interactvlm_tpu_torch.train.train import (
+        _load_human_maps,
+        make_tokenizer,
+    )
+    from interactvlm_tpu_torch.utils.testing import make_synthetic_batch
+
+    model, cfg, train_args, cfg_json = restore_run(args.run_dir, dev)
+    if args.quantize_weights:
+        quantize_dequantize_llama_(model)
+
+    if args.synthetic:
+        example = make_synthetic_batch(cfg, B=args.batch_size,
+                                       mask_size=train_args.mask_size,
+                                       device=dev)
+
+        def batches():
+            for i in range(args.max_batches or 2):
+                b = make_synthetic_batch(
+                    cfg, B=args.batch_size, tasks=(2,),
+                    mask_size=train_args.mask_size, seed=i, device=dev,
+                )
+                meta = {
+                    "image_paths": [f"img{i}_{j}.jpg"
+                                    for j in range(args.batch_size)],
+                    "sampled_classes_list": [["chair"]] * args.batch_size,
+                }
+                yield b, meta
+        human_maps = {
+            "p2v": example["human_p2v"], "bary": example["human_bary"],
+            "num_vertices": cfg.num_human_vertices,
+        }
+        mask_size = train_args.mask_size
+    else:
+        from interactvlm_tpu_torch.data.collate import collate
+        from interactvlm_tpu_torch.data.datasets import (
+            ValDataset,
+            build_dataset,
+        )
+        from interactvlm_tpu_torch.runtime.prefetch import iter_sample_batches
+
+        tokenizer, _ = make_tokenizer(train_args,
+                                      cfg_json.get("tokenizer", "hf"),
+                                      cfg_json.get("version"))
+        # one construction path with train/validate: prompts, view types
+        # and vertex counts come from the re-hydrated training config
+        ds = ValDataset(
+            build_dataset(args.val_dataset, args.dataset_dir, "test",
+                          train_args)
+        )
+        mask_size = (
+            train_args.image_size
+            if train_args.image_size != 1024
+            else ds.dataset.view_set.mask_size
+        )
+        human_maps = _load_human_maps(args.dataset_dir, dev)
+        if human_maps is not None:
+            human_maps = {
+                **human_maps, "num_vertices": cfg.num_human_vertices,
+            }
+
+        def batches():
+            for samples in iter_sample_batches(ds, args.batch_size):
+                yield collate(samples, tokenizer,
+                              max_len=train_args.model_max_length,
+                              num_human_vertices=cfg.num_human_vertices,
+                              num_object_points=cfg.num_object_points,
+                              human_maps=human_maps,
+                              include_object_maps=args.val_dataset in
+                              ("oafford", "ocontact"))
+
+    dist_matrix = None
+    if args.geodesic_npy:
+        dist_matrix = np.load(args.geodesic_npy)
+        if dist_matrix.ndim != 2 or dist_matrix.shape[0] != \
+                dist_matrix.shape[1]:
+            raise ValueError(f"--geodesic_npy: a square matrix, not "
+                             f"{dist_matrix.shape}")
+
+    results, saved = validate(
+        batches(), model, args.val_dataset, mask_size,
+        inference_type=args.inference_type,
+        human_maps=human_maps, max_batches=args.max_batches,
+        kv_cache=args.kv_cache, dist_matrix=dist_matrix,
+        cache_view_encode=(None if args.cache_view_encode == "auto"
+                           else args.cache_view_encode == "on"),
+        max_new_tokens=args.max_new_tokens,
+        max_seg_tokens=args.max_seg_tokens or None,
+    )
+    report = {"metrics": results}
+    if "hcontact" in args.val_dataset and saved["pred"]:
+        report["damon_binary"] = damon_binary_contact(saved)
+        report["damon_semantic"] = {
+            "weighted_f1": damon_semantic_contact(saved)["weighted_f1"]
+        }
+    print(json.dumps(report, indent=2, default=float))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2, default=float)
+    return report
+
+
+if __name__ == "__main__":
+    main()

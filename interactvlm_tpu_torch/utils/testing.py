@@ -1,13 +1,17 @@
-"""Synthetic training batches for tests, the card's smoke run and
-benchmarks.
+"""Synthetic training batches and an offline tokenizer for tests, the
+card's smoke run and benchmarks.
 
-Port of ``interactvlm_tpu/utils/testing.py:make_synthetic_batch``: the batch
-dict of the data pipeline (the reference ``collate_fn``'s keys), drawn from
-``np.random.default_rng(seed)`` in the JAX package's order, so the same
-arguments give the same arrays. Images are zeros, as there.
+Port of ``interactvlm_tpu/utils/testing.py``: ``make_synthetic_batch``, the
+batch dict of the data pipeline (the reference ``collate_fn``'s keys), drawn
+from ``np.random.default_rng(seed)`` in the JAX package's order, so the same
+arguments give the same arrays (images are zeros, as there); and
+``WhitespaceTokenizer``, which gives the JAX package's ids bit for bit.
 """
 
 from __future__ import annotations
+
+import hashlib
+import re
 
 import numpy as np
 import torch
@@ -84,3 +88,72 @@ def make_synthetic_batch(cfg: InteractVLMConfig, B: int = 2, L: int = 12,
     batch["images_clip"] = torch.zeros((B, Sc, Sc, 3), device=dev)
     batch["sam_images"] = torch.zeros((B, V, S, S, 3), device=dev)
     return batch
+
+
+class _TokOut:
+    def __init__(self, ids):
+        self.input_ids = ids
+
+    def __getitem__(self, key):  # HF BatchEncoding dict access
+        if key == "input_ids":
+            return self.input_ids
+        raise KeyError(key)
+
+
+class WhitespaceTokenizer:
+    """Deterministic stand-in for an HF tokenizer, for offline runs:
+    whitespace / punctuation word pieces, bos / eos / pad specials and
+    ``add_tokens``.
+
+    Word ids are stable hashes (sha1), not first-seen order, so a train and
+    an eval process map the same words to the same ids. Specials sit at
+    0-3, added tokens at 4-15 in call order (``add_new_tokens`` fixes it at
+    start-up), hashed words at 16..max_vocab-1 (collisions are accepted)."""
+
+    _ADDED_BASE = 4
+    _HASH_BASE = 16
+
+    def __init__(self, model_max_length: int = 512, max_vocab: int = 512):
+        self.model_max_length = model_max_length
+        self.max_vocab = max_vocab
+        self.vocab = {"<pad>": 0, "<s>": 1, "</s>": 2, "<unk>": 3}
+        self._next_added = self._ADDED_BASE
+        self.bos_token_id = 1
+        self.eos_token_id = 2
+        self.pad_token_id = 0
+
+    def _pieces(self, text: str):
+        out = []
+        for part in text.replace("</s>", " </s> ").split():
+            if part == "</s>":
+                out.append(part)
+                continue
+            out.extend(re.findall(r"\[[A-Z]+\]|\w+|[^\w\s]", part))
+        return out
+
+    def _id(self, piece: str) -> int:
+        if piece not in self.vocab:
+            h = int(hashlib.sha1(piece.encode()).hexdigest()[:8], 16)
+            self.vocab[piece] = self._HASH_BASE + h % (
+                self.max_vocab - self._HASH_BASE)
+        return self.vocab[piece]
+
+    def __call__(self, text: str, add_special_tokens: bool = True):
+        ids = [self._id(p) for p in self._pieces(text)]
+        if add_special_tokens:
+            ids = [self.bos_token_id] + ids
+        return _TokOut(ids)
+
+    def add_tokens(self, token: str):
+        if token not in self.vocab:
+            self.vocab[token] = self._next_added
+            self._next_added += 1
+
+    def convert_ids_to_tokens(self, idx: int) -> str:
+        for k, v in self.vocab.items():
+            if v == idx:
+                return k
+        return "<unk>"
+
+    def decode(self, ids) -> str:
+        return " ".join(self.convert_ids_to_tokens(int(i)) for i in ids)

@@ -403,3 +403,28 @@ def int8_sam_encoder_state_dict(sd: Dict[str, torch.Tensor],
     bytes and scales, (out, in) layout); pass the image encoder's entries
     only, as the decoder's MLP has linears of the same names."""
     return int8_serving_state_dict(sd, targets)
+
+
+def merge_lora(sd: Dict[str, torch.Tensor], alpha: float,
+               rank: int) -> Dict[str, torch.Tensor]:
+    """Fold trained LoRA adapters into their base weights (the reference's
+    merge_and_unload deployment step, merge_lora_weights_and_save_hf_model
+    .py:152-161; the port of ``interactvlm_tpu/utils/weights.py:merge_lora``):
+    each ``<p>.weight`` with ``<p>.lora_A.weight`` (r, in) and
+    ``<p>.lora_B.weight`` (out, r) becomes W + (B A) alpha / rank, computed
+    in f32 on the host and stored in W's dtype; the adapters' keys go.
+    The result loads into the same model built with ``lora_rank=0``."""
+    out = {}
+    for key, val in sd.items():
+        if ".lora_A." in key or ".lora_B." in key:
+            continue
+        prefix = key[:-len(".weight")] if key.endswith(".weight") else None
+        if prefix is not None and f"{prefix}.lora_A.weight" in sd:
+            a = sd[f"{prefix}.lora_A.weight"].detach().float().cpu().numpy()
+            b = sd[f"{prefix}.lora_B.weight"].detach().float().cpu().numpy()
+            w = val.detach().float().cpu().numpy()
+            merged = w + (b @ a) * np.float32(alpha / rank)
+            out[key] = torch.from_numpy(merged).to(val.dtype)
+        else:
+            out[key] = val
+    return out

@@ -1,8 +1,9 @@
 """The port stands alone: it and ``chip_smoke.py`` import neither JAX nor
-any module of the JAX package, its entry points refuse to fall back to the
-CPU when no GPU is present, and its state dict carries the reference's
-checkpoint keys (the JAX package's own converters read it back into the
-tree ``from_jax_params`` took in)."""
+any module of the JAX package, its entry points (the CLIs among them)
+refuse to fall back to the CPU when no GPU is present, its native decoder
+builds under ``build/`` and leaves ``native/`` as it is, and its state dict
+carries the reference's checkpoint keys (the JAX package's own converters
+read it back into the tree ``from_jax_params`` took in)."""
 
 import os
 import subprocess
@@ -19,6 +20,8 @@ from interactvlm_tpu.models.interactvlm import InteractVLM as JaxIVLM
 from interactvlm_tpu.utils.testing import make_synthetic_batch
 from interactvlm_tpu.utils.weights import convert_interactvlm_checkpoint
 from interactvlm_tpu_torch import config as C
+from interactvlm_tpu_torch.datagen.recipes import generate_damon_tree
+from interactvlm_tpu_torch.eval.evaluate import main as eval_main
 from interactvlm_tpu_torch.geometry.rasterizer import build_lift_maps, uv_sphere
 from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS
 from interactvlm_tpu_torch.models.clip_vit import CLIPVisionTower
@@ -27,6 +30,11 @@ from interactvlm_tpu_torch.models.llama import LlamaForCausalLM
 from interactvlm_tpu_torch.models.llava import LlavaModel
 from interactvlm_tpu_torch.models.sam.image_encoder import ImageEncoderViT
 from interactvlm_tpu_torch.models.sam.sam import Sam
+from interactvlm_tpu_torch.train.train import (
+    build_model_and_config,
+    main as train_main,
+    parse_args,
+)
 from interactvlm_tpu_torch.utils.testing import (
     make_synthetic_batch as make_port_batch,
 )
@@ -67,6 +75,24 @@ print("GEOMETRY", all(m in sys.modules for m in (
     "interactvlm_tpu_torch.geometry.cameras",
     "interactvlm_tpu_torch.geometry.views",
     "interactvlm_tpu_torch.geometry.rasterizer")))
+print("CLIS", all(m in sys.modules for m in (
+    "interactvlm_tpu_torch.data.conversations",
+    "interactvlm_tpu_torch.data.tokenization",
+    "interactvlm_tpu_torch.data.transforms",
+    "interactvlm_tpu_torch.data.collate",
+    "interactvlm_tpu_torch.data.datasets",
+    "interactvlm_tpu_torch.runtime.native_image",
+    "interactvlm_tpu_torch.runtime.prefetch",
+    "interactvlm_tpu_torch.runtime.hostmem",
+    "interactvlm_tpu_torch.eval.metrics",
+    "interactvlm_tpu_torch.utils.meters",
+    "interactvlm_tpu_torch.utils.profiling",
+    "interactvlm_tpu_torch.train.checkpoints",
+    "interactvlm_tpu_torch.train.train",
+    "interactvlm_tpu_torch.train.export",
+    "interactvlm_tpu_torch.datagen.recipes",
+    "interactvlm_tpu_torch.demo.demo_utils",
+    "interactvlm_tpu_torch.fit.utils")))
 print("BAD", bad)
 """
 
@@ -83,6 +109,45 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "TRAIN True" in res.stdout, res.stdout
     assert "PROBES True" in res.stdout, res.stdout
     assert "GEOMETRY True" in res.stdout, res.stdout
+    assert "CLIS True" in res.stdout, res.stdout
+
+
+_BUILD = r"""
+from interactvlm_tpu_torch.runtime import native_image as n
+print("AVAILABLE", n.available(), n.decoder(), n.build_error)
+print("LIB", n.LIB_PATH)
+"""
+
+
+def test_native_decoder_builds_under_build_and_leaves_native_alone(
+        tmp_path):
+    """In a fresh copy of the port and ``native/``, the port's decoder build
+    writes its library under ``build/native`` and nothing else: ``native/``
+    (its sources and the JAX package's library) stays byte for byte."""
+    import shutil
+
+    for d in ("interactvlm_tpu_torch", "native"):
+        shutil.copytree(os.path.join(REPO, d), tmp_path / d,
+                        ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
+
+    def snapshot(root):
+        return {os.path.relpath(os.path.join(d, f), root): open(
+            os.path.join(d, f), "rb").read()
+            for d, _, fs in os.walk(root) for f in fs
+            if "__pycache__" not in d}
+
+    before = snapshot(tmp_path)
+    res = subprocess.run([sys.executable, "-c", _BUILD], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=str(tmp_path)),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "AVAILABLE True native None" in res.stdout, res.stdout
+    lib = os.path.join(str(tmp_path), "build", "native", "libivlm_io.so")
+    assert f"LIB {lib}" in res.stdout
+    after = snapshot(tmp_path)
+    new = sorted(set(after) - set(before))
+    assert new == [os.path.join("build", "native", "libivlm_io.so")], new
+    assert all(after[k] == v for k, v in before.items())
 
 
 @pytest.mark.parametrize("build", [
@@ -100,11 +165,17 @@ def test_port_and_chip_smoke_import_no_jax():
     lambda: LlamaForCausalLM(C.llama_tiny(weights_int4=True)),
     lambda: build_lift_maps(*uv_sphere(8, 8), HUMAN_VIEWS[
         "4MV-Z_Vitru_mv2"].cam_params(), 16, 8),
+    lambda: train_main(["--synthetic", "--log_base_dir", "/nonexistent"]),
+    lambda: eval_main(["--run_dir", "/nonexistent"]),
+    lambda: build_model_and_config(parse_args(["--model_scale", "tiny"])),
+    lambda: generate_damon_tree("/nonexistent", {}, *uv_sphere(8, 8),
+                                HUMAN_VIEWS["4MV-Z_Vitru_mv2"], 16, {}),
 ], ids=["InteractVLM", "InteractVLM-hoi", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
         "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8",
         "LlamaForCausalLM-lora", "make_synthetic_batch",
         "LlamaForCausalLM-qlora", "LlamaForCausalLM-int4",
-        "build_lift_maps"])
+        "build_lift_maps", "train_cli", "eval_cli",
+        "build_model_and_config", "generate_damon_tree"])
 def test_entry_points_default_to_the_gpu(build):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
