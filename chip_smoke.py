@@ -99,7 +99,28 @@ prints no result, without them. Phases, each of which fails the run:
    (train with eval and saving, resume, export, the eval CLI on the card
    and on the CPU from one run directory, their reports held together,
    and the restored model's mask logits and lifted contacts held card
-   against CPU).
+   against CPU);
+15. the demo and the fit (``demo_fit_phase``), the end-user chain: a demo
+   folder written on the card (seeded 640 x 480 photos, the canonical
+   ``4MV-Z_Vitru_mv2`` renders of the 6890-vertex sphere at 1024^2 and its
+   lift maps, a seeded sparse 10475 x 6890 SMPL -> SMPL-X matrix, the body
+   template in SMPL-X's vertex count, the 2048-vertex object sphere);
+   ``interactvlm_13b`` in bf16 with seeded random weights through the
+   demo's per-image loop (``demo/run_demo.py:run_images``): hcontact on 4
+   images, h2dcontact on 2, ocontact on 2 (its first image builds the
+   object views at 1024^2 on the card), each leg's seconds, its images'
+   ``evaluate_batch`` seconds, peak memory and kernels 1-3's launches per
+   image, and every file of the output bundle checked; the tiny demo
+   (``--random_weights``, 64^2) on the card and the CPU from the same
+   weights, held together; then the fit: the fit CLI
+   (``fit/data_io.py:main``) at the reference's full settings (512^2, 250
+   steps, ICP, scale, the trajectory GIF) on a folder of the scene with
+   the demo's contacts; a recovery fit from the contacts of the object's
+   true pose (translation and rotation error, scale and silhouette IoU at
+   the start, after ICP and after Adam), held to the port on the CPU (ICP,
+   and ten steps from the card's ICP result); ICP's seconds and
+   synchronising calls, and one step's split (silhouette forward and
+   backward, contact loss, Adam, the card's idle time).
 
 Each serving path reports images/s, the time of each leg, peak memory, the
 decode host/device split and each kernel's launches over its run; the 7B
@@ -146,7 +167,14 @@ from interactvlm_tpu_torch.config import (
 from interactvlm_tpu_torch.data.collate import collate, to_device
 from interactvlm_tpu_torch.data.datasets import ValDataset, build_dataset
 from interactvlm_tpu_torch.datagen.recipes import generate_damon_tree
+from interactvlm_tpu_torch.demo import demo_utils, run_demo
 from interactvlm_tpu_torch.eval import evaluate as eval_cli
+from interactvlm_tpu_torch.fit import data_io as fit_io
+from interactvlm_tpu_torch.fit import fit as fit_mod
+from interactvlm_tpu_torch.fit import icp as fit_icp
+from interactvlm_tpu_torch.fit import optimizer as fit_opt
+from interactvlm_tpu_torch.fit import renderer as fit_render
+from interactvlm_tpu_torch.fit import utils as fit_utils
 from interactvlm_tpu_torch.eval.evaluate import (
     damon_binary_contact,
     damon_semantic_contact,
@@ -192,7 +220,10 @@ from interactvlm_tpu_torch.train.optimizer import (
 )
 from interactvlm_tpu_torch.train.train_step import TrainStep
 from interactvlm_tpu_torch.utils.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from interactvlm_tpu_torch.utils.testing import make_synthetic_batch
+from interactvlm_tpu_torch.utils.testing import (
+    WhitespaceTokenizer,
+    make_synthetic_batch,
+)
 from interactvlm_tpu_torch.utils.weights import init_params
 
 # Dense peak rates (NVIDIA data sheets): bf16 tensor-core FLOP/s, HBM
@@ -3043,6 +3074,675 @@ def damon_workflow_phase(train_step_ms):
     return launches, val_launches
 
 
+# ---------------------------------------------------- the demo and the fit
+# phase 15 (demo_fit_phase): the demo's per-image loop at 13B full width,
+# then the joint human-object fit through its CLI at the reference's full
+# settings (data_io.main's defaults: 512^2, 250 steps, ICP, scale, video)
+DEMO_LEGS = (("hcontact", 4), ("h2dcontact", 2), ("ocontact", 2))
+DEMO_OBJECTS = ("chair", "bicycle", "cup", "bench")
+DEMO_PHOTO = (480, 640)  # rows, columns of the seeded photos
+N_SMPLX = 10475  # SMPL-X's vertices: rows of the SMPL -> SMPL-X matrix
+TINY_DEMO_LEGS = (("hcontact", 1), ("h2dcontact", 1), ("ocontact", 1))
+TINY_OBJ_SPHERE = (6, 8)
+FIT_SIZE, FIT_STEPS, FIT_CPU_STEPS = 512, 250, 10
+# the fit scene: OSX intrinsics from a 200 x 240 px bbox in the 512^2 frame
+# (focal 5208 x 4688 px), the 6890-vertex sphere (radius 0.8, faces wound
+# outward) at the depth such a bbox gives a body, the 2048-vertex sphere
+# stretched to an ellipsoid (asymmetric: Adam's first step is lr * sign(g),
+# so no gradient component may sit at its rounding) posed against the
+# human's front left at a seeded rotation
+FIT_BBOX = np.array([156.0, 136.0, 200.0, 240.0], np.float32)
+FIT_HUMAN_CENTER = np.array([0.05, -0.1, 41.7], np.float32)
+FIT_OBJECT_AXES = np.array([0.35, 0.22, 0.28], np.float32)
+FIT_CONTACT_DIRECTION = np.array([0.55, 0.25, -0.8], np.float32)
+# the recovery fit's contacts, from the true pose: object vertices within
+# the first distance of the human's surface, human vertices within the
+# second of an object vertex
+FIT_CONTACT_DIST = (0.06, 0.08)
+# the card against the port on the CPU on the recovery scene, set before
+# the first card call (PERF.md): ICP's result on the same inputs,
+# and the first FIT_CPU_STEPS steps from the card's ICP result (losses
+# relative, parameters absolute). Measured on the CPU: a 2-ulp change of
+# the scene's vertices moves ICP's rot6d, translation and log scale by
+# 1.5e-3, 6.6e-4 and 3.0e-3 (nearest-neighbour near-ties flip at depth
+# 41.7), and ten steps from one start by 3.5e-5 (loss), 8.4e-4, 1.6e-5 and
+# 2.6e-5 (Adam moves every coordinate by about lr, whatever its gradient's
+# size); the limits are about ten times those
+FIT_ICP_TOL = {"rot6d": 2e-2, "translation": 1e-2, "log_scale": 3e-2}
+FIT_STEP_TOL = {"loss": 5e-4, "rot6d": 1e-2, "translation": 2e-4,
+                "log_scale": 3e-4}
+FIT_SPLIT_ITERS = 20
+
+
+def outward(verts, faces):
+    """A UV sphere with its faces wound outward (``uv_sphere`` winds them
+    inward), as a body or object mesh is wound."""
+    return verts, np.ascontiguousarray(faces[:, ::-1])
+
+
+def random_rotation(seed):
+    q, _ = np.linalg.qr(np.random.default_rng(seed).normal(size=(3, 3)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q.astype(np.float32)
+
+
+def smpl_to_smplx_matrix(n_smpl, n_smplx, seed):
+    """A seeded sparse SMPL -> SMPL-X transfer matrix of the released
+    one's shape: each SMPL-X vertex a convex combination of three SMPL
+    vertices."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, n_smpl, (n_smplx, 3)).ravel()
+    vals = rng.dirichlet([1.0, 1.0, 1.0], n_smplx).astype(np.float32).ravel()
+    rows = np.repeat(np.arange(n_smplx), 3)
+    return sp.csr_matrix((vals, (rows, cols)), shape=(n_smplx, n_smpl))
+
+
+def write_demo_folder(root, sphere, obj_sphere, size, legs, device="cuda"):
+    """The demo's inputs under ``root``, nothing downloaded: seeded photos
+    ``<object>__<i>.jpg`` in one folder a contact type (``legs``); the
+    canonical ``4MV-Z_Vitru_mv2`` renders of the ``sphere`` at ``size``^2
+    (``shaded_render`` on the port's lift maps, rasterized on ``device``)
+    and those maps as ``human_maps.npz``; a seeded sparse SMPL -> SMPL-X
+    pickle; the body template in SMPL-X's vertex count (the sphere carried
+    through that matrix: with ``--smpl_to_smplx`` the demo colours the
+    template by the SMPL-X contacts); and ``object_mesh.obj`` (the
+    ``obj_sphere``) beside the ocontact photos. Returns the seconds."""
+    import pickle
+
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    verts, faces = outward(*uv_sphere(*sphere))
+    vs = HUMAN_VIEWS[VIEW_SET]
+    cams = vs.cam_params()
+    window = max(pick_window(verts, faces, c, size) for c in cams)
+    p2v, bary, p2f = build_lift_maps(verts, faces, cams, size, window,
+                                     device=device)
+    p2v, bary = p2v.cpu().numpy(), bary.cpu().numpy()
+    os.makedirs(os.path.join(root, "renders"))
+    vt = torch.as_tensor(verts, device=device)
+    for i, name in enumerate(vs.names):
+        Image.fromarray(demo_utils.shaded_render(vt, faces, p2f[i], p2v[i],
+                                                 bary[i])).save(
+            os.path.join(root, "renders", f"{name}.png"))
+    np.savez(os.path.join(root, "human_maps.npz"), p2v=p2v, bary=bary)
+    m = smpl_to_smplx_matrix(len(verts), N_SMPLX, 1)
+    with open(os.path.join(root, "smpl_to_smplx.pkl"), "wb") as f:
+        pickle.dump({"matrix": m}, f)
+    fit_io.save_obj_mesh(os.path.join(root, "body_template.obj"), m @ verts,
+                         faces)
+    for ctype, n in legs:
+        os.makedirs(os.path.join(root, ctype))
+        for i in range(n):
+            name = "mug" if ctype == "ocontact" else DEMO_OBJECTS[i % 4]
+            Image.fromarray(rng.integers(0, 256, DEMO_PHOTO + (3,), np.uint8)
+                            ).save(os.path.join(root, ctype,
+                                                f"{name}__{i}.jpg"),
+                                   quality=90)
+    fit_io.save_obj_mesh(os.path.join(root, "ocontact", "object_mesh.obj"),
+                         *outward(*uv_sphere(*obj_sphere)))
+    return time.perf_counter() - t0
+
+
+def demo_args(root, ctype, out, device="cuda", tiny=False):
+    argv = ["--img_folder", os.path.join(root, ctype), "--output_folder",
+            out, "--contact_type", ctype, "--max_new_tokens", str(T),
+            "--device", device, "--mask_size", str(TINY_SIZE if tiny
+                                                   else MASK)]
+    if ctype == "hcontact":
+        argv += ["--sam_renders_dir", os.path.join(root, "renders"),
+                 "--human_maps", os.path.join(root, "human_maps.npz"),
+                 "--smpl_to_smplx", os.path.join(root, "smpl_to_smplx.pkl"),
+                 "--body_template", os.path.join(root, "body_template.obj")]
+    return run_demo.parse_args(argv + (["--random_weights"] if tiny else []))
+
+
+def first_prompt(args, tokenizer, cfg, device):
+    """The first image's prompt ids and CLIP pixels, as the loop makes
+    them."""
+    from interactvlm_tpu_torch.data.tokenization import (
+        tokenizer_image_token,
+        wrap_image_tokens,
+    )
+    from interactvlm_tpu_torch.data.transforms import (
+        clip_preprocess,
+        load_image_rgb,
+    )
+
+    path = os.path.join(args.img_folder, sorted(
+        f for f in os.listdir(args.img_folder) if f.endswith(".jpg"))[0])
+    prompt = wrap_image_tokens(run_demo.build_prompt(args, path))
+    return {"input_ids": np.asarray([tokenizer_image_token(prompt,
+                                                           tokenizer)]),
+            "images_clip": torch.from_numpy(clip_preprocess(
+                load_image_rgb(path), cfg.clip.image_size)[None]).to(device)}
+
+
+def check_bundle(out, ctype, stems, n_verts, n_obj, size):
+    """Every file of the demo's output bundle, with its shape and finite
+    values. Returns the failures."""
+    from PIL import Image
+
+    bad = []
+
+    def need(cond, what):
+        if not cond:
+            bad.append(what)
+
+    def jpg(name, shape):
+        p = os.path.join(out, name)
+        need(os.path.exists(p) and np.asarray(Image.open(p)).shape == shape,
+             name)
+
+    def obj(name, n):
+        p = os.path.join(out, name)
+        lines = open(p).read().splitlines() if os.path.exists(p) else []
+        v = [ln.split() for ln in lines if ln.startswith("v ")]
+        need(len(v) == n and all(len(x) == 7 for x in v), name)
+
+    for stem, photo_hw in stems:
+        masks = np.load(os.path.join(out, f"{stem}_pred_masks.npy"))
+        need(masks.shape == (4, size, size) and np.isfinite(masks).all(),
+             f"{stem}_pred_masks.npy")
+        if ctype == "h2dcontact":
+            om = np.load(os.path.join(out, f"{stem}_pred_mask_original.npy"))
+            need(om.shape == photo_hw and np.isfinite(om).all(),
+                 "pred_mask_original")
+            jpg(f"{stem}_h2dcontact_overlay.jpg", photo_hw + (3,))
+            continue
+        z = np.load(os.path.join(out, f"{stem}_{ctype}_vertices.npz"))
+        c = z["contact"]
+        need(c.shape == ((n_verts,) if ctype == "hcontact" else (n_obj,))
+             and np.isfinite(c).all() and c.min() >= 0 and c.max() <= 1,
+             f"{stem} contact")
+        jpg(f"{stem}_{ctype}_concat.jpg", (2 * size, 2 * size, 3))
+        if ctype == "hcontact":
+            need(z["contact_smplx"].shape == (N_SMPLX,)
+                 and np.isfinite(z["contact_smplx"]).all(), "contact_smplx")
+            obj(f"{stem}_body_with_hcontacts.obj", N_SMPLX)
+        else:
+            obj(f"{stem}_object_mesh_with_contacts_{ctype}.obj", n_obj)
+    return bad
+
+
+def demo_legs(model, tokenizer, root, out_root):
+    """The demo's per-image loop (``run_demo.run_images``) on the built
+    model, one leg a contact type (DEMO_LEGS), after
+    ``let_seg_token_appear`` on the leg's first prompt. Each leg's seconds,
+    its images' ``evaluate_batch`` seconds, the object views' build, peak
+    memory and launches from 0; the bundle checked file by file. Returns
+    the launches over all legs and the hcontact and ocontact legs' first
+    contacts."""
+    cfg = model.config
+    evals, undo_eval = timed_calls(eval_cli, ["evaluate_batch"])
+    builds, undo_build = timed_calls(demo_utils, ["generate_sam_inp_objs"])
+    calls, builds = evals["evaluate_batch"], builds["generate_sam_inp_objs"]
+    total = collections.Counter()
+    contacts = {}
+    try:
+        for ctype, n in DEMO_LEGS:
+            out = os.path.join(out_root, ctype)
+            args = demo_args(root, ctype, out)
+            let_seg_token_appear(model, first_prompt(args, tokenizer, cfg,
+                                                     "cuda"),
+                                 "cuda", "dense")
+            calls.clear()
+            builds.clear()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            results = run_demo.run_images(model, tokenizer, args)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+            per_image = {k: launches[k] / n for k in (
+                "flash_attention", "window_attention", "rel_attention")}
+            want = {"flash_attention": cfg.llama.num_layers
+                    + cfg.sam.decoder_depth, "window_attention": 28,
+                    "rel_attention": 4}
+            stems = [(os.path.splitext(r["image"])[0], DEMO_PHOTO)
+                     for r in results]
+            bad = check_bundle(out, ctype, stems, N_VERTS, N_OBJ, MASK)
+            res = {"phase": "demo", "leg": ctype, "images": n, "s": secs,
+                   "s_per_image": secs / n, "evaluate_s": list(calls),
+                   "outside_evaluate_s": secs - sum(calls),
+                   "object_views_s": list(builds),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "seg": [r["has_seg"] for r in results],
+                   "launches_per_image": per_image, "bundle_failures": bad}
+            log(json.dumps(res))
+            if (bad or len(results) != n or per_image != want
+                    or not results[0]["has_seg"]
+                    or (ctype == "ocontact" and len(builds) != 1)):
+                raise SystemExit(f"the demo failed: {res}")
+            total.update({k: v for k, v in launches.items()
+                          if isinstance(v, int)})
+            if ctype in ("hcontact", "ocontact"):
+                z = np.load(os.path.join(out, f"{stems[0][0]}_{ctype}"
+                                         "_vertices.npz"))
+                contacts[ctype] = z["contact"]
+    finally:
+        undo_eval()
+        undo_build()
+    return dict(total), contacts
+
+
+def force_seg(model):
+    """Every answer's tokens become [SEG]: a large constant channel 0 in
+    the residual stream (the embeddings and the projected patches) and
+    [SEG]'s lm_head weight on it (``tests/test_torch_demo.py``'s)."""
+    llava, seg = model.llava, model.config.seg_token_idx
+    with torch.no_grad():
+        llava.lm.model.embed_tokens.weight[:, 0] = 30.0
+        llava.mm_projector.bias[0] = 30.0
+        llava.lm.lm_head.weight[seg, 0] = 5.0
+
+
+def tiny_demo_card_and_cpu(root):
+    """The ``--random_weights`` demo (tiny, 64^2) on the CPU and on the
+    card from the same weights (drawn on the CPU, answers forced to
+    [SEG]), on one folder: each contact type's mask logits and contacts,
+    card against CPU. The CPU runs first, so the ocontact leg's object
+    views are the CPU's on both."""
+    write_demo_folder(root, TINY_SPHERE, TINY_OBJ_SPHERE, TINY_SIZE,
+                      TINY_DEMO_LEGS)
+    weights, diffs = None, {}
+    for dev in ("cpu", "cuda"):
+        for ctype, _ in TINY_DEMO_LEGS:
+            args = demo_args(root, ctype, os.path.join(root, f"out_{dev}_"
+                                                       f"{ctype}"),
+                             device=dev, tiny=True)
+            model, tok = run_demo.load_model(args)
+            if weights is None:
+                force_seg(model)
+                weights = model.state_dict()
+            model.load_state_dict(weights)
+            res = run_demo.run_images(model, tok, args)
+            if not all(r["has_seg"] for r in res):
+                raise SystemExit(f"the tiny demo emitted no [SEG] on {dev}")
+    for ctype, _ in TINY_DEMO_LEGS:
+        out = {d: os.path.join(root, f"out_{d}_{ctype}") for d in
+               ("cpu", "cuda")}
+        for name in sorted(os.listdir(out["cpu"])):
+            a, b = (os.path.join(out[d], name) for d in ("cuda", "cpu"))
+            if name.endswith(".npy"):
+                diffs[f"{ctype}/{name}"] = float(np.abs(np.load(a)
+                                                        - np.load(b)).max())
+            elif name.endswith(".npz"):
+                za, zb = np.load(a), np.load(b)
+                for k in zb.files:
+                    diffs[f"{ctype}/{name}/{k}"] = float(np.abs(
+                        za[k] - zb[k]).max())
+    logit = max(v for k, v in diffs.items() if k.endswith(".npy"))
+    contact = max(v for k, v in diffs.items() if ".npz" in k)
+    res = {"phase": "demo_tiny_card_vs_cpu", "max_diff": diffs,
+           "logit_max_diff": logit, "contact_max_diff": contact,
+           "tol": [TINY_LOGIT_TOL, TINY_CONTACT_TOL]}
+    log(json.dumps(res))
+    if not (len(diffs) >= 6 and logit <= TINY_LOGIT_TOL
+            and contact <= TINY_CONTACT_TOL):
+        raise SystemExit(f"the tiny demo's card and CPU disagree: {res}")
+
+
+def fit_scene(device="cuda"):
+    """The fit's full-size scene (numpy, ``fit_human_object``'s keys) and
+    its truth: the object's rotation, centre, and the contacts of the true
+    pose (object and human vertex masks). The target mask is the object's
+    hard render at the true pose, on ``device``."""
+    hv, hf = outward(*uv_sphere(*SPHERE))
+    hv = (hv + FIT_HUMAN_CENTER).astype(np.float32)
+    ov, of = outward(*uv_sphere(*OBJ_SPHERE))
+    ov = (ov * FIT_OBJECT_AXES).astype(np.float32)
+    R = random_rotation(0)
+    d = FIT_CONTACT_DIRECTION / np.linalg.norm(FIT_CONTACT_DIRECTION)
+    center = (FIT_HUMAN_CENTER + d).astype(np.float32)
+    posed = torch.as_tensor(ov @ R.T + center, device=device)
+    focal, princpt = fit_io.camera_from_bbox(FIT_BBOX, (FIT_SIZE, FIT_SIZE))
+    mask = torch.isfinite(fit_render.render_depth(
+        posed, torch.as_tensor(of, device=device), focal, princpt, FIT_SIZE))
+    h = torch.as_tensor(hv, device=device)
+    to_surface = (posed - h.mean(0)).norm(dim=1) - 0.8
+    obj_true = (to_surface < FIT_CONTACT_DIST[0]).float()
+    hum_true = (torch.cdist(h, posed).amin(1) < FIT_CONTACT_DIST[1]).float()
+    scene = {"obj_verts": ov, "obj_faces": of, "hum_verts": hv,
+             "hum_faces": hf, "target_mask": mask.float().cpu().numpy(),
+             "focal": focal, "princpt": princpt,
+             "centroid_offset": np.zeros(3, np.float32),
+             "obj_contact_probs": obj_true.cpu().numpy(),
+             "hum_contact_probs": hum_true.cpu().numpy()}
+    return scene, R, center
+
+
+def write_fit_folder(d, scene, hcontact, ocontact):
+    """The folder ``data_io.load_fit_inputs`` reads: the human fit npz, the
+    object mesh with y and z flipped (the loader flips them back), the two
+    contact npz files and the object mask."""
+    os.makedirs(d)
+    np.savez(os.path.join(d, "human.npz"), smpl_vertices=scene["hum_verts"],
+             smpl_faces=scene["hum_faces"], bbox=FIT_BBOX)
+    fit_io.save_obj_mesh(os.path.join(d, "object_mesh.obj"),
+                         scene["obj_verts"] * np.array([1, -1, -1],
+                                                       np.float32),
+                         scene["obj_faces"])
+    np.savez(os.path.join(d, "hcontact.npz"), contact=hcontact)
+    np.savez(os.path.join(d, "ocontact.npz"), contact=ocontact)
+    np.save(os.path.join(d, "object_mask.npy"), scene["target_mask"])
+
+
+def pose_errors(scene, params, R_true, c_true):
+    """Translation error, rotation error (degrees, up to the ellipsoid's
+    symmetries), scale and the hard silhouette's IoU with the target mask,
+    of one FitParams."""
+    dev = params.translation.device
+    R = fit_utils.rot6d_to_matrix(params.rot6d).double().cpu().numpy()
+    # the ellipsoid is its own image under half turns about its axes
+    cos = max((np.trace(R.T @ R_true.astype(np.float64) @ np.diag(f)) - 1.0)
+              / 2.0 for f in ((1, 1, 1), (1, -1, -1), (-1, 1, -1),
+                              (-1, -1, 1)))
+    v = fit_utils.apply_transformation(
+        torch.as_tensor(scene["obj_verts"], device=dev), params.rot6d,
+        params.translation, torch.exp(params.log_scale))
+    sil = torch.isfinite(fit_render.render_depth(
+        v, torch.as_tensor(scene["obj_faces"], device=dev), scene["focal"],
+        scene["princpt"], FIT_SIZE)).cpu().numpy()
+    target = scene["target_mask"] > 0.5
+    return {"t_err": float(np.linalg.norm(params.translation.cpu().numpy()
+                                          - c_true)),
+            "rot_err_deg": float(np.degrees(np.arccos(np.clip(cos, -1, 1)))),
+            "scale": float(torch.exp(params.log_scale)),
+            "iou": float((sil & target).sum() / max((sil | target).sum(), 1))}
+
+
+def timed_calls(module, names):
+    """Wrap ``module``'s functions ``names`` to record their synchronised
+    seconds; returns (seconds by name, undo)."""
+    secs = {n: [] for n in names}
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[n](*a, **k)
+            torch.cuda.synchronize()
+            secs[n].append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    return secs, lambda: [setattr(module, n, f) for n, f in real.items()]
+
+
+def icp_costs(scene):
+    """ICP on the card as the fit runs it: its wall seconds, iterations and
+    the synchronising calls it makes (``torch.cuda.set_sync_debug_mode``
+    warns at each)."""
+    import warnings
+
+    s, t0 = fit_mod.prepare_scene(scene, "cuda")
+    args = (s["obj_verts"] + t0, s["obj_faces"], s["hum_verts"],
+            s["hum_faces"], s["obj_contact_probs"], s["hum_contact_probs"])
+    fit_mod.icp_init(*args, estimate_scale=True)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit_mod.icp_init(*args, estimate_scale=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    iters, real_nn = [], fit_icp.nearest_neighbors
+
+    def counted(*a):
+        iters.append(1)
+        return real_nn(*a)
+
+    fit_icp.nearest_neighbors = counted
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fit_mod.icp_init(*args, estimate_scale=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        fit_icp.nearest_neighbors = real_nn
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message)]
+    return {"wall_s": wall, "iterations": len(iters), "syncs": len(syncs),
+            "syncs_per_iteration": len(syncs) / max(len(iters), 1),
+            "sync_sites": sorted(set(m[:80] for m in syncs))[:5]}
+
+
+def fit_step_split(scene, params):
+    """Where one fit step's time goes on the card, after the contact loss's
+    kick-in (step 60): CUDA events over FIT_SPLIT_ITERS calls of the
+    silhouette's forward, its forward and backward (mask IoU and centroid
+    losses), the contact loss forward and backward, Adam's update, and the
+    whole step; one step's device time from a trace of the card (the rest
+    of its wall is the card idle) and, from a trace with the host's
+    operations, the operations with the most device time."""
+    s, _ = fit_mod.prepare_scene(scene, "cuda")
+    p = fit_opt.FitParams(*(x.detach().clone().requires_grad_()
+                            for x in params))
+    opt = fit_opt.make_fit_optimizer(p)
+    w = fit_opt.LossWeights()
+
+    def verts():
+        return fit_utils.apply_transformation(s["obj_verts"], p.rot6d,
+                                              p.translation,
+                                              torch.exp(p.log_scale))
+
+    def sil():
+        return fit_render.render_silhouette(verts(), s["obj_faces"],
+                                            s["focal"], s["princpt"],
+                                            FIT_SIZE)
+
+    def sil_forward():
+        with torch.no_grad():
+            sil()
+
+    def sil_forward_backward():
+        opt.zero_grad(set_to_none=True)
+        m = sil()
+        (fit_opt.mask_iou_loss(m, s["target_mask"]) + w.centroid_w * (
+            (fit_utils.calculate_centroid(m) - s["target_centroid"]) ** 2
+        ).sum()).backward()
+
+    def contact():
+        opt.zero_grad(set_to_none=True)
+        fit_opt.contact_loss(verts(), s["hum_verts"], s["obj_contact_probs"],
+                             s["hum_contact_probs"]).backward()
+
+    def whole_step():
+        opt.zero_grad(set_to_none=True)
+        loss, _ = fit_opt.fit_losses(p, 60, s, w, FIT_SIZE, 1.0, 16)
+        loss.backward()
+        opt.step()
+
+    ms = {"silhouette_forward": time_ms(sil_forward, FIT_SPLIT_ITERS),
+          "silhouette_forward_backward": time_ms(sil_forward_backward,
+                                                 FIT_SPLIT_ITERS),
+          "contact_forward_backward": time_ms(contact, FIT_SPLIT_ITERS)}
+    ms["adam"] = time_ms(opt.step, FIT_SPLIT_ITERS)
+    ms["step"] = time_ms(whole_step, FIT_SPLIT_ITERS)
+    ms["silhouette_backward"] = (ms["silhouette_forward_backward"]
+                                 - ms["silhouette_forward"])
+    busy = device_busy_ms(whole_step)
+    traced = device_busy(whole_step)
+    return {**ms, "step_device_busy_ms": busy,
+            "step_idle_ms": None if busy is None else ms["step"] - busy,
+            "step_idle_share": None if busy is None else 1.0 - busy / ms[
+                "step"],
+            "profiled_step": {k: traced[k] for k in (
+                "batch_ms", "device_busy_ms", "device_busy_share",
+                "top_device_ms")}}
+
+
+def fit_card_and_cpu(scene, card_diag):
+    """The recovery fit held to the port on the CPU: ICP's result on the
+    same scene, and FIT_CPU_STEPS steps from the card's ICP result on the
+    CPU's prepared scene, against the card's first steps. Returns the
+    largest differences, the CPU's seconds and whether they are within
+    FIT_ICP_TOL and FIT_STEP_TOL."""
+    t = time.perf_counter()
+    _, cpu = fit_mod.fit_human_object(scene, num_steps=1,
+                                      image_size=FIT_SIZE, device="cpu")
+    s, _ = fit_mod.prepare_scene(scene, "cpu")
+    start = fit_opt.FitParams(*(p.cpu() for p in card_diag["init_params"]))
+    _, _, cpu_loss, cpu_hist = fit_opt.run_fit(
+        start, s, fit_opt.LossWeights(), num_steps=FIT_CPU_STEPS,
+        image_size=FIT_SIZE)
+    cpu_s = time.perf_counter() - t
+    k, names = FIT_CPU_STEPS, fit_opt.FitParams._fields
+    card_loss = card_diag["loss_history"][:k].cpu()
+    icp = {n: float((a.cpu() - b).abs().max()) for n, a, b in zip(
+        names, card_diag["init_params"], cpu["init_params"])}
+    steps = {n: float((a[:k].cpu() - b).abs().max()) for n, a, b in zip(
+        names, card_diag["params_history"], cpu_hist)}
+    steps["loss"] = float(((card_loss - cpu_loss).abs()
+                           / cpu_loss.abs()).max())
+    held = (all(icp[n] <= FIT_ICP_TOL[n] for n in icp)
+            and all(steps[n] <= FIT_STEP_TOL[n] for n in steps))
+    return {"icp_max_abs_diff": icp, "steps_max_diff": steps,
+            "card_losses": card_loss.tolist(),
+            "cpu_losses": cpu_loss.tolist(), "cpu_s": cpu_s,
+            "tol": {"icp": FIT_ICP_TOL, "steps": FIT_STEP_TOL}}, held
+
+
+def fit_phase(root, contacts):
+    """The fit: (1) ``data_io.main`` on a folder of the scene, the demo's
+    first hcontact and ocontact contacts, at its defaults with
+    ``--save_video`` (the seconds of ICP, the steps and the video, peak
+    memory, launches); (2) the recovery fit (``fit_human_object``, the
+    same settings) on the scene with the contacts of its true pose:
+    translation and rotation error, scale and silhouette IoU at the mask
+    centroid's start, after ICP and after Adam; (3) that run held to the
+    port on the CPU (``fit_card_and_cpu``); (4) ICP's wall
+    seconds and synchronising calls; (5) one step's split. Returns the
+    launches over (1)."""
+    scene, R_true, c_true = fit_scene()
+    d = os.path.join(root, "fit")
+    write_fit_folder(d, scene, contacts["hcontact"], contacts["ocontact"])
+    secs, undo = timed_calls(fit_mod, ["icp_init", "run_fit",
+                                       "save_fit_video"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        best, diag = fit_io.main(["--input_path", d, "--num_steps",
+                                  str(FIT_STEPS), "--image_size",
+                                  str(FIT_SIZE), "--save_video"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = read_launches()
+    from PIL import Image
+
+    hist = diag["loss_history"].cpu().numpy()
+    files = {n: os.path.exists(os.path.join(d, n)) for n in (
+        "final_object.obj", "final_human.obj", "fit_result.npz",
+        "fit_trajectory.gif")}
+    with Image.open(os.path.join(d, "fit_trajectory.gif")) as im:
+        frames = im.n_frames
+    res = {"phase": "fit_cli", "size": FIT_SIZE, "steps": FIT_STEPS,
+           "s": cli_s, "icp_s": secs["icp_init"], "steps_s": secs["run_fit"],
+           "ms_per_step": secs["run_fit"][0] * 1e3 / FIT_STEPS,
+           "video_s": secs["save_fit_video"], "video_frames": frames,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "contacts": [int((contacts[k] > 0.5).sum()) for k in contacts],
+           "first_loss": float(hist[0]), "best_loss": float(
+               diag["best_loss"]), "files": files,
+           "launches": {n: launches[n] for n in KERNELS}}
+    log(json.dumps(res))
+    if not (all(files.values()) and np.isfinite(hist).all()
+            and len(hist) == FIT_STEPS and float(diag["best_loss"]) <= hist[0]
+            and frames >= 2 and not any(launches[n] for n in KERNELS)):
+        raise SystemExit(f"the fit CLI failed: {res}")
+    del best, diag
+
+    # (2) the recovery fit, on the card
+    t0 = time.perf_counter()
+    best, diag = fit_mod.fit_human_object(scene, num_steps=FIT_STEPS,
+                                          image_size=FIT_SIZE, device="cuda")
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    s, t_mask = fit_mod.prepare_scene(scene, "cuda")
+    start = fit_opt.FitParams(
+        fit_utils.matrix_to_rot6d(torch.eye(3, device="cuda")), t_mask,
+        torch.zeros((), device="cuda"))
+    errs = {"mask_centroid_start": pose_errors(scene, start, R_true, c_true),
+            "after_icp": pose_errors(scene, diag["init_params"], R_true,
+                                     c_true),
+            "after_adam": pose_errors(scene, best, R_true, c_true)}
+    res = {"phase": "fit_recovery", "s": rec_s,
+           "contacts": [int(scene["obj_contact_probs"].sum()),
+                        int(scene["hum_contact_probs"].sum())],
+           "first_loss": float(diag["loss_history"][0]),
+           "best_loss": float(diag["best_loss"]), **errs}
+    log(json.dumps(res))
+    if not (np.isfinite(diag["loss_history"].cpu().numpy()).all()
+            and errs["after_adam"]["iou"] > 0):
+        raise SystemExit(f"the recovery fit failed: {res}")
+
+    # (3) the card against the port on the CPU
+    res, held = fit_card_and_cpu(scene, diag)
+    log(json.dumps({"phase": "fit_card_vs_cpu", "steps": FIT_CPU_STEPS,
+                    **res}))
+    if not held:
+        raise SystemExit(f"the fit's card and CPU disagree: {res}")
+
+    # (4) ICP's syncs, (5) one step's split
+    res = {"phase": "fit_step_split", "icp": icp_costs(scene),
+           **fit_step_split(scene, diag["init_params"])}
+    log(json.dumps(res))
+    del best, diag
+    return launches
+
+
+def demo_fit_phase():
+    """Phase 15: the demo's folder written on the card; ``interactvlm_13b``
+    in bf16 with seeded random weights through the demo's per-image loop
+    (DEMO_LEGS: hcontact with the renders, maps, SMPL-X matrix and body
+    template; h2dcontact on the photos; ocontact, whose first image builds
+    the object views at 1024^2 on the card); the tiny demo card against
+    CPU; then the fit (``fit_phase``). Returns the launches of the demo's
+    legs and of the fit CLI."""
+    t_phase = time.perf_counter()
+    work = os.path.join(WORKDIR, "demo_fit")
+    shutil.rmtree(work, ignore_errors=True)
+    folder_s = write_demo_folder(work, SPHERE, OBJ_SPHERE, MASK, DEMO_LEGS)
+    t0 = time.perf_counter()
+    cfg = config_13b()
+    model = InteractVLM(cfg, device="cuda")
+    init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    model.eval().requires_grad_(False)
+    tok = WhitespaceTokenizer()
+    tok.vocab["[SEG]"] = cfg.seg_token_idx
+    torch.cuda.synchronize()
+    log(json.dumps({"phase": "demo_setup", "folder_s": folder_s,
+                    "init_s": time.perf_counter() - t0}))
+    with torch.inference_mode():
+        launches, contacts = demo_legs(model, tok, work,
+                                       os.path.join(work, "out"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny_demo_card_and_cpu(os.path.join(work, "tiny"))
+    fit_launches = fit_phase(work, contacts)
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "demo_fit", "s": time.perf_counter() - t_phase}))
+    return launches, fit_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3113,6 +3813,9 @@ def main() -> int:
     launches["damon_train"], launches["damon_validate"] = \
         damon_workflow_phase(step_ms["train_13b_lora"])
     log(json.dumps({"phase": "damon_workflow_done",
+                    "s": time.perf_counter() - t_start}))
+    launches["demo"], launches["fit"] = demo_fit_phase()
+    log(json.dumps({"phase": "demo_fit_done",
                     "s": time.perf_counter() - t_start}))
 
     rows = []

@@ -15,46 +15,75 @@ from __future__ import annotations
 
 import queue
 import threading
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Sequence
+
+
+class _Feed:
+    """What a producer thread shares with its ``PrefetchIterator``: the
+    source, the queue, the stop flag and the source's exception. The thread
+    holds this and not the iterator, so an iterator dropped without
+    ``close`` is collected, and its finalizer stops the thread."""
+
+    def __init__(self, it: Iterator, depth: int):
+        self.it = it
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.err = None
+        self.stop = threading.Event()
+
+
+def _produce(feed: _Feed, done):
+    try:
+        for item in feed.it:
+            feed.q.put(item)
+            if feed.stop.is_set():
+                break
+    except Exception as e:  # surfaced on the consumer side
+        feed.err = e
+    finally:
+        feed.it = None
+        feed.q.put(done)
+
+
+def _stop(feed: _Feed, thread: threading.Thread):
+    """Stop the producer and drop what it holds: drain the queue until the
+    thread has let go of its source (whose own cleanup then runs)."""
+    feed.stop.set()
+    while thread.is_alive():
+        try:
+            feed.q.get(timeout=0.1)
+        except queue.Empty:
+            pass
+    while not feed.q.empty():
+        feed.q.get_nowait()
 
 
 class PrefetchIterator:
     """Wrap an iterator with a bounded background producer thread.
     ``close`` stops the producer and drops what it holds (an endless
-    training loader would otherwise keep ``depth`` batches alive)."""
+    training loader would otherwise keep ``depth`` batches alive, and its
+    sample pool decoding); dropping the iterator does the same."""
 
     _DONE = object()
 
     def __init__(self, it: Iterator, depth: int = 2):
-        self.it = it
-        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
-        self.err = None
-        self._stop = threading.Event()
-        self.thread = threading.Thread(target=self._produce, daemon=True)
+        self._feed = _Feed(it, depth)
+        self.q = self._feed.q
+        self.thread = threading.Thread(target=_produce,
+                                       args=(self._feed, self._DONE),
+                                       daemon=True)
         self.thread.start()
+        self._finalizer = weakref.finalize(self, _stop, self._feed,
+                                           self.thread)
+        self._finalizer.atexit = False  # the daemon thread dies with us
 
-    def _produce(self):
-        try:
-            for item in self.it:
-                self.q.put(item)
-                if self._stop.is_set():
-                    break
-        except Exception as e:  # surfaced on the consumer side
-            self.err = e
-        finally:
-            self.it = None
-            self.q.put(self._DONE)
+    @property
+    def it(self):
+        return self._feed.it
 
     def close(self):
-        self._stop.set()
-        while self.thread.is_alive():
-            try:
-                self.q.get(timeout=0.1)
-            except queue.Empty:
-                pass
-        while not self.q.empty():
-            self.q.get_nowait()
+        self._finalizer()
 
     def __iter__(self):
         return self
@@ -62,8 +91,8 @@ class PrefetchIterator:
     def __next__(self):
         item = self.q.get()
         if item is self._DONE:
-            if self.err is not None:
-                raise self.err
+            if self._feed.err is not None:
+                raise self._feed.err
             raise StopIteration
         return item
 

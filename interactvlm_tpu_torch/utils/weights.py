@@ -428,3 +428,63 @@ def merge_lora(sd: Dict[str, torch.Tensor], alpha: float,
         else:
             out[key] = val
     return out
+
+
+def resize_token_tables(sd: Dict[str, torch.Tensor],
+                        new_vocab: int) -> Dict[str, torch.Tensor]:
+    """Grow the token tables (every ``*embed_tokens.weight`` and
+    ``*lm_head.weight``, (vocab, hidden)) for added seg tokens, in place:
+    the rows up to ``new_vocab`` get the table's mean row (HF
+    ``resize_token_embeddings``, used after ``add_new_tokens``, reference
+    train.py:314), the rest zeros up to the next multiple of 128
+    (``LlamaConfig.padded_vocab_size``; ``LlamaForCausalLM.logits`` masks
+    those ids). Tables already that long stay as they are. The port of
+    ``interactvlm_tpu/utils/weights.py:resize_token_tables``."""
+    padded = -(-new_vocab // 128) * 128
+    for key in [k for k in sd if k.endswith(("embed_tokens.weight",
+                                             "lm_head.weight"))]:
+        w = sd[key]
+        old, dim = w.shape
+        if padded <= old:
+            continue
+        n_real = max(new_vocab - old, 0)
+        mean = w.float().mean(dim=0, keepdim=True).to(w.dtype)
+        sd[key] = torch.cat([w, mean.expand(n_real, dim),
+                             w.new_zeros(padded - old - n_real, dim)])
+    return sd
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` / ``.bin`` / ``.safetensors`` state dict as CPU tensors
+    under the file's keys (a ``state_dict`` entry is unwrapped)."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return load_file(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd.get("state_dict", sd)
+
+
+# the merged InteractVLM checkpoint's prefixes (the reference's deployment
+# format, merge_lora_weights_and_save_hf_model.py:152-161) -> the port's;
+# the first that matches renames a key
+MERGED_PREFIXES = (("model.mm_projector.", "llava.mm_projector."),
+                   ("model.visual_model.", "sam."),
+                   ("model.text_hidden_fcs.", "text_hidden_fcs."),
+                   ("model.", "llava.lm.model."),
+                   ("lm_head.", "llava.lm.lm_head."))
+
+
+def port_keys_of_merged(sd: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """A merged InteractVLM checkpoint's entries under the port's module
+    names (keys of no listed prefix, such as ``cam_pose_encoder.*``, are
+    the same in both)."""
+    out = {}
+    for key, val in sd.items():
+        for old, new in MERGED_PREFIXES:
+            if key.startswith(old):
+                key = new + key[len(old):]
+                break
+        out[key] = val
+    return out

@@ -21,6 +21,10 @@ from interactvlm_tpu.utils.testing import make_synthetic_batch
 from interactvlm_tpu.utils.weights import convert_interactvlm_checkpoint
 from interactvlm_tpu_torch import config as C
 from interactvlm_tpu_torch.datagen.recipes import generate_damon_tree
+from interactvlm_tpu_torch.demo.demo_utils import generate_sam_inp_objs
+from interactvlm_tpu_torch.demo.run_demo import main as demo_main
+from interactvlm_tpu_torch.fit.data_io import main as fit_main
+from interactvlm_tpu_torch.fit.fit import fit_human_object
 from interactvlm_tpu_torch.eval.evaluate import main as eval_main
 from interactvlm_tpu_torch.geometry.rasterizer import build_lift_maps, uv_sphere
 from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS
@@ -93,6 +97,14 @@ print("CLIS", all(m in sys.modules for m in (
     "interactvlm_tpu_torch.datagen.recipes",
     "interactvlm_tpu_torch.demo.demo_utils",
     "interactvlm_tpu_torch.fit.utils")))
+print("FIT_DEMO", all(m in sys.modules for m in (
+    "interactvlm_tpu_torch.fit.renderer",
+    "interactvlm_tpu_torch.fit.icp",
+    "interactvlm_tpu_torch.fit.optimizer",
+    "interactvlm_tpu_torch.fit.fit",
+    "interactvlm_tpu_torch.fit.data_io",
+    "interactvlm_tpu_torch.geometry.point_raster",
+    "interactvlm_tpu_torch.demo.run_demo")))
 print("BAD", bad)
 """
 
@@ -110,6 +122,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "PROBES True" in res.stdout, res.stdout
     assert "GEOMETRY True" in res.stdout, res.stdout
     assert "CLIS True" in res.stdout, res.stdout
+    assert "FIT_DEMO True" in res.stdout, res.stdout
 
 
 _BUILD = r"""
@@ -170,12 +183,19 @@ def test_native_decoder_builds_under_build_and_leaves_native_alone(
     lambda: build_model_and_config(parse_args(["--model_scale", "tiny"])),
     lambda: generate_damon_tree("/nonexistent", {}, *uv_sphere(8, 8),
                                 HUMAN_VIEWS["4MV-Z_Vitru_mv2"], 16, {}),
+    lambda: fit_main(["--input_path", "/nonexistent"]),
+    lambda: demo_main(["--img_folder", "/nonexistent", "--output_folder",
+                       "/nonexistent", "--random_weights"]),
+    lambda: fit_human_object({}),
+    lambda: generate_sam_inp_objs(*uv_sphere(8, 8), "/nonexistent",
+                                  image_size=16),
 ], ids=["InteractVLM", "InteractVLM-hoi", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
         "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8",
         "LlamaForCausalLM-lora", "make_synthetic_batch",
         "LlamaForCausalLM-qlora", "LlamaForCausalLM-int4",
         "build_lift_maps", "train_cli", "eval_cli",
-        "build_model_and_config", "generate_damon_tree"])
+        "build_model_and_config", "generate_damon_tree", "fit_cli",
+        "demo_cli", "fit_human_object", "generate_sam_inp_objs"])
 def test_entry_points_default_to_the_gpu(build):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
