@@ -93,8 +93,7 @@ prints no result, without them. Phases, each of which fails the run:
    LoRA, B=8, 8 loader threads) takes 4 steps from it, each step's wall
    and data seconds, the loader-wait share and the launches a step
    printed; the CLI's step is split against ``TrainStep`` on one real
-   batch (resident on the card, or copied each step) and against the CLI
-   with one loader thread; ``validate`` runs on the trained model (2
+   batch (resident on the card, or copied each step); ``validate`` runs on the trained model (2
    batches of 8, the cached view encode); then the tiny chain at 64^2
    (train with eval and saving, resume, export, the eval CLI on the card
    and on the CPU from one run directory, their reports held together,
@@ -146,6 +145,7 @@ import dataclasses
 import gc
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -166,7 +166,15 @@ from interactvlm_tpu_torch.config import (
 )
 from interactvlm_tpu_torch.data.collate import collate, to_device
 from interactvlm_tpu_torch.data.datasets import ValDataset, build_dataset
-from interactvlm_tpu_torch.datagen.recipes import generate_damon_tree
+from interactvlm_tpu_torch.datagen import __main__ as datagen_cli
+from interactvlm_tpu_torch.datagen.generate import (
+    verify_contact_reconstruction,
+)
+from interactvlm_tpu_torch.datagen.recipes import (
+    AFFORD_LIST_PIAD,
+    generate_damon_tree,
+    generate_piad_tree,
+)
 from interactvlm_tpu_torch.demo import demo_utils, run_demo
 from interactvlm_tpu_torch.eval import evaluate as eval_cli
 from interactvlm_tpu_torch.fit import data_io as fit_io
@@ -212,7 +220,10 @@ from interactvlm_tpu_torch.runtime import native_image
 from interactvlm_tpu_torch.runtime.prefetch import iter_sample_batches
 from interactvlm_tpu_torch.train import export as export_cli
 from interactvlm_tpu_torch.train import train as train_cli
-from interactvlm_tpu_torch.train.checkpoints import CheckpointManager
+from interactvlm_tpu_torch.train.checkpoints import (
+    CheckpointManager,
+    load_config,
+)
 from interactvlm_tpu_torch.train.optimizer import (
     apply_trainable_mask,
     cast_frozen_params,
@@ -1441,12 +1452,14 @@ def real_lift_maps(sphere=SPHERE, view_set=VIEW_SET, gather=True,
     return maps, gidx, gw, fits
 
 
-def let_seg_token_appear(model, batch, device, kv_cache):
+def let_seg_token_appear(model, batch, device, kv_cache, token=None):
     """Random weights almost never emit [SEG], and without it the mask and
     lift legs return zeros. Make the seg token's lm_head row 1.5x that of
     the token most often emitted, so that it wins wherever that token did
-    (for an int8 or int4 head: the same row with 1.5x its scale)."""
-    llava, seg = model.llava, model.config.seg_token_idx
+    (for an int8 or int4 head: the same row with 1.5x its scale).
+    ``token``: another seg token to raise so ([HSEG], [OSEG])."""
+    llava = model.llava
+    seg = model.config.seg_token_idx if token is None else token
     ids = torch.as_tensor(batch["input_ids"], device=device)
     px = torch.as_tensor(batch["images_clip"], device=device).to(
         model.config.clip.dtype)
@@ -2689,26 +2702,13 @@ def body_parts_of(n):
 def write_damon_tree(root, sphere, size, n_images, device="cuda"):
     """A DAMON tree under ``root``: ``n_images`` seeded 640 x 480 JPEG
     photos, each with one object's contact and a 'supporting' one (feet
-    and legs), through the port's ``generate_damon_tree`` on ``device``.
-    Returns (seconds of the recipe, bytes written, samples)."""
-    from PIL import Image
-
+    and legs; ``sphere_annotations``), through the port's
+    ``generate_damon_tree`` on ``device``. Returns (seconds of the recipe,
+    bytes written, samples)."""
     verts, faces = uv_sphere(*sphere)
     n = len(verts)
-    rng = np.random.default_rng(0)
-    os.makedirs(os.path.join(root, "images"), exist_ok=True)
-    annot = {}
-    for i in range(n_images):
-        name = f"img{i:02d}.jpg"
-        Image.fromarray(rng.integers(0, 256, (480, 640, 3), np.uint8)).save(
-            os.path.join(root, "images", name), quality=90)
-        start = (i * 397) % n
-        annot[name] = {
-            DAMON_OBJECTS[i % len(DAMON_OBJECTS)]:
-                np.arange(start, start + n // 10) % n,
-            "supporting": np.concatenate([
-                np.arange(n // 2 + 7 * i, n // 2 + 7 * i + n // 20),
-                np.arange(n - n // 12, n)])}
+    annot = sphere_annotations(n, n_images)
+    write_photos(root, list(annot))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = generate_damon_tree(root, annot, verts, faces, HUMAN_VIEWS[VIEW_SET],
@@ -2858,7 +2858,7 @@ def damon_workflow_phase(train_step_ms):
     or copied each step); (3) ``validate`` on the trained model over the
     tree's test split, cached view encode, 32 new tokens, after
     ``let_seg_token_appear``: images/s, seg_rate, every metric finite;
-    the CLI again with one loader thread; (4) the tiny chain: a 64^2
+    (4) the tiny chain: a 64^2
     tree, ``train.main`` for two epochs with eval and saving,
     ``--resume`` for a third, ``export.main``, and ``eval.evaluate.main``
     on the card and on the CPU from the same run directory, their reports
@@ -2989,27 +2989,12 @@ def damon_workflow_phase(train_step_ms):
         raise SystemExit(f"the DAMON validation failed: {res}")
     del model, maps, ds, saved
 
-    # the CLI with one loader thread: its step, the wait apart
-    argv_w1 = list(argv)
-    argv_w1[argv.index("--data_workers") + 1] = "1"
-    argv_w1[argv.index("--exp_name") + 1] = "damon_13b_w1"
-    trainer, _, launches_w1, _, _ = cli_train(argv_w1)
     res = {"phase": "damon_step_split", "train_step_path_ms": train_step_ms,
            "cli_ms": spread(steady),
-           "cli_one_worker_ms": spread(cli_step_ms(trainer)),
-           "cli_one_worker_data_s": [h["data_s"] for h in trainer.history],
            "train_step_resident_ms": spread(split["resident"]),
            "train_step_copied_ms": spread(split["copied"]),
-           "all_ms": {"cli": steady, "cli_one_worker": cli_step_ms(trainer),
-                      **split}}
+           "all_ms": {"cli": steady, **split}}
     log(json.dumps(res))
-    if not (trainer.step.step == DAMON_STEPS
-            and all(np.isfinite(h["loss"]) for h in trainer.history)
-            and launches_w1 == want):
-        raise SystemExit(f"the one-worker DAMON CLI failed: {res}")
-    del trainer
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # (4) the tiny chain, the card against the CPU
     t0 = time.perf_counter()
@@ -3743,6 +3728,632 @@ def demo_fit_phase():
     return launches, fit_launches
 
 
+# ------------------------------------------------- the flagship workflow
+# phase 16 (flagship_workflow_phase): the JAX package's interaction
+# flagship, hcontact-ocontact (scripts/run_train.sh:35-48), trained through
+# the CLI on trees the port's datagen writes on the card, at the preset's
+# own views: DAMON under FLAG_HUMAN_VIEWS, PICO and PIAD under
+# FLAG_OBJECT_VIEWS, at 1024^2
+FLAG_HUMAN_VIEWS, FLAG_OBJECT_VIEWS = HOI_HUMAN_VIEWS, HOI_OBJECT_VIEWS
+FLAG_PRESET = ["--exp_name", "interactvlm-3d-hcontact-ocontact",
+               "--dataset", "hcontact||ocontact||oafford||vqa",
+               "--sample_rates", "9,9,5,2",
+               "--token_type", "Gen-Hu-Obj", "--cam_encoder_type", "vi_v1",
+               "--oC_sam_view_type", "4MV-Z_HM_BM",
+               "--hC_sam_view_type", "4MV-Z_Vitru",
+               "--hC_question_type", "parts", "--oC_question_type", "afford",
+               "--hC_loss_weight", "3.0", "--oC_loss_weight", "3.0",
+               "--epochs", "30", "--steps_per_epoch", "500",
+               "--batch_size", "8", "--lr", "3e-4", "--warmup_steps", "100"]
+# the trees: DAMON_IMAGES photos of the 6890-vertex sphere; PICO meshes
+# (UV spheres stretched into ellipsoids: 1010, 2342, 4132 and 8101
+# vertices); PIAD clouds of PIAD_POINTS points; VQA_RECORDS VQA records
+PICO_SPHERES = ((25, 42), (40, 60), (60, 70), (90, 91))
+PICO_AXES = ((0.5, 0.9, 0.5), (0.35, 0.95, 0.35), (0.9, 0.4, 0.6),
+             (0.95, 0.6, 0.45))
+PICO_CLASSES = ("Bottle", "Vase", "Skateboard", "Bench")
+PIAD_OBJECTS = (("chair_001", "Chair"), ("bed_002", "Bed"),
+                ("bench_003", "Bench"), ("stool_004", "Stool"))
+PIAD_POINTS, VQA_RECORDS = 2048, 8
+FLAG_B, FLAG_STEPS, FLAG_WORKERS = 8, 4, 8
+FLAG_TASKS = ("hcontact", "ocontact", "oafford", "vqa")
+# the tiny chain: the five recipes on the card and on the CPU at 64^2; the
+# tiny flagship CLI (the JAX package's flagship test's flags; one loader
+# thread, so both devices see the same batches) for TINY_FLAG_STEPS steps
+# on each, every step's loss terms held within TINY_LOSS_RTOL relative
+# (SAM computes bf16 on the card, f32 on the CPU; measured on an H100:
+# 9.7e-5, the limit about 5 times that); then the eval CLI on
+# copies of both runs whose answers are all [OSEG] and whose masks are all
+# FORCE_LOGIT, so that every lifted value is 1.0 exactly on both devices
+# and the two reports must be equal
+TINY_OBJ_SPHERES = ((6, 8), (12, 16))
+TINY_FLAG_STEPS, TINY_FLAG_POINTS, TINY_FLAG_EVAL_B = 2, 300, 2
+TINY_LOSS_RTOL, FORCE_LOGIT = 5e-4, 20.0
+PNG_LEVELS, BARY_TOL = 1, 1e-4
+SIDES = {"card": "cuda", "cpu": "cpu"}  # the tiny chain's two devices
+
+
+def sphere_annotations(n, n_images):
+    """DAMON annotations of ``n_images`` photos of an n-vertex sphere:
+    one object's contact each and a 'supporting' one (feet and legs)."""
+    annot = {}
+    for i in range(n_images):
+        start = (i * 397) % n
+        annot[f"img{i:02d}.jpg"] = {
+            DAMON_OBJECTS[i % len(DAMON_OBJECTS)]:
+                np.arange(start, start + n // 10) % n,
+            "supporting": np.concatenate([
+                np.arange(n // 2 + 7 * i, n // 2 + 7 * i + n // 20),
+                np.arange(n - n // 12, n)])}
+    return annot
+
+
+def write_photos(root, names, seed=0):
+    """Seeded 640 x 480 JPEG photos ``root/images/<name>``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for name in names:
+        Image.fromarray(rng.integers(0, 256, DEMO_PHOTO + (3,), np.uint8)
+                        ).save(os.path.join(root, "images", name),
+                               quality=90)
+
+
+def pico_meshes(spheres, seed=0):
+    """PICO objects: UV spheres stretched along PICO_AXES, each touched on
+    its lowest fifth, with a photo name and a class."""
+    rng = np.random.default_rng(seed)
+    meshes = {}
+    for i, sphere in enumerate(spheres):
+        verts, faces = uv_sphere(*sphere)
+        verts = (verts * np.asarray(PICO_AXES[i % len(PICO_AXES)])
+                 + rng.normal(scale=0.01, size=3)).astype(np.float32)
+        y = verts[:, 1]
+        contact = (y < y.min() + 0.2 * (y.max() - y.min())).astype(
+            np.float32)
+        meshes[f"pico_{i:03d}"] = {
+            "verts": verts, "faces": faces, "contact": contact,
+            "image": f"pico{i}.jpg",
+            "class_name": PICO_CLASSES[i % len(PICO_CLASSES)]}
+    return meshes
+
+
+def piad_clouds(n_points, objects, seed=0):
+    """PIAD objects: a cube, a slab, a sphere and a cylinder of
+    ``n_points`` points, 'sit' on the upper two fifths of each."""
+    rng = np.random.default_rng(seed)
+    clouds = {}
+    for i, (oid, cls) in enumerate(objects):
+        kind = i % 4
+        if kind == 0:
+            pts = rng.uniform(-0.7, 0.7, (n_points, 3))
+        elif kind == 1:
+            pts = rng.uniform(-1, 1, (n_points, 3)) * [0.9, 0.25, 0.6]
+        elif kind == 2:
+            v = rng.normal(size=(n_points, 3))
+            pts = 0.7 * v / np.linalg.norm(v, axis=1, keepdims=True)
+        else:
+            a = rng.uniform(0, 2 * np.pi, n_points)
+            pts = np.stack([0.4 * np.cos(a),
+                            rng.uniform(-0.8, 0.8, n_points),
+                            0.4 * np.sin(a)], 1)
+        clouds[oid] = (cls, pts, pts[:, 1] > np.quantile(pts[:, 1], 0.6))
+    return clouds
+
+
+def write_piad_txt(path, cls, pts, sit):
+    """A PIAD point file: ``<idx> <class> x y z`` and 17 affordance
+    columns, 'sit' set where ``sit`` is."""
+    col = int(np.argwhere(AFFORD_LIST_PIAD == "sit").item())
+    lines = []
+    for i, (p, a) in enumerate(zip(pts, sit)):
+        aff = ["0"] * 17
+        aff[col] = str(int(a))
+        lines.append(f"{i} {cls} " + " ".join(f"{v:.4f}" for v in p) + " "
+                     + " ".join(aff))
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def write_flagship_inputs(d, sphere, n_images, spheres, n_points, objects):
+    """The datagen CLI's input files under ``d``: the body npz, its
+    segmentation, the DAMON, LEMON-HU and RICH contacts, the PICO meshes
+    pickle and the PIAD txt folder. Returns their paths."""
+    verts, faces = uv_sphere(*sphere)
+    n = len(verts)
+    os.makedirs(os.path.join(d, "piad_txt"), exist_ok=True)
+    files = {k: os.path.join(d, k + ext) for k, ext in (
+        ("body", ".npz"), ("segm", ".pkl"), ("damon", ".pkl"),
+        ("lemon", ".pkl"), ("rich", ".pkl"), ("pico", ".pkl"))}
+    files["piad_txt"] = os.path.join(d, "piad_txt")
+    np.savez(files["body"], verts=verts, faces=faces)
+    lemon = {}
+    for i, cls in enumerate(("mug", "bottle", "knife")):
+        c = np.zeros(n, np.float32)
+        c[(i * n) // 5:(i * n) // 5 + n // 8] = 1.0
+        lemon[f"lemon/Images/{cls}_{i:04d}.jpg"] = c
+    rich = {f"seq01/cam{i}/f{i:03d}.jpg":
+            np.arange(i * n // 7, i * n // 7 + n // 9) for i in range(3)}
+    for key, obj in (("segm", body_parts_of(n)),
+                     ("damon", sphere_annotations(n, n_images)),
+                     ("lemon", lemon), ("rich", rich),
+                     ("pico", pico_meshes(spheres))):
+        with open(files[key], "wb") as f:
+            pickle.dump(obj, f)
+    for oid, (cls, pts, sit) in piad_clouds(n_points, objects).items():
+        write_piad_txt(os.path.join(files["piad_txt"], oid + ".txt"), cls,
+                       pts, sit)
+    return files
+
+
+def datagen_argv(recipe, root, files, size, views, *extra):
+    """The port's datagen CLI's argv for one recipe on ``files``."""
+    inputs = {"damon": ["--contact_pkl", files["damon"]],
+              "rich": ["--contact_pkl", files["rich"]],
+              "lemon-hu": ["--contact_pkl", files["lemon"]],
+              "pico": ["--meshes_pkl", files["pico"]],
+              "piad": ["--points_dir", files["piad_txt"]]}[recipe]
+    if recipe in ("damon", "rich", "lemon-hu"):
+        inputs += ["--mesh", files["body"], "--segm", files["segm"]]
+    return ([recipe, "--root", root, "--image_size", str(size),
+             "--view_type", views] + inputs + list(extra))
+
+
+def timed_on_card(fn):
+    """(fn(), seconds, peak GB), the card synchronised around the call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def write_flagship_tree(tree, files, size, n_images):
+    """The flagship's four trees under ``tree``, rasterized on the card:
+    the DAMON tree and the PICO train and test splits through the datagen
+    CLI, the PIAD train split through ``generate_piad_tree`` (the CLI has
+    no flag for the match lists) and its test split through the CLI; the
+    photos and a flat ``vqa.pkl``. Returns one record a recipe call:
+    items, seconds, seconds an item, peak GB."""
+    with open(files["pico"], "rb") as f:
+        pico = pickle.load(f)
+    piad = sorted(os.path.splitext(n)[0]
+                  for n in os.listdir(files["piad_txt"]))
+    write_photos(tree, [f"img{i:02d}.jpg" for i in range(n_images)]
+                 + [m["image"] for m in pico.values()]
+                 + [f"{oid}.jpg" for oid in piad]
+                 + [f"vqa{i}.jpg" for i in range(VQA_RECORDS)])
+    with open(os.path.join(tree, "vqa.pkl"), "wb") as f:
+        pickle.dump([{"image": f"vqa{i}.jpg",
+                      "question": "What is the person doing with the "
+                                  f"object in picture {i} ?",
+                      "answer": "The person is sitting on it ."}
+                     for i in range(VQA_RECORDS)], f)
+    human, obj = FLAG_HUMAN_VIEWS, FLAG_OBJECT_VIEWS
+    calls = (
+        ("damon", n_images, lambda: datagen_cli.main(datagen_argv(
+            "damon", tree, files, size, human))),
+        ("pico train", len(pico), lambda: datagen_cli.main(datagen_argv(
+            "pico", tree, files, size, obj))),
+        ("pico test", len(pico), lambda: datagen_cli.main(datagen_argv(
+            "pico", tree, files, size, obj, "--split", "test"))),
+        ("piad train", len(piad), lambda: generate_piad_tree(
+            tree, {oid: os.path.join(files["piad_txt"], oid + ".txt")
+                   for oid in piad}, OBJECT_VIEWS[obj], size,
+            object_matches={oid: [oid] for oid in piad}, affordance="sit")),
+        ("piad test", len(piad), lambda: datagen_cli.main(datagen_argv(
+            "piad", tree, files, size, obj, "--split", "test"))),
+    )
+    out = []
+    for name, items, fn in calls:
+        _, secs, peak = timed_on_card(fn)
+        out.append({"recipe": name, "items": items, "s": secs,
+                    "s_per_item": secs / items, "peak_gb": peak})
+    return out
+
+
+def first_damon_round_trip(tree, files):
+    """``verify_contact_reconstruction`` on the card of the first DAMON
+    annotation (the first image's first object): its masks as written and
+    the tree's lift maps."""
+    from PIL import Image
+
+    with open(files["damon"], "rb") as f:
+        annot = pickle.load(f)
+    image = sorted(annot)[0]
+    obj = sorted(annot[image])[0]
+    root = os.path.join(tree, "hcontact_vitruvian_mv2")
+    stem = os.path.splitext(image)[0]
+    masks = np.stack([np.asarray(Image.open(os.path.join(
+        root, "masks", f"{stem}_{obj}_{v}.png"))) >= 128
+        for v in HUMAN_VIEWS[FLAG_HUMAN_VIEWS].names])
+    maps = np.load(os.path.join(root, "lift_maps.npz"))
+    cmask = np.zeros(len(np.load(files["body"])["verts"]), bool)
+    cmask[np.asarray(annot[image][obj])] = True
+    counts = verify_contact_reconstruction(
+        masks, torch.as_tensor(maps["p2v"], device="cuda"),
+        torch.as_tensor(maps["bary"], device="cuda"), cmask)
+    return {"image": image, "object": obj, **counts}
+
+
+def flagship_validate(model, tokenizer, args, tree):
+    """``validate`` of the trained flagship model on one batch of FLAG_B
+    rows each of hcontact, ocontact and oafford from the tree's test
+    splits (a split's samples repeated to fill it), the cached view encode
+    for hcontact, T new tokens, each task's own seg token raised by
+    ``let_seg_token_appear``. Returns one record a task and the three
+    validations' launches together."""
+    maps = train_cli._load_human_maps(tree, "cuda")
+    maps["num_vertices"] = model.config.num_human_vertices
+    batches = {}
+    for name in ("hcontact", "ocontact", "oafford"):
+        ds = ValDataset(build_dataset(name, tree, "test", args))
+        batches[name] = collate(
+            [ds[i % len(ds)] for i in range(FLAG_B)], tokenizer,
+            max_len=args.model_max_length,
+            num_human_vertices=model.config.num_human_vertices,
+            num_object_points=model.config.num_object_points,
+            human_maps=maps,
+            include_object_maps=name in ("ocontact", "oafford"))
+    cfg = model.config
+    head = model.llava.lm.lm_head.weight
+    seg_rows = {t: head[t].clone() for t in (cfg.hseg_token_idx,
+                                             cfg.oseg_token_idx)}
+    sam = model.config.sam
+    n_global = len(sam.encoder_global_attn_indexes)
+    want = {"flash_attention": model.config.llama.num_layers
+            + sam.decoder_depth,
+            "window_attention": sam.encoder_depth - n_global,
+            "rel_attention": n_global}
+    out, full = {}, []
+    for name, (batch, meta) in batches.items():
+        # the task's own seg token, raised alone: [HSEG] for hcontact,
+        # [OSEG] for the object tasks
+        token = (cfg.hseg_token_idx if name == "hcontact"
+                 else cfg.oseg_token_idx)
+        for t, row in seg_rows.items():
+            head[t] = row
+        ids, _ = truncate_at_answer(batch["input_ids"].numpy(),
+                                    batch["labels"].numpy())
+        let_seg_token_appear(model, {"input_ids": ids,
+                                     "images_clip": batch["images_clip"]},
+                             "cuda", "dense", token=token)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        results, _ = validate(iter([(batch, meta)]), model, name, MASK,
+                              human_maps=maps, max_new_tokens=T,
+                              cache_view_encode=name == "hcontact",
+                              max_batches=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        full.append(launches)
+        out[name] = {"images": FLAG_B, "s": secs,
+                     "images_per_s": FLAG_B / secs, "results": results,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": {n: launches[n] for n in want},
+                     "launches_expected": want}
+        metric = results["auc" if name == "oafford" else "f1"]
+        if not (np.isfinite(metric) and results["seg_rate"] > 0
+                and all(launches[n] == c for n, c in want.items())):
+            raise SystemExit(f"the flagship's {name} validation failed: "
+                             f"{out[name]}")
+    return out, sum_launches(full)
+
+
+def tree_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def tree_differences(got_root, want_root):
+    """How the tree under ``got_root`` differs from ``want_root``: the
+    files of one side only, the largest PNG level, map and barycentric
+    differences, and the pickles (by ``repr``) and text files that
+    differ."""
+    from PIL import Image
+
+    got, want = tree_files(got_root), tree_files(want_root)
+    res = {"files": len(want), "only_one_side": sorted(set(got) ^ set(want)),
+           "png_levels": 0, "maps": 0.0, "bary": 0.0, "pickles_differ": [],
+           "text_differ": []}
+    for rel in sorted(set(got) & set(want)):
+        a, b = os.path.join(want_root, rel), os.path.join(got_root, rel)
+        if rel.endswith(".png"):
+            x = np.asarray(Image.open(a)).astype(int)
+            y = np.asarray(Image.open(b)).astype(int)
+            res["png_levels"] = max(res["png_levels"], int(
+                np.abs(x - y).max()) if x.shape == y.shape else 256)
+        elif rel.endswith(".pkl"):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if repr(pickle.load(fa)) != repr(pickle.load(fb)):
+                    res["pickles_differ"].append(rel)
+        elif rel.endswith(".npz"):
+            za, zb = np.load(a), np.load(b)
+            for k in za.files:
+                kind = "bary" if k == "bary" or os.path.basename(
+                    rel).startswith("bary") else "maps"
+                same = k in zb.files and za[k].shape == zb[k].shape
+                res[kind] = max(res[kind], float(np.abs(
+                    za[k].astype(np.float64) - zb[k].astype(np.float64)
+                ).max()) if same else float("inf"))
+        else:
+            with open(a) as fa, open(b) as fb:
+                if fa.read() != fb.read():
+                    res["text_differ"].append(rel)
+    return res
+
+
+def recipes_card_and_cpu(work, files):
+    """The five recipes through the datagen CLI at TINY_SIZE on the card
+    and on the CPU from the same input files, each in a root of its own:
+    the card's seconds and how its tree differs from the CPU's."""
+    out = {}
+    for recipe in ("damon", "lemon-hu", "rich", "piad", "pico"):
+        views = (FLAG_OBJECT_VIEWS if recipe in ("piad", "pico")
+                 else FLAG_HUMAN_VIEWS)
+        roots = {side: os.path.join(work, side, recipe) for side in SIDES}
+        secs = {side: timed_on_card(lambda: datagen_cli.main(datagen_argv(
+            recipe, roots[side], files, TINY_SIZE, views, "--device",
+            dev)))[1] for side, dev in SIDES.items()}
+        out[recipe] = {"card_s": secs["card"], "cpu_s": secs["cpu"],
+                       **tree_differences(roots["card"], roots["cpu"])}
+    return out
+
+
+def force_object_answers(run, dst):
+    """A run directory ``dst`` holding ``run``'s pretrained config and its
+    latest weights with every answer token [OSEG] (a constant channel 0 in
+    the residual stream, from the embeddings and the projected patches,
+    and [OSEG]'s lm_head row on it) and every mask logit FORCE_LOGIT (the
+    mask decoders' upscaled channel 0 the constant GELU(FORCE_LOGIT), each
+    hypernetwork's output 1 on channel 0 and 0 on the others)."""
+    os.makedirs(dst)
+    shutil.copy(os.path.join(run, "pretrained_config.json"), dst)
+    oseg = load_config(run, "pretrained_config.json")["oseg_token_idx"]
+    state = CheckpointManager(run).restore()
+    sd = state["model"]
+    sd["llava.lm.model.embed_tokens.weight"][:, 0] = 30.0
+    sd["llava.mm_projector.bias"][0] = 30.0
+    sd["llava.lm.lm_head.weight"][oseg, 0] = 5.0
+    up = ".output_upscaling.3."
+    for key in [k for k in sd if k.endswith(up + "weight")]:
+        dec = key[:-len(up + "weight")]
+        sd[key][:, 0] = 0.0  # ConvTranspose2d weight (in, out, k, k)
+        sd[dec + up + "bias"][0] = FORCE_LOGIT
+        heads = {k.rsplit(".layers.", 1)[0] for k in sd if k.startswith(
+            dec + ".output_hypernetworks_mlps.")}
+        for head in heads:
+            last = max(int(k.rsplit(".layers.", 1)[1].split(".")[0])
+                       for k in sd if k.startswith(head + ".layers."))
+            sd[f"{head}.layers.{last}.weight"].zero_()
+            sd[f"{head}.layers.{last}.bias"].zero_()
+            sd[f"{head}.layers.{last}.bias"][0] = 1.0
+    CheckpointManager(dst).save(state["step"], state)
+
+
+def tiny_flagship_card_and_cpu(work, files):
+    """The tiny chain: the five recipes card against CPU; a tiny flagship
+    tree written on the card; the tiny flagship CLI for TINY_FLAG_STEPS
+    steps with saving on the card and on the CPU, every step's loss terms
+    held within TINY_LOSS_RTOL; the eval CLI for ocontact and oafford on
+    both runs (printed) and on their forced copies (held equal)."""
+    t0 = time.perf_counter()
+    recipes = recipes_card_and_cpu(os.path.join(work, "recipes"), files)
+    tree = os.path.join(work, "tree")
+    write_flagship_tree(tree, files, TINY_SIZE, TINY_IMAGES)
+    runs = os.path.join(work, "runs")
+    argv = ["--tokenizer", "whitespace", "--model_scale", "tiny",
+            "--dataset", "hcontact||ocontact||oafford||vqa",
+            "--sample_rates", "9,9,5,2",
+            "--token_type", "Gen-Hu-Obj", "--cam_encoder_type", "vi_v1",
+            "--oC_sam_view_type", FLAG_OBJECT_VIEWS,
+            "--hC_sam_view_type", FLAG_HUMAN_VIEWS,
+            "--hC_question_type", "parts", "--oC_question_type", "afford",
+            "--hC_loss_weight", "3.0", "--oC_loss_weight", "3.0",
+            "--dataset_dir", tree, "--image_size", str(TINY_SIZE),
+            "--clip_size", "28", "--num_human_vertices", "178",
+            "--num_object_points", str(TINY_FLAG_POINTS),
+            "--model_max_length", "384", "--epochs", "1",
+            "--steps_per_epoch", str(TINY_FLAG_STEPS), "--batch_size", "4",
+            "--lr", "1e-3", "--warmup_steps", "2", "--log_base_dir", runs,
+            "--val_batches", "1", "--val_every", "1", "--data_workers", "1",
+            "--no_tensorboard"]
+    steps = {}
+    for side, dev in SIDES.items():
+        trainer = train_cli.main(argv + ["--exp_name", side, "--device",
+                                         dev])
+        steps[side] = [{"loss": h["loss"], **h["loss_terms"],
+                        "rows": h["rows_by_task"]} for h in trainer.history]
+        del trainer
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+              for a, b in zip(steps["card"], steps["cpu"]) for k in b
+              if k != "rows")
+    reports, forced = {}, {}
+    for side, dev in SIDES.items():
+        run = os.path.join(runs, side)
+        force_object_answers(run, run + "_forced")
+        for name in ("ocontact", "oafford"):
+            ev = ["--dataset_dir", tree, "--val_dataset", name,
+                  "--batch_size", str(TINY_FLAG_EVAL_B), "--max_batches",
+                  "1", "--max_new_tokens", "8", "--device", dev]
+            reports[f"{name}_{side}"] = eval_cli.main(["--run_dir", run]
+                                                      + ev)
+            forced[f"{name}_{side}"] = eval_cli.main(
+                ["--run_dir", run + "_forced"] + ev)
+    diffs = {f"{name}.{k}": abs(forced[f"{name}_card"]["metrics"][k] - v)
+             for name in ("ocontact", "oafford")
+             for k, v in forced[f"{name}_cpu"]["metrics"].items()}
+    res = {"phase": "flagship_tiny_chain", "s": time.perf_counter() - t0,
+           "recipes_card_vs_cpu": recipes, "steps": steps,
+           "loss_max_rel_diff": rel, "tol": TINY_LOSS_RTOL,
+           "reports": reports, "forced_reports": forced,
+           "forced_max_diff": max(diffs.values())}
+    log(json.dumps(res))
+    trees_held = all(not r["only_one_side"] and r["png_levels"] <= PNG_LEVELS
+                     and r["maps"] == 0.0 and r["bary"] <= BARY_TOL
+                     and not r["pickles_differ"] and not r["text_differ"]
+                     for r in recipes.values())
+    runs_held = (all(len(s) == TINY_FLAG_STEPS for s in steps.values())
+                 and [s["rows"] for s in steps["card"]]
+                 == [s["rows"] for s in steps["cpu"]]
+                 and rel <= TINY_LOSS_RTOL)
+    forced_held = (all(d == 0 for d in diffs.values())
+                   and all(f["metrics"]["seg_rate"] == 1.0
+                           for f in forced.values())
+                   and all(np.isfinite(r["metrics"][
+                       "f1" if k.startswith("ocontact") else "auc"])
+                       for k, r in reports.items()))
+    if not (trees_held and runs_held and forced_held):
+        raise SystemExit(f"the tiny flagship chain failed: trees "
+                         f"{trees_held}, runs {runs_held}, forced "
+                         f"{forced_held}")
+
+
+def sum_launches(counts):
+    """Launch counts (``read_launches`` dicts) added key by key."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            if isinstance(v, dict):
+                routes = out.setdefault(k, {})
+                for r, n in v.items():
+                    routes[r] = routes.get(r, 0) + n
+            else:
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def flagship_workflow_phase():
+    """Phase 16: the hcontact-ocontact flagship through the port's entry
+    points: (1) its four trees written on the card at 1024^2 through the
+    datagen CLI (DAMON under FLAG_HUMAN_VIEWS; PICO and PIAD under
+    FLAG_OBJECT_VIEWS; a VQA pickle), each recipe's seconds, seconds an
+    item and peak GB, and the first DAMON annotation's round trip; (2) the
+    preset through the training CLI at full width (LLaMA-13B bf16, LoRA 8
+    with remat, the whitespace tokenizer) for FLAG_STEPS steps with
+    FLAG_WORKERS loader threads: each step's wall and data seconds, the
+    loader-wait share, the rows of each task, each loss term, the
+    launches a step against ``train_launches_expected`` and the peak GB;
+    then ``TrainStep`` on one real batch without the loader (resident,
+    copied) and one profiled step; (3) ``validate`` of the trained model on one batch each of hcontact,
+    ocontact and oafford; (4) the tiny chain card against CPU
+    (``tiny_flagship_card_and_cpu``). Returns the launches of the training
+    CLI and those of the three validations together."""
+    t_phase = time.perf_counter()
+    work = os.path.join(WORKDIR, "flagship")
+    shutil.rmtree(work, ignore_errors=True)
+    files = write_flagship_inputs(os.path.join(work, "inputs"), SPHERE,
+                                  DAMON_IMAGES, PICO_SPHERES, PIAD_POINTS,
+                                  PIAD_OBJECTS)
+    tree = os.path.join(work, "tree_1024")
+    recipes = write_flagship_tree(tree, files, MASK, DAMON_IMAGES)
+    round_trip = first_damon_round_trip(tree, files)
+    log(json.dumps({"phase": "flagship_trees", "size": MASK,
+                    "recipes": recipes, "first_damon_round_trip": round_trip,
+                    "bytes": sum(os.path.getsize(os.path.join(d, f))
+                                 for d, _, fs in os.walk(tree) for f in fs)}))
+    if round_trip["missed"] != 0 or round_trip["original_visible"] == 0:
+        raise SystemExit(f"the DAMON round trip missed contacts: "
+                         f"{round_trip}")
+
+    # (2) the preset through the training CLI at full width
+    runs = os.path.join(work, "runs")
+    argv = FLAG_PRESET + [
+        "--model_scale", "full", "--tokenizer", "whitespace",
+        "--dataset_dir", tree, "--data_workers", str(FLAG_WORKERS),
+        "--epochs", "1", "--steps_per_epoch", str(FLAG_STEPS),
+        "--batch_size", str(FLAG_B), "--no_eval", "--save_every", "2",
+        "--log_base_dir", runs, "--no_tensorboard"]
+    trainer, cli_s, launches, peak_gb, loads = cli_train(argv)
+    hist = trainer.history
+    want = train_launches_expected(trainer.cfg, FLAG_STEPS)
+    res = {"phase": "flagship_train", "argv": argv, "cli_s": cli_s,
+           "first_batch_s": trainer.first_batch_s,
+           "steps": [{"wall_s": h["batch_s"], "data_s": h["data_s"],
+                      "step_s": h["batch_s"] - h["data_s"],
+                      "loader_wait_share": h["loader_wait_share"],
+                      "rows": h["rows_by_task"], "loss": h["loss"],
+                      "loss_terms": h["loss_terms"]} for h in hist],
+           "step_s_after_first": spread([h["batch_s"] - h["data_s"]
+                                         for h in hist[1:]]),
+           "peak_gb": peak_gb,
+           "launches_per_step": {n: launches[n] / FLAG_STEPS for n in
+                                 TRAINING_KERNELS + ("window_attention",
+                                                     "rel_attention")},
+           "image_loads": loads}
+    log(json.dumps(res))
+    checks = {
+        "steps": trainer.step.step == FLAG_STEPS and len(hist) == FLAG_STEPS,
+        "losses_finite": all(np.isfinite(h["loss"]) and all(
+            np.isfinite(v) for v in h["loss_terms"].values()) for h in hist),
+        "none_skipped": all(h["skipped_nonfinite"] == 0.0 for h in hist),
+        "launches_as_expected": launches == want,
+        "nothing_saved": not os.path.exists(os.path.join(
+            runs, "interactvlm-3d-hcontact-ocontact", "ckpt")),
+        "rows_per_batch": all(sum(h["rows_by_task"].values()) == FLAG_B
+                              and set(h["rows_by_task"]) <= set(FLAG_TASKS)
+                              for h in hist),
+        "k_slots": trainer.cfg.max_seg_tokens == 2,
+    }
+    log(json.dumps({"phase": "flagship_train_checks", **checks,
+                    "expected": want, "launches": launches}))
+    if not all(checks.values()):
+        raise SystemExit(f"the flagship training CLI failed: {checks}")
+
+    # where the step's time goes: TrainStep on the loader's first batch
+    # with no loader running (resident on the card, or copied each step),
+    # then one step under the profiler
+    args = train_cli.parse_args(argv)
+    loader = train_cli.real_batch_iter(args, trainer.cfg, trainer.tokenizer,
+                                       "cuda")
+    batch = next(loader)
+    loader.close()
+    split = step_split_ms(trainer.step, batch)
+    prof = device_busy(lambda: trainer.step(to_device(batch, "cuda")))
+    log(json.dumps({"phase": "flagship_step_split",
+                    "rows": train_cli.rows_by_task(batch),
+                    "batch_mb": sum(v.nbytes for v in batch.values()
+                                    if torch.is_tensor(v)) / 1e6,
+                    "cli_ms": spread([(h["batch_s"] - h["data_s"]) * 1e3
+                                      for h in hist[1:]]),
+                    "train_step_resident_ms": spread(split["resident"]),
+                    "train_step_copied_ms": spread(split["copied"]),
+                    "profiled_step": prof}))
+    del batch
+
+    # (3) validate the trained model, one batch a task
+    model, tokenizer = trainer.model, trainer.tokenizer
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.requires_grad_(False)
+    with torch.inference_mode():
+        val, val_launches = flagship_validate(model, tokenizer, args,
+                                              tree)
+    log(json.dumps({"phase": "flagship_validate", **val}))
+    del model, tokenizer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) the tiny chain, the card against the CPU
+    tiny = os.path.join(work, "tiny")
+    tiny_flagship_card_and_cpu(tiny, write_flagship_inputs(
+        os.path.join(tiny, "inputs"), TINY_SPHERE, TINY_IMAGES,
+        TINY_OBJ_SPHERES, TINY_FLAG_POINTS, PIAD_OBJECTS[:2]))
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "flagship_workflow",
+                    "s": time.perf_counter() - t_phase}))
+    return launches, val_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3816,6 +4427,10 @@ def main() -> int:
                     "s": time.perf_counter() - t_start}))
     launches["demo"], launches["fit"] = demo_fit_phase()
     log(json.dumps({"phase": "demo_fit_done",
+                    "s": time.perf_counter() - t_start}))
+    launches["flagship_train"], launches["flagship_validate"] = \
+        flagship_workflow_phase()
+    log(json.dumps({"phase": "flagship_workflow_done",
                     "s": time.perf_counter() - t_start}))
 
     rows = []

@@ -1,17 +1,21 @@
-"""Task datasets and mixture sampling: the human-contact part.
+"""Task datasets and mixture sampling.
 
-Port of ``interactvlm_tpu/data/datasets.py`` for the DAMON workflow:
-``TemplateFixedRandom``, ``BaseContactDataset``, ``HContactDataset`` (the
-DAMON and LEMON-HU sources), ``HybridDataset``, ``HContactSceneDataset``,
+Port of ``interactvlm_tpu/data/datasets.py``: ``TemplateFixedRandom``,
+``BaseContactDataset``, ``HContactDataset`` (the DAMON and LEMON-HU
+sources), ``HContactSceneDataset``, the object datasets
+(``OAffordDataset``: PIAD / LEMON point clouds; ``OContactDataset``: PICO
+meshes), ``H2DContactDataset``, ``VQADataset``, ``HybridDataset``,
 ``ValDataset`` and ``build_dataset``. Samples are the JAX package's, array
 for array, under the same seeds: the same files, the same numpy
 preprocessing and the same python / numpy random draws (template choice,
-parts dropout, the mixture's picks). PNGs decode through the native decoder
+parts dropout, the mixture's picks, the object match shuffle and the
+missing-file retries). PNGs decode through the native decoder
 (``runtime/native_image.load_rgb``: the same bytes as PIL's), other images
-through PIL. The object, VQA, 2D and LISA segmentation datasets are not
-ported yet: ``build_dataset`` raises for them.
+through PIL. The LISA segmentation datasets are not ported yet:
+``build_dataset`` raises for them.
 
-On-disk layout (the reference ``./data`` tree):
+On-disk layout (the reference ``./data`` tree; ``datagen/recipes.py``
+writes it):
 
   <root>/hcontact_vitruvian_mv2/
       renders/<view_name>.png            fixed canonical body renders
@@ -19,6 +23,15 @@ On-disk layout (the reference ``./data`` tree):
       contact_label_objectwise.pkl       {sample_id: {obj: vert-ids}}
       body_parts_objectwise.pkl          {sample_id: {obj: [part names]}}
       lift_maps.npz                      p2v / bary of the canonical views
+  <root>/rendered_points_heatmap/        PIAD / LEMON objects (oafford):
+      renders/<id>_<view>.png, heatmaps/<id>_<view>.png, gt/<id>.npz,
+      maps/<id>.npz (p2p), index.pkl     {split: [records]}
+  <root>/pico_ocontact/                  PICO meshes (ocontact):
+      renders/, masks/, gt/<id>.npz (contact, n_verts), maps/<id>.npz
+      (p2v, bary), index.pkl
+  <root>/hcontact_2d/                    2D contact (h2dcontact):
+      masks/<mask>.png, index.pkl
+  <root>/vqa.pkl                         VQA records (flat or per split)
   <root>/images/<sample_id>.jpg          the real photos (CLIP input)
 """
 
@@ -38,11 +51,13 @@ from interactvlm_tpu_torch.data.collate import Sample
 from interactvlm_tpu_torch.data.conversations import get_conversation_template
 from interactvlm_tpu_torch.data.transforms import (
     clip_preprocess,
+    sam_label_preprocess,
     sam_preprocess,
     valid_region_mask,
 )
 from interactvlm_tpu_torch.geometry.views import (
     HUMAN_VIEWS,
+    OBJECT_VIEWS,
     ViewSet,
     normalize_cam_params,
 )
@@ -158,6 +173,24 @@ class BaseContactDataset:
         else:
             q = self.rng.choice(C.HCONTACT_QUESTION_LIST)
             a = self.rng.choice(C.HCONTACT_ANSWER_LIST)
+        q = q.format(class_name=class_name.lower())
+        a = C.substitute_seg_tokens(a, self.token_type)
+        return build_conversation(q, a, self.conv_type), q
+
+    def object_conversation(
+        self, class_name: str, affordance: Optional[str] = None,
+        question_type: str = "simple",
+    ):
+        """One QA round for an object; the 'afford' template names the
+        affordance in the answer."""
+        if question_type == "afford" and affordance:
+            q = self.rng.choice(C.OAFFORD_AFFORD_QUESTION_LIST)
+            a = self.rng.choice(C.OAFFORD_AFFORD_ANSWER_LIST).format(
+                affordance=affordance
+            )
+        else:
+            q = self.rng.choice(C.OAFFORD_QUESTION_LIST)
+            a = self.rng.choice(C.OAFFORD_ANSWER_LIST)
         q = q.format(class_name=class_name.lower())
         a = C.substitute_seg_tokens(a, self.token_type)
         return build_conversation(q, a, self.conv_type), q
@@ -330,6 +363,178 @@ class HContactDataset(BaseContactDataset):
         )
 
 
+class OAffordDataset(BaseContactDataset):
+    """PIAD/LEMON object point-cloud affordance
+    (reference ``datasets/ocontact_3d.py:76-337``): per-sample object
+    renders + heatmap labels + pixel->point maps."""
+
+    ds_name = "oafford"
+
+    def __init__(
+        self,
+        base_dir: str,
+        view_type: str = "4MV-Z_HM",
+        split: str = "train",
+        num_points: int = 2048,
+        question_type: str = "simple",
+        object_ranking: str = "openshape",
+        **kw,
+    ):
+        super().__init__(base_dir, OBJECT_VIEWS[view_type], **kw)
+        self.split = split
+        self.num_points = num_points
+        self.question_type = question_type
+        self.object_ranking = object_ranking
+        self.folder = join(base_dir, "rendered_points_heatmap")
+        index = _load_pickle(join(self.folder, "index.pkl"))
+        # index: list of dicts {image, object_id, class_name, affordance}
+        self.samples = index[split]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def _paths(self, object_id: str, kind: str):
+        return [
+            join(self.folder, kind, f"{object_id}_{v}.png")
+            for v in self.view_set.names
+        ]
+
+    def __getitem__(self, idx: int) -> Sample:
+        return _retry_missing(self, idx)
+
+    def _candidates(self, rec) -> List[str]:
+        """Object candidates for one image sample.
+
+        Train mode uses the OpenShape image->mesh retrieval ranking with up
+        to 5 retries over ranked matches, skipping zero-contact or missing
+        entries (reference ocontact_3d.py:179-219 ``object_match``); test
+        mode is the 1:1 assignment (:123-131)."""
+        if self.split == "train" and rec.get("object_matches"):
+            cands = list(rec["object_matches"])[:5]
+            if self.object_ranking == "random":
+                self.rng.shuffle(cands)
+            return cands
+        return [rec["object_id"]]
+
+    def _load(self, idx: int) -> Sample:
+        rec = self.samples[idx]
+        oid = gt = None
+        for cand in self._candidates(rec):
+            gt_path = join(self.folder, "gt", f"{cand}.npz")
+            if not os.path.exists(gt_path):
+                continue
+            g = np.load(gt_path)["affordance"].astype(np.float32)
+            if self.split == "train" and np.count_nonzero(g) == 0:
+                continue  # zero-contact retry (ocontact_3d.py:193-195)
+            if all(os.path.exists(p) for p in self._paths(cand, "renders")):
+                oid, gt = cand, g
+                break
+        if oid is None:
+            raise FileNotFoundError(
+                f"no valid object match for {rec.get('image')}"
+            )
+        sam_images, valid, _, resize = self.load_views(
+            self._paths(oid, "renders")
+        )
+        heatmaps = self.load_label_masks(
+            self._paths(oid, "heatmaps"), valid, binary=False
+        )
+        gt = gt[: self.num_points]
+        if gt.size < self.num_points:
+            gt = np.pad(gt, (0, self.num_points - gt.size))
+
+        # per-sample pixel->point map (reference derives the p2pmap path
+        # from the mask path, model/components.py:309)
+        obj_p2p = None
+        maps_path = join(self.folder, "maps", f"{oid}.npz")
+        if os.path.exists(maps_path):
+            obj_p2p = np.load(maps_path)["p2p"].astype(np.int32)
+
+        conv, q = self.object_conversation(
+            rec["class_name"], rec.get("affordance"), self.question_type
+        )
+        image_path = join(self.base_dir, "images", rec["image"])
+        return Sample(
+            image_path=image_path,
+            sam_images=sam_images,
+            image_clip=self.load_clip_image(image_path),
+            conversations=[conv],
+            masks=heatmaps,
+            label=heatmaps[0],
+            gt_contact_3d=gt,
+            cam_params=self.cam_params(),
+            resize=resize,
+            questions=[q],
+            sampled_classes=[rec["class_name"]],
+            ds_name=self.ds_name,
+            mask_paths=self._paths(oid, "mask"),
+            obj_p2p=obj_p2p,
+        )
+
+
+def _retry_missing(ds, idx: int) -> Sample:
+    """``ds._load(idx)``, and on a missing file up to four more draws of
+    another index from the dataset's rng (the reference's skip-and-retry,
+    ocontact_3d.py:179-222)."""
+    for _ in range(5):
+        try:
+            return ds._load(idx)
+        except FileNotFoundError as e:
+            last = e
+            idx = ds.rng.randrange(len(ds.samples))
+    raise last
+
+
+class VQADataset(BaseContactDataset):
+    """LLaVA-instruct + GPT-4o HOI-VQA
+    (reference ``datasets/vqa_dataset.py``): plain QA, empty masks.
+
+    A row carries one zero SAM image and IGNORE masks, both
+    ``image_size`` square, so that it stacks with the contact rows of a
+    mixture at any size (the JAX package's masks are 64^2 at every size,
+    which its collate can stack only at image_size 64; ROADMAP Queue C)."""
+
+    ds_name = "vqa"
+
+    def __init__(self, base_dir: str, annotation_file: str = "vqa.pkl",
+                 view_type: str = "4MV-Z_Vitru_mv2", split: str = "train",
+                 **kw):
+        super().__init__(base_dir, HUMAN_VIEWS[view_type], **kw)
+        self.split = split
+        records = _load_pickle(join(base_dir, annotation_file))
+        # vqa.pkl is either a flat record list (the reference's VQA source,
+        # llava_v1_5_mix665k, is train-only: datasets/vqa_dataset.py:64-85)
+        # or {split: [records]} like the other index.pkl layouts.
+        self.records = records[split] if isinstance(records, dict) else records
+
+    def __len__(self):
+        return len(self.records)
+
+    def __getitem__(self, idx: int) -> Sample:
+        rec = self.records[idx]
+        img_path = join(self.base_dir, "images", rec["image"])
+        conv = build_conversation(
+            C.DEFAULT_IMAGE_TOKEN + "\n" + rec["question"],
+            rec["answer"], self.conv_type,
+        )
+        S = self.image_size
+        return Sample(
+            image_path=img_path,
+            sam_images=np.zeros((1, S, S, 3), np.float32),
+            image_clip=self.load_clip_image(img_path),
+            conversations=[conv],
+            masks=np.full((1, S, S), float(C.IGNORE_LABEL), np.float32),
+            label=np.zeros((S, S), np.float32),
+            gt_contact_3d=np.zeros(1, np.float32),
+            cam_params=np.zeros((1, 5), np.float32),
+            resize=(S, S),
+            questions=[rec["question"]],
+            sampled_classes=[],
+            ds_name=self.ds_name,
+            mask_paths=[],
+        )
+
+
 class HybridDataset:
     """Mixture-of-datasets sampler (reference ``datasets/dataset.py:181-378``):
     each index draws a dataset by normalized sample rate, then a uniform
@@ -389,6 +594,137 @@ class HContactSceneDataset(HContactDataset):
         ]
 
 
+class OContactDataset(BaseContactDataset):
+    """PICO object-mesh contact (reference ``datasets/ocontact_3d.py:
+    380-527``): per-sample low-poly mesh renders with binary contact masks
+    and per-sample pixel->vertex maps (variable vertex counts, padded to
+    ``max_vertices`` for fixed-shape batching)."""
+
+    ds_name = "ocontact"
+
+    def __init__(
+        self,
+        base_dir: str,
+        view_type: str = "4MV-Z_HM_BM",
+        split: str = "train",
+        max_vertices: int = 8192,
+        question_type: str = "simple",
+        **kw,
+    ):
+        super().__init__(base_dir, OBJECT_VIEWS[view_type], **kw)
+        self.split = split
+        self.max_vertices = max_vertices
+        self.question_type = question_type
+        self.folder = join(base_dir, "pico_ocontact")
+        index = _load_pickle(join(self.folder, "index.pkl"))
+        self.samples = index[split]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> Sample:
+        return _retry_missing(self, idx)
+
+    def _load(self, idx: int) -> Sample:
+        rec = self.samples[idx]
+        oid = rec["object_id"]
+        paths = [
+            join(self.folder, "renders", f"{oid}_{v}.png")
+            for v in self.view_set.names
+        ]
+        sam_images, valid, _, resize = self.load_views(paths)
+        mask_paths = [
+            join(self.folder, "masks", f"{oid}_{v}.png")
+            for v in self.view_set.names
+        ]
+        masks = self.load_label_masks(mask_paths, valid)
+
+        gt_file = np.load(join(self.folder, "gt", f"{oid}.npz"))
+        contact = gt_file["contact"].astype(np.float32)
+        n_verts = int(gt_file.get("n_verts", contact.size))
+        gt = np.zeros(self.max_vertices, np.float32)
+        gt[: min(contact.size, self.max_vertices)] = contact[
+            : self.max_vertices
+        ]
+
+        # per-sample pixel->vertex + barycentric maps
+        # (reference model/components.py:363-377 loads p2vmap npz per sample)
+        obj_p2v = obj_bary = None
+        maps_path = join(self.folder, "maps", f"{oid}.npz")
+        if os.path.exists(maps_path):
+            m = np.load(maps_path)
+            obj_p2v = m["p2v"].astype(np.int32)
+            obj_bary = m["bary"].astype(np.float32)
+
+        conv, q = self.object_conversation(
+            rec["class_name"], question_type=self.question_type
+        )
+        image_path = join(self.base_dir, "images", rec["image"])
+        return Sample(
+            image_path=image_path,
+            sam_images=sam_images,
+            image_clip=self.load_clip_image(image_path),
+            conversations=[conv],
+            masks=masks,
+            label=masks[0],
+            gt_contact_3d=gt,
+            cam_params=self.cam_params(),
+            resize=resize,
+            questions=[q],
+            sampled_classes=[rec["class_name"]],
+            ds_name=self.ds_name,
+            mask_paths=mask_paths,
+            obj_p2v=obj_p2v,
+            obj_bary=obj_bary,
+            num_valid_verts=n_verts,
+        )
+
+
+class H2DContactDataset(BaseContactDataset):
+    """DAMON contact projected onto the *input image* -- 2D referring
+    segmentation, single view (reference ``datasets/hcontact_2d.py``).
+    The mask PNG is read as PIL's grey ("L") conversion, as the JAX
+    package reads it."""
+
+    ds_name = "h2dcontact"
+
+    def __init__(self, base_dir: str, split: str = "train",
+                 view_type: str = "4MV-Z_Vitru_mv2", **kw):
+        super().__init__(base_dir, HUMAN_VIEWS[view_type], **kw)
+        self.folder = join(base_dir, "hcontact_2d")
+        index = _load_pickle(join(self.folder, "index.pkl"))
+        self.samples = index[split]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> Sample:
+        from PIL import Image
+
+        rec = self.samples[idx]
+        img_path = join(self.base_dir, "images", rec["image"])
+        sam_img, resize = sam_preprocess(load_rgb(img_path), self.image_size)
+        mask_path = join(self.folder, "masks", rec["mask"])
+        mask = (np.asarray(Image.open(mask_path).convert("L")) >= 128
+                ).astype(np.float32)
+        conv, q = self.human_conversation(rec["class_name"], "simple")
+        return Sample(
+            image_path=img_path,
+            sam_images=sam_img[None],
+            image_clip=self.load_clip_image(img_path),
+            conversations=[conv],
+            masks=sam_label_preprocess(mask, self.image_size)[None],
+            label=mask,
+            gt_contact_3d=np.zeros(1, np.float32),
+            cam_params=np.zeros((1, 5), np.float32),
+            resize=resize,
+            questions=[q],
+            sampled_classes=[rec["class_name"]],
+            ds_name=self.ds_name,
+            mask_paths=[mask_path],
+        )
+
+
 class ValDataset:
     """Validation wrapper: a fixed, ordered pass over one task dataset
     (reference ``datasets/dataset.py:381-592`` semantics -- deterministic
@@ -419,19 +755,27 @@ class ValDataset:
 DATASET_REGISTRY = {
     "hcontact": HContactDataset,
     "hcontact_scene": HContactSceneDataset,
+    "oafford": OAffordDataset,
+    "ocontact": OContactDataset,
+    "h2dcontact": H2DContactDataset,
+    "vqa": VQADataset,
 }
 # the JAX package's other datasets and the ROADMAP item that ports them
 UNPORTED = {
-    "oafford": "ROADMAP Queue A item 2 (the object datasets)",
-    "ocontact": "ROADMAP Queue A item 2 (the object datasets)",
-    "vqa": "ROADMAP Queue A item 2 (the LISA datasets)",
-    "h2dcontact": "ROADMAP Queue A item 2 (the object datasets)",
-    "refer_seg": "ROADMAP Queue A item 2 (the LISA datasets)",
-    "refer_seg_lisa": "ROADMAP Queue A item 2 (the LISA datasets)",
-    "reason_seg": "ROADMAP Queue A item 2 (the LISA datasets)",
-    "sem_seg": "ROADMAP Queue A item 2 (the LISA datasets)",
-    "sem_seg_lisa": "ROADMAP Queue A item 2 (the LISA datasets)",
+    name: "ROADMAP Queue A item 2 (the LISA datasets)"
+    for name in ("refer_seg", "refer_seg_lisa", "reason_seg", "sem_seg",
+                 "sem_seg_lisa")
 }
+
+# datasets whose choice()/sample() calls only ever pick QUESTION/ANSWER
+# templates, so TemplateFixedRandom is safe. oafford/ocontact qualify: their
+# content randomness is randrange (missing-file retry) and shuffle (ranked
+# object matches), neither of which TemplateFixedRandom overrides.
+# refer/sem/reason/vqa pick sentences/classes/annotations with choice/sample
+# and would collapse.
+FIXED_TEMPLATE_SAFE = frozenset({
+    "hcontact", "hcontact_scene", "h2dcontact", "oafford", "ocontact",
+})
 
 
 def build_dataset(name: str, base_dir: str, split: str, args):
@@ -447,7 +791,8 @@ def build_dataset(name: str, base_dir: str, split: str, args):
     hcontact view_type from the eval CLI.
 
     Names the port has no dataset for yet raise ``NotImplementedError``
-    with the ROADMAP item that ports them."""
+    with the ROADMAP item that ports them; ``fixed_templates`` on a set
+    outside ``FIXED_TEMPLATE_SAFE`` raises ``ValueError``."""
     if name in UNPORTED:
         raise NotImplementedError(
             f"dataset '{name}' is not ported to interactvlm_tpu_torch yet: "
@@ -469,9 +814,31 @@ def build_dataset(name: str, base_dir: str, split: str, args):
         qt = getattr(args, "hC_question_type", None)
         if qt:
             kw["question_type"] = qt
+    elif name == "oafford":
+        vt = getattr(args, "oC_sam_view_type", None)
+        if vt:
+            kw["view_type"] = vt
+        qt = getattr(args, "oC_question_type", None)
+        if qt:
+            kw["question_type"] = qt
+        n_points = getattr(args, "num_object_points", None)
+        if n_points:
+            kw["num_points"] = n_points
+    elif name == "ocontact":
+        # the reference configures both object datasets from ONE
+        # OC_SAM_VIEW_TYPE (run_train.sh:169); PICO trees are rendered
+        # with mesh views (..._BM), so only forward explicit mesh types
+        vt = getattr(args, "oC_sam_view_type", None)
+        if vt and "BM" in vt:
+            kw["view_type"] = vt
     ds = ctor(base_dir, **kw)
     if getattr(args, "fixed_templates", False):
-        # the contact datasets' choice() calls pick only question / answer
-        # templates, so fixing them changes no sample's content
+        if name not in FIXED_TEMPLATE_SAFE:
+            raise ValueError(
+                f"--fixed_templates collapses content sampling for "
+                f"'{name}' (it picks sentences/classes/annotations with "
+                f"the same rng); only {sorted(FIXED_TEMPLATE_SAFE)} "
+                f"are supported"
+            )
         ds.rng = TemplateFixedRandom(42)
     return ds

@@ -145,12 +145,8 @@ def evaluate_batch(model: InteractVLM, batch: Dict, mask_size: int,
             _dev(human_maps["bary"], dev),
             int(human_maps.get("num_vertices", cfg.num_human_vertices)))
     elif "oafford" in contact_type and "obj_p2p" in batch:
-        # per-sample pixel -> point maps; sigmoid heatmap values averaged
-        # per point and visible view (reference components.py:318-347)
-        p2p = _dev(batch["obj_p2p"], dev)
-        pred_contact_3d = torch.stack([
-            lift_multiview_points(m, p, cfg.num_object_points)
-            for m, p in zip(torch.sigmoid(pred_masks), p2p)])
+        pred_contact_3d = lift_points_per_sample(
+            pred_masks, batch, cfg.num_object_points, dev)
     elif "ocontact" in contact_type and "obj_p2v" in batch:
         pred_contact_3d = lift_objects_per_sample(
             pred_masks, batch, batch["gt_ocontact"].shape[1], dev)
@@ -174,6 +170,16 @@ def evaluate_batch(model: InteractVLM, batch: Dict, mask_size: int,
 
 def _dev(x, dev):
     return torch.as_tensor(x, device=dev)
+
+
+def lift_points_per_sample(masks, batch, num_points: int, dev):
+    """(B, V, H, W) logits lifted onto per-sample point clouds through
+    their pixel -> point maps ``obj_p2p`` (B, V, H, W): the sigmoid heatmap
+    values averaged per point and visible view (reference
+    components.py:318-347) -> (B, num_points)."""
+    p2p = _dev(batch["obj_p2p"], dev)
+    return torch.stack([lift_multiview_points(m, p, num_points)
+                        for m, p in zip(torch.sigmoid(masks), p2p)])
 
 
 def lift_objects_per_sample(masks, batch, n_out: int, dev):
@@ -261,7 +267,14 @@ def _evaluate_batch_multiseg(model: InteractVLM, batch: Dict, mask_size: int,
         ) * any_h[:, None]
     if bool(any_o.any()):
         masks_o = pred_k[rows, o_slot]
-        if "obj_p2v" in batch:
+        if "oafford" in contact_type and "obj_p2p" in batch:
+            # point clouds lift through their point maps, as the one-token
+            # path lifts them (the JAX package's K-slot path takes the
+            # mesh maps here, which a collated object batch also carries:
+            # ROADMAP Queue C)
+            pred_o3d = lift_points_per_sample(masks_o, batch,
+                                              cfg.num_object_points, dev)
+        elif "obj_p2v" in batch:
             n_out = (batch["gt_ocontact"].shape[1] if "gt_ocontact" in batch
                      else cfg.num_object_points)
             pred_o3d = lift_objects_per_sample(masks_o, batch, n_out, dev)
@@ -388,10 +401,8 @@ def validate(batch_iter, model: InteractVLM, ds_name: str, mask_size: int,
                     pred_masks, _dev(human_maps["p2v"], dev),
                     _dev(human_maps["bary"], dev), cfg.num_human_vertices)
             elif is_oa and "obj_p2p" in batch:
-                pred_3d = torch.stack([
-                    lift_multiview_points(m, p, cfg.num_object_points)
-                    for m, p in zip(torch.sigmoid(pred_masks),
-                                    _dev(batch["obj_p2p"], dev))])
+                pred_3d = lift_points_per_sample(
+                    pred_masks, batch, cfg.num_object_points, dev)
             elif is_oc and "obj_p2v" in batch:
                 pred_3d = lift_objects_per_sample(
                     pred_masks, batch, batch["gt_ocontact"].shape[1], dev)

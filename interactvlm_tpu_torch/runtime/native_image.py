@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import errno
 import os
 import subprocess
 import threading
@@ -109,6 +110,9 @@ def decode_rgb(path: str) -> np.ndarray:
     w = ctypes.c_int()
     rc = lib.ivlm_image_size(path.encode(), ctypes.byref(h), ctypes.byref(w))
     if rc != 0:
+        if not os.path.exists(path):
+            # as PIL raises it: the datasets' missing-file retry catches it
+            raise FileNotFoundError(errno.ENOENT, "no such file", path)
         raise IOError(f"native decode failed ({rc}): {path}")
     out = np.empty((h.value, w.value, 3), np.uint8)
     rc = lib.ivlm_decode_rgb(

@@ -491,8 +491,9 @@ class Trainer:
     step and its optimizer and scheduler, the config, the tokenizer, the
     run directory, the seconds the loader took for the first batch
     (fetched before the loop) and one record a step (``history``: epoch,
-    it, the update count, the loss, whether the NaN guard skipped the
-    update, data_s (the wait for the batch), batch_s (data_s and the step,
+    it, the update count, the loss, its terms (``loss_terms``), the rows
+    of each dataset task (``rows_by_task``), whether the NaN guard skipped
+    the update, data_s (the wait for the batch), batch_s (data_s and the step,
     synchronised) and loader_wait_share = data_s / batch_s, the share of
     the step's wall time the card waited on the loader)."""
 
@@ -505,6 +506,22 @@ class Trainer:
     run_dir: str
     first_batch_s: float
     history: List[Dict[str, float]]
+
+
+def rows_by_task(batch) -> Dict[str, int]:
+    """The rows of a batch (or of its micro-batches) by dataset task:
+    {task name: rows} from its ``task_ids`` (``utils/constants.TASK_IDS``;
+    the first name of an id that several datasets share)."""
+    from interactvlm_tpu_torch.utils.constants import TASK_IDS
+
+    names = {}
+    for name, tid in TASK_IDS.items():
+        names.setdefault(tid, name)
+    rows: Dict[str, int] = {}
+    for micro in (batch if isinstance(batch, list) else [batch]):
+        for tid in micro["task_ids"].tolist():
+            rows[names[tid]] = rows.get(names[tid], 0) + 1
+    return rows
 
 
 def checkpoint_state(trainer: "Trainer") -> Dict[str, Any]:
@@ -557,7 +574,17 @@ def main(argv=None):
                                              args.version)
 
     model, cfg = build_model_and_config(args, device=dev, **token_kw)
-    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    if args.model_scale == "tiny" and not args.synthetic and \
+            dev.type != "cpu":
+        # the tiny preset's weights are drawn on the CPU and copied, so a
+        # run starts from the same weights on every device
+        host_model, _ = build_model_and_config(args, device="cpu",
+                                               **token_kw)
+        init_params(host_model, torch.Generator().manual_seed(0))
+        model.load_state_dict(host_model.state_dict())
+        del host_model
+    else:
+        init_params(model, torch.Generator(device=dev).manual_seed(0))
     # frozen towers stored in the compute dtype, trainables in f32
     cast_frozen_params(model, cfg.llama.dtype)
     save_config(
@@ -646,6 +673,9 @@ def main(argv=None):
             loss = float(metrics["loss"])
             trainer.history.append({
                 "epoch": epoch, "it": it, "step": step.step, "loss": loss,
+                "loss_terms": {k: float(v) for k, v in metrics.items()
+                               if k.endswith("_loss")},
+                "rows_by_task": rows_by_task(batch),
                 "skipped_nonfinite": float(metrics["skipped_nonfinite"]),
                 "data_s": data_s, "batch_s": batch_s,
                 "loader_wait_share": data_s / batch_s})

@@ -324,7 +324,7 @@ def test_unported_options_raise_with_their_roadmap_item(setup, tmp_path):
         TE.main(["--run_dir", str(tmp_path), "--distributed",
                  "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
-        TTR.main(cli_args(setup["tree"], dataset="oafford", device="cpu",
+        TTR.main(cli_args(setup["tree"], dataset="refer_seg", device="cpu",
                           log_base_dir=str(tmp_path)))
 
 

@@ -20,14 +20,23 @@ from interactvlm_tpu.models.interactvlm import InteractVLM as JaxIVLM
 from interactvlm_tpu.utils.testing import make_synthetic_batch
 from interactvlm_tpu.utils.weights import convert_interactvlm_checkpoint
 from interactvlm_tpu_torch import config as C
-from interactvlm_tpu_torch.datagen.recipes import generate_damon_tree
+from interactvlm_tpu_torch.datagen.__main__ import main as datagen_main
+from interactvlm_tpu_torch.datagen.generate import (
+    generate_human_assets,
+    generate_object_assets,
+)
+from interactvlm_tpu_torch.datagen.recipes import (
+    generate_damon_tree,
+    generate_piad_tree,
+    generate_pico_tree,
+)
 from interactvlm_tpu_torch.demo.demo_utils import generate_sam_inp_objs
 from interactvlm_tpu_torch.demo.run_demo import main as demo_main
 from interactvlm_tpu_torch.fit.data_io import main as fit_main
 from interactvlm_tpu_torch.fit.fit import fit_human_object
 from interactvlm_tpu_torch.eval.evaluate import main as eval_main
 from interactvlm_tpu_torch.geometry.rasterizer import build_lift_maps, uv_sphere
-from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS
+from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS, OBJECT_VIEWS
 from interactvlm_tpu_torch.models.clip_vit import CLIPVisionTower
 from interactvlm_tpu_torch.models.interactvlm import InteractVLM
 from interactvlm_tpu_torch.models.llama import LlamaForCausalLM
@@ -105,6 +114,10 @@ print("FIT_DEMO", all(m in sys.modules for m in (
     "interactvlm_tpu_torch.fit.data_io",
     "interactvlm_tpu_torch.geometry.point_raster",
     "interactvlm_tpu_torch.demo.run_demo")))
+print("DATAGEN", all(m in sys.modules for m in (
+    "interactvlm_tpu_torch.datagen.generate",
+    "interactvlm_tpu_torch.datagen.recipes",
+    "interactvlm_tpu_torch.datagen.__main__")))
 print("BAD", bad)
 """
 
@@ -123,6 +136,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "GEOMETRY True" in res.stdout, res.stdout
     assert "CLIS True" in res.stdout, res.stdout
     assert "FIT_DEMO True" in res.stdout, res.stdout
+    assert "DATAGEN True" in res.stdout, res.stdout
 
 
 _BUILD = r"""
@@ -189,13 +203,24 @@ def test_native_decoder_builds_under_build_and_leaves_native_alone(
     lambda: fit_human_object({}),
     lambda: generate_sam_inp_objs(*uv_sphere(8, 8), "/nonexistent",
                                   image_size=16),
+    lambda: datagen_main(["damon", "--root", "/nonexistent"]),
+    lambda: generate_human_assets(*uv_sphere(8, 8), HUMAN_VIEWS[
+        "4MV-Z_Vitru"], 16),
+    lambda: generate_object_assets(uv_sphere(8, 8)[0], OBJECT_VIEWS[
+        "4MV-Z_HM_BM"], 16),
+    lambda: generate_piad_tree("/nonexistent", {}, OBJECT_VIEWS[
+        "4MV-Z_HM_BM"], 16),
+    lambda: generate_pico_tree("/nonexistent", {}, OBJECT_VIEWS[
+        "4MV-Z_HM_BM"], 16),
 ], ids=["InteractVLM", "InteractVLM-hoi", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
         "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8",
         "LlamaForCausalLM-lora", "make_synthetic_batch",
         "LlamaForCausalLM-qlora", "LlamaForCausalLM-int4",
         "build_lift_maps", "train_cli", "eval_cli",
         "build_model_and_config", "generate_damon_tree", "fit_cli",
-        "demo_cli", "fit_human_object", "generate_sam_inp_objs"])
+        "demo_cli", "fit_human_object", "generate_sam_inp_objs",
+        "datagen_cli", "generate_human_assets", "generate_object_assets",
+        "generate_piad_tree", "generate_pico_tree"])
 def test_entry_points_default_to_the_gpu(build):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
