@@ -174,7 +174,7 @@ def summary(lines):
         elif rec.get("phase") == "profile":  # a profiled batch or step
             out.append({k: rec.get(k) for k in (
                 "phase", "path", "mode", "batch_ms", "device_busy_ms",
-                "copy_calls", "kernel_device_ms")})
+                "copy_launches", "kernel_device_ms")})
     return out
 
 

@@ -119,7 +119,23 @@ prints no result, without them. Phases, each of which fails the run:
    the start, after ICP and after Adam), held to the port on the CPU (ICP,
    and ten steps from the card's ICP result); ICP's seconds and
    synchronising calls, and one step's split (silhouette forward and
-   backward, contact loss, Adam, the card's idle time).
+   backward, contact loss, Adam, the card's idle time);
+17. the distributed paths on the one card (``distributed_phase``), one
+   line each: (1) the training CLI under ``torchrun --nproc_per_node 1``
+   with NCCL (the sharded step on a 1 x 1 mesh) at 13B LoRA, B = 8, on a
+   1024^2 DAMON tree, its losses held to the one-process CLI's in the same
+   call; then two gloo ranks sharing the card (every collective a gloo
+   all-reduce or broadcast of card tensors; their times are not multi-card
+   numbers): (2) the 1 x 2 tensor-parallel 13B LoRA step on phase 12's
+   weights and batch, each loss term and each trainable's gradient held
+   to phase 12's one-process step; (3) the 2 x 1 data-parallel 7B QLoRA
+   step (4 rows a rank, Adam's moments ZeRO-sharded) held to phase 13's;
+   (4) the 1 x 2 tensor-parallel greedy decode of LLaMA-13B bf16 against
+   the one-process decode, and of LLaMA-7B int8, whose row-parallel
+   linears take kernel 7's given-scale route; (5) ``evaluate.py
+   --distributed`` on two ranks against the one-process report; (6)
+   ``graft_entry_torch.dryrun_multichip(2)``; (7) the memory budgets of
+   every path beside its measured peak.
 
 Each serving path reports images/s, the time of each leg, peak memory, the
 decode host/device split and each kernel's launches over its run; the 7B
@@ -206,6 +222,7 @@ from interactvlm_tpu_torch.geometry.views import HUMAN_VIEWS, OBJECT_VIEWS
 from interactvlm_tpu_torch.models.generate import greedy_generate
 from interactvlm_tpu_torch.models.interactvlm import InteractVLM, lift_human
 from interactvlm_tpu_torch.models.layers import Int4Linear, Int8Linear
+from interactvlm_tpu_torch.models.llama import LlamaForCausalLM, init_kv_cache
 from interactvlm_tpu_torch.ops import _cuda
 from interactvlm_tpu_torch.ops import flash_attention as FA
 from interactvlm_tpu_torch.ops import int8_matmul as Q
@@ -231,8 +248,10 @@ from interactvlm_tpu_torch.train.optimizer import (
 )
 from interactvlm_tpu_torch.train.train_step import TrainStep
 from interactvlm_tpu_torch.utils.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from interactvlm_tpu_torch.utils.profiling import ANNOTATIONS
 from interactvlm_tpu_torch.utils.testing import (
     WhitespaceTokenizer,
+    greedy_decode_lm,
     make_synthetic_batch,
 )
 from interactvlm_tpu_torch.utils.weights import init_params
@@ -249,8 +268,8 @@ INT8_RTOL, INT8_ATOL_OF_MAX = 2.0 ** -7, 1e-6
 GRAD_ATOL_OF_RMS = 2e-2
 B, V, L_TEXT, T, MASK = 8, 4, 64, 32, 1024
 B_CACHED_INT8 = 32  # the 7B-int8 cached batch (bench.py's default)
-REPEATS = 3  # timed batches per mode and path, after one warm-up batch each
-LEG_REPEATS = 2
+REPEATS = 2  # timed batches per mode and path, after one warm-up batch each
+LEG_REPEATS = 1
 # the lift maps: a UV sphere of SMPL's 6890 vertices under the first V
 # cameras of the canonical body view set, 1024^2, gather form with MAX_K
 # pixels a vertex and view (bench.py's)
@@ -345,6 +364,13 @@ KERNELS = {
         replaces="scripts/winattn_probe.py:123",
         wrapper=SA.window_copy, symbols=["window_copy_kernel"],
         path="probes"),
+    # kernel 7's given-scale route: a row-parallel int8 linear's slice of
+    # each row, quantized with the whole row's absmax
+    "quantize_rows_given": dict(
+        sources=[CSRC + "int8_prequant.cu"],
+        replaces="interactvlm_tpu/ops/int8_matmul.py:82",
+        wrapper=Q.quantize_rows_given, symbols=["quantize_rows_kernel"],
+        path="tp_decode_7b_int8"),
 }
 SERVING_KERNELS = ("flash_attention", "window_attention", "rel_attention",
                    "int8_matmul")
@@ -415,6 +441,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def on_card(e) -> bool:
+    """Whether a profiler event on the card is the card's own work (a
+    kernel, copy or memset) and not a ``record_function`` region
+    (``utils/profiling.annotate``: the training step's phases and
+    collectives), which the profiler mirrors onto the card's timeline over
+    the kernels it spans."""
+    name = e.name() if callable(e.name) else e.name
+    user = getattr(e, "is_user_annotation", False)
+    user = user() if callable(user) else user
+    return not user and name not in ANNOTATIONS
+
+
 def device_ms_by_name(fn, iters: int, warmup: int = 2):
     """What one call of ``fn`` runs on the card, by name (the first 60
     characters): [device ms, launches] a call, from torch.profiler over
@@ -434,7 +472,7 @@ def device_ms_by_name(fn, iters: int, warmup: int = 2):
         torch.cuda.synchronize()
     by = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and on_card(e):
             n = by.setdefault(e.name[:60], [0.0, 0])
             n[0] += e.time_range.end - e.time_range.start
             n[1] += 1
@@ -463,15 +501,16 @@ def wall_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def issue_ms(fn):
-    """Host time until ``fn`` returns, before the card has finished: where
-    it is close to the synchronised wall time, the host sets the pace."""
+def issue_and_wall_ms(fn):
+    """Host time until ``fn`` returns, before the card has finished, and the
+    synchronised wall time of the same call: where the two are close, the
+    host sets the pace."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
-    ms = (time.perf_counter() - t0) * 1e3
+    issue = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    return ms
+    return issue, (time.perf_counter() - t0) * 1e3
 
 
 def spread(xs):
@@ -524,11 +563,12 @@ def sdpa():
 
 
 # --------------------------------------------------------------- kernels
-def case_flash_prefill(gen, name, L, lens, what):
-    """LLaMA-13B causal attention, one layer: B=8, H=40, D=128, per-row kv
-    lengths ``lens``: the serving prefill (L=319, all valid) and the
-    training forward (L=512, two rows right-padded)."""
-    Bq, H, D = B, 40, 128
+def case_flash_prefill(gen, name, L, lens, what, H=40):
+    """LLaMA-13B causal attention, one layer: B=8, H=40 (20 on one of two
+    model ranks), D=128, per-row kv lengths ``lens``: the serving prefill
+    (L=319, all valid) and the training forward (L=512, two rows
+    right-padded)."""
+    Bq, D = B, 128
     q, k, v = (rand_bf16(gen, (Bq, H, L, D)) for _ in range(3))
     lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     got, lse = FA.flash_forward(q, k, v, True, None, lens)
@@ -1059,6 +1099,7 @@ def kernel_phase(name):
     cases["flash_attention"].append(case_flash_sam(
         torch.Generator(device="cuda").manual_seed(4), name, 512,
         FUSION_SHAPE))
+    tp_cases(name, cases, lens)
     for kname, rows in cases.items():
         for row in rows:
             log(json.dumps({"name": kname, **row}))
@@ -1834,8 +1875,7 @@ def int8_counts():
 def decode_by_cache(model, batch):
     """The decode leg (greedy_generate less prefill, host clock around
     synchronised calls) with the int8 and the dense cache on the same
-    weights, three of each in turns: int8, dense, dense, int8, int8,
-    dense."""
+    weights, two of each in turns: int8, dense, dense, int8."""
     llava = model.llava
     ids = torch.as_tensor(batch["input_ids"], device="cuda")
     px = batch["images_clip"]
@@ -1844,7 +1884,7 @@ def decode_by_cache(model, batch):
     for kv in out:  # warm-up: the dense cache's shapes are new here
         greedy_generate(llava, ids, px, max_new_tokens=T, eos_id=-1,
                         kv_cache=kv)
-    for kv in ("int8", "dense", "dense", "int8", "int8", "dense"):
+    for kv in ("int8", "dense", "dense", "int8"):
         _, p = wall_ms(lambda: llava.prefill(ids, px, Lp + T, kv_cache=kv))
         _, g = wall_ms(lambda: greedy_generate(llava, ids, px,
                                                max_new_tokens=T, eos_id=-1,
@@ -1854,52 +1894,56 @@ def decode_by_cache(model, batch):
 
 
 def device_busy(fn):
-    """One batch under torch.profiler: the share of its wall time in which
-    the card ran a kernel or copy, the operations with the most device
-    time, the count of ``aten::copy_`` calls (each a copy the host asked
-    for: ``.contiguous()``, a reshape of a view, a dtype cast), and the
-    device time and count of each hand-written kernel whose
-    wrapper launched in the batch, in all and by symbol (route). The profiler's host-side cost lengthens
-    the batch, so the share is a lower bound. ``None`` where the trace holds
-    no device activity."""
+    """One batch under torch.profiler, tracing the card's activity alone
+    and read from the profiler's raw events (a trace with the host's
+    operations costs over a minute to read for one 13B batch): the share of
+    its wall time in which the card ran a kernel, copy or memset, the names
+    with the most device time, the device time and count of the card's
+    copies (kernels and memcpys whose name holds "copy": each a copy the
+    host asked for, ``.contiguous()``, a reshape of a view, a dtype cast),
+    and the device time and count of each hand-written kernel whose wrapper
+    launched in the batch, in all and by symbol (route). The profiler's
+    host-side cost lengthens the batch, so the share is a lower bound.
+    ``None`` where the trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     before = {n: w["wrapper"].launches for n, w in KERNELS.items()}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, ms = wall_ms(fn)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:  # the union of the device intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    avg = prof.key_averages()
-    top = sorted(avg, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:8]
+    evs = [(e.name(), e.start_ns(), e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and on_card(e)]
+    busy_ns, end = 0, float("-inf")
+    for _, a, d in sorted(evs, key=lambda x: x[1]):  # the union of spans
+        if a + d > end:
+            busy_ns += a + d - max(a, end)
+            end = a + d
+    by_name = {}
+    for name, _, d in evs:
+        n = by_name.setdefault(name, [0.0, 0])
+        n[0] += d / 1e6
+        n[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
     ours, by_symbol = {}, {}
     for n, w in KERNELS.items():
         # two wrappers may launch one symbol (the int8 GEMM): a kernel's
         # time counts only where its own wrapper launched in this run
         launched = w["wrapper"].launches > before[n]
-        evs = [e for e in avg if launched
-               and any(s in e.key for s in w["symbols"])]
-        ours[n] = [sum(e.self_device_time_total for e in evs) / 1e3,
-                   sum(e.count for e in evs)]
+        hits = [(k, v) for k, v in by_name.items() if launched
+                and any(s in k for s in w["symbols"])]
+        ours[n] = [sum(v[0] for _, v in hits), sum(v[1] for _, v in hits)]
         for sym in w["symbols"]:
-            hits = [e for e in evs if sym in e.key]
-            if hits:
-                by_symbol[sym] = [
-                    sum(e.self_device_time_total for e in hits) / 1e3,
-                    sum(e.count for e in hits)]
-    copies = sum(e.count for e in avg if e.key == "aten::copy_")
-    return {"batch_ms": ms, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e3 / ms if spans else None,
-            "copy_calls": copies,
-            "top_device_ms": [[e.key[:80], e.self_device_time_total / 1e3,
-                               e.count] for e in top],
+            mine = [v for k, v in hits if sym in k]
+            if mine:
+                by_symbol[sym] = [sum(v[0] for v in mine),
+                                  sum(v[1] for v in mine)]
+    copies = [v for k, v in by_name.items() if "copy" in k.lower()]
+    return {"batch_ms": ms, "device_busy_ms": busy_ns / 1e6,
+            "device_busy_share": busy_ns / 1e6 / ms if evs else None,
+            "copy_device_ms": sum(v[0] for v in copies),
+            "copy_launches": sum(v[1] for v in copies),
+            "top_device_ms": [[k[:80], v[0], v[1]] for k, v in top],
             "kernel_device_ms": ours, "symbol_device_ms": by_symbol}
 
 
@@ -2016,25 +2060,11 @@ def ste_backward_costs(lcfg, rows):
 
 
 def device_busy_ms(fn):
-    """The card's busy time in ms over one call of ``fn``: the union of the
-    intervals of its kernels, copies and memsets, from a trace of the
-    card's activity alone, read from the profiler's raw events (a trace
-    with the host's operations, as ``device_busy`` takes, costs a minute
-    to read for one generate call); None where the trace holds none."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall_ms(fn)
-    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
-    busy_ns, end = 0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_ns += b - max(a, end)
-            end = b
-    return busy_ns / 1e6 if spans else None
+    """The card's busy time in ms over one call of ``fn`` (``device_busy``);
+    None where the trace holds no device activity."""
+    prof = device_busy(fn)
+    return None if prof["device_busy_share"] is None else prof[
+        "device_busy_ms"]
 
 
 def decode_split(model, batch, kv_cache):
@@ -2054,8 +2084,9 @@ def decode_split(model, batch, kv_cache):
         return greedy_generate(llava, ids, px, max_new_tokens=T, eos_id=-1,
                                kv_cache=kv_cache)
 
-    walls = {n: wall_ms(f)[1] for n, f in (("p", prefill), ("g", generate))}
-    issue = {n: issue_ms(f) for n, f in (("p", prefill), ("g", generate))}
+    walls, issue = {}, {}
+    for n, f in (("p", prefill), ("g", generate)):
+        issue[n], walls[n] = issue_and_wall_ms(f)
     busy = {n: device_busy_ms(f)
             for n, f in (("p", prefill), ("g", generate))}
     return {"decode_wall": walls["g"] - walls["p"],
@@ -2204,14 +2235,11 @@ def hoi_path_phase(path, cfg, human, obj):
     log(json.dumps({"phase": "decode_host_device_ms", "path": path,
                     "kv_cache": "dense",
                     **decode_split(model, batch, "dense")}))
-    # the card's busy time over one batch, from a trace of the card alone:
-    # the 13B path's profile (with the host's operations, over a minute to
-    # read) already gives these kernels' device times
-    busy = device_busy_ms(run)
+    prof = device_busy(run)
     log(json.dumps({"phase": "profile", "path": path, "mode": "streaming",
-                    "device_busy_ms": busy,
-                    "device_busy_share_of_median_batch":
-                        None if busy is None else busy / (med * 1e3)}))
+                    **prof, "device_busy_share_of_median_batch":
+                        None if prof["device_busy_share"] is None
+                        else prof["device_busy_ms"] / (med * 1e3)}))
     del model, batch, objs, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2550,14 +2578,16 @@ def train_launches_expected(cfg, steps: int = 1):
                 else steps * v) for k, v in want.items()}
 
 
-def training_path_phase(path, cfg, maps):
+def training_path_phase(path, cfg, maps, reference=None):
     """A LoRA (or QLoRA) training step at B=8 on the real lift maps
     ``maps`` (the human 3D loss's): one warm-up step (step 0 of the
     warm-up, lr 0), then TRAIN_STEPS timed steps, each phase's end
     synchronised (``TrainStep``'s ``mark``); launches counted from 0 over
     the first timed step; one more step under the profiler. Under
     ``weights_int8`` (QLoRA) also the straight-through backward's device
-    time (``ste_backward_costs``)."""
+    time (``ste_backward_costs``). With ``reference``, first one forward
+    and backward of the fresh model on the batch, saved there for phase
+    17's sharded step (``save_reference``)."""
     t0 = time.perf_counter()
     model = InteractVLM(cfg, device="cuda")
     init_params(model, torch.Generator(device="cuda").manual_seed(0))
@@ -2583,6 +2613,8 @@ def training_path_phase(path, cfg, maps):
         raise SystemExit(f"training kv lengths {lens}")
     log(json.dumps({"phase": "train_batch", "s": time.perf_counter() - t0,
                     "kv_lengths": lens}))
+    if reference is not None:
+        save_reference(path, model, batch, reference)
     fp = frozen_fingerprint(model)
     watched = {n: p.detach().clone() for n, p in model.named_parameters()
                if "lora_B" in n or "mask_decoder" in n}
@@ -2686,7 +2718,7 @@ TINY_LOGIT_TOL, TINY_CONTACT_TOL = 0.1, 0.01
 # the eval CLI's batches in the tiny chain; the forced copy's logit offset
 TINY_EVAL_B, TINY_EVAL_BATCHES, MASK_BIAS = 4, 2, 8.0
 # loader-off legs of the CLI's step split: rounds of (resident, copied)
-SPLIT_ROUNDS, SPLIT_STEPS = 2, 2
+SPLIT_ROUNDS, SPLIT_STEPS = 2, 1
 WORKDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "damon_workflow")
 
@@ -3556,8 +3588,9 @@ def fit_step_split(scene, params):
     ms["step"] = time_ms(whole_step, FIT_SPLIT_ITERS)
     ms["silhouette_backward"] = (ms["silhouette_forward_backward"]
                                  - ms["silhouette_forward"])
-    busy = device_busy_ms(whole_step)
     traced = device_busy(whole_step)
+    busy = (None if traced["device_busy_share"] is None
+            else traced["device_busy_ms"])
     return {**ms, "step_device_busy_ms": busy,
             "step_idle_ms": None if busy is None else ms["step"] - busy,
             "step_idle_share": None if busy is None else 1.0 - busy / ms[
@@ -4354,6 +4387,543 @@ def flagship_workflow_phase():
     return launches, val_launches
 
 
+# ------------------------------------------------------------ phase 17
+# the distributed paths on the one card. NCCL takes one rank a card, so the
+# NCCL launch runs at world size 1 (torchrun, the training CLI), and the
+# sharded math runs on two gloo ranks that share the card: every
+# collective there is a gloo all-reduce or broadcast of card tensors, whose
+# times are not multi-card numbers
+DIST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "distributed")
+# the CLI at 2 steps (cut from 4: its third step parts from run to run),
+# the tensor-parallel step at 1 (cut from 3) and the 13B decode at 16
+# tokens (cut from 32): the whole script took 1112 s of its 1200 on one
+# H100 machine with them at 2, 2 and 32
+DIST_CLI_STEPS, DIST_TP_STEPS, DIST_DECODE_STEPS = 2, 1, 16
+DIST_INT8_DECODE_STEPS, DIST_TREE_IMAGES = 16, 8
+# holds: the sharded step against the one-process step in bf16 (loss terms
+# relative, each trainable's gradient by cosine and norm ratio); the NCCL
+# CLI's losses against the one-process CLI's; the distributed report
+DIST_LOSS_RTOL, DIST_GRAD_COS, DIST_GRAD_NORM_RTOL = 1e-2, 0.99, 0.02
+# a gradient that is zero in exact arithmetic (a key projection's bias:
+# softmax ignores a shift shared by every key) is rounding noise on both
+# sides: leaves whose one-process gradient norm is below this share of the
+# largest leaf's are reported, not held
+DIST_GRAD_NOISE_SHARE = 1e-3
+CLI_LOSS_RTOL, REPORT_RTOL = 1e-5, 1e-6
+# TP_INT8_CASES: kernel 6 at the halved shapes a model rank gives it
+TP_INT8_CASES = [
+    ("LLaMA-7B QLoRA training gate/up, one of 2 model ranks", B * 512, 4096,
+     5504, False, "none", None),
+    ("LLaMA-7B QLoRA training down, one of 2 model ranks", B * 512, 5504,
+     4096, False, "none", None),
+    ("LLaMA-7B decode gate/up, B=8, one of 2 model ranks", B, 4096, 5504,
+     False, "none", None),
+]
+# kernel 7's given-scale route at the 1 x 2 int8 decode's row-parallel
+# shapes: the prefill's down (8 x 64 rows of 5504) and decode's o_proj
+GIVEN_CASES = [("LLaMA-7B prefill down, one of 2 model ranks", B * L_TEXT,
+                5504),
+               ("LLaMA-7B decode o_proj, B=8, one of 2 model ranks", B, 2048)]
+
+
+def case_quantize_given(gen, name, what, M, K):
+    """Kernel 7's given-scale route on bf16 rows whose given absmax spans a
+    wider row than the slice (the all-reduced MAX): bit for bit against its
+    plain version; timed beside the plain route (``quantize_rows``) and
+    the plain version, with its device time (CUDA events around calls of a
+    few microseconds time the host). No single library call quantizes
+    rows."""
+    x = rand_bf16(gen, (M, K))
+    amax = (x.abs().amax(-1).float() * 1.5).contiguous()
+    got = Q.quantize_rows_given(x, amax)
+    want = Q.quantize_rows_given_plain(x, amax)
+    ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    t, by = bound(0, 2 * M * K + 4 * M + M * K + 4 * M, name)
+    return dict(shape=f"{what}: M={M} K={K} bf16", ok=ok,
+                max_abs_err=float((got[0].int() - want[0].int()).abs().max()),
+                err_over_limit=0.0 if ok else float("inf"),
+                tol="bit for bit",
+                kernel_ms=time_ms(lambda: Q.quantize_rows_given(x, amax), 50),
+                device_ms=device_ms(lambda: Q.quantize_rows_given(x, amax),
+                                    20)[0],
+                plain_route_ms=time_ms(lambda: Q.quantize_rows(x), 50),
+                plain_ms=time_ms(lambda: Q.quantize_rows_given_plain(x, amax),
+                                 5),
+                library_ms=None, bound_ms=t, bound_by=by)
+
+
+def tp_cases(name, cases, lens):
+    """The kernels at the shapes tensor parallelism over two model ranks
+    gives them (each from its own generator, drawn after every other case):
+    kernels 1, 4 and 5 at 20 of LLaMA-13B's 40 heads, kernel 6 at half of
+    7B's MLP columns or rows, and kernel 7's given-scale route."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    what = (f"B=8 H=20 L=512 D=128 causal, kv lengths {lens} (LLaMA-13B "
+            f"training, one of 2 model ranks)")
+    cases["flash_attention"].append(case_flash_prefill(gen, name, 512, lens,
+                                                       what, H=20))
+    c = case_flash_bwd(gen, name, what, B, 20, 512, 512, 128, True, lens)
+    log(json.dumps({"name": "flash_attention_bwd", **c}))
+    for which in ("dq", "dkv"):
+        cases[f"flash_attention_bwd_{which}"].append(bwd_rows(c, which))
+    torch.cuda.empty_cache()
+    for c in TP_INT8_CASES:
+        cases["int8_matmul"].append(case_int8(gen, name, *c))
+        torch.cuda.empty_cache()
+    cases["quantize_rows_given"] = [case_quantize_given(gen, name, *c)
+                                    for c in GIVEN_CASES]
+
+
+def grad_holds(names, grads, ref, mesh):
+    """Each trainable's gradient (this rank's block) against the same
+    block of the one-process gradient ``ref``: {name: (cosine, norm
+    ratio)}, leaves zero on both sides, or at noise
+    (``DIST_GRAD_NOISE_SHARE``), left out."""
+    from interactvlm_tpu_torch.parallel.mesh import shard_tensor
+
+    out = {}
+    top = max(float(g.float().norm()) for g in ref.values())
+    for n, g in zip(names, grads):
+        if n in ref and float(ref[n].norm()) < DIST_GRAD_NOISE_SHARE * top:
+            continue  # at rounding noise on both sides
+        if n not in ref:  # a trainable the one-process loss did not reach
+            want = torch.zeros(g.shape, device=g.device)
+        else:
+            want = shard_tensor(n, ref[n], mesh.n_model,
+                                mesh.model_index).to(g.device, torch.float32)
+        got = g.float()
+        nw, ng = want.norm(), got.norm()
+        if float(nw) == 0.0 and float(ng) == 0.0:
+            continue
+        cos = (got * want).sum() / (ng * nw).clamp_min(1e-30)
+        out[n] = (float(cos), float(ng / nw.clamp_min(1e-30)))
+    return out
+
+
+def grads_ok(stats):
+    return all(c >= DIST_GRAD_COS and abs(r - 1.0) <= DIST_GRAD_NORM_RTOL
+               for c, r in stats.values())
+
+
+def loss_terms_ok(got, want):
+    return all(abs(got[k] - want[k]) <= DIST_LOSS_RTOL * abs(want[k]) + 1e-6
+               for k in want if k.endswith("loss"))
+
+
+def clean_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def sharded_train_rank(mesh, path, cfg, ref_file, steps):
+    """One rank of a sharded training path: the model on ``mesh`` from
+    phase 12's (13) seeded weights, ``steps`` steps of ``TrainStep``
+    on the reference batch, the first step's gradients held to the
+    one-process step's. Returns the metrics, step seconds, peak GB, Adam's
+    moment bytes, the gradient holds and the first step's launches."""
+    ref = torch.load(ref_file, map_location="cpu", weights_only=False)
+    clean_card()
+    t0 = time.perf_counter()
+    model = InteractVLM(cfg, device="cuda", mesh=mesh)
+    init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    cast_frozen_params(model, torch.bfloat16)
+    step = TrainStep(model, mesh=mesh)
+    batch = to_device(ref["batch"], "cuda")
+    init_s = time.perf_counter() - t0
+    holds = {}
+    metrics, secs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        if i == 0:
+            reset_launches()
+        t = time.perf_counter()
+        m = step(batch, on_grads=(lambda n, g, _: holds.update(
+            grad_holds(n, g, ref["grads"], mesh))) if i == 0 else None)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        if i == 0:
+            launches = read_launches()
+        metrics.append({k: float(v) for k, v in m.items()})
+    res = dict(path=path, rank=mesh.rank, init_s=init_s, step_s=secs,
+               metrics=metrics, ref_metrics=ref["metrics"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               moment_bytes=step.moment_bytes(), grads=holds,
+               launches=launches, trainable=sum(p.numel()
+                                                for p in step.params))
+    del model, step, batch, ref
+    clean_card()
+    return res
+
+
+def tp_decode_rank(mesh, path, lcfg, ref_file, kv):
+    """One rank of a 1 x 2 tensor-parallel greedy decode: the LLaMA of
+    ``lcfg`` from the one-process decode's seeded weights, its prompt, the
+    tokens and the launches."""
+    ref = torch.load(ref_file, map_location="cpu", weights_only=False)
+    clean_card()
+    lm = LlamaForCausalLM(lcfg, device="cuda", mesh=mesh)
+    init_params(lm, torch.Generator(device="cuda").manual_seed(0))
+    lm.requires_grad_(False)
+    ids = ref["ids"].cuda()
+    Bq, total = ids.shape[0], ref["total"]
+    init = QT.init_kv_cache_int8 if kv == "int8" else init_kv_cache
+    with torch.inference_mode():
+        caches = init(lcfg, Bq, total, "cuda", n_model=mesh.n_model)
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        toks = greedy_decode_lm(lm, ids, caches, total)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    res = dict(path=path, rank=mesh.rank, tokens=toks, s=secs,
+               launches=read_launches(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del lm, caches
+    clean_card()
+    return res
+
+
+def dist_validate_rank(mesh, argv):
+    """One rank of the eval CLI under ``--distributed`` (gloo, the card
+    shared): its report and launches."""
+    reset_launches()
+    rep = eval_cli.main(argv)
+    return dict(report=rep, launches=read_launches())
+
+
+def dist_ranks(mesh, work):
+    """Lines 2 to 5 of phase 17 on each of two gloo ranks sharing card 0
+    (the spawned mesh is 1 x 2; the data-parallel path makes a 2 x 1 one
+    over the same two ranks)."""
+    from interactvlm_tpu_torch.parallel.mesh import create_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"tp_train_13b_lora": sharded_train_rank(
+        mesh, "tp_train_13b_lora", config_13b_train(),
+        os.path.join(work, "ref_train_13b_lora.pt"), DIST_TP_STEPS)}
+    dp = create_mesh(2, 1)
+    out["dp_train_7b_qlora"] = sharded_train_rank(
+        dp, "dp_train_7b_qlora", config_7b_qlora_train(),
+        os.path.join(work, "ref_train_7b_qlora.pt"), 1)
+    out["tp_decode_13b"] = tp_decode_rank(
+        mesh, "tp_decode_13b", config_13b().llama,
+        os.path.join(work, "ref_decode_13b.pt"), "dense")
+    out["tp_decode_7b_int8"] = tp_decode_rank(
+        mesh, "tp_decode_7b_int8", config_7b_int8().llama,
+        os.path.join(work, "ref_decode_7b_int8.pt"), "int8")
+    out["dist_validate"] = dist_validate_rank(dp, json.load(open(
+        os.path.join(work, "eval_argv.json"))))
+    return out
+
+
+def save_reference(path, model, batch, out_file):
+    """The one-process reference of a sharded training path: one forward
+    and backward of ``model`` (phase 12's or 13's, before its warm-up) on
+    ``batch``: the loss terms and every trainable's gradient, and the batch
+    itself, to ``out_file``."""
+    out = model(batch)
+    out["loss"].backward()
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters()
+             if p.requires_grad and p.grad is not None}
+    metrics = {k: float(v) for k, v in out.items() if v.dim() == 0}
+    del out
+    for p in model.parameters():
+        p.grad = None
+    os.makedirs(os.path.dirname(out_file), exist_ok=True)
+    torch.save({"metrics": metrics, "grads": grads,
+                "batch": {k: v.cpu() for k, v in batch.items()}}, out_file)
+    log(json.dumps({"phase": "sharded_reference", "path": path,
+                    "metrics": metrics, "grads": len(grads)}))
+
+
+def decode_reference(path, lcfg, kv, steps, out_file):
+    """The one-process greedy decode of the LLaMA of ``lcfg`` (seeded
+    weights), B = 8 seeded 64-token prompts, ``steps`` new tokens: its
+    tokens, each step's two largest logits and its seconds, to
+    ``out_file``."""
+    clean_card()
+    lm = LlamaForCausalLM(lcfg, device="cuda")
+    init_params(lm, torch.Generator(device="cuda").manual_seed(0))
+    lm.requires_grad_(False)
+    ids = torch.randint(4, lcfg.vocab_size - 1, (B, L_TEXT),
+                        generator=torch.Generator().manual_seed(7))
+    total = L_TEXT + steps - 1
+    init = QT.init_kv_cache_int8 if kv == "int8" else init_kv_cache
+    with torch.inference_mode():
+        caches = init(lcfg, B, total, "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks, top2 = greedy_decode_lm(lm, ids.cuda(), caches, total,
+                                      top2=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.save({"ids": ids, "total": total, "tokens": toks, "top2": top2,
+                "s": secs, "peak_gb": peak}, out_file)
+    del lm, caches
+    clean_card()
+    return dict(tokens=toks, top2=top2, s=secs, peak_gb=peak)
+
+
+def parting(got, want, top2):
+    """Where a tensor-parallel decode's tokens part from the one-process
+    decode's: (row, step, the one-process top-2 logit gap there, whether
+    that gap is a near-tie) of each row's first difference. A near-tie:
+    the gap within two bf16 steps (2^-7 relative) of the top logit."""
+    out = []
+    for r in range(want.shape[0]):
+        diff = np.nonzero(got[r] != want[r])[0]
+        if len(diff):
+            a, b = (float(v) for v in top2[r, diff[0]])
+            gap = a - b
+            out.append((r, int(diff[0]), gap,
+                        gap <= 2 * 2.0 ** -7 * max(abs(a), 1.0)))
+    return out
+
+
+def torchrun_cli(argv, run_dir):
+    """The training CLI under ``torchrun --standalone --nproc_per_node 1``
+    (NCCL, world size 1): its seconds and its steps' records from the
+    run's ``metrics.jsonl`` (every step's loss, data and step seconds)."""
+    cmd = ["torchrun", "--standalone", "--nproc_per_node", "1", "-m",
+           "interactvlm_tpu_torch.train.train", *argv]
+    t0 = time.perf_counter()
+    # from the checkout that holds the package
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(train_cli.__file__))))
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=root)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise SystemExit(f"torchrun training CLI failed ({res.returncode}):"
+                         f"\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return secs, [r for r in map(json.loads, f) if "loss" in r]
+
+
+def budget_gb(b):
+    return {k: v / 1e9 for k, v in b.components.items()} | {
+        "total": b.total / 1e9}
+
+
+def distributed_phase():
+    """Phase 17 (see the module's docstring): prints one line a path and
+    returns the launches of the paths the ranks ran (rank 0's)."""
+    from interactvlm_tpu_torch.parallel.launch import spawn
+    from interactvlm_tpu_torch.utils import memory as MEM
+
+    import graft_entry_torch
+
+    t_phase = time.perf_counter()
+    work = DIST_DIR
+    os.makedirs(work, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    lines = {}
+
+    # (1) NCCL at world size 1: the training CLI under torchrun against the
+    # one-process CLI, same tree, seed and argv, one loader thread (the
+    # draws and templates in one order). Two steps: the card's atomic
+    # scatters (the lifts' index_add, the embedding's backward) sum in a
+    # varying order, Adam's first update (lr * sign(g)) absorbs that and
+    # its second does not, so the third step's loss parts from run to run
+    # on the H100; torch's deterministic algorithms hold it at many times
+    # the step time
+    tree = os.path.join(work, "damon_1024")
+    write_damon_tree(tree, SPHERE, MASK, DIST_TREE_IMAGES)
+    runs = os.path.join(work, "runs")
+    argv = ["--model_scale", "full", "--tokenizer", "whitespace",
+            "--dataset", "hcontact", "--dataset_dir", tree,
+            "--batch_size", str(B), "--data_workers", "1", "--epochs", "1",
+            "--steps_per_epoch", str(DIST_CLI_STEPS), "--no_eval",
+            "--save_every", "2", "--log_base_dir", runs, "--no_tensorboard"]
+    trainer, one_s, _, one_peak, _ = cli_train(argv + ["--exp_name", "one"])
+    one = [dict(loss=h["loss"], step_s=h["batch_s"] - h["data_s"])
+           for h in trainer.history]
+    del trainer
+    clean_card()
+    nccl_s, recs = torchrun_cli(argv + ["--exp_name", "nccl"],
+                                os.path.join(runs, "nccl"))
+    nccl = [dict(loss=r["loss"],
+                 step_s=r["train/batch_secs"] - r["train/data_secs"])
+            for r in recs]
+    held = len(nccl) == len(one) == DIST_CLI_STEPS and all(
+        abs(a["loss"] - b["loss"]) <= CLI_LOSS_RTOL * abs(b["loss"])
+        for a, b in zip(nccl, one))
+    lines["nccl_cli"] = dict(
+        phase="dist_nccl_cli", card=smi, launcher="torchrun --standalone "
+        "--nproc_per_node 1", backend="nccl", world=1, steps=nccl,
+        one_process_steps=one, cli_s=nccl_s, one_process_cli_s=one_s,
+        one_process_peak_gb=one_peak, loss_rtol=CLI_LOSS_RTOL, held=held)
+    log(json.dumps(lines["nccl_cli"]))
+    shutil.rmtree(runs, ignore_errors=True)
+
+    # the decode references and a tiny run for the distributed eval CLI
+    ref13 = decode_reference("tp_decode_13b", config_13b().llama, "dense",
+                             DIST_DECODE_STEPS,
+                             os.path.join(work, "ref_decode_13b.pt"))
+    ref8 = decode_reference("tp_decode_7b_int8", config_7b_int8().llama,
+                            "int8", DIST_INT8_DECODE_STEPS,
+                            os.path.join(work, "ref_decode_7b_int8.pt"))
+    tiny = os.path.join(work, "tiny_runs")
+    train_cli.main(["--synthetic", "--epochs", "1", "--steps_per_epoch", "2",
+                    "--batch_size", "4", "--log_base_dir", tiny,
+                    "--exp_name", "t", "--no_eval", "--no_tensorboard"])
+    eval_argv = ["--run_dir", os.path.join(tiny, "t"), "--synthetic",
+                 "--max_batches", "2", "--batch_size", "4",
+                 "--max_new_tokens", "8"]
+    one_report = eval_cli.main(eval_argv)
+    with open(os.path.join(work, "eval_argv.json"), "w") as f:
+        json.dump(eval_argv + ["--distributed"], f)
+    clean_card()
+
+    # (2)-(5) two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = spawn(dist_ranks, 2, n_model=2, backend="gloo", args=(work,),
+                  threads=None)
+    ranks_s = time.perf_counter() - t0
+
+    checks = {"nccl_cli_losses": held}
+    for path, cfg, nd, nm in (
+            ("tp_train_13b_lora", config_13b_train(), 1, 2),
+            ("dp_train_7b_qlora", config_7b_qlora_train(), 2, 1)):
+        rs = [r[path] for r in ranks]
+        budget = MEM.training_budget(cfg, B, V, 512, nd, nm)
+        one_moments = 2 * 4 * rs[0]["trainable"]
+        ok = all(loss_terms_ok(r["metrics"][0], r["ref_metrics"])
+                 and grads_ok(r["grads"]) and len(r["grads"]) > 0
+                 for r in rs)
+        worst = min(((c, rt, n) for r in rs for n, (c, rt) in
+                     r["grads"].items()), default=None)
+        want = train_launches_expected(cfg)
+        line = dict(
+            phase=f"dist_{path}", card=smi, backend="gloo, two ranks on "
+            "one card (not a multi-card time)", mesh=f"{nd}x{nm}",
+            loss_terms=[{k: v for k, v in r["metrics"][0].items()
+                         if k.endswith("loss")} for r in rs],
+            one_process_loss_terms={k: v for k, v in rs[0][
+                "ref_metrics"].items() if k.endswith("loss")},
+            grad_norm=[[m["grad_norm"] for m in r["metrics"]] for r in rs],
+            worst_grad=worst, grads_held=len(rs[0]["grads"]),
+            step_s=[r["step_s"] for r in rs], init_s=[r["init_s"]
+                                                      for r in rs],
+            peak_gb=[r["peak_gb"] for r in rs],
+            budget_gb=budget_gb(budget),
+            moment_bytes=[r["moment_bytes"] for r in rs],
+            one_rank_moment_bytes=one_moments,
+            launches=rs[0]["launches"], held=ok)
+        if path.startswith("dp"):
+            ok = ok and all(r["moment_bytes"] <= 0.55 * one_moments
+                            for r in rs)
+        else:
+            ok = ok and all(r["launches"][n] == want[n]
+                            for r in rs for n in TRAINING_KERNELS)
+        line["held"] = ok
+        checks[path] = ok
+        log(json.dumps(line))
+        lines[path] = line
+
+    for path, ref, lcfg, kv in (
+            ("tp_decode_13b", ref13, config_13b().llama, "dense"),
+            ("tp_decode_7b_int8", ref8, config_7b_int8().llama, "int8")):
+        rs = [r[path] for r in ranks]
+        parts = [parting(r["tokens"], ref["tokens"], ref["top2"])
+                 for r in rs]
+        equal = all(not p for p in parts)
+        ok = all(np.array_equal(rs[0]["tokens"], r["tokens"]) for r in rs)
+        ok = ok and all(tie for p in parts for *_, tie in p)
+        budget = MEM.serving_budget(config_13b() if "13b" in path
+                                    else config_7b_int8(), B,
+                                    ref["tokens"].shape[1] + L_TEXT, V,
+                                    L_TEXT, kv, 2)
+        llama_gb = (MEM.llama_param_bytes(lcfg, 2) + MEM.kv_cache_bytes(
+            lcfg, B, ref["tokens"].shape[1] + L_TEXT, kv, 2)) / 1e9
+        launches = rs[0]["launches"]
+        if kv == "int8":
+            ok = ok and launches["quantize_rows_given"] > 0 \
+                and launches["int8_gemm"] > 0 and launches["int8_matmul"] > 0
+        line = dict(phase=f"dist_{path}", card=smi, backend="gloo, two "
+                    "ranks on one card (not a multi-card time)", mesh="1x2",
+                    batch=B, prompt=L_TEXT, new_tokens=ref["tokens"].shape[1],
+                    tokens_equal=equal, parting=parts, s=[r["s"] for r in rs],
+                    one_process_s=ref["s"], peak_gb=[r["peak_gb"] for r in rs],
+                    one_process_peak_gb=ref["peak_gb"],
+                    llama_and_cache_budget_gb=llama_gb,
+                    serving_budget_gb=budget_gb(budget),
+                    launches={n: launches[n] for n in (
+                        "int8_matmul", "quantize_rows_given", "int8_gemm",
+                        "flash_attention")}, held=ok)
+        checks[path] = ok
+        log(json.dumps(line))
+        lines[path] = line
+
+    reports = [r["dist_validate"]["report"] for r in ranks]
+    same = all(_reports_close(rep, one_report) for rep in reports)
+    checks["dist_validate"] = same
+    lines["dist_validate"] = dict(
+        phase="dist_validate", card=smi, backend="gloo, two ranks on one "
+        "card", report=reports[0], one_process_report=one_report,
+        rtol=REPORT_RTOL, held=same)
+    log(json.dumps(lines["dist_validate"]))
+
+    # (6) the multichip dry run on the card
+    clean_card()
+    t0 = time.perf_counter()
+    dry = graft_entry_torch.dryrun_multichip(2)
+    ok = len(dry) == 2 and len({r["loss"] for r in dry}) == 1
+    checks["dryrun"] = ok
+    log(json.dumps({"phase": "dist_dryrun_multichip", "card": smi,
+                    "backend": "gloo, two ranks on one card", "n": 2,
+                    "results": dry, "s": time.perf_counter() - t0,
+                    "held": ok}))
+
+    # (7) every path's budget beside its peak
+    log(json.dumps({"phase": "dist_budgets", "card": smi,
+                    "capacity_gb": MEM.device_capacity() / 1e9, "paths": {
+                        p: {"peak_gb": lines[p].get(
+                            "peak_gb", lines[p].get("one_process_peak_gb")),
+                            "budget_gb": lines[p].get(
+                                "budget_gb", lines[p].get(
+                                    "serving_budget_gb"))}
+                        for p in ("tp_train_13b_lora", "dp_train_7b_qlora",
+                                  "tp_decode_13b", "tp_decode_7b_int8")},
+                    "one_process_13b_cli": {
+                        "peak_gb": one_peak, "budget_gb": budget_gb(
+                            MEM.training_budget(config_13b_train(), B, V,
+                                                512))}}))
+    log(json.dumps({"phase": "distributed_checks", "checks": checks,
+                    "ranks_s": ranks_s,
+                    "s": time.perf_counter() - t_phase}))
+    shutil.rmtree(work, ignore_errors=True)
+    if not all(checks.values()):
+        raise SystemExit(f"the distributed phase failed: {checks}")
+    return {p: ranks[0][p]["launches"] for p in (
+        "tp_train_13b_lora", "dp_train_7b_qlora", "tp_decode_13b",
+        "tp_decode_7b_int8", "dist_validate")}
+
+
+def _reports_close(got, want):
+    """Two eval reports equal in structure, their numbers within
+    REPORT_RTOL relative."""
+    if isinstance(want, dict):
+        return isinstance(got, dict) and set(got) == set(want) and all(
+            _reports_close(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(
+            _reports_close(a, b) for a, b in zip(got, want))
+    if isinstance(want, (int, float)):
+        return abs(got - want) <= REPORT_RTOL * abs(want) + 1e-12
+    return got == want
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4416,8 +4986,8 @@ def main() -> int:
     step_ms = {}
     for path, cfg in (("train_13b_lora", config_13b_train()),
                       ("train_7b_qlora", config_7b_qlora_train())):
-        launches[path], step_ms[path] = training_path_phase(path, cfg,
-                                                            lift[0])
+        launches[path], step_ms[path] = training_path_phase(
+            path, cfg, lift[0], os.path.join(DIST_DIR, f"ref_{path}.pt"))
         log(json.dumps({"phase": f"{path}_done",
                         "s": time.perf_counter() - t_start}))
     del lift
@@ -4431,6 +5001,9 @@ def main() -> int:
     launches["flagship_train"], launches["flagship_validate"] = \
         flagship_workflow_phase()
     log(json.dumps({"phase": "flagship_workflow_done",
+                    "s": time.perf_counter() - t_start}))
+    launches.update(distributed_phase())
+    log(json.dumps({"phase": "distributed_done",
                     "s": time.perf_counter() - t_start}))
 
     rows = []

@@ -33,10 +33,12 @@ __device__ __forceinline__ void store_q(int8_t* row, int j, const uint2& q) {
 
 // VPL > 0: the row's vectors stay in registers, VPL of them a lane; VPL = 0:
 // the row is read twice.
-template <typename TX, int VPL>
+// GIVEN: the row's absmax is amax_in[row], not reduced from the row.
+template <typename TX, int VPL, bool GIVEN>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
     quantize_rows_kernel(const TX* __restrict__ x, int8_t* __restrict__ xq,
-                         float* __restrict__ xs, int M, int K) {
+                         float* __restrict__ xs,
+                         const float* __restrict__ amax_in, int M, int K) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= M) return;  // the whole warp leaves together
@@ -50,32 +52,36 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     for (int i = 0; i < VPL; ++i) {
       const int j = lane + 32 * i;
       v[i] = j < nv ? xr[j] : make_uint4(0u, 0u, 0u, 0u);
-      amax = vec_amax<TX>(v[i], amax);
+      if constexpr (!GIVEN) amax = vec_amax<TX>(v[i], amax);
     }
-    row_scales(warp_max(amax), inv, scale);
+    row_scales(GIVEN ? amax_in[row] : warp_max(amax), inv, scale);
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
       const int j = lane + 32 * i;
       if (j < nv) store_q<TX>(qr, j, quant_vec<TX>(v[i], inv));
     }
   } else {
-    for (int j = lane; j < nv; j += 32) amax = vec_amax<TX>(xr[j], amax);
-    row_scales(warp_max(amax), inv, scale);
+    if constexpr (!GIVEN) {
+      for (int j = lane; j < nv; j += 32) amax = vec_amax<TX>(xr[j], amax);
+    }
+    row_scales(GIVEN ? amax_in[row] : warp_max(amax), inv, scale);
     for (int j = lane; j < nv; j += 32) store_q<TX>(qr, j, quant_vec<TX>(xr[j], inv));
   }
   if (lane == 0) xs[row] = scale;
 }
 
-template <typename TX>
-cudaError_t launch_quantize(const void* x, void* xq, void* xs, int M, int K,
-                            cudaStream_t st) {
+template <typename TX, bool GIVEN>
+cudaError_t launch_quantize(const void* x, void* xq, void* xs,
+                            const void* amax, int M, int K, cudaStream_t st) {
   const TX* xp = static_cast<const TX*>(x);
   int8_t* qp = static_cast<int8_t*>(xq);
   float* sp = static_cast<float*>(xs);
+  const float* ap = static_cast<const float*>(amax);
   const int per_lane = (K / XVec<TX>::kN + 31) / 32;
   const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
   const dim3 block(kRowsPerBlock * 32);
-#define IVLM_QUANT(V) quantize_rows_kernel<TX, V><<<grid, block, 0, st>>>(xp, qp, sp, M, K)
+#define IVLM_QUANT(V) \
+  quantize_rows_kernel<TX, V, GIVEN><<<grid, block, 0, st>>>(xp, qp, sp, ap, M, K)
   if (per_lane <= 2) {
     IVLM_QUANT(2);
   } else if (per_lane <= 4) {
@@ -104,8 +110,24 @@ extern "C" int ivlm_quantize_rows(const void* x, int x_f32, void* xq, void* xs,
   if (M <= 0 || K <= 0 || K % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = x_f32 ? launch_quantize<float>(x, xq, xs, M, K, st)
-                                : launch_quantize<bf16>(x, xq, xs, M, K, st);
+  const cudaError_t err =
+      x_f32 ? launch_quantize<float, false>(x, xq, xs, nullptr, M, K, st)
+            : launch_quantize<bf16, false>(x, xq, xs, nullptr, M, K, st);
+  return static_cast<int>(err);
+}
+
+// The given-scale route: as ivlm_quantize_rows, with each row's absmax
+// read from amax (M,) f32 (the row's max |x| over its whole length, of
+// which x holds a slice) instead of reduced from x.
+extern "C" int ivlm_quantize_rows_given(const void* x, int x_f32,
+                                        const void* amax, void* xq, void* xs,
+                                        int M, int K, void* stream) {
+  if (M <= 0 || K <= 0 || K % 8 != 0 || amax == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      x_f32 ? launch_quantize<float, true>(x, xq, xs, amax, M, K, st)
+            : launch_quantize<bf16, true>(x, xq, xs, amax, M, K, st);
   return static_cast<int>(err);
 }
 

@@ -9,7 +9,11 @@ meshes), ``H2DContactDataset``, ``VQADataset``, ``HybridDataset``,
 for array, under the same seeds: the same files, the same numpy
 preprocessing and the same python / numpy random draws (template choice,
 parts dropout, the mixture's picks, the object match shuffle and the
-missing-file retries). PNGs decode through the native decoder
+missing-file retries). A sample is made in two parts: ``plan(idx)`` makes
+its draws and file checks, and the function it returns reads the files
+and builds it (``ds[idx]`` is ``ds.plan(idx)()``), so a loader can make
+every row's draws in row order in one thread and decode anywhere. PNGs
+decode through the native decoder
 (``runtime/native_image.load_rgb``: the same bytes as PIL's), other images
 through PIL. The LISA segmentation datasets are not ported yet:
 ``build_dataset`` raises for them.
@@ -43,7 +47,7 @@ import pickle
 import random
 import threading
 from os.path import join
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -124,6 +128,19 @@ class BaseContactDataset:
         self.conv_type = conv_type
         self.token_type = token_type
         self.rng = rng or random.Random(42)
+
+    def __getitem__(self, idx: int) -> Sample:
+        return self.plan(idx)()
+
+    def plan(self, idx: int) -> Callable[[], Sample]:
+        """Sample ``idx``'s random draws from ``self.rng`` and its file
+        checks, made now in the order the whole sample makes them, and the
+        function that then reads its files and builds the sample. Loaders
+        make the plans of a batch's rows in row order in one thread and
+        build them on a pool (``train.py:real_batch_iter``): the draws then
+        do not depend on which thread builds which row, and a data rank can
+        make the plans of rows it does not build."""
+        raise NotImplementedError
 
     # --- image loading -------------------------------------------------
     def load_views(self, paths: Sequence[str]):
@@ -305,7 +322,7 @@ class HContactDataset(BaseContactDataset):
     def __len__(self):
         return len(self.samples)
 
-    def __getitem__(self, idx: int) -> Sample:
+    def plan(self, idx: int) -> Callable[[], Sample]:
         source, image_name, obj_key, obj_name = self.samples[idx]
         stem = os.path.splitext(os.path.basename(image_name))[0]
         gt = np.zeros(self.num_vertices, np.float32)
@@ -337,8 +354,6 @@ class HContactDataset(BaseContactDataset):
             )
             image_path = join(self.base_dir, image_name)
 
-        masks = self.load_label_masks(mask_paths, self.valid_regions)
-
         # body-part dropout: with prob p fall back to the simple template
         # (hcontact_3d.py:338-343, FIX.md:22-27)
         qtype = self.question_type
@@ -346,21 +361,25 @@ class HContactDataset(BaseContactDataset):
             qtype = "simple"
         conv, q = self.human_conversation(obj_name, qtype, parts)
 
-        return Sample(
-            image_path=image_path,
-            sam_images=self.sam_images,
-            image_clip=self.load_clip_image(image_path),
-            conversations=[conv],
-            masks=masks,
-            label=masks[0],
-            gt_contact_3d=gt,
-            cam_params=self.cam_params(),
-            resize=self.resize,
-            questions=[q],
-            sampled_classes=[obj_name],
-            ds_name=self.ds_name,
-            mask_paths=mask_paths,
-        )
+        def build() -> Sample:
+            masks = self.load_label_masks(mask_paths, self.valid_regions)
+            return Sample(
+                image_path=image_path,
+                sam_images=self.sam_images,
+                image_clip=self.load_clip_image(image_path),
+                conversations=[conv],
+                masks=masks,
+                label=masks[0],
+                gt_contact_3d=gt,
+                cam_params=self.cam_params(),
+                resize=self.resize,
+                questions=[q],
+                sampled_classes=[obj_name],
+                ds_name=self.ds_name,
+                mask_paths=mask_paths,
+            )
+
+        return build
 
 
 class OAffordDataset(BaseContactDataset):
@@ -399,7 +418,7 @@ class OAffordDataset(BaseContactDataset):
             for v in self.view_set.names
         ]
 
-    def __getitem__(self, idx: int) -> Sample:
+    def plan(self, idx: int) -> Callable[[], Sample]:
         return _retry_missing(self, idx)
 
     def _candidates(self, rec) -> List[str]:
@@ -416,7 +435,7 @@ class OAffordDataset(BaseContactDataset):
             return cands
         return [rec["object_id"]]
 
-    def _load(self, idx: int) -> Sample:
+    def _plan(self, idx: int) -> Callable[[], Sample]:
         rec = self.samples[idx]
         oid = gt = None
         for cand in self._candidates(rec):
@@ -433,52 +452,66 @@ class OAffordDataset(BaseContactDataset):
             raise FileNotFoundError(
                 f"no valid object match for {rec.get('image')}"
             )
-        sam_images, valid, _, resize = self.load_views(
-            self._paths(oid, "renders")
-        )
-        heatmaps = self.load_label_masks(
-            self._paths(oid, "heatmaps"), valid, binary=False
-        )
+        heat_paths = self._paths(oid, "heatmaps")
+        _require_files(heat_paths)
         gt = gt[: self.num_points]
         if gt.size < self.num_points:
             gt = np.pad(gt, (0, self.num_points - gt.size))
 
         # per-sample pixel->point map (reference derives the p2pmap path
         # from the mask path, model/components.py:309)
-        obj_p2p = None
         maps_path = join(self.folder, "maps", f"{oid}.npz")
-        if os.path.exists(maps_path):
-            obj_p2p = np.load(maps_path)["p2p"].astype(np.int32)
+        has_maps = os.path.exists(maps_path)
 
         conv, q = self.object_conversation(
             rec["class_name"], rec.get("affordance"), self.question_type
         )
         image_path = join(self.base_dir, "images", rec["image"])
-        return Sample(
-            image_path=image_path,
-            sam_images=sam_images,
-            image_clip=self.load_clip_image(image_path),
-            conversations=[conv],
-            masks=heatmaps,
-            label=heatmaps[0],
-            gt_contact_3d=gt,
-            cam_params=self.cam_params(),
-            resize=resize,
-            questions=[q],
-            sampled_classes=[rec["class_name"]],
-            ds_name=self.ds_name,
-            mask_paths=self._paths(oid, "mask"),
-            obj_p2p=obj_p2p,
-        )
+        _require_files([image_path])
+
+        def build() -> Sample:
+            sam_images, valid, _, resize = self.load_views(
+                self._paths(oid, "renders")
+            )
+            heatmaps = self.load_label_masks(heat_paths, valid, binary=False)
+            obj_p2p = (np.load(maps_path)["p2p"].astype(np.int32)
+                       if has_maps else None)
+            return Sample(
+                image_path=image_path,
+                sam_images=sam_images,
+                image_clip=self.load_clip_image(image_path),
+                conversations=[conv],
+                masks=heatmaps,
+                label=heatmaps[0],
+                gt_contact_3d=gt,
+                cam_params=self.cam_params(),
+                resize=resize,
+                questions=[q],
+                sampled_classes=[rec["class_name"]],
+                ds_name=self.ds_name,
+                mask_paths=self._paths(oid, "mask"),
+                obj_p2p=obj_p2p,
+            )
+
+        return build
 
 
-def _retry_missing(ds, idx: int) -> Sample:
-    """``ds._load(idx)``, and on a missing file up to four more draws of
+def _require_files(paths: Sequence[str]) -> None:
+    """Raise ``FileNotFoundError`` (as reading it would) for the first of
+    ``paths`` that is missing: a plan's check of the files its build
+    reads, where a missing one makes the dataset draw another index."""
+    for path in paths:
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+
+
+def _retry_missing(ds, idx: int) -> Callable[[], Sample]:
+    """``ds._plan(idx)``, and on a missing file up to four more draws of
     another index from the dataset's rng (the reference's skip-and-retry,
     ocontact_3d.py:179-222)."""
     for _ in range(5):
         try:
-            return ds._load(idx)
+            return ds._plan(idx)
         except FileNotFoundError as e:
             last = e
             idx = ds.rng.randrange(len(ds.samples))
@@ -510,7 +543,10 @@ class VQADataset(BaseContactDataset):
     def __len__(self):
         return len(self.records)
 
-    def __getitem__(self, idx: int) -> Sample:
+    def plan(self, idx: int) -> Callable[[], Sample]:
+        return lambda: self._build(idx)  # no draws
+
+    def _build(self, idx: int) -> Sample:
         rec = self.records[idx]
         img_path = join(self.base_dir, "images", rec["image"])
         conv = build_conversation(
@@ -573,9 +609,14 @@ class HybridDataset:
             ]
             return ds, int(self.rng.integers(len(ds)))
 
-    def __getitem__(self, idx: int) -> Sample:
+    def plan(self) -> Callable[[], Sample]:
+        """The next row's plan: the mixture's pick, then the picked
+        element's own draws (``BaseContactDataset.plan``)."""
         ds, j = self.pick()
-        return ds[j]
+        return ds.plan(j)
+
+    def __getitem__(self, idx: int) -> Sample:
+        return self.plan()()
 
 
 class HContactSceneDataset(HContactDataset):
@@ -622,62 +663,68 @@ class OContactDataset(BaseContactDataset):
     def __len__(self):
         return len(self.samples)
 
-    def __getitem__(self, idx: int) -> Sample:
+    def plan(self, idx: int) -> Callable[[], Sample]:
         return _retry_missing(self, idx)
 
-    def _load(self, idx: int) -> Sample:
+    def _plan(self, idx: int) -> Callable[[], Sample]:
         rec = self.samples[idx]
         oid = rec["object_id"]
         paths = [
             join(self.folder, "renders", f"{oid}_{v}.png")
             for v in self.view_set.names
         ]
-        sam_images, valid, _, resize = self.load_views(paths)
         mask_paths = [
             join(self.folder, "masks", f"{oid}_{v}.png")
             for v in self.view_set.names
         ]
-        masks = self.load_label_masks(mask_paths, valid)
-
-        gt_file = np.load(join(self.folder, "gt", f"{oid}.npz"))
-        contact = gt_file["contact"].astype(np.float32)
-        n_verts = int(gt_file.get("n_verts", contact.size))
-        gt = np.zeros(self.max_vertices, np.float32)
-        gt[: min(contact.size, self.max_vertices)] = contact[
-            : self.max_vertices
-        ]
-
+        gt_path = join(self.folder, "gt", f"{oid}.npz")
+        _require_files(paths + mask_paths + [gt_path])
         # per-sample pixel->vertex + barycentric maps
         # (reference model/components.py:363-377 loads p2vmap npz per sample)
-        obj_p2v = obj_bary = None
         maps_path = join(self.folder, "maps", f"{oid}.npz")
-        if os.path.exists(maps_path):
-            m = np.load(maps_path)
-            obj_p2v = m["p2v"].astype(np.int32)
-            obj_bary = m["bary"].astype(np.float32)
+        has_maps = os.path.exists(maps_path)
 
         conv, q = self.object_conversation(
             rec["class_name"], question_type=self.question_type
         )
         image_path = join(self.base_dir, "images", rec["image"])
-        return Sample(
-            image_path=image_path,
-            sam_images=sam_images,
-            image_clip=self.load_clip_image(image_path),
-            conversations=[conv],
-            masks=masks,
-            label=masks[0],
-            gt_contact_3d=gt,
-            cam_params=self.cam_params(),
-            resize=resize,
-            questions=[q],
-            sampled_classes=[rec["class_name"]],
-            ds_name=self.ds_name,
-            mask_paths=mask_paths,
-            obj_p2v=obj_p2v,
-            obj_bary=obj_bary,
-            num_valid_verts=n_verts,
-        )
+        _require_files([image_path])
+
+        def build() -> Sample:
+            sam_images, valid, _, resize = self.load_views(paths)
+            masks = self.load_label_masks(mask_paths, valid)
+            gt_file = np.load(gt_path)
+            contact = gt_file["contact"].astype(np.float32)
+            n_verts = int(gt_file.get("n_verts", contact.size))
+            gt = np.zeros(self.max_vertices, np.float32)
+            gt[: min(contact.size, self.max_vertices)] = contact[
+                : self.max_vertices
+            ]
+            obj_p2v = obj_bary = None
+            if has_maps:
+                m = np.load(maps_path)
+                obj_p2v = m["p2v"].astype(np.int32)
+                obj_bary = m["bary"].astype(np.float32)
+            return Sample(
+                image_path=image_path,
+                sam_images=sam_images,
+                image_clip=self.load_clip_image(image_path),
+                conversations=[conv],
+                masks=masks,
+                label=masks[0],
+                gt_contact_3d=gt,
+                cam_params=self.cam_params(),
+                resize=resize,
+                questions=[q],
+                sampled_classes=[rec["class_name"]],
+                ds_name=self.ds_name,
+                mask_paths=mask_paths,
+                obj_p2v=obj_p2v,
+                obj_bary=obj_bary,
+                num_valid_verts=n_verts,
+            )
+
+        return build
 
 
 class H2DContactDataset(BaseContactDataset):
@@ -698,7 +745,12 @@ class H2DContactDataset(BaseContactDataset):
     def __len__(self):
         return len(self.samples)
 
-    def __getitem__(self, idx: int) -> Sample:
+    def plan(self, idx: int) -> Callable[[], Sample]:
+        conv, q = self.human_conversation(self.samples[idx]["class_name"],
+                                          "simple")
+        return lambda: self._build(idx, conv, q)
+
+    def _build(self, idx: int, conv, q) -> Sample:
         from PIL import Image
 
         rec = self.samples[idx]
@@ -707,7 +759,6 @@ class H2DContactDataset(BaseContactDataset):
         mask_path = join(self.folder, "masks", rec["mask"])
         mask = (np.asarray(Image.open(mask_path).convert("L")) >= 128
                 ).astype(np.float32)
-        conv, q = self.human_conversation(rec["class_name"], "simple")
         return Sample(
             image_path=img_path,
             sam_images=sam_img[None],

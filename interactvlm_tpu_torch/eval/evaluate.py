@@ -304,6 +304,40 @@ def _host(x):
     return None if x is None else _numpy(x)
 
 
+def shard_eval_batches(batch_iter, mesh):
+    """Distributed evaluation (the JAX package's ``shard_eval_batches``;
+    the reference shards the val set with a DistributedSampler and
+    all-gathers the predictions, evaluate.py:202-222,346): each global
+    ``(batch, meta)`` becomes ``(batch, meta, local, local_meta, rows)``,
+    this data rank's block of ceil(rows / n) rows, a short last batch
+    padded by repeating its last row (``validate`` drops the padding when
+    it gathers the predictions back in row order)."""
+    from interactvlm_tpu_torch.train.train_step import take_rows
+
+    n, r = mesh.n_data, mesh.data_index
+    for batch, meta in batch_iter:
+        rows = batch["input_ids"].shape[0]
+        per = -(-rows // n)
+        index = [min(i, rows - 1) for i in range(r * per, (r + 1) * per)]
+        local_meta = {k: ([v[i] for i in index]
+                          if isinstance(v, list) and len(v) == rows else v)
+                      for k, v in (meta or {}).items()}
+        yield batch, meta, take_rows(batch, index, rows), local_meta, rows
+
+
+def _gather_rows(x, mesh, rows: int):
+    """A per-row array of this rank's padded block -> the global rows in
+    order (numpy), gathered over the data ranks."""
+    from interactvlm_tpu_torch.parallel.collectives import all_gather_batch
+
+    if x is None:
+        return None
+    t = torch.as_tensor(np.ascontiguousarray(x))
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.backend == "nccl" else torch.device("cpu")
+    return all_gather_batch(t.to(dev), mesh.data_group).cpu().numpy()[:rows]
+
+
 @torch.inference_mode()
 def validate(batch_iter, model: InteractVLM, ds_name: str, mask_size: int,
              inference_type: str = "generate",
@@ -313,7 +347,7 @@ def validate(batch_iter, model: InteractVLM, ds_name: str, mask_size: int,
              max_batches: Optional[int] = None, kv_cache: str = "dense",
              cache_view_encode: Optional[bool] = None,
              max_new_tokens: Optional[int] = None,
-             max_seg_tokens: Optional[int] = None):
+             max_seg_tokens: Optional[int] = None, mesh=None):
     """The eval loop (port of ``interactvlm_tpu/eval/evaluate.py:validate``,
     reference evaluate.py:41-248) over ``(batch, meta)`` pairs on the
     model's device. Returns (metrics dict, saved results for the DAMON
@@ -322,7 +356,11 @@ def validate(batch_iter, model: InteractVLM, ds_name: str, mask_size: int,
     for hcontact and ocontact, SIM / MAE / AUC / aIoU for oafford.
 
     ``inference_type`` "generate" decodes answers (``evaluate_batch``);
-    "forward" runs the teacher-forced ``forward_train``.
+    "forward" runs the teacher-forced ``forward_train``. ``mesh``: the data
+    ranks share each batch (``shard_eval_batches``): each runs its rows,
+    the per-row predictions are gathered over ``data`` in row order, and
+    every rank updates the meters from the whole batch as one process
+    does, so every rank returns the one-process report.
     ``cache_view_encode``: encode the canonical view renders once and reuse
     the frozen-encoder embedding for every batch (valid when all samples
     share fixed renders -- hcontact's Vitruvian views). None: on for
@@ -362,8 +400,16 @@ def validate(batch_iter, model: InteractVLM, ds_name: str, mask_size: int,
     if cache_view_encode is None:
         cache_view_encode = is_h  # fixed canonical renders (see docstring)
     cached_emb = None
+    split = mesh is not None and mesh.n_data > 1
+    if split:
+        batch_iter = shard_eval_batches(batch_iter, mesh)
+    else:
+        batch_iter = ((b, m, b, m, None) for b, m in batch_iter)
 
-    for bi, (batch, meta) in enumerate(batch_iter):
+    def rows_of(x):
+        return _gather_rows(x, mesh, rows) if split else x
+
+    for bi, (batch, meta, local, local_meta, rows) in enumerate(batch_iter):
         if max_batches is not None and bi >= max_batches:
             break
         if cache_view_encode and cached_emb is None:
@@ -373,18 +419,27 @@ def validate(batch_iter, model: InteractVLM, ds_name: str, mask_size: int,
                 _dev(batch["sam_images"][:1], dev).to(cfg.sam.dtype))
         if inference_type == "generate":
             out = evaluate_batch(
-                model, batch, mask_size, contact_type=ds_name,
+                model, local, mask_size, contact_type=ds_name,
                 max_new_tokens=max_new_tokens, human_maps=human_maps,
                 object_maps=object_maps, kv_cache=kv_cache,
-                meta=meta if is_2d else None,
+                meta=local_meta if is_2d else None,
                 cached_image_emb=cached_emb, max_seg_tokens=max_seg_tokens)
-            pred_masks = _numpy(out["pred_masks"])
-            pred_3d = _host(out["pred_contact_3d"])
+            pred_masks = rows_of(_numpy(out["pred_masks"]))
+            pred_3d = rows_of(_host(out["pred_contact_3d"]))
             # fraction of rows that emitted a seg token: the first thing
             # to check when generate-mode metrics come back zero
-            seg_m.update(float(np.mean(_numpy(out["has_seg"]))))
-            if is_2d and out["pred_masks_original"] is not None:
-                for b, pm in enumerate(out["pred_masks_original"]):
+            seg_m.update(float(np.mean(rows_of(_numpy(out["has_seg"])))))
+            originals = out["pred_masks_original"]
+            if split and originals is not None:
+                from interactvlm_tpu_torch.parallel.collectives import (
+                    host_gather,
+                )
+
+                originals = [m for part in host_gather(
+                    [_numpy(m) for m in originals], mesh.data_group)
+                    for m in part][:rows]
+            if is_2d and originals is not None:
+                for b, pm in enumerate(originals):
                     gt = np.asarray(meta["label_list"][b])
                     i, u, acc = M.segmentation_metrics(_numpy(pm)[None],
                                                        gt[None])
@@ -393,20 +448,21 @@ def validate(batch_iter, model: InteractVLM, ds_name: str, mask_size: int,
                     giou_m.update(acc)
                 continue
         else:
-            fwd = model.forward_train(batch)
+            fwd = model.forward_train(local)
             pred_masks = fwd["pred_masks"]
             pred_3d = None
             if is_h and human_maps is not None:
                 pred_3d = lift_human(
                     pred_masks, _dev(human_maps["p2v"], dev),
                     _dev(human_maps["bary"], dev), cfg.num_human_vertices)
-            elif is_oa and "obj_p2p" in batch:
+            elif is_oa and "obj_p2p" in local:
                 pred_3d = lift_points_per_sample(
-                    pred_masks, batch, cfg.num_object_points, dev)
-            elif is_oc and "obj_p2v" in batch:
+                    pred_masks, local, cfg.num_object_points, dev)
+            elif is_oc and "obj_p2v" in local:
                 pred_3d = lift_objects_per_sample(
-                    pred_masks, batch, batch["gt_ocontact"].shape[1], dev)
-            pred_masks, pred_3d = _numpy(pred_masks), _host(pred_3d)
+                    pred_masks, local, local["gt_ocontact"].shape[1], dev)
+            pred_masks = rows_of(_numpy(pred_masks))
+            pred_3d = rows_of(_host(pred_3d))
 
         gt_masks = _numpy(batch["gt_masks"])
         if gt_masks.ndim == 5:
@@ -655,9 +711,11 @@ def main(argv=None):
                         "geodesic matrix; reference eval_utils.py:15) -- "
                         "enables the geodesic FP/FN columns")
     p.add_argument("--distributed", action="store_true",
-                   help="shard eval batches over several cards (reference "
-                        "DistributedSampler, evaluate.py:346): not ported "
-                        "yet")
+                   help="share each eval batch over the ranks of a "
+                        "torchrun launch, one a card over NCCL (gloo with "
+                        "--device cpu); the report is the one-process "
+                        "report (reference DistributedSampler, "
+                        "evaluate.py:346)")
     p.add_argument("--cache_view_encode", default="auto",
                    choices=["auto", "on", "off"],
                    help="encode the fixed canonical view renders once and "
@@ -675,13 +733,17 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="where the model runs: the card unless 'cpu'")
     args = p.parse_args(argv)
-    dev = resolve_device(args.device)
-    if args.distributed:
-        from interactvlm_tpu_torch.train.train import DISTRIBUTED_ITEM
+    from interactvlm_tpu_torch.parallel.mesh import (
+        Mesh,
+        create_mesh,
+        join_launch,
+    )
 
-        raise NotImplementedError(
-            "--distributed: sharded evaluation is not ported to "
-            f"interactvlm_tpu_torch yet ({DISTRIBUTED_ITEM})")
+    if args.distributed:
+        dev = join_launch(args.device, "--distributed")
+        mesh = create_mesh(n_model=1)
+    else:
+        dev, mesh = resolve_device(args.device), Mesh()
     tune_host_allocator()
 
     from interactvlm_tpu_torch.train.train import (
@@ -770,7 +832,7 @@ def main(argv=None):
         cache_view_encode=(None if args.cache_view_encode == "auto"
                            else args.cache_view_encode == "on"),
         max_new_tokens=args.max_new_tokens,
-        max_seg_tokens=args.max_seg_tokens or None,
+        max_seg_tokens=args.max_seg_tokens or None, mesh=mesh,
     )
     report = {"metrics": results}
     if "hcontact" in args.val_dataset and saved["pred"]:
@@ -778,12 +840,17 @@ def main(argv=None):
         report["damon_semantic"] = {
             "weighted_f1": damon_semantic_contact(saved)["weighted_f1"]
         }
-    print(json.dumps(report, indent=2, default=float))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(report, f, indent=2, default=float)
+    if mesh.is_main:
+        print(json.dumps(report, indent=2, default=float))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=2, default=float)
     return report
 
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as _dist
+
+    if _dist.is_initialized():
+        _dist.destroy_process_group()

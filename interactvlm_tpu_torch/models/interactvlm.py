@@ -53,13 +53,16 @@ SPLIT_TOKEN_TYPES = ("Gen-Hu-Obj", "Gen-Int")
 
 
 class InteractVLM(nn.Module):
-    def __init__(self, config: InteractVLMConfig, device="cuda"):
+    def __init__(self, config: InteractVLMConfig, device="cuda", mesh=None):
         super().__init__()
         cfg = config
         device = resolve_device(device)
         self.config = cfg
+        # LLaMA tensor-parallel over the mesh's model axis (``mesh``:
+        # parallel/mesh.py); CLIP, SAM and the heads whole on every rank
+        self.mesh = mesh
         dt = cfg.sam.dtype  # the heads around SAM compute in its dtype
-        self.llava = LlavaModel(cfg.llama, cfg.clip, device)
+        self.llava = LlavaModel(cfg.llama, cfg.clip, device, mesh)
         self.sam = Sam(cfg.sam, device, use_diff_decoder=cfg.use_diff_decoder)
         self.text_hidden_fcs = TextHiddenFcs(cfg.llama.hidden_size,
                                              cfg.out_dim, dt, device)

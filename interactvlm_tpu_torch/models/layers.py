@@ -11,9 +11,23 @@ computes in one dtype; training keeps its trainable parameters in f32
 f32 params under bf16 modules do. State-dict keys are those of
 ``torch.nn.Linear`` / ``LayerNorm`` / ``ConvTranspose2d`` / ``Embedding``;
 a LoRA linear adds peft's ``lora_A.weight`` and ``lora_B.weight``.
+
+Tensor parallelism (``shard_layer``): a linear built at its local size and
+given a ``TensorParallel`` is column-parallel (its out features split over
+the model ranks; its input's gradient all-reduced, ``copy_to``) or
+row-parallel (its in features split; its output all-reduced,
+``reduce_from``); an embedding is vocab-parallel (ids outside the rank's
+rows masked, the lookups all-reduced). A LoRA adapter on a column-parallel
+linear keeps A whole on every rank and B split as the base: x A^T passes
+``copy_to`` before B, so A's gradient, and x's through the adapter, are
+summed over the ranks once. The int8 and int4 row-parallel linears quantize
+with the whole row's absmax (``ops/quant.py:row_parallel_quantize``).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
 
 import torch
 import torch.nn as nn
@@ -24,11 +38,81 @@ from interactvlm_tpu_torch.ops.int8_matmul import (
     apply_activation,
     int8_matmul_fused,
 )
-from interactvlm_tpu_torch.ops.quant import int4_matmul, int8_matmul_ste
+from interactvlm_tpu_torch.ops.quant import (
+    int4_matmul,
+    int4_matmul_row_parallel,
+    int8_matmul_row_parallel,
+    int8_matmul_ste,
+)
+from interactvlm_tpu_torch.parallel.collectives import copy_to, reduce_from
 
 
 def _cast(t, dtype):
     return None if t is None else t.to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """How a layer is split over the model axis: ``kind`` "column" (out
+    features), "row" (in features) or "vocab" (an embedding's rows), the
+    axis's process group, its size ``n`` and this rank's ``index``. Which
+    dim of each of its parameters is split is the partition table's
+    (``parallel/mesh.py:param_spec``), by the parameter's name."""
+
+    kind: str
+    group: Any
+    n: int
+    index: int
+
+
+def shard_layer(layer: nn.Module, kind: str, mesh) -> nn.Module:
+    """Mark ``layer`` (built at its local size) as split over ``mesh``'s
+    model axis; a LoRA layer's B factor splits with a column-parallel base.
+    A mesh whose model axis has one rank leaves the layer as it is."""
+    if mesh is None or mesh.n_model == 1:
+        return layer
+    tp = TensorParallel(kind, mesh.model_group, mesh.n_model,
+                        mesh.model_index)
+    layer.tp = tp
+    if hasattr(layer, "lora_B"):
+        if kind != "column":
+            raise ValueError("LoRA is built on column-parallel linears only")
+        layer.lora_B.tp = tp
+    return layer
+
+
+def _tp(layer) -> Optional[TensorParallel]:
+    return getattr(layer, "tp", None)
+
+
+def _col_in(layer, x):
+    tp = _tp(layer)
+    return copy_to(x, tp.group) if tp is not None and tp.kind == "column" \
+        else x
+
+
+def _row_out(layer, y):
+    tp = _tp(layer)
+    return reduce_from(y, tp.group) if tp is not None and tp.kind == "row" \
+        else y
+
+
+def _is_row(layer) -> bool:
+    tp = _tp(layer)
+    return tp is not None and tp.kind == "row"
+
+
+def _lora(layer, x):
+    """((x A^T) B^T) * alpha / r, with x A^T passed through ``copy_to``
+    where B is split (column-parallel)."""
+    a = layer.lora_A.weight.to(x.dtype)
+    b = layer.lora_B.weight.to(x.dtype)
+    return F.linear(_col_in(layer, F.linear(x, a)), b) * layer.scaling
+
+
+def full_in_features(layer) -> int:
+    """The in features of the unsharded layer."""
+    return layer.in_features * (layer.tp.n if _is_row(layer) else 1)
 
 
 class Linear(nn.Linear):
@@ -40,7 +124,9 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        return _row_out(self, F.linear(_col_in(self, x).to(dt),
+                                       self.weight.to(dt),
+                                       _cast(self.bias, dt)))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -81,7 +167,15 @@ class Embedding(nn.Embedding):
         self.dtype = self.weight.dtype
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight).to(self.dtype)
+        tp = _tp(self)
+        if tp is None:
+            return F.embedding(ids, self.weight).to(self.dtype)
+        rows = self.weight.shape[0]
+        local = ids - tp.index * rows
+        mine = (local >= 0) & (local < rows)
+        out = F.embedding(torch.where(mine, local, 0), self.weight)
+        out = torch.where(mine[..., None], out, 0.0).to(self.dtype)
+        return reduce_from(out, tp.group)
 
 
 class LoraFactor(nn.Module):
@@ -111,9 +205,7 @@ class LoraLinear(Linear):
         self.lora_B = LoraFactor(out_features, rank, 0.0, dtype, device)
 
     def forward(self, x):
-        a = self.lora_A.weight.to(x.dtype)
-        b = self.lora_B.weight.to(x.dtype)
-        return super().forward(x) + F.linear(F.linear(x, a), b) * self.scaling
+        return super().forward(x) + _lora(self, x)
 
 
 class Int8Linear(nn.Module):
@@ -161,6 +253,13 @@ class Int8Linear(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
+        if _is_row(self):
+            if self.bias is not None or self.activation != "none":
+                raise ValueError("a row-parallel Int8Linear has no bias or "
+                                 "activation")
+            return int8_matmul_row_parallel(x, self.weight, self.weight_scale,
+                                            self.tp.group, self.dtype)
+        x = _col_in(self, x)
         fused = self.bias is not None or self.activation != "none"
         if fused and x.is_cuda and not (torch.is_grad_enabled()
                                         and x.requires_grad):
@@ -197,9 +296,7 @@ class Int8LoraLinear(Int8Linear):
 
     def forward(self, x):
         x = x.to(self.dtype)
-        a = self.lora_A.weight.to(x.dtype)
-        b = self.lora_B.weight.to(x.dtype)
-        return super().forward(x) + F.linear(F.linear(x, a), b) * self.scaling
+        return super().forward(x) + _lora(self, x)
 
 
 class Int4Linear(nn.Module):
@@ -228,6 +325,10 @@ class Int4Linear(nn.Module):
 
     def forward(self, x):
         _cuda.refuse_grad("Int4Linear", x)
+        if _is_row(self):
+            return int4_matmul_row_parallel(
+                x, self.weight_q4, self.weight_scale, self.weight_rf,
+                self.tp.group, self.dtype)
         return int4_matmul(x, self.weight_q4, self.weight_scale,
                            self.weight_rf, self.dtype)
 

@@ -19,6 +19,16 @@ straight-through backward), and the lm_head stays in the compute dtype and
 trains; with ``remat`` each decoder layer is recomputed in the backward
 (``nn.remat(LlamaBlock)``), which launches its flash forward, and its
 int8 linears, a second time.
+
+Given a ``mesh`` (``parallel/mesh.py``) whose model axis has n ranks, the
+decoder is tensor-parallel as the JAX package's is over its ``model`` axis:
+each rank builds nh / n query heads and nkv / n kv heads (q/k/v
+column-parallel, o_proj row-parallel), I / n MLP columns (gate/up column,
+down row), and padded_vocab / n rows of ``embed_tokens`` (vocab-parallel)
+and of the lm_head (column-parallel); ``logits`` masks the pad columns at
+their global indices and gathers the vocabulary over the model ranks, so
+the logits, the hidden states after the final norm and everything after
+them are whole on every rank. A KV cache holds the rank's own heads.
 """
 
 from __future__ import annotations
@@ -38,7 +48,9 @@ from interactvlm_tpu_torch.models.layers import (
     Int8LoraLinear,
     Linear,
     LoraLinear,
+    shard_layer,
 )
+from interactvlm_tpu_torch.parallel.collectives import batch_sum, gather_from
 from interactvlm_tpu_torch.ops.attention import dot_product_attention
 from interactvlm_tpu_torch.ops.flash_attention import flash_attention
 from interactvlm_tpu_torch.ops.quant import append_kv_cache_int8
@@ -84,14 +96,32 @@ def apply_rope(x, cos, sin):
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
+def _model_ranks(mesh) -> int:
+    return 1 if mesh is None else mesh.n_model
+
+
 def linear(config: LlamaConfig, in_features: int, out_features: int, device,
-           lora: bool = False, int8: bool = None, int4: bool = None):
+           lora: bool = False, int8: bool = None, int4: bool = None,
+           mesh=None, kind: str = "column"):
     """A bias-free projection (the JAX package's ``_dense`` and
     ``LoraDense``): where ``lora`` and ``lora_rank > 0``, ``Int8LoraLinear``
     under ``weights_int8`` (QLoRA) and ``LoraLinear`` over a float base
     otherwise; else ``Int4Linear`` under ``weights_int4`` (which takes
     precedence), ``Int8Linear`` under ``weights_int8``. ``int8`` / ``int4``
-    override the config's flags (the lm_head's)."""
+    override the config's flags (the lm_head's). With a ``mesh`` the layer
+    is built at this rank's size and split over its model axis, ``kind``
+    "column" (out features) or "row" (in features)."""
+    n = _model_ranks(mesh)
+    if kind == "column":
+        out_features //= n
+    else:
+        in_features //= n
+    layer = _linear(config, in_features, out_features, device, lora, int8,
+                    int4)
+    return shard_layer(layer, kind, mesh)
+
+
+def _linear(config, in_features, out_features, device, lora, int8, int4):
     c = config
     int8 = c.weights_int8 if int8 is None else int8
     int4 = c.weights_int4 if int4 is None else int4
@@ -115,17 +145,22 @@ def _padding_bias(attn_mask):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LlamaConfig, device):
+    def __init__(self, config: LlamaConfig, device, mesh=None):
         super().__init__()
         c = config
         self.config = c
+        n = _model_ranks(mesh)
+        # this rank's query and kv heads
+        self.num_heads = c.num_heads // n
+        self.num_kv_heads = c.num_kv_heads // n
         self.q_proj = linear(c, c.hidden_size, c.num_heads * c.head_dim, device,
-                             lora=True)
+                             lora=True, mesh=mesh)
         self.k_proj = linear(c, c.hidden_size, c.num_kv_heads * c.head_dim,
-                            device)
+                             device, mesh=mesh)
         self.v_proj = linear(c, c.hidden_size, c.num_kv_heads * c.head_dim,
-                            device, lora=True)
-        self.o_proj = linear(c, c.num_heads * c.head_dim, c.hidden_size, device)
+                             device, lora=True, mesh=mesh)
+        self.o_proj = linear(c, c.num_heads * c.head_dim, c.hidden_size,
+                             device, mesh=mesh, kind="row")
 
     def forward(self, x, positions, attn_mask=None,
                 cache: Optional[KVCache] = None, fresh_cache: bool = True):
@@ -133,7 +168,7 @@ class LlamaAttention(nn.Module):
         key-validity row and cursor) and returned."""
         cfg = self.config
         B, L, _ = x.shape
-        nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        nh, nkv, d = self.num_heads, self.num_kv_heads, cfg.head_dim
         q = self.q_proj(x).view(B, L, nh, d)
         k = self.k_proj(x).view(B, L, nkv, d)
         v = self.v_proj(x).view(B, L, nkv, d)
@@ -225,23 +260,23 @@ def _int8_cache_attention(q, cache, Lk: int, bias, nh: int):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, device):
+    def __init__(self, config: LlamaConfig, device, mesh=None):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = linear(config, h, i, device)
-        self.up_proj = linear(config, h, i, device)
-        self.down_proj = linear(config, i, h, device)
+        self.gate_proj = linear(config, h, i, device, mesh=mesh)
+        self.up_proj = linear(config, h, i, device, mesh=mesh)
+        self.down_proj = linear(config, i, h, device, mesh=mesh, kind="row")
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device):
+    def __init__(self, config: LlamaConfig, device, mesh=None):
         super().__init__()
         c = config
-        self.self_attn = LlamaAttention(c, device)
-        self.mlp = LlamaMLP(c, device)
+        self.self_attn = LlamaAttention(c, device, mesh)
+        self.mlp = LlamaMLP(c, device, mesh)
         self.input_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps,
                                        c.dtype, device)
         self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps,
@@ -259,14 +294,16 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     """Decoder stack over embeddings (LLaVA feeds spliced embeddings)."""
 
-    def __init__(self, config: LlamaConfig, device):
+    def __init__(self, config: LlamaConfig, device, mesh=None):
         super().__init__()
         c = config
         self.config = c
-        self.embed_tokens = Embedding(c.padded_vocab_size, c.hidden_size,
-                                      dtype=c.dtype, device=device)
+        self.embed_tokens = shard_layer(
+            Embedding(c.padded_vocab_size // _model_ranks(mesh),
+                      c.hidden_size, dtype=c.dtype, device=device),
+            "vocab", mesh)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(c, device) for _ in range(c.num_layers))
+            LlamaDecoderLayer(c, device, mesh) for _ in range(c.num_layers))
         self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, c.dtype, device)
 
     def forward(self, inputs_embeds, positions=None, attn_mask=None,
@@ -293,11 +330,13 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    def __init__(self, config: LlamaConfig, device="cuda"):
+    def __init__(self, config: LlamaConfig, device="cuda", mesh=None):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.model = LlamaModel(config, device)
+        self.mesh = mesh
+        self.n_model = _model_ranks(mesh)
+        self.model = LlamaModel(config, device, mesh)
         # int8 / int4 as the serving weights are (lora_rank 0, the JAX
         # package's serving head); with lora_rank > 0 (QLoRA included) it
         # stays in the compute dtype and trains
@@ -305,12 +344,23 @@ class LlamaForCausalLM(nn.Module):
         self.lm_head = linear(config, config.hidden_size,
                               config.padded_vocab_size, device,
                               int8=config.weights_int8 and serving,
-                              int4=config.weights_int4 and serving)
+                              int4=config.weights_int4 and serving,
+                              mesh=mesh)
 
     def logits(self, h):
-        """lm_head with the vocab-pad columns masked to -1e30."""
+        """lm_head with the vocab-pad columns masked to -1e30; under tensor
+        parallelism each rank masks its columns at their global indices,
+        and the vocabulary is gathered over the model ranks."""
         out = self.lm_head(h)
         cfg = self.config
+        if self.n_model > 1:
+            cols = out.shape[-1]
+            first = self.mesh.model_index * cols
+            if first + cols > cfg.vocab_size:
+                pad = torch.arange(first, first + cols,
+                                   device=out.device) >= cfg.vocab_size
+                out = out.masked_fill(pad, -1e30)
+            return gather_from(out, self.mesh.model_group)
         if cfg.padded_vocab_size != cfg.vocab_size:
             out[..., cfg.vocab_size:] = -1e30
         return out
@@ -330,10 +380,11 @@ class LlamaForCausalLM(nn.Module):
 
 
 def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, device,
-                  dtype=None) -> List[KVCache]:
-    """Fresh per-layer dense KV caches."""
+                  dtype=None, n_model: int = 1) -> List[KVCache]:
+    """Fresh per-layer dense KV caches; under tensor parallelism over
+    ``n_model`` ranks a rank caches its own nkv / n_model heads."""
     dtype = dtype or config.dtype
-    shape = (batch, max_len, config.num_kv_heads, config.head_dim)
+    shape = (batch, max_len, config.num_kv_heads // n_model, config.head_dim)
     return [
         {
             "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -350,9 +401,11 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -100):
     """Shifted causal-LM cross entropy: f32 log-softmax, targets equal to
     ``ignore_index`` masked, mean over the valid targets (HF
     ``LlamaForCausalLM`` semantics; the JAX package's
-    ``cross_entropy_loss``)."""
+    ``cross_entropy_loss``), over the global batch where the rows are split
+    over data ranks (``parallel/collectives.py:batch_group``)."""
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     shift = labels[:, 1:].long()
     valid = shift != ignore_index
     ll = logp.gather(-1, torch.where(valid, shift, 0)[..., None])[..., 0]
-    return -(ll * valid).sum() / valid.sum().clamp_min(1)
+    return -batch_sum((ll * valid).sum()) / batch_sum(
+        valid.sum()).clamp_min(1)

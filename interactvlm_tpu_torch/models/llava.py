@@ -95,7 +95,7 @@ class LlavaModel(nn.Module):
     """CLIP tower (frozen) + linear mm_projector + LLaMA decoder."""
 
     def __init__(self, llama_config: LlamaConfig,
-                 clip_config: CLIPVisionConfig, device="cuda"):
+                 clip_config: CLIPVisionConfig, device="cuda", mesh=None):
         super().__init__()
         device = resolve_device(device)
         self.llama_config = llama_config
@@ -104,7 +104,9 @@ class LlavaModel(nn.Module):
         self.mm_projector = Linear(clip_config.hidden_size,
                                    llama_config.hidden_size,
                                    dtype=llama_config.dtype, device=device)
-        self.lm = LlamaForCausalLM(llama_config, device)
+        # tensor-parallel over the mesh's model axis; CLIP and the projector
+        # whole on every rank
+        self.lm = LlamaForCausalLM(llama_config, device, mesh)
 
     @property
     def device(self):
@@ -170,10 +172,10 @@ class LlavaModel(nn.Module):
         B, Lp, _ = embeds.shape
         if kv_cache == "int8":
             caches = init_kv_cache_int8(self.llama_config, B, max_len,
-                                        embeds.device)
+                                        embeds.device, n_model=self.lm.n_model)
         elif kv_cache == "dense":
             caches = init_kv_cache(self.llama_config, B, max_len,
-                                   embeds.device)
+                                   embeds.device, n_model=self.lm.n_model)
         else:
             raise ValueError(f"unknown kv_cache {kv_cache!r}")
         positions = torch.arange(Lp, device=embeds.device)[None].expand(B, Lp)

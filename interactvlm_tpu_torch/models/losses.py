@@ -7,6 +7,12 @@ everywhere. ``pred`` mask tensors are (B, V, H, W) logits, except for
 heatmap (oafford) rows, whose prediction the model has already passed
 through a sigmoid (``is_prob``). Clips follow ``jnp.clip`` (``lift.clip``),
 so gradients at a bound agree with the JAX package's.
+
+Every sum over the batch's rows goes through ``batch_sum`` (and every
+``any`` over rows through ``batch_any``): the identity on one rank, and
+where data ranks split a batch (``parallel/collectives.py:batch_group``) a
+sum over their rows, so each rank's loss is the global batch's, as the JAX
+package computes it on its mesh.
 """
 
 from __future__ import annotations
@@ -19,14 +25,20 @@ from interactvlm_tpu_torch.geometry.lift import (
     lift_batch_soft,
     lift_batch_thresholded,
 )
+from interactvlm_tpu_torch.parallel.collectives import (
+    batch_any,
+    batch_count,
+    batch_sum,
+)
 
 IGNORE_LABEL = -1.0
 
 
 def _safe_mean(x, w, dim=None):
-    """sum(x * w) / sum(w), 0 where there is no weight."""
-    num = (x * w).sum() if dim is None else (x * w).sum(dim)
-    den = w.sum() if dim is None else w.sum(dim)
+    """sum(x * w) / sum(w), 0 where there is no weight; over every element
+    of the global batch where ``dim`` is None."""
+    num = batch_sum((x * w).sum()) if dim is None else (x * w).sum(dim)
+    den = batch_sum(w.sum()) if dim is None else w.sum(dim)
     return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
 
 
@@ -99,8 +111,8 @@ def human_contact_3d_loss(pred_masks, gt_contact, p2v3, bary3, is_h,
     w = is_h.float()[:, None].expand(focal.shape)
     focal_mean = _safe_mean(focal, w)
     sparsity = _safe_mean(clip(lifted, 1e-6, 1 - 1e-6), w)
-    return torch.where(is_h.any(), focal_mean + sparsity_weight * sparsity,
-                       0.0)
+    return torch.where(batch_any(is_h),
+                       focal_mean + sparsity_weight * sparsity, 0.0)
 
 
 def object_contact_3d_loss(pred_masks, gt_contact, p2v3, bary3, valid_verts,
@@ -140,7 +152,8 @@ def object_afford_3d_loss(pred_values, gt_afford, p2p, is_oa,
     dice = _safe_mean(1.5 - dice_pos - dice_neg, w)
     mse = _safe_mean((p - gt_afford) ** 2, wb) * 0.8
     l1 = _safe_mean((p - gt_afford).abs(), wb) * 0.4
-    return torch.where(is_oa.any(), ce * 0.5 + dice * 0.3 + mse + l1, 0.0)
+    return torch.where(batch_any(is_oa), ce * 0.5 + dice * 0.3 + mse + l1,
+                       0.0)
 
 
 def combined_mask_losses(pred_masks, gt_masks, is_heatmap, has_mask,
@@ -156,10 +169,10 @@ def combined_mask_losses(pred_masks, gt_masks, is_heatmap, has_mask,
     mse = mse_mask_loss(pred_masks, gt_masks)
     hm = is_heatmap.float()
     has = has_mask.float()
-    n_binary = float(n_rows or pred_masks.shape[0])
-    n_heat = hm.sum()
-    mask_bce = bce_loss_weight * (focal * has).sum() / n_binary
-    mask_dice = dice_loss_weight * (dice * has).sum() / n_binary
+    n_binary = batch_count(float(n_rows or pred_masks.shape[0]), hm)
+    n_heat = batch_sum(hm.sum())
+    mask_bce = bce_loss_weight * batch_sum((focal * has).sum()) / n_binary
+    mask_dice = dice_loss_weight * batch_sum((dice * has).sum()) / n_binary
     mask_l2 = bce_loss_weight * torch.where(
-        n_heat > 0, (mse * hm).sum() / n_heat.clamp_min(1e-8), 0.0)
+        n_heat > 0, batch_sum((mse * hm).sum()) / n_heat.clamp_min(1e-8), 0.0)
     return mask_bce, mask_dice, mask_l2

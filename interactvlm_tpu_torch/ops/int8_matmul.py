@@ -140,7 +140,13 @@ def one_launch_plan(K: int):
 def int8_route(M: int, K: int = 0) -> str:
     """The route of ``int8_matmul_fused`` for M rows of K values:
     "one_launch" (the fused kernel) or "two_pass" (``quantize_rows`` then
-    ``int8_gemm``). Rows decide, at any K up to ``ONE_LAUNCH_MAX_K``."""
+    ``int8_gemm``). Rows decide, at any K up to ``ONE_LAUNCH_MAX_K``.
+
+    A row-parallel int8 linear (tensor parallelism, ``models/layers.py``)
+    takes neither: its rank holds a slice of each row, so it quantizes with
+    the whole row's absmax, all-reduced over the model ranks, through
+    ``quantize_rows_given`` and then ``int8_gemm`` to an f32 partial sum,
+    at every M (``ops/quant.py:row_parallel_matmul``)."""
     one = M <= ONE_LAUNCH_MAX_ROWS and K <= ONE_LAUNCH_MAX_K
     return "one_launch" if one else "two_pass"
 
@@ -235,6 +241,58 @@ def quantize_rows(x):
 
 
 quantize_rows.launches = 0
+
+
+def quantize_rows_given_plain(x, amax):
+    """Plain version of the given-scale row quantize: ``quantize_rows_plain``
+    with each row's absmax ``amax`` (M,) given instead of taken from x."""
+    a = amax.reshape(-1, 1).float().clamp_min(SCALE_FLOOR)
+    inv = exact_div(127.0, a)
+    q = torch.clamp(torch.round(x.float() * inv), -127, 127)
+    return q.to(torch.int8), exact_div(a, 127.0)
+
+
+_GIVEN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def quantize_rows_given(x, amax):
+    """Per-row int8 quantization of (M, K) activations with each row's
+    absmax given, (M,) f32 (the row's max |x| over a length of which x is a
+    slice): returns (x_q int8 (M, K), x_scale f32 (M, 1)), as
+    ``quantize_rows_given_plain``. Kernel 7's given-scale route.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (x
+    bf16 or f32, contiguous, K a multiple of 8; amax f32 contiguous) or
+    raise. ``launches`` counts the launches. Forward only."""
+    _cuda.refuse_grad("quantize_rows_given", x)
+    if not x.is_cuda:
+        return quantize_rows_given_plain(x, amax)
+    if x.dim() != 2 or x.dtype not in X_DTYPES or x.shape[1] % 8:
+        raise ValueError(f"quantize_rows_given: x must be bf16 or f32 (M, K) "
+                         f"with K a multiple of 8, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    M, K = x.shape
+    if amax.numel() != M:
+        raise ValueError(f"quantize_rows_given: amax must hold {M} rows, got "
+                         f"{tuple(amax.shape)}")
+    _cuda.require_kernel_inputs("quantize_rows_given", x, dtype=x.dtype)
+    _cuda.require_kernel_inputs("quantize_rows_given", amax,
+                                dtype=torch.float32)
+    xq = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    xs = torch.empty(M, 1, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _cuda.launch(
+            "int8_prequant", "ivlm_quantize_rows_given", _GIVEN_ARGTYPES,
+            _cuda.ptr(x), int(x.dtype == torch.float32), _cuda.ptr(amax),
+            _cuda.ptr(xq), _cuda.ptr(xs), M, K,
+            _cuda.stream_handle(x.device),
+        )
+    quantize_rows_given.launches += 1
+    return xq, xs
+
+
+quantize_rows_given.launches = 0
 
 
 def int8_matmul_prequant_plain(x_q, x_scale, w_q, w_scale,

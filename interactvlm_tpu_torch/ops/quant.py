@@ -162,9 +162,15 @@ def quantize_int4(w, group: int = 128):
     wn = wf / rf
     col_scale = exact_div(wn.abs().amax(1).clamp_min(SCALE_FLOOR), 7.0)
     q = torch.clamp(torch.round(wn / col_scale[:, None]), -8, 7)
+    return pack_int4(q), col_scale, rf
+
+
+def pack_int4(q):
+    """Pack an (N, K) integer weight in [-8, 7] into split-half nibbles,
+    (N, K/2) int8: byte j holds column j low and column j + K/2 high."""
     q = q.to(torch.int16)
-    packed = (q[:, :K // 2] & 0x0F) | (q[:, K // 2:] << 4)
-    return packed.to(torch.int8), col_scale, rf
+    K = q.shape[1]
+    return ((q[:, :K // 2] & 0x0F) | (q[:, K // 2:] << 4)).to(torch.int8)
 
 
 def unpack_int4(packed):
@@ -200,12 +206,106 @@ def int4_matmul(x, packed, col_scale, row_factor, dtype=torch.bfloat16):
     return (int_matmul_exact(x_q, w) * x_scale * col_scale).to(dtype)
 
 
+# --- row-parallel int8 and int4 (tensor parallelism over ``model``) -------
+# A row-parallel linear holds the columns [r K / n, (r + 1) K / n) of its
+# weight and takes that slice of each input row. The JAX composition,
+# partitioned by XLA over the same layout, takes each row's absmax over the
+# whole K (a MAX all-reduce of the slices'), so every element quantizes to
+# the unsharded byte; the int32 partial sums, rescaled, add up over the
+# model ranks.
+
+
+def row_parallel_quantize(x, group, row_factor=None):
+    """Quantize this rank's slice x (..., K/n) of each row with the whole
+    row's scale: the slices' absmax all-reduced (MAX) over ``group``, then
+    the JAX package's ``quantize_int8`` rule (x / scale, half to even).
+    With ``row_factor`` (the int4 weight's ``weight_rf`` slice) x * rf is
+    quantized, as ``int4_matmul`` does. Returns (q int8, scale f32 (..., 1)),
+    the unsharded row's bytes and scale."""
+    from interactvlm_tpu_torch.parallel.collectives import all_reduce_max
+
+    xf = x.float() if row_factor is None else x.float() * row_factor
+    amax = all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group)
+    scale = exact_div(amax.clamp_min(SCALE_FLOOR), 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _row_partial(x, w_q, w_scale, group, row_factor=None):
+    """This rank's f32 partial of the row-parallel product: on a CPU tensor
+    ``row_parallel_quantize`` and the exact int32 sum; on a CUDA tensor the
+    slices' absmax all-reduced, kernel 7's given-scale route
+    (``quantize_rows_given``) and the int8 GEMM to f32."""
+    K, N = x.shape[-1], w_q.shape[0]
+    if not x.is_cuda:
+        q, scale = row_parallel_quantize(x, group, row_factor)
+        return int_matmul_exact(q, w_q) * scale * w_scale
+    from interactvlm_tpu_torch.ops.int8_matmul import (
+        int8_gemm,
+        quantize_rows_given,
+    )
+    from interactvlm_tpu_torch.parallel.collectives import all_reduce_max
+
+    xr = x.reshape(-1, K)
+    xr = xr.float() * row_factor if row_factor is not None else xr
+    xr = xr.contiguous()
+    amax = all_reduce_max(xr.abs().amax(dim=-1).float(), group)
+    xq, xs = quantize_rows_given(xr, amax)
+    out = int8_gemm(xq, xs, w_q, w_scale, dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], N)
+
+
+class _RowParallelInt8(torch.autograd.Function):
+    """The row-parallel int8 partial product, differentiable in x by the
+    straight-through rule (``ste_input_grad`` on this rank's columns)."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, w_scale, group):
+        ctx.save_for_backward(w_q, w_scale)
+        ctx.x_dtype = x.dtype
+        return _row_partial(x, w_q, w_scale, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, w_scale = ctx.saved_tensors
+        return ste_input_grad(g, w_q, w_scale, ctx.x_dtype), None, None, None
+
+
+def int8_matmul_row_parallel(x, w_q, w_scale, group, dtype=torch.bfloat16):
+    """x (..., K/n) @ this rank's int8 columns W (N, K/n), summed over the
+    model ranks of ``group`` -> (..., N) in ``dtype`` on every rank: the
+    unsharded ``int8_matmul`` up to the f32 order of the partial sums."""
+    from interactvlm_tpu_torch.parallel.collectives import reduce_from
+
+    if torch.is_grad_enabled() and x.requires_grad:
+        part = _RowParallelInt8.apply(x, w_q, w_scale, group)
+    else:
+        part = _row_partial(x, w_q, w_scale, group)
+    return reduce_from(part, group).to(dtype)
+
+
+def int4_matmul_row_parallel(x, packed, col_scale, row_factor, group,
+                             dtype=torch.bfloat16):
+    """x (..., K/n) @ this rank's packed int4 columns (N, K/(2n)) (the
+    rank's contiguous slice, packed split-half on its own,
+    ``parallel/mesh.py:shard_tensor``) with its slice of the row factor,
+    summed over ``group``: the unsharded ``int4_matmul``, whose x * rf
+    quantizes with the whole row's absmax. Serving only."""
+    from interactvlm_tpu_torch.parallel.collectives import reduce_from
+
+    _cuda.refuse_grad("int4_matmul", x)
+    w = torch.cat(unpack_int4(packed), dim=1)
+    part = _row_partial(x, w, col_scale, group, row_factor)
+    return reduce_from(part, group).to(dtype)
+
+
 def init_kv_cache_int8(config, batch: int, max_len: int,
-                       device) -> List[Dict]:
+                       device, n_model: int = 1) -> List[Dict]:
     """Fresh per-layer int8 KV caches: k/v (B, L, nkv, d) int8, k_scale/
     v_scale (B, L, nkv, 1) f32, the key-validity row (B, L) int8 and the
-    cursor."""
-    shape = (batch, max_len, config.num_kv_heads, config.head_dim)
+    cursor. Under tensor parallelism over ``n_model`` ranks a rank caches
+    its own nkv / n_model heads."""
+    shape = (batch, max_len, config.num_kv_heads // n_model, config.head_dim)
     sshape = shape[:3] + (1,)
     return [
         {

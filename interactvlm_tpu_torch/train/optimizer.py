@@ -12,7 +12,7 @@ is optax's rule, which ``clip_by_global_norm`` applies: unchanged below
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence, Set
+from typing import Callable, Dict, Iterable, Optional, Sequence, Set
 
 import torch
 import torch.nn as nn
@@ -130,14 +130,18 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], norm: torch.Tensor,
 
 
 def make_optimizer(model: nn.Module, lr: float = 3e-4,
-                   warmup_steps: int = 100, total_steps: int = 15000):
+                   warmup_steps: int = 100, total_steps: int = 15000,
+                   params: Optional[Sequence[torch.Tensor]] = None):
     """AdamW with the reference hyperparameters (betas (0.9, 0.95), no
     weight decay, eps 1e-8) over the trainable parameters, and a
     ``LambdaLR`` that follows ``warmup_decay_schedule``. Applies the freeze
-    policy first (``apply_trainable_mask``). Returns (optimizer,
-    scheduler)."""
+    policy first (``apply_trainable_mask``). ``params``, when given, are
+    the tensors to update in the trainables' place, in their order (a
+    ZeRO-sharded step's pieces, ``train_step.TrainStep``). Returns
+    (optimizer, scheduler)."""
     mask = apply_trainable_mask(model)
-    params = [p for name, p in model.named_parameters() if mask[name]]
+    if params is None:
+        params = [p for name, p in model.named_parameters() if mask[name]]
     sched = warmup_decay_schedule(lr, warmup_steps, total_steps)
     opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.95), eps=1e-8,
                             weight_decay=0.0)

@@ -14,7 +14,23 @@ NaN-loss skip (train.py:547-551) are kept.
         --tokenizer whitespace [--model_scale tiny] [--device cpu]
 
 Supports ``--synthetic`` for smoke runs without data or a real tokenizer.
-Not ported yet: ``--n_model_shards > 1`` (raises).
+
+On n ranks it trains on an (n / n_model_shards, n_model_shards) mesh
+(``parallel/mesh.py``), the same ``TrainStep``: data parallel, Adam's
+moments ZeRO-sharded over ``data``, LLaMA tensor-parallel over ``model``.
+Launch one process a card with torchrun, which sets each rank's ``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK`` (the rank's card); the ranks talk over
+NCCL, or over gloo with ``--device cpu``:
+
+    torchrun --nproc_per_node 4 -m interactvlm_tpu_torch.train.train \
+        --dataset_dir <tree> --n_model_shards 2 ...
+
+Each data rank collates only its rows of each global batch (the rows the
+one-process loader builds: every row's draws are made in row order on every
+rank, ``real_batch_iter``), the global batch's losses drive every rank's
+step, and rank 0 alone logs,
+writes the code snapshot and validation output and saves checkpoints,
+which hold the whole (one-card) state and restore onto any layout.
 """
 
 from __future__ import annotations
@@ -29,10 +45,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from interactvlm_tpu_torch.parallel.mesh import Mesh
 from interactvlm_tpu_torch.utils.device import resolve_device
-
-DISTRIBUTED_ITEM = ("ROADMAP Queue A item 3 (distributed evaluation and "
-                    "training)")
 
 
 def parse_args(argv=None):
@@ -117,7 +131,8 @@ def parse_args(argv=None):
                         "same rng; build_dataset rejects them)")
     # parallelism
     p.add_argument("--n_model_shards", type=int, default=1,
-                   help="> 1 waits for the distributed slice")
+                   help="ranks of the model axis (LLaMA tensor-parallel); "
+                        "the world size over it is the data axis")
     # runtime
     p.add_argument("--resume", action="store_true")
     p.add_argument("--synthetic", action="store_true",
@@ -155,16 +170,17 @@ def resolve_max_seg_tokens(args) -> int:
 
 def build_model_and_config(args, vocab_size=None, seg_token_idx=None,
                            hseg_token_idx=None, oseg_token_idx=None,
-                           device="cuda"):
+                           device="cuda", mesh=None):
     """Build the composite model of ``build_config`` on ``device`` (its
     parameters are uninitialised: ``init_params`` or a checkpoint fills
-    them). Returns (model, config)."""
+    them), LLaMA tensor-parallel over ``mesh``'s model axis where one is
+    given. Returns (model, config)."""
     from interactvlm_tpu_torch.models.interactvlm import InteractVLM
 
     dev = resolve_device(device)
     cfg = build_config(args, vocab_size, seg_token_idx, hseg_token_idx,
                        oseg_token_idx, dev)
-    return InteractVLM(cfg, device=dev), cfg
+    return InteractVLM(cfg, device=dev, mesh=mesh), cfg
 
 
 def build_config(args, vocab_size=None, seg_token_idx=None,
@@ -322,10 +338,18 @@ def _load_human_maps(dataset_dir, device="cpu"):
     return None
 
 
-def real_batch_iter(args, cfg, tokenizer, device="cpu"):
+def real_batch_iter(args, cfg, tokenizer, device="cpu", mesh=None):
     """Hybrid-dataset loader with a background prefetch thread. Batches are
     tensors in pinned host memory when ``device`` is the card (the human
-    maps on ``device``, loaded once)."""
+    maps on ``device``, loaded once).
+
+    Every row's random draws (the mixture's pick, then the dataset's
+    templates, dropouts and retries: ``HybridDataset.plan``) are made in
+    row order in the loader's thread; the thread pool only reads files and
+    builds the samples. So the batches do not depend on the number of
+    workers, and with a ``mesh`` each data rank makes the draws of every
+    row of the global batch and builds and collates its own block of them:
+    n ranks hold the one-process batch's rows."""
     from interactvlm_tpu_torch.data.collate import collate
     from interactvlm_tpu_torch.data.datasets import (
         HybridDataset,
@@ -366,21 +390,23 @@ def real_batch_iter(args, cfg, tokenizer, device="cpu"):
     # (reference uses multi-worker DataLoaders, train.py:334-352).
     workers = getattr(args, "data_workers", 8)
     sampler = ParallelSampler(
-        lambda i: hybrid[i % len(hybrid)], num_workers=workers,
+        lambda build: build(), num_workers=workers,
         lookahead=max(2 * args.batch_size, workers),
     )
+    mesh = mesh or Mesh()
+    rows = args.batch_size // mesh.n_data
+    first = mesh.data_index * rows
 
-    def indices():
-        i = 0
+    def plans():
         while True:
-            yield i
-            i += 1
+            batch = [hybrid.plan() for _ in range(args.batch_size)]
+            yield from batch[first:first + rows]
 
     def gen():
-        sample_it = sampler.iterate(indices())
+        sample_it = sampler.iterate(plans())
         try:
             while True:
-                samples = [next(sample_it) for _ in range(args.batch_size)]
+                samples = [next(sample_it) for _ in range(rows)]
                 batch, _ = collate(
                     samples, tokenizer, max_len=args.model_max_length,
                     multiview_channels=args.multiview_channels,
@@ -401,11 +427,13 @@ def real_batch_iter(args, cfg, tokenizer, device="cpu"):
     return PrefetchIterator(gen(), depth=getattr(args, "prefetch_depth", 4))
 
 
-def make_validator(args, cfg, model, tokenizer, example, device="cpu"):
+def make_validator(args, cfg, model, tokenizer, example, device="cpu",
+                   mesh=None):
     """Generate-mode validation closure for the epoch gate (reference
     train.py:421-472 validates and gates best-checkpoint saving on the
     contact metric, not train loss). ``val_fn(model)`` returns (score,
-    results)."""
+    results); with a ``mesh`` every data rank takes its share of each
+    batch and every rank gets the whole report."""
     from interactvlm_tpu_torch.eval.evaluate import validate
 
     if args.synthetic:
@@ -478,6 +506,7 @@ def make_validator(args, cfg, model, tokenizer, example, device="cpu"):
         results, _ = validate(
             batches(), model, ds_name, mask_size, human_maps=human_maps,
             max_new_tokens=getattr(args, "val_max_new_tokens", 32),
+            mesh=mesh,
         )
         # contact F1 is the gate when available (reference train.py:434-453)
         return results.get("f1", results.get("giou", 0.0)), results
@@ -524,20 +553,49 @@ def rows_by_task(batch) -> Dict[str, int]:
     return rows
 
 
-def checkpoint_state(trainer: "Trainer") -> Dict[str, Any]:
-    return {"model": trainer.model.state_dict(),
-            "optimizer": trainer.optimizer.state_dict(),
-            "scheduler": trainer.scheduler.state_dict(),
-            "step": trainer.step.step}
+def distributed_run(args) -> bool:
+    """Whether this process is one rank of several: launched by torchrun
+    (``WORLD_SIZE`` set), inside an initialised process group, or asked for
+    model shards."""
+    import torch.distributed as dist
+
+    return ("WORLD_SIZE" in os.environ or dist.is_initialized()
+            or args.n_model_shards > 1)
+
+
+def setup_mesh(args):
+    """(device, mesh) of a distributed run (``parallel/mesh.py:
+    join_launch``: NCCL with this rank's card, gloo under ``--device
+    cpu``); the mesh has ``--n_model_shards`` model ranks. Raises where the
+    world size does not tile or a data rank's share of the batch is not
+    whole."""
+    from interactvlm_tpu_torch.parallel.mesh import create_mesh, join_launch
+
+    dev = join_launch(args.device, f"--n_model_shards {args.n_model_shards}")
+    mesh = create_mesh(n_model=args.n_model_shards)
+    if args.batch_size % mesh.n_data:
+        raise ValueError(f"--batch_size {args.batch_size} does not split "
+                         f"over {mesh.n_data} data ranks")
+    return dev, mesh
+
+
+class _NoLogger:
+    def log(self, *a, **k):
+        pass
+
+    log_images = log
+
+    def close(self):
+        pass
 
 
 def main(argv=None):
     args = parse_args(argv)
-    dev = resolve_device(args.device)
-    if args.n_model_shards > 1:
-        raise NotImplementedError(
-            f"--n_model_shards {args.n_model_shards}: model sharding is not "
-            f"ported to interactvlm_tpu_torch yet ({DISTRIBUTED_ITEM})")
+    if distributed_run(args):
+        dev, mesh = setup_mesh(args)
+    else:
+        dev, mesh = resolve_device(args.device), Mesh()
+    main_rank = mesh.is_main
 
     from interactvlm_tpu_torch.data.collate import to_device
     from interactvlm_tpu_torch.runtime.hostmem import tune_host_allocator
@@ -547,10 +605,12 @@ def main(argv=None):
     )
     from interactvlm_tpu_torch.train.optimizer import (
         cast_frozen_params,
-        make_optimizer,
         warmup_decay_schedule,
     )
-    from interactvlm_tpu_torch.train.train_step import TrainStep
+    from interactvlm_tpu_torch.train.train_step import (
+        TrainStep,
+        shard_params_of,
+    )
     from interactvlm_tpu_torch.utils.meters import AverageMeter
     from interactvlm_tpu_torch.utils.profiling import (
         MetricLogger,
@@ -573,7 +633,8 @@ def main(argv=None):
         tokenizer, token_kw = make_tokenizer(args, args.tokenizer,
                                              args.version)
 
-    model, cfg = build_model_and_config(args, device=dev, **token_kw)
+    model, cfg = build_model_and_config(args, device=dev, mesh=mesh,
+                                        **token_kw)
     if args.model_scale == "tiny" and not args.synthetic and \
             dev.type != "cpu":
         # the tiny preset's weights are drawn on the CPU and copied, so a
@@ -581,33 +642,35 @@ def main(argv=None):
         host_model, _ = build_model_and_config(args, device="cpu",
                                                **token_kw)
         init_params(host_model, torch.Generator().manual_seed(0))
-        model.load_state_dict(host_model.state_dict())
+        model.load_state_dict(
+            shard_params_of(model, host_model.state_dict(), mesh))
         del host_model
     else:
         init_params(model, torch.Generator(device=dev).manual_seed(0))
     # frozen towers stored in the compute dtype, trainables in f32
     cast_frozen_params(model, cfg.llama.dtype)
-    save_config(
-        run_dir, {**vars(args), **token_kw}, "pretrained_config.json"
-    )
-    save_config(run_dir, cfg, "config.json")
-    copy_code_snapshot(run_dir)
-    logger = MetricLogger(run_dir, use_tb=not args.no_tensorboard)
+    if main_rank:
+        save_config(
+            run_dir, {**vars(args), **token_kw}, "pretrained_config.json"
+        )
+        save_config(run_dir, cfg, "config.json")
+        copy_code_snapshot(run_dir)
+        logger = MetricLogger(run_dir, use_tb=not args.no_tensorboard)
+    else:
+        logger = _NoLogger()
 
     loader = None
     if args.synthetic:
+        # every rank draws the global batch; the step cuts its rows
         batches = synthetic_batch_iter(cfg, args.batch_size, args.mask_size,
                                        device=dev)
     else:
-        batches = loader = real_batch_iter(args, cfg, tokenizer, dev)
+        batches = loader = real_batch_iter(args, cfg, tokenizer, dev, mesh)
 
     t0 = time.time()
     example = next(batches)
     first_batch_s = time.time() - t0
     total_steps = args.epochs * args.steps_per_epoch
-    optimizer, scheduler = make_optimizer(
-        model, lr=args.lr, warmup_steps=args.warmup_steps,
-        total_steps=total_steps)
     sched = warmup_decay_schedule(args.lr, args.warmup_steps, total_steps)
 
     accum = max(1, args.grad_accumulation_steps)
@@ -621,18 +684,17 @@ def main(argv=None):
         batches = group(iter(batches))
         example = next(batches)
 
-    step = TrainStep(model, optimizer, scheduler)
-    trainer = Trainer(model, step, optimizer, scheduler, cfg, tokenizer,
-                      run_dir, first_batch_s, [])
+    step = TrainStep(model, mesh=mesh, lr=args.lr,
+                     warmup_steps=args.warmup_steps, total_steps=total_steps)
+    trainer = Trainer(model, step, step.optimizer, step.scheduler, cfg,
+                      tokenizer, run_dir, first_batch_s, [])
     ckpt = CheckpointManager(run_dir)
     if args.resume:
         restored = ckpt.restore(map_location=dev)
         if restored is not None:
-            model.load_state_dict(restored["model"])
-            optimizer.load_state_dict(restored["optimizer"])
-            scheduler.load_state_dict(restored["scheduler"])
-            step.step = int(restored["step"])
-            print(f"resumed from step {step.step}")
+            step.load_state_dict(restored)
+            if main_rank:
+                print(f"resumed from step {step.step}")
 
     batch_time = AverageMeter("batch_time")
     data_time = AverageMeter("data_time")
@@ -661,7 +723,9 @@ def main(argv=None):
                 trace.callback(print, "profile -> "
                                + os.path.join(prof_dir, "trace.json"))
                 trace.enter_context(profile_trace(prof_dir))
-            metrics = step(on_device(batch))
+            # a real loader collates this rank's rows; a synthetic batch
+            # is the global one, which the step cuts
+            metrics = step(on_device(batch), local=not args.synthetic)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             if it == args.profile_steps:
@@ -679,19 +743,23 @@ def main(argv=None):
                 "skipped_nonfinite": float(metrics["skipped_nonfinite"]),
                 "data_s": data_s, "batch_s": batch_s,
                 "loader_wait_share": data_s / batch_s})
-            if it % 10 == 0:
+            lr_now = sched(step.step)
+            # every step's record in metrics.jsonl (its own data and step
+            # seconds beside the running means); the console every 10th
+            logger.log(step.step, {
+                **metrics,
+                "lr": lr_now,
+                "train/data_secs": data_s,
+                "train/batch_secs": batch_s,
+                "train/total_secs_per_batch": batch_time.avg,
+                "train/data_secs_per_batch": data_time.avg,
+            })
+            if it % 10 == 0 and main_rank:
                 if float(metrics.get("skipped_nonfinite", 0.0)) > 0:
                     # NaN guard: the step already dropped this update
                     # (reference train.py:547-551 skips the batch)
                     print(f"WARNING: non-finite loss at {epoch}:{it}; "
                           "update skipped")
-                lr_now = sched(step.step)
-                logger.log(step.step, {
-                    **metrics,
-                    "lr": lr_now,
-                    "train/total_secs_per_batch": batch_time.avg,
-                    "train/data_secs_per_batch": data_time.avg,
-                })
                 print(
                     f"epoch {epoch} step {it}/{args.steps_per_epoch} "
                     f"loss {loss:.4f} "
@@ -703,11 +771,14 @@ def main(argv=None):
         trace.close()  # fewer steps than --profile_steps
 
         if (epoch + 1) % args.save_every == 0:
-            ckpt.save(step.step, checkpoint_state(trainer))
+            state = step.state_dict()
+            if main_rank:
+                ckpt.save(step.step, state)
+            del state
         if not args.no_eval and (epoch + 1) % args.val_every == 0:
             if val_fn is None:
                 val_fn = make_validator(args, cfg, model, tokenizer,
-                                        first_micro, device=dev)
+                                        first_micro, device=dev, mesh=mesh)
             score, vres = val_fn(model)
             logger.log(step.step, {f"val/{k}": v for k, v in vres.items()})
             # image panel: CLIP | SAM view | pred | GT on one sample
@@ -727,17 +798,25 @@ def main(argv=None):
                 ),
             )
             del fwd
-            print(f"epoch {epoch} val: "
-                  + " ".join(f"{k}={v:.4f}" for k, v in vres.items()))
-            if ckpt.save_best(step.step, checkpoint_state(trainer), score):
-                print(f"new best at step {step.step}: {score:.4f}")
+            state = step.state_dict()
+            if main_rank:
+                print(f"epoch {epoch} val: "
+                      + " ".join(f"{k}={v:.4f}" for k, v in vres.items()))
+                if ckpt.save_best(step.step, state, score):
+                    print(f"new best at step {step.step}: {score:.4f}")
+            del state
 
     if loader is not None:
         loader.close()
     logger.close()
-    print("training done")
+    if main_rank:
+        print("training done")
     return trainer
 
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as _dist
+
+    if _dist.is_initialized():
+        _dist.destroy_process_group()

@@ -4,6 +4,8 @@ Port of ``interactvlm_tpu/utils/profiling.py`` (the reference has only
 wall-clock meters + TB logging):
 - ``profile_trace``: a ``torch.profiler`` capture of the host and the card,
   written as a Chrome trace into ``log_dir``;
+- ``annotate``: a named range on the trace (``torch.profiler``'s, and an
+  NVTX range on the card);
 - ``StepTimer``: the data/step wall-clock split (the reference's
   data_time/batch_time meters, train.py:485-486);
 - ``MetricLogger``: JSONL metric stream (always) + an optional TensorBoard
@@ -36,6 +38,33 @@ def profile_trace(log_dir: str):
     with profile(activities=acts) as prof:
         yield path
     prof.export_chrome_trace(path)
+
+
+# the names ``annotate`` has given regions in this process
+ANNOTATIONS: set = set()
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named region of the trace (the JAX package's ``annotate``, an xprof
+    TraceAnnotation): ``torch.profiler.record_function``, which a
+    ``profile_trace`` capture shows, and an NVTX range where a card is
+    initialised, which tools that read NVTX show. The profiler mirrors each
+    region onto the card's timeline as an event of its own, which is no
+    kernel: readers of device time leave out the names in
+    ``ANNOTATIONS``."""
+    import torch
+
+    ANNOTATIONS.add(name)
+    nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
 
 
 class StepTimer:

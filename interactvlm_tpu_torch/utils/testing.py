@@ -4,8 +4,9 @@ card's smoke run and benchmarks.
 Port of ``interactvlm_tpu/utils/testing.py``: ``make_synthetic_batch``, the
 batch dict of the data pipeline (the reference ``collate_fn``'s keys), drawn
 from ``np.random.default_rng(seed)`` in the JAX package's order, so the same
-arguments give the same arrays (images are zeros, as there); and
-``WhitespaceTokenizer``, which gives the JAX package's ids bit for bit.
+arguments give the same arrays (images are zeros, as there);
+``WhitespaceTokenizer``, which gives the JAX package's ids bit for bit; and
+``greedy_decode_lm``, a greedy KV-cache decode of the LLaMA alone.
 """
 
 from __future__ import annotations
@@ -157,3 +158,35 @@ class WhitespaceTokenizer:
 
     def decode(self, ids) -> str:
         return " ".join(self.convert_ids_to_tokens(int(i)) for i in ids)
+
+
+@torch.no_grad()
+def greedy_decode_lm(model, ids, caches, total_steps: int,
+                     top2: bool = False):
+    """Greedy KV-cache decode of a ``LlamaForCausalLM``: prefill ``ids``
+    (B, L0) over the fresh ``caches``, then emit ``total_steps - L0`` more
+    tokens; returns the (B, total_steps - L0 + 1) emitted ids, int32 numpy
+    (the JAX package's ``greedy_decode_lm``, which the multichip dry run
+    and the quantization tests share). With ``top2`` also returns each
+    step's two largest logits, (B, steps, 2) f32: their gap says how near
+    a tie each choice was."""
+    B, L0 = ids.shape
+    dev = ids.device
+    pos = torch.arange(L0, device=dev)[None].expand(B, L0)
+    lg, _, caches = model.forward_embeds(model.embed(ids), pos, None, caches)
+    toks, tops = [], []
+
+    def take(last):
+        tops.append(torch.topk(last.float(), 2, dim=-1).values.cpu().numpy())
+        tok = last.argmax(-1).to(torch.int32)
+        toks.append(tok.cpu().numpy())
+        return tok
+
+    tok = take(lg[:, -1])
+    for t in range(L0, total_steps):
+        lg, _, caches = model.forward_embeds(
+            model.embed(tok[:, None]), torch.full((B, 1), t, device=dev),
+            None, caches)
+        tok = take(lg[:, -1])
+    out = np.stack(toks, axis=1)
+    return (out, np.stack(tops, axis=1)) if top2 else out

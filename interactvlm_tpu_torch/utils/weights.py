@@ -31,6 +31,7 @@ from interactvlm_tpu_torch.models.layers import (
     Int4Linear,
     Int8Linear,
     LoraFactor,
+    full_in_features,
 )
 from interactvlm_tpu_torch.models.llama import RMSNorm
 from interactvlm_tpu_torch.ops.quant import quantize_int4, quantize_int8
@@ -47,40 +48,66 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     and row factors 1 (``Int4Dense``), every other parameter (embeddings, tokens,
     positional and rel-pos tables) N(0, 0.02), the SAM Fourier matrix
     N(0, 1), LoRA A N(0, 0.02) and LoRA B 0 (the JAX package's
-    ``LoraDense``)."""
-    for mod in module.modules():
+    ``LoraDense``).
+
+    A layer split over the model axis (``models/layers.py:shard_layer``)
+    draws each of its parameters whole and keeps its rank's block
+    (``parallel/mesh.py:shard_tensor``, by the parameter's name in the
+    partition table), so every layout holds the unsharded model's weights
+    and the generator moves as it does for the unsharded model. Such a
+    layer's names must be in the table: call this on the whole LLaMA or
+    the model that holds it."""
+    from interactvlm_tpu_torch.parallel.mesh import full_shape, shard_tensor
+
+    for prefix, mod in module.named_modules():
+        tp = getattr(mod, "tp", None)
         for leaf, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, LoraFactor):
-                if mod.init_std:
-                    p.normal_(0.0, mod.init_std, generator=generator)
-                else:
-                    p.zero_()
-            elif isinstance(mod, Int8Linear) and leaf == "weight":
-                p.random_(-127, 128, generator=generator)
-            elif isinstance(mod, Int8Linear) and leaf == "weight_scale":
-                p.fill_(1.0 / (127.0 * mod.in_features ** 0.5))
-            elif isinstance(mod, Int4Linear):
-                if leaf == "weight_q4":
-                    p.random_(-127, 128, generator=generator)
-                elif leaf == "weight_scale":
-                    p.fill_(1.0 / (7.0 * mod.in_features ** 0.5))
-                else:  # weight_rf
-                    p.fill_(1.0)
-            elif isinstance(mod, (nn.LayerNorm, RMSNorm)) and leaf == "weight":
-                p.fill_(1.0)
-            elif leaf == "bias":
-                p.zero_()
-            elif isinstance(mod, nn.ConvTranspose2d):
-                fan_in = p.shape[0] * p.shape[2] * p.shape[3]
-                p.normal_(0.0, fan_in ** -0.5, generator=generator)
-            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
-                p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
-            else:
-                p.normal_(0.0, 0.02, generator=generator)
+            if tp is None:
+                _draw(mod, leaf, p, generator)
+                continue
+            name = f"{prefix}.{leaf}" if prefix else leaf
+            full = torch.empty(full_shape(name, p.shape, tp.n),
+                               dtype=p.dtype, device=p.device)
+            _draw(mod, leaf, full, generator)
+            p.copy_(shard_tensor(name, full, tp.n, tp.index))
         for leaf, b in mod.named_buffers(recurse=False):
             if leaf == "positional_encoding_gaussian_matrix":
                 b.normal_(0.0, 1.0, generator=generator)
     return module
+
+
+def _draw(mod, leaf: str, p, generator) -> None:
+    """One parameter's draw of ``init_params`` (``p`` unsharded)."""
+    fan_in = getattr(mod, "in_features", 0)
+    if isinstance(mod, (Int8Linear, Int4Linear)):
+        fan_in = full_in_features(mod)
+    if isinstance(mod, LoraFactor):
+        if mod.init_std:
+            p.normal_(0.0, mod.init_std, generator=generator)
+        else:
+            p.zero_()
+    elif isinstance(mod, Int8Linear) and leaf == "weight":
+        p.random_(-127, 128, generator=generator)
+    elif isinstance(mod, Int8Linear) and leaf == "weight_scale":
+        p.fill_(1.0 / (127.0 * fan_in ** 0.5))
+    elif isinstance(mod, Int4Linear):
+        if leaf == "weight_q4":
+            p.random_(-127, 128, generator=generator)
+        elif leaf == "weight_scale":
+            p.fill_(1.0 / (7.0 * fan_in ** 0.5))
+        else:  # weight_rf
+            p.fill_(1.0)
+    elif isinstance(mod, (nn.LayerNorm, RMSNorm)) and leaf == "weight":
+        p.fill_(1.0)
+    elif leaf == "bias":
+        p.zero_()
+    elif isinstance(mod, nn.ConvTranspose2d):
+        fan_in = p.shape[0] * p.shape[2] * p.shape[3]
+        p.normal_(0.0, fan_in ** -0.5, generator=generator)
+    elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+        p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+    else:
+        p.normal_(0.0, 0.02, generator=generator)
 
 
 def _t(x) -> torch.Tensor:

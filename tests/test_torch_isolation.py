@@ -43,6 +43,7 @@ from interactvlm_tpu_torch.models.llama import LlamaForCausalLM
 from interactvlm_tpu_torch.models.llava import LlavaModel
 from interactvlm_tpu_torch.models.sam.image_encoder import ImageEncoderViT
 from interactvlm_tpu_torch.models.sam.sam import Sam
+from interactvlm_tpu_torch.parallel.mesh import Mesh
 from interactvlm_tpu_torch.train.train import (
     build_model_and_config,
     main as train_main,
@@ -52,6 +53,8 @@ from interactvlm_tpu_torch.utils.testing import (
     make_synthetic_batch as make_port_batch,
 )
 from interactvlm_tpu_torch.utils.weights import from_jax_params
+
+import graft_entry_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every head and decoder the port builds: the interaction token type with
@@ -69,6 +72,7 @@ for info in pkgutil.walk_packages(interactvlm_tpu_torch.__path__,
                                   "interactvlm_tpu_torch."):
     importlib.import_module(info.name)
 import chip_smoke
+import graft_entry_torch
 bad = sorted(m for m in sys.modules
              if m == "interactvlm_tpu" or m.startswith("interactvlm_tpu."))
 print("MODULES", len([m for m in sys.modules
@@ -118,6 +122,12 @@ print("DATAGEN", all(m in sys.modules for m in (
     "interactvlm_tpu_torch.datagen.generate",
     "interactvlm_tpu_torch.datagen.recipes",
     "interactvlm_tpu_torch.datagen.__main__")))
+print("PARALLEL", all(m in sys.modules for m in (
+    "interactvlm_tpu_torch.parallel.mesh",
+    "interactvlm_tpu_torch.parallel.collectives",
+    "interactvlm_tpu_torch.parallel.launch",
+    "interactvlm_tpu_torch.parallel.dryrun",
+    "interactvlm_tpu_torch.utils.memory", "graft_entry_torch")))
 print("BAD", bad)
 """
 
@@ -137,6 +147,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "CLIS True" in res.stdout, res.stdout
     assert "FIT_DEMO True" in res.stdout, res.stdout
     assert "DATAGEN True" in res.stdout, res.stdout
+    assert "PARALLEL True" in res.stdout, res.stdout
 
 
 _BUILD = r"""
@@ -212,6 +223,9 @@ def test_native_decoder_builds_under_build_and_leaves_native_alone(
         "4MV-Z_HM_BM"], 16),
     lambda: generate_pico_tree("/nonexistent", {}, OBJECT_VIEWS[
         "4MV-Z_HM_BM"], 16),
+    lambda: graft_entry_torch.entry(),
+    lambda: graft_entry_torch.dryrun_multichip(2),
+    lambda: LlamaForCausalLM(C.llama_tiny(), mesh=Mesh(1, 1)),
 ], ids=["InteractVLM", "InteractVLM-hoi", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
         "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8",
         "LlamaForCausalLM-lora", "make_synthetic_batch",
@@ -220,7 +234,8 @@ def test_native_decoder_builds_under_build_and_leaves_native_alone(
         "build_model_and_config", "generate_damon_tree", "fit_cli",
         "demo_cli", "fit_human_object", "generate_sam_inp_objs",
         "datagen_cli", "generate_human_assets", "generate_object_assets",
-        "generate_piad_tree", "generate_pico_tree"])
+        "generate_piad_tree", "generate_pico_tree", "graft_entry",
+        "dryrun_multichip", "LlamaForCausalLM-mesh"])
 def test_entry_points_default_to_the_gpu(build):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")

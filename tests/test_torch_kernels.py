@@ -938,3 +938,50 @@ def test_build_lift_maps_on_the_card_equals_the_cpu(dev, size):
     assert torch.equal(card[2].cpu(), cpu[2])
     assert (card[1].cpu() - cpu[1]).abs().max().item() <= 1e-6
     assert 0.3 < (cpu[2] < 0).float().mean().item() < 0.8
+
+
+# --- tensor parallelism's shapes and kernel 7's given-scale route ---------
+@pytest.mark.parametrize("M,K,N", [
+    (8, 4096, 5504), (2552, 4096, 5504),  # 7B gate / up, N halved over 2
+    (8, 5504, 4096), (2552, 5504, 4096),  # 7B down, K halved over 2
+    (8, 5120, 6912), (8, 6912, 5120),  # 13B MLP over 2
+])
+def test_int8_kernel_at_the_tensor_parallel_shapes(dev, M, K, N):
+    """Kernel 6 on a model rank's half of a 7B or 13B MLP weight, on the
+    route its rows pick: bit for bit against its plain version."""
+    rng = np.random.default_rng(21)
+    x = _ties_rows(rng, M, K, dev, torch.bfloat16)
+    w, scale = _int8_weight(rng, N, K, dev)
+    before = Q.int8_matmul_fused.launches
+    out = Q.int8_matmul_fused(x, w, scale)
+    torch.cuda.synchronize()
+    assert Q.int8_matmul_fused.launches == before + 1
+    assert torch.equal(out, Q.int8_matmul_fused_plain(x, w, scale))
+
+
+@pytest.mark.parametrize("M,K,dtype", [
+    (8, 5504, torch.bfloat16),  # 7B down at decode, K halved
+    (2552, 5504, torch.bfloat16),  # 7B down at prefill
+    (512, 2560, torch.bfloat16),  # 13B o_proj, heads halved
+    (40, 264, torch.float32),  # an int4 layer's f32 x * rf
+    (5, 16384, torch.bfloat16),  # a row read twice
+])
+def test_quantize_rows_given_kernel_matches_plain(dev, M, K, dtype):
+    """Kernel 7's given-scale route (a row-parallel linear's slice of each
+    row, quantized with the whole row's absmax) against its plain version,
+    bit for bit, and against the plain route where the given absmax is the
+    slice's own."""
+    x = _ties_rows(np.random.default_rng(12), M, K, dev, dtype)
+    own = x.abs().amax(-1).float()
+    whole = own * torch.linspace(1.0, 3.0, M, device=dev)  # rows reach wider
+    whole[0] = 0.0  # a zero row keeps the 1e-8 floor
+    for amax in (own, whole):
+        before = Q.quantize_rows_given.launches
+        q, s = Q.quantize_rows_given(x, amax.contiguous())
+        torch.cuda.synchronize()
+        assert Q.quantize_rows_given.launches == before + 1
+        q2, s2 = Q.quantize_rows_given_plain(x, amax)
+        assert torch.equal(q, q2) and torch.equal(s, s2)
+    q, s = Q.quantize_rows_given(x, own.contiguous())
+    q3, s3 = Q.quantize_rows(x)
+    assert torch.equal(q, q3) and torch.equal(s, s3)

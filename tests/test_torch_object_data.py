@@ -422,3 +422,94 @@ def test_kslot_oafford_lifts_through_the_point_maps(trees):
                                         "classes_list": []})]), tm,
                          "oafford", S, max_new_tokens=4)
     assert res["seg_rate"] == 1.0 and np.isfinite(res["auc"])
+
+
+# ------------------------------------------- departures from the JAX package
+# ROADMAP Queue C: where the JAX package returns a result, the port returns
+# the same; where it raises, the port may return one, and a test pins the
+# difference. These two run the JAX pipeline and the port on one input.
+def test_vqa_rows_collate_at_1024_where_the_jax_package_raises(tmp_path):
+    """A VQA row beside a contact row at 1024^2: the JAX ``VQADataset``'s
+    masks are 64^2 whatever ``image_size`` is, so its ``collate`` raises
+    stacking them; the port's are ``image_size`` square, and its collate
+    returns the batch, the VQA row's masks all IGNORE."""
+    import dataclasses
+
+    root, S, V = str(tmp_path), 1024, 4
+    os.makedirs(join(root, "images"))
+    Image.fromarray(np.zeros((9, 7, 3), np.uint8)).save(
+        join(root, "images", "q.jpg"))
+    rec = {"image": "q.jpg", "question": "Is it?", "answer": "yes ."}
+    with open(join(root, "vqa.pkl"), "wb") as f:
+        pickle.dump({"train": [rec], "val": [rec]}, f)
+    kw = dict(image_size=S, clip_size=28, split="val")
+    batches = {}
+    for side, D, C, tok in (("jax", JD, JC, JaxTok(384)),
+                            ("port", TD, TC, PortTok(384))):
+        vqa = D.VQADataset(root, **kw)[0]
+        contact = dataclasses.replace(
+            vqa, masks=np.zeros((V, S, S), np.float32),
+            sam_images=np.zeros((V, S, S, 3), np.float32),
+            cam_params=np.zeros((V, 5), np.float32), ds_name="hcontact",
+            gt_contact_3d=np.zeros(178, np.float32))
+        try:
+            batches[side] = C.collate([contact, vqa], tok, max_len=384,
+                                      num_human_vertices=178)[0]
+        except ValueError as e:
+            batches[side] = e
+    assert isinstance(batches["jax"], ValueError)
+    gt = np.asarray(batches["port"]["gt_masks"])
+    assert gt.shape == (2, V, S, S)
+    assert (gt[1] == TK.IGNORE_LABEL).all() and (gt[0] == 0).all()
+
+
+def test_kslot_oafford_metrics_return_where_the_jax_package_raises(trees):
+    """One collated oafford batch (it also carries the object mesh maps) and
+    one generation whose answers are all [OSEG], through the JAX package's
+    and the port's ``_evaluate_batch_multiseg`` on the same weights: the
+    JAX one lifts the [OSEG] slots through ``obj_p2v`` onto the mesh's
+    ``max_object_vertices``, so ``affordance_metrics`` raises against the
+    ``num_object_points`` targets; the port lifts through ``obj_p2p`` and
+    the metrics return, finite."""
+    from interactvlm_tpu.eval import evaluate as JE
+    from interactvlm_tpu.eval import metrics as JMET
+
+    from interactvlm_tpu_torch.eval import metrics as TMET
+
+    tree = trees["port"]
+    args = flagship_args(tree)
+    jt, pt, token_kw = tokenizers()
+    jm, jcfg = JTR.build_model_and_config(args, **token_kw)
+    ds_j = JD.ValDataset(JD.build_dataset("oafford", tree, "test", args))
+    ds_t = TD.ValDataset(TD.build_dataset("oafford", tree, "test", args))
+    kw = dict(max_len=384, num_human_vertices=178,
+              num_object_points=N_POINTS, include_object_maps=True,
+              max_seg_tokens=2)
+    jb, _ = JC.collate([ds_j[i] for i in range(2)], jt, **kw)
+    tb, _ = TC.collate([ds_t[i] for i in range(2)], pt, **kw)
+    params = jax.tree.map(np.array, nn.meta.unbox(jax.jit(jm.init)(
+        jax.random.PRNGKey(0), {k: jnp.asarray(v) for k, v in jb.items()})))
+    oseg, T, K = token_kw["oseg_token_idx"], 3, 2
+    gen = np.full((2, T), oseg, np.int32)
+    hidden = np.random.default_rng(0).standard_normal(
+        (2, T, jcfg.llama.hidden_size)).astype(np.float32)
+    jout = JE._evaluate_batch_multiseg(
+        jm, params, {k: jnp.asarray(v) for k, v in jb.items()}, jcfg, S,
+        gen, gen == oseg, hidden, np.ones(2, bool), K, None, None, None,
+        "oafford")
+    assert jout["pred_contact_3d"].shape[1] != N_POINTS
+    with pytest.raises(ValueError):
+        JMET.affordance_metrics(np.asarray(jb["gt_oafford"]),
+                                jout["pred_contact_3d"])
+
+    tm, _ = TTR.build_model_and_config(args, device="cpu", **token_kw)
+    tm.load_state_dict(from_jax_params(params), strict=False)
+    g = torch.from_numpy(gen)
+    with torch.inference_mode():
+        tout = TE._evaluate_batch_multiseg(
+            tm, tb, S, g, g == oseg, torch.from_numpy(hidden), K, None,
+            None, None, "oafford")
+    pred = tout["pred_contact_3d"].numpy()
+    assert pred.shape == (2, N_POINTS)
+    metrics = TMET.affordance_metrics(tb["gt_oafford"].numpy(), pred)
+    assert all(np.isfinite(v) for v in metrics[:4])
