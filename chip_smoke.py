@@ -22,7 +22,8 @@ prints no result, without them. Phases, each of which fails the run:
    kernels' tiles (the int8 matmul at the rows where its two routes meet,
    flash at head dim 128 with ragged lengths and rows that see no key; the
    flash forward and backward at the fusion's full-width shape, D = 16,
-   Lq = 4096, Lk = 512),
+   Lq = 4096, Lk = 512; the flash forward at head dim 80 padded to 128,
+   the SAM global block without its rel-pos bias),
    inputs from a seeded generator, with the kernel's, the plain version's
    and one library call's time beside the least time the card could take
    (``bound_ms``); the int8 matmul also at the 7B QLoRA step's and the
@@ -135,7 +136,26 @@ prints no result, without them. Phases, each of which fails the run:
    linears take kernel 7's given-scale route; (5) ``evaluate.py
    --distributed`` on two ranks against the one-process report; (6)
    ``graft_entry_torch.dryrun_multichip(2)``; (7) the memory budgets of
-   every path beside its measured peak.
+   every path beside its measured peak; (8) the 1 x 2 step in f32 at
+   LLaMA-13B's width over two layers against one process on the card
+   (whether the bf16 step's gradient gap is summation order);
+18. the LISA workflow (``lisa_workflow_phase``): LISA-layout trees
+   written on the host (``utils/lisa_tree.py``: ade20k photos at 683 x
+   512 with id maps, refcoco at 640 x 480 with polygon, compressed-RLE
+   and G_REFER annotations, ReasonSeg polygons at mixed sizes, VQA); the
+   training CLI at the 13B LoRA defaults on LISA's own mixture
+   (``sem_seg_lisa||refer_seg_lisa||vqa||reason_seg`` at 9,3,3,1), B=8,
+   8 loader threads, 3 steps: each step's wall and data seconds, the
+   loader-wait share, rows by task and by dataset, the loss terms,
+   kernels 1-5's launches and the peak GB beside phase 14's DAMON step;
+   ``validate`` of 8 ReasonSeg rows (gIoU, cIoU); the tiny chain at 64^2
+   with three conversations a row, card against CPU;
+19. the entry probes (``entry_probes_phase``): the twins of the SAM, int8,
+   int4, decode, lift, data and train-step probe scripts through their
+   ``main`` at full width, iterations cut, every variant's line printed,
+   each variant's launches held (kernel 1 at head dim 80 padded to 128 in
+   the SAM probe's ``norel``) and the lift probe's two gather forms held
+   to each other.
 
 Each serving path reports images/s, the time of each leg, peak memory, the
 decode host/device split and each kernel's launches over its run; the 7B
@@ -171,6 +191,7 @@ import numpy as np
 import torch
 
 from interactvlm_tpu_torch.config import (
+    clip_tiny,
     clip_vit_l_14,
     interactvlm_13b,
     interactvlm_tiny,
@@ -231,7 +252,24 @@ from interactvlm_tpu_torch.ops import quant as QT
 from interactvlm_tpu_torch.ops import sam_attention as SA
 from interactvlm_tpu_torch.ops import serving_matmul as SM
 from interactvlm_tpu_torch.probes import chain as chain_probe
+from interactvlm_tpu_torch.probes.common import (
+    WRAPPERS,
+    busy_ns,
+    card_trace,
+    device_busy_ms,
+    issue_and_wall_ms,
+    on_card,
+    read_launches,
+    reset_launches,
+)
+from interactvlm_tpu_torch.probes import data as data_probe
+from interactvlm_tpu_torch.probes import decode as decode_probe
+from interactvlm_tpu_torch.probes import int4 as int4_probe
+from interactvlm_tpu_torch.probes import int8 as int8_probe
+from interactvlm_tpu_torch.probes import lift as lift_probe
 from interactvlm_tpu_torch.probes import mxu as mxu_probe
+from interactvlm_tpu_torch.probes import sam as sam_probe
+from interactvlm_tpu_torch.probes import train_step as train_step_probe
 from interactvlm_tpu_torch.probes import winattn as winattn_probe
 from interactvlm_tpu_torch.runtime import native_image
 from interactvlm_tpu_torch.runtime.prefetch import iter_sample_batches
@@ -248,7 +286,7 @@ from interactvlm_tpu_torch.train.optimizer import (
 )
 from interactvlm_tpu_torch.train.train_step import TrainStep
 from interactvlm_tpu_torch.utils.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from interactvlm_tpu_torch.utils.profiling import ANNOTATIONS
+from interactvlm_tpu_torch.utils.lisa_tree import write_lisa_tree
 from interactvlm_tpu_torch.utils.testing import (
     WhitespaceTokenizer,
     greedy_decode_lm,
@@ -290,8 +328,8 @@ L_TRAIN, TRAIN_PADDED = 257, (200, 129)
 TRAIN_STEPS = 5  # timed steps, after one warm-up step
 
 # each kernel's sources (the first holds its entry point), the TPU kernel
-# it replaces, its wrapper (whose launch count a path reads), its symbols in
-# a profile (one a route; int8_matmul_prequant launches the int8 GEMM, so it
+# it replaces (its wrapper, whose launch count a path reads, is
+# ``probes/common.py:WRAPPERS[name]``), its symbols in a profile (one a route; int8_matmul_prequant launches the int8 GEMM, so it
 # shares int8_matmul's), and the path whose count the kernel line reports
 CSRC = "interactvlm_tpu_torch/csrc/"
 KERNELS = {
@@ -299,7 +337,6 @@ KERNELS = {
         sources=[CSRC + "flash_attention.cu", CSRC + "flash_fwd_sm90.cuh",
                  CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:43",
-        wrapper=FA.flash_forward,
         symbols=["flash_fwd_kernel", "flash_fwd_sm90_kernel"],
         path="train_13b_lora"),
     "window_attention": dict(
@@ -307,69 +344,64 @@ KERNELS = {
                  CSRC + "window_attention_sm90.cuh", CSRC + "sm90_core.cuh",
                  CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/sam_attention.py:117",
-        wrapper=SA.window_attention,
         symbols=["window_kernel", "window_fwd_sm90_kernel"],
         path="train_13b_lora"),
     "rel_attention": dict(
         sources=[CSRC + "rel_attention.cu", CSRC + "rel_attention_sm90.cuh",
                  CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/sam_attention.py:39",
-        wrapper=SA.rel_attention,
         symbols=["rel_kernel", "rel_fwd_sm90_kernel"],
         path="train_13b_lora"),
     "int8_matmul": dict(
         sources=[CSRC + "int8_gemm_sm90.cu", CSRC + "int8_prequant.cu",
                  CSRC + "int8_matmul.cu", CSRC + "gemm_sm90.cuh"],
         replaces="interactvlm_tpu/ops/int8_matmul.py:39",
-        wrapper=Q.int8_matmul_fused,
         symbols=["int8_splitk_kernel", "int8_gemm_kernel"],
         path="7b_int8"),
     "flash_attention_bwd_dq": dict(
         sources=[CSRC + "flash_attention_bwd.cu", CSRC + "flash_bwd_sm90.cuh",
                  CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:190",
-        wrapper=FA.flash_bwd_dq,
         symbols=["flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel"],
         path="train_13b_lora"),
     "flash_attention_bwd_dkv": dict(
         sources=[CSRC + "flash_attention_bwd.cu", CSRC + "flash_bwd_sm90.cuh",
                  CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:243",
-        wrapper=FA.flash_bwd_dkv,
         symbols=["flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel",
                  "flash_bwd_dkv_reduce_kernel"],
         path="train_13b_lora"),
     "quantize_rows": dict(
         sources=[CSRC + "int8_prequant.cu"],
         replaces="interactvlm_tpu/ops/int8_matmul.py:82",
-        wrapper=Q.quantize_rows, symbols=["quantize_rows_kernel"],
+        symbols=["quantize_rows_kernel"],
         path="7b_int8"),
     "int8_matmul_prequant": dict(
         sources=[CSRC + "int8_gemm_sm90.cu", CSRC + "gemm_sm90.cuh"],
         replaces="interactvlm_tpu/ops/int8_matmul.py:124",
-        wrapper=Q.int8_matmul_prequant, symbols=["int8_gemm_kernel"],
+        symbols=["int8_gemm_kernel"],
         path="probes"),
     "fused_dense": dict(
         sources=[CSRC + "serving_matmul.cu", CSRC + "gemm_sm90.cuh"],
         replaces="interactvlm_tpu/ops/serving_matmul.py:50",
-        wrapper=SM.fused_dense, symbols=["dense_gemm_kernel"],
+        symbols=["dense_gemm_kernel"],
         path="probes"),
     "mxu_loop": dict(
         sources=[CSRC + "mxu_probe.cu", CSRC + "sm90_core.cuh"],
         replaces="scripts/mxu_probe.py:28",
-        wrapper=MX.mxu_loop, symbols=["wgmma_loop_kernel", "fma_loop_kernel"],
+        symbols=["wgmma_loop_kernel", "fma_loop_kernel"],
         path="probes"),
     "window_copy": dict(
         sources=[CSRC + "window_copy.cu"],
         replaces="scripts/winattn_probe.py:123",
-        wrapper=SA.window_copy, symbols=["window_copy_kernel"],
+        symbols=["window_copy_kernel"],
         path="probes"),
     # kernel 7's given-scale route: a row-parallel int8 linear's slice of
     # each row, quantized with the whole row's absmax
     "quantize_rows_given": dict(
         sources=[CSRC + "int8_prequant.cu"],
         replaces="interactvlm_tpu/ops/int8_matmul.py:82",
-        wrapper=Q.quantize_rows_given, symbols=["quantize_rows_kernel"],
+        symbols=["quantize_rows_kernel"],
         path="tp_decode_7b_int8"),
 }
 SERVING_KERNELS = ("flash_attention", "window_attention", "rel_attention",
@@ -404,29 +436,6 @@ def bound(flops, nbytes, name, int8=False, f32=False):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def reset_launches():
-    for w in KERNELS.values():
-        w["wrapper"].launches = 0
-    Q.int8_gemm.launches = 0
-    for counts in (Q.int8_matmul_fused.route_launches,
-                   SA.window_attention.route_launches,
-                   SA.rel_attention.route_launches,
-                   FA.flash_bwd_dq.route_launches,
-                   FA.flash_bwd_dkv.route_launches):
-        for route in counts:
-            counts[route] = 0
-
-
-def read_launches():
-    return {**{n: w["wrapper"].launches for n, w in KERNELS.items()},
-            "int8_routes": dict(Q.int8_matmul_fused.route_launches),
-            "int8_gemm": Q.int8_gemm.launches,
-            "window_routes": dict(SA.window_attention.route_launches),
-            "rel_routes": dict(SA.rel_attention.route_launches),
-            "bwd_dq_routes": dict(FA.flash_bwd_dq.route_launches),
-            "bwd_dkv_routes": dict(FA.flash_bwd_dkv.route_launches)}
-
-
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` in ms, CUDA events around ``iters`` calls."""
     for _ in range(warmup):
@@ -439,18 +448,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def on_card(e) -> bool:
-    """Whether a profiler event on the card is the card's own work (a
-    kernel, copy or memset) and not a ``record_function`` region
-    (``utils/profiling.annotate``: the training step's phases and
-    collectives), which the profiler mirrors onto the card's timeline over
-    the kernels it spans."""
-    name = e.name() if callable(e.name) else e.name
-    user = getattr(e, "is_user_annotation", False)
-    user = user() if callable(user) else user
-    return not user and name not in ANNOTATIONS
 
 
 def device_ms_by_name(fn, iters: int, warmup: int = 2):
@@ -499,18 +496,6 @@ def wall_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
-
-
-def issue_and_wall_ms(fn):
-    """Host time until ``fn`` returns, before the card has finished, and the
-    synchronised wall time of the same call: where the two are close, the
-    host sets the pace."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    issue = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    return issue, (time.perf_counter() - t0) * 1e3
 
 
 def spread(xs):
@@ -984,8 +969,9 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls,
     two-pass route each pass is also timed alone (``quantize_ms``,
     ``gemm_ms``). Library
     yardsticks: ``torch._int_mm`` on the pre-quantized operands (int32 out,
-    no quantization or epilogue; it refuses M <= 16) and a bf16
-    ``F.linear`` at the same shape; the port calls neither."""
+    no quantization or epilogue; it refuses M <= 16, where the bf16
+    ``F.linear`` is the library call) and a bf16 ``F.linear`` at the same
+    shape; the port calls neither."""
     x = rand_bf16(gen, (M, K)).to(x_dtype)
     w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
                       dtype=torch.int8)
@@ -1008,6 +994,7 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls,
               + 4 * N * (2 if with_bias else 1) + 2 * M * N)
     t, by = bound(2 * M * K * N, nbytes, name, int8=True)
     lib = lib_dev = None
+    library = "torch._int_mm (int32 product only)"
     if M > 16:
         xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
                            dtype=torch.int8)
@@ -1029,6 +1016,9 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls,
                         10 if big else 50)
     linear_dev = device_ms(lambda: torch.nn.functional.linear(xb, wb),
                            5 if big else 20)[0]
+    if M <= 16:  # _int_mm refuses these rows: the bf16 product is the call
+        lib, lib_dev = linear_ms, linear_dev
+        library = "bf16 F.linear (torch._int_mm refuses M <= 16)"
     return dict(shape=f"{what}: M={M} K={K} N={N}"
                 f"{' f32 x' if x_dtype == torch.float32 else ''}"
                 f"{' +bias' if with_bias else ''}"
@@ -1039,7 +1029,7 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls,
                 **res, kernel_ms=kernel_ms, device_ms=dev_ms,
                 device_launches_per_call=launched, **passes,
                 plain_ms=plain_ms, library_ms=lib, library_device_ms=lib_dev,
-                library="torch._int_mm (int32 product only)",
+                library=library,
                 bf16_linear_ms=linear_ms, bf16_linear_device_ms=linear_dev,
                 bound_ms=t, bound_by=by)
 
@@ -1099,6 +1089,9 @@ def kernel_phase(name):
     cases["flash_attention"].append(case_flash_sam(
         torch.Generator(device="cuda").manual_seed(4), name, 512,
         FUSION_SHAPE))
+    cases["flash_attention"].append(case_flash_norel(
+        torch.Generator(device="cuda").manual_seed(6), name))
+    torch.cuda.empty_cache()
     tp_cases(name, cases, lens)
     for kname, rows in cases.items():
         for row in rows:
@@ -1166,55 +1159,74 @@ def int8_weight(gen, N, K):
     return w, torch.full((N,), 1.0 / (127.0 * K ** 0.5), device="cuda")
 
 
-def case_quantize(gen, name, M, K):
+def case_quantize(gen, name, M, K, what="chain probe"):
     """Kernel 7 at the chain's activations (K = 1280) and hidden activations
-    (K = 5120): bytes bound it (2 in, 1 out an element, a scale a row). No
-    single torch call computes it: no library time."""
+    (K = 5120), and at the int4 probe's decode rows (M = 8, K = 4096):
+    bytes bound it (2 in, 1 out an element, a scale a row). No single torch
+    call computes it: no library time."""
     x = rows_with_ties(gen, M, K)
     res = compare_exact(Q.quantize_rows(x), Q.quantize_rows_plain(x))
     t, by = bound(0, 3 * M * K + 4 * M, name)
-    return dict(shape=f"M={M} K={K} bf16 (chain probe)", **res,
+    return dict(shape=f"M={M} K={K} bf16 ({what})", **res,
                 kernel_ms=time_ms(lambda: Q.quantize_rows(x), 20),
+                device_ms=device_ms(lambda: Q.quantize_rows(x), 5)[0],
                 plain_ms=time_ms(lambda: Q.quantize_rows_plain(x), 5),
                 library_ms=None, library=None, bound_ms=t, bound_by=by)
 
 
-def case_prequant(gen, name, M, K, N, act):
-    """Kernel 8 at one of the chain's shapes: pre-quantized rows (kernel 7's
-    output) times a random int8 weight. Without a GELU bit for bit; with one
-    within ``compare_int8``'s limits; in both, bit for bit the int8 GEMM
-    with no bias, the kernel it launches (``int8_gemm_ms`` times that call).
-    Library yardstick: ``torch._int_mm`` on the same operands (the int32
-    product only); both also by device time a call."""
+# kernel 8 where the int4 probe runs it, f32 out: int4_grouped's products
+# of one 128-column group at the 8 decode rows (N = 4096: q, k, v, o and
+# down; N = 11008: gate and up), and int4_grouped_batched's block-diagonal
+# rows, G = K / 128 groups of the 8 rows (q, k, v, o; down)
+INT4_PREQUANT = [(8, 128, 4096), (8, 128, 11008), (256, 4096, 4096),
+                 (688, 11008, 4096)]
+
+
+def case_prequant(gen, name, M, K, N, act, dtype=torch.bfloat16,
+                  what="chain probe"):
+    """Kernel 8 at one of the chain's (or the int4 probe's) shapes:
+    pre-quantized rows (kernel 7's output) times a random int8 weight.
+    Without a GELU bit for bit; with one within ``compare_int8``'s limits;
+    in both, bit for bit the int8 GEMM with no bias, the kernel it launches
+    (``int8_gemm_ms`` times that call). Library yardstick:
+    ``torch._int_mm`` on the same operands (the int32 product only; it
+    takes M > 16 only); both also by device time a call."""
     xq, xs = Q.quantize_rows(rand_bf16(gen, (M, K)))
     w, scale = int8_weight(gen, N, K)
 
     def kernel():
-        return Q.int8_matmul_prequant(xq, xs, w, scale, torch.bfloat16, act)
+        return Q.int8_matmul_prequant(xq, xs, w, scale, dtype, act)
 
     def gemm():
-        return Q.int8_gemm(xq, xs, w, scale, None, act, torch.bfloat16)
+        return Q.int8_gemm(xq, xs, w, scale, None, act, dtype)
 
     got = kernel()
-    want = Q.int8_matmul_prequant_plain(xq, xs, w, scale, torch.bfloat16, act)
+    want = Q.int8_matmul_prequant_plain(xq, xs, w, scale, dtype, act)
     res = (compare_exact([got], [want]) if act == "none"
            else compare_int8(got, want))
     res["equals_int8_gemm"] = torch.equal(got, gemm())
     res["ok"] = res["ok"] and res["equals_int8_gemm"]
     del got, want
-    t, by = bound(2 * M * K * N, M * K + 4 * M + N * K + 4 * N + 2 * M * N,
-                  name, int8=True)
+    out_bytes = torch.empty((), dtype=dtype).element_size()
+    t, by = bound(2 * M * K * N, M * K + 4 * M + N * K + 4 * N
+                  + out_bytes * M * N, name, int8=True)
     dev_ms, launched = device_ms(kernel, 5)
+    library = M > 16
+
+    def int_mm():
+        return torch._int_mm(xq, w.t())
+
     return dict(
-        shape=f"M={M} K={K} N={N}{' +' + act if act != 'none' else ''} "
-        f"(chain probe)", **res,
+        shape=f"M={M} K={K} N={N}{' +' + act if act != 'none' else ''}"
+        f"{' f32 out' if dtype == torch.float32 else ''} ({what})", **res,
         kernel_ms=time_ms(kernel, 10), device_ms=dev_ms,
         device_launches_per_call=launched, int8_gemm_ms=time_ms(gemm, 10),
         plain_ms=time_ms(lambda: Q.int8_matmul_prequant_plain(
-            xq, xs, w, scale, torch.bfloat16, act), 2, 1),
-        library_ms=time_ms(lambda: torch._int_mm(xq, w.t()), 10),
-        library_device_ms=device_ms(lambda: torch._int_mm(xq, w.t()), 5)[0],
-        library="torch._int_mm (int32 product only)", bound_ms=t, bound_by=by)
+            xq, xs, w, scale, dtype, act), 2, 1),
+        library_ms=time_ms(int_mm, 10) if library else None,
+        library_device_ms=device_ms(int_mm, 5)[0] if library else None,
+        library="torch._int_mm (int32 product only)" if library else None,
+        bound_ms=t, bound_by=by)
 
 
 def case_dense(gen, name, M, K, N, with_bias, act):
@@ -1325,9 +1337,41 @@ def case_flash_global(gen, name):
         bound_ms=t, bound_by=by)
 
 
+def case_flash_norel(gen, name):
+    """The SAM encoder's global block without its rel-pos bias (the SAM
+    probe's ``norel``), through ``flash_attention``'s padded route: B=8
+    images, H=16, L = Lk = 4096, D=80 zero-padded to 128 inside the
+    wrapper, non-causal, scale 80^-0.5; held against the plain version on
+    the unpadded inputs, image by image. The bound counts the work and
+    bytes at D = 80; SDPA takes D = 80 as it is."""
+    Bg, H, L, D = B, 16, 4096, 80
+    q, k, v = (rand_bf16(gen, (Bg, H, L, D)) for _ in range(3))
+    scale = D ** -0.5
+
+    def plain():
+        return torch.cat([FA.flash_forward_plain(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], False, scale)[0]
+            for i in range(Bg)])
+
+    got = FA.flash_attention(q, k, v, False, scale)
+    res = compare(got, plain())
+    del got
+    t, by = bound(4 * Bg * H * L * L * D, 4 * Bg * H * L * D * 2, name)
+    return dict(
+        shape=f"B={Bg} H={H} L=Lk={L} D={D}, padded to "
+        f"{FA.padded_head_dim(D)} in flash_attention, non-causal (SAM "
+        "global block without rel-pos, the SAM probe's norel)", **res,
+        kernel_ms=time_ms(lambda: FA.flash_attention(q, k, v, False, scale),
+                          5),
+        plain_ms=time_ms(plain, 2, 1),
+        library_ms=time_ms(lambda: sdpa()(q, k, v, scale=scale), 5),
+        bound_ms=t, bound_by=by)
+
+
 def probe_kernel_phase(name):
     """Kernels 7, 8, 9, 11 and the copy kernel, each against its plain
-    version at the probes' shapes; and the earlier kernels at the shapes
+    version at the probes' shapes (kernels 7 and 8 also at the int4
+    probe's decode rows, INT4_PREQUANT); and the earlier kernels at the shapes
     only the probes give them: kernel 1 at ``global_plain``'s, kernel 6
     without a bias at the chain's (with the erf GELU on the first matmul).
     Kernels 2 and 3 run in the probes on the kernel phase's rows (L, D),
@@ -1342,10 +1386,13 @@ def probe_kernel_phase(name):
             case_int8(gen, name, "chain probe pallas_int8(_gelu), 2nd matmul",
                       M, N, K, False, "none", None)],
         "quantize_rows": [case_quantize(gen, name, M, K),
-                          case_quantize(gen, name, M, N)],
+                          case_quantize(gen, name, M, N),
+                          case_quantize(gen, name, 8, 4096, "int4 probe")],
         "int8_matmul_prequant": [case_prequant(gen, name, *s, act)
                                  for s in ((M, K, N), (M, N, K))
-                                 for act in ("none", "gelu")],
+                                 for act in ("none", "gelu")]
+        + [case_prequant(gen, name, *s, "none", torch.float32, "int4 probe")
+           for s in INT4_PREQUANT],
         "fused_dense": [case_dense(gen, name, *s, *e)
                         for s in ((M, K, N), (M, N, K))
                         for e in ((False, "none"), (True, "gelu"))],
@@ -1905,20 +1952,9 @@ def device_busy(fn):
     launched in the batch, in all and by symbol (route). The profiler's
     host-side cost lengthens the batch, so the share is a lower bound.
     ``None`` where the trace holds no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    before = {n: w["wrapper"].launches for n, w in KERNELS.items()}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, ms = wall_ms(fn)
-    evs = [(e.name(), e.start_ns(), e.duration_ns())
-           for e in prof.profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA and on_card(e)]
-    busy_ns, end = 0, float("-inf")
-    for _, a, d in sorted(evs, key=lambda x: x[1]):  # the union of spans
-        if a + d > end:
-            busy_ns += a + d - max(a, end)
-            end = a + d
+    before = {n: WRAPPERS[n].launches for n in KERNELS}
+    ms, evs = card_trace(fn)
+    busy = busy_ns(evs)
     by_name = {}
     for name, _, d in evs:
         n = by_name.setdefault(name, [0.0, 0])
@@ -1929,7 +1965,7 @@ def device_busy(fn):
     for n, w in KERNELS.items():
         # two wrappers may launch one symbol (the int8 GEMM): a kernel's
         # time counts only where its own wrapper launched in this run
-        launched = w["wrapper"].launches > before[n]
+        launched = WRAPPERS[n].launches > before[n]
         hits = [(k, v) for k, v in by_name.items() if launched
                 and any(s in k for s in w["symbols"])]
         ours[n] = [sum(v[0] for _, v in hits), sum(v[1] for _, v in hits)]
@@ -1939,8 +1975,8 @@ def device_busy(fn):
                 by_symbol[sym] = [sum(v[0] for v in mine),
                                   sum(v[1] for v in mine)]
     copies = [v for k, v in by_name.items() if "copy" in k.lower()]
-    return {"batch_ms": ms, "device_busy_ms": busy_ns / 1e6,
-            "device_busy_share": busy_ns / 1e6 / ms if evs else None,
+    return {"batch_ms": ms, "device_busy_ms": busy / 1e6,
+            "device_busy_share": busy / 1e6 / ms if evs else None,
             "copy_device_ms": sum(v[0] for v in copies),
             "copy_launches": sum(v[1] for v in copies),
             "top_device_ms": [[k[:80], v[0], v[1]] for k, v in top],
@@ -2057,14 +2093,6 @@ def ste_backward_costs(lcfg, rows):
         del g, w, gs, wb
         torch.cuda.empty_cache()
     return {"by_shape": out, "per_step": step}
-
-
-def device_busy_ms(fn):
-    """The card's busy time in ms over one call of ``fn`` (``device_busy``);
-    None where the trace holds no device activity."""
-    prof = device_busy(fn)
-    return None if prof["device_busy_share"] is None else prof[
-        "device_busy_ms"]
 
 
 def decode_split(model, batch, kv_cache):
@@ -2705,6 +2733,8 @@ def training_path_phase(path, cfg, maps, reference=None):
 # DAMON_VAL_BATCHES batches of DAMON_B; then the tiny chain at 64^2 on the
 # 178-vertex sphere (tests/test_datagen_recipes.py:sphere_mesh's shape)
 DAMON_IMAGES, DAMON_B, DAMON_STEPS, DAMON_WORKERS = 16, 8, 4, 8
+# the DAMON CLI's median step (ms) after its first, for phase 18's
+STEP_MS = {}
 DAMON_VAL_BATCHES = 2
 DAMON_OBJECTS = ("chair", "bicycle", "skateboard", "cup", "bench",
                  "surfboard", "motorcycle", "bed")
@@ -2917,6 +2947,7 @@ def damon_workflow_phase(train_step_ms):
     trainer, cli_s, launches, peak_gb, loads = cli_train(argv)
     hist = trainer.history
     steady = cli_step_ms(trainer)
+    STEP_MS["damon_cli"] = float(np.median(steady))
     want = train_launches_expected(trainer.cfg, DAMON_STEPS)
     per_step = {n: launches[n] / DAMON_STEPS for n in TRAINING_KERNELS
                 + ("window_attention", "rel_attention")}
@@ -4410,6 +4441,13 @@ DIST_LOSS_RTOL, DIST_GRAD_COS, DIST_GRAD_NORM_RTOL = 1e-2, 0.99, 0.02
 # sides: leaves whose one-process gradient norm is below this share of the
 # largest leaf's are reported, not held
 DIST_GRAD_NOISE_SHARE = 1e-3
+# the 1 x 2 step in f32 at LLaMA-13B's width over DIST_F32_LAYERS layers:
+# loss terms relative, each trainable's gradient by cosine and norm ratio,
+# at what f32 summation order in another order can move (the one-process
+# and sharded sums differ in order only)
+DIST_F32_LAYERS = 2
+DIST_F32_LOSS_RTOL, DIST_F32_GRAD_COS, DIST_F32_GRAD_NORM_RTOL = (
+    1e-5, 0.99999, 1e-4)
 CLI_LOSS_RTOL, REPORT_RTOL = 1e-5, 1e-6
 # TP_INT8_CASES: kernel 6 at the halved shapes a model rank gives it
 TP_INT8_CASES = [
@@ -4595,6 +4633,85 @@ def dist_validate_rank(mesh, argv):
     return dict(report=rep, launches=read_launches())
 
 
+def config_13b_f32_tp():
+    """The f32 tensor-parallel check's model: LLaMA-13B's width (LoRA 8 on
+    q/v) at DIST_F32_LAYERS layers and SAM ViT-H's mask decoder, all f32.
+    Flash takes bf16 only, so every attention must stay below its
+    thresholds: CLIP is cut to the tiny tower (a 64-token prompt splices
+    to 67 tokens, below LLaMA's flash prefill) and SAM's grid to 16 x 16
+    (256 image queries, below the decoder's flash at 512). The frozen SAM
+    encoder is not run (its kernels take bf16 only): a seeded embedding
+    stands in for it on both sides, and one block of it is built."""
+    f32 = torch.float32
+    llama = llama_13b(dtype=f32, lora_rank=8, lora_alpha=16.0,
+                      num_layers=DIST_F32_LAYERS)
+    return dataclasses.replace(
+        interactvlm_13b(), llama=llama, clip=clip_tiny(dtype=f32),
+        sam=sam_vit_h(dtype=f32, img_size=256, encoder_depth=1,
+                      encoder_global_attn_indexes=(0,)),
+        seg_token_idx=min(llama.vocab_size - 1, 32000),
+        img_emb_len=clip_tiny().num_patches - 1)
+
+
+def f32_reference(out_file):
+    """The one-process f32 step's forward and backward on the card:
+    seeded weights, a synthetic B = 8 batch of 64-token prompts with
+    1024^2 masks and lift maps, a seeded 16 x 16 SAM embedding; its loss
+    terms,
+    every trainable's gradient, the batch and the embedding, to
+    ``out_file``."""
+    clean_card()
+    cfg = config_13b_f32_tp()
+    model = InteractVLM(cfg, device="cuda")
+    init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    apply_trainable_mask(model)
+    g = cfg.sam.image_embedding_size
+    emb = torch.randn((B, V, g, g, cfg.sam.prompt_embed_dim),
+                      generator=torch.Generator(device="cuda").manual_seed(8),
+                      device="cuda")
+    model.encode_sam_images = lambda px: emb
+    batch = make_synthetic_batch(cfg, B=B, L=L_TEXT, tasks=(2,),
+                                 mask_size=MASK, seed=0, device="cuda")
+    out = model(batch)
+    out["loss"].backward()
+    torch.save({"metrics": {k: float(v) for k, v in out.items()
+                            if v.dim() == 0},
+                "grads": {n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()
+                          if p.requires_grad and p.grad is not None},
+                "batch": {k: v.cpu() for k, v in batch.items()},
+                "emb": emb.cpu()}, out_file)
+    del model, out, emb, batch
+    clean_card()
+
+
+def tp_f32_rank(mesh, ref_file):
+    """One rank of the 1 x 2 f32 step: the model on ``mesh`` from the
+    reference's seeded weights and embedding, one ``TrainStep`` on its
+    batch, each trainable's gradient held to the one-process gradient."""
+    ref = torch.load(ref_file, map_location="cpu", weights_only=False)
+    clean_card()
+    model = InteractVLM(config_13b_f32_tp(), device="cuda", mesh=mesh)
+    init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    emb = ref["emb"].cuda()
+    model.encode_sam_images = lambda px: emb
+    step = TrainStep(model, mesh=mesh)
+    batch = to_device(ref["batch"], "cuda")
+    holds = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = step(batch, on_grads=lambda n, g, _: holds.update(
+        grad_holds(n, g, ref["grads"], mesh)))
+    torch.cuda.synchronize()
+    res = dict(rank=mesh.rank, step_s=time.perf_counter() - t,
+               metrics={k: float(v) for k, v in m.items()},
+               ref_metrics=ref["metrics"], grads=holds,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, step, batch, emb, ref
+    clean_card()
+    return res
+
+
 def dist_ranks(mesh, work):
     """Lines 2 to 5 of phase 17 on each of two gloo ranks sharing card 0
     (the spawned mesh is 1 x 2; the data-parallel path makes a 2 x 1 one
@@ -4619,6 +4736,8 @@ def dist_ranks(mesh, work):
         os.path.join(work, "ref_decode_7b_int8.pt"), "int8")
     out["dist_validate"] = dist_validate_rank(dp, json.load(open(
         os.path.join(work, "eval_argv.json"))))
+    out["tp_f32_13b"] = tp_f32_rank(mesh, os.path.join(work,
+                                                       "ref_tp_f32.pt"))
     return out
 
 
@@ -4783,6 +4902,9 @@ def distributed_phase():
     one_report = eval_cli.main(eval_argv)
     with open(os.path.join(work, "eval_argv.json"), "w") as f:
         json.dump(eval_argv + ["--distributed"], f)
+    t0 = time.perf_counter()
+    f32_reference(os.path.join(work, "ref_tp_f32.pt"))
+    f32_ref_s = time.perf_counter() - t0
     clean_card()
 
     # (2)-(5) two gloo ranks sharing the card
@@ -4865,6 +4987,39 @@ def distributed_phase():
         log(json.dumps(line))
         lines[path] = line
 
+    # the 1 x 2 step in f32: does the bf16 step's gradient gap (its
+    # text_hidden_fcs at cos 0.9977) come from summation order alone?
+    rs = [r["tp_f32_13b"] for r in ranks]
+    ref_m = rs[0]["ref_metrics"]
+    loss_rel = max(abs(r["metrics"][k] - ref_m[k]) / max(abs(ref_m[k]), 1e-12)
+                   for r in rs for k in ref_m if k.endswith("loss"))
+    worst = min(((c, rt, n) for r in rs for n, (c, rt) in
+                 r["grads"].items()), default=None)
+    ok = (loss_rel <= DIST_F32_LOSS_RTOL and len(rs[0]["grads"]) > 0
+          and all(c >= DIST_F32_GRAD_COS
+                  and abs(rt - 1.0) <= DIST_F32_GRAD_NORM_RTOL
+                  for r in rs for c, rt in r["grads"].values()))
+    checks["tp_f32_13b"] = ok
+    lines["tp_f32_13b"] = dict(
+        phase="dist_tp_f32_13b", card=smi, backend="gloo, two ranks on one "
+        "card (not a multi-card time)", mesh="1x2",
+        model=f"LLaMA-13B width, {DIST_F32_LAYERS} layers, LoRA 8, f32; "
+        "tiny CLIP; SAM ViT-H's decoder f32 on a seeded 16 x 16 "
+        "embedding",
+        loss_terms=[{k: v for k, v in r["metrics"].items()
+                     if k.endswith("loss")} for r in rs],
+        one_process_loss_terms={k: v for k, v in ref_m.items()
+                                if k.endswith("loss")},
+        loss_max_rel_diff=loss_rel, worst_grad=worst,
+        grads_held=len(rs[0]["grads"]),
+        grads_by_leaf={n: rs[0]["grads"][n] for n in sorted(rs[0]["grads"])
+                       if not n.startswith("llava.lm.model.layers.")},
+        step_s=[r["step_s"] for r in rs], reference_s=f32_ref_s,
+        peak_gb=[r["peak_gb"] for r in rs],
+        tol=[DIST_F32_LOSS_RTOL, DIST_F32_GRAD_COS, DIST_F32_GRAD_NORM_RTOL],
+        held=ok)
+    log(json.dumps(lines["tp_f32_13b"]))
+
     reports = [r["dist_validate"]["report"] for r in ranks]
     same = all(_reports_close(rep, one_report) for rep in reports)
     checks["dist_validate"] = same
@@ -4908,6 +5063,400 @@ def distributed_phase():
     return {p: ranks[0][p]["launches"] for p in (
         "tp_train_13b_lora", "dp_train_7b_qlora", "tp_decode_13b",
         "tp_decode_7b_int8", "dist_validate")}
+
+
+# ------------------------------------------------------------ phase 18
+# the LISA workflow: LISA-layout trees written on the host (utils/
+# lisa_tree.py, seeded: ade20k photos at 683 x 512 with id maps, refcoco at
+# 640 x 480 with polygon, compressed-RLE and G_REFER annotations, ReasonSeg
+# polygons at mixed sizes, VQA records), the 13B LoRA training CLI on LISA's
+# own mixture (upstream LISA train.py's datasets and sample rates) for
+# LISA_STEPS steps with LISA_WORKERS loader threads, validate one batch of
+# LISA_B ReasonSeg rows, then the tiny chain card against CPU with three
+# conversations a row
+LISA_MIXTURE = ["--dataset", "sem_seg_lisa||refer_seg_lisa||vqa||reason_seg",
+                "--sample_rates", "9,3,3,1"]
+LISA_TREE = dict(n_ade=16, n_refcoco=16, n_reason=8, n_vqa=8)
+LISA_B, LISA_STEPS, LISA_WORKERS = 8, 3, 8
+TINY_LISA_STEPS, TINY_LISA_CONVERSATIONS = 2, 3
+# the tiny chain's holds, card against CPU (SAM in bf16 on the card, f32 on
+# the CPU): every step's loss terms relative, the trained models' mask
+# logits on one batch absolute. Measured on an H100: 4.5e-4 (the second
+# step's mask BCE) and 0.0177 over logits within +-0.17; the limits are
+# about 4 and 3 times those
+TINY_LISA_LOSS_RTOL, TINY_LISA_LOGIT_TOL = 2e-3, 0.05
+
+
+def lisa_rows_by_dataset(args, steps):
+    """Each step's rows by dataset of the CLI's mixture: the loader's
+    ``HybridDataset`` picks every row's dataset from its own seeded
+    generator before any dataset draws, so a fresh one over the same
+    datasets makes the same picks."""
+    from interactvlm_tpu_torch.data.datasets import HybridDataset
+
+    names = args.dataset.split("||")
+    rates = [float(r) for r in args.sample_rates.split(",")]
+    hybrid = HybridDataset([build_dataset(n, args.dataset_dir, "train", args)
+                            for n in names], rates, samples_per_epoch=1)
+    index = {id(d): n for d, n in zip(hybrid.datasets, names)}
+    return [dict(collections.Counter(index[id(hybrid.pick()[0])]
+                                     for _ in range(args.batch_size)))
+            for _ in range(steps)]
+
+
+def lisa_validate(model, tokenizer, args, tree):
+    """``validate`` of the trained model on one batch of LISA_B ReasonSeg
+    rows of the val split (its records repeated), T new tokens after
+    ``let_seg_token_appear``: gIoU and cIoU in the photos' own frames, and
+    the launches."""
+    ds = ValDataset(build_dataset("reason_seg", tree, "val", args))
+    batch, meta = collate([ds[i % len(ds)] for i in range(LISA_B)],
+                          tokenizer, max_len=args.model_max_length)
+    ids, _ = truncate_at_answer(batch["input_ids"].numpy(),
+                                batch["labels"].numpy())
+    let_seg_token_appear(model, {"input_ids": ids,
+                                 "images_clip": batch["images_clip"]},
+                         "cuda", "dense")
+    sam = model.config.sam
+    n_global = len(sam.encoder_global_attn_indexes)
+    want = {"flash_attention": model.config.llama.num_layers
+            + sam.decoder_depth,
+            "window_attention": sam.encoder_depth - n_global,
+            "rel_attention": n_global}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    results, _ = validate(iter([(batch, meta)]), model, "reason_seg", MASK,
+                          max_new_tokens=T, max_batches=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    res = {"phase": "lisa_validate", "images": LISA_B, "s": secs,
+           "images_per_s": LISA_B / secs, "results": results,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {n: launches[n] for n in want},
+           "launches_expected": want}
+    log(json.dumps(res))
+    if not (np.isfinite(results["giou"]) and np.isfinite(results["ciou"])
+            and results["seg_rate"] > 0
+            and all(launches[n] == c for n, c in want.items())):
+        raise SystemExit(f"the LISA validation failed: {res}")
+    return launches
+
+
+def tiny_lisa_card_and_cpu(work):
+    """The tiny chain: a LISA tree at 1/16 of the photo sizes, the tiny
+    training CLI on the mixture with TINY_LISA_CONVERSATIONS conversations
+    a row for TINY_LISA_STEPS steps on the card and on the CPU (one loader
+    thread, so both see the same batches), every step's loss terms held
+    within TINY_LISA_LOSS_RTOL; then both trained models' mask logits on
+    the CLI's first batch within TINY_LISA_LOGIT_TOL."""
+    t0 = time.perf_counter()
+    tree = os.path.join(work, "tree")
+    write_lisa_tree(tree, n_ade=4, n_refcoco=4, n_reason=4, n_vqa=2,
+                    scale=1 / 16)
+    argv = ["--tokenizer", "whitespace", "--model_scale", "tiny",
+            *LISA_MIXTURE, "--dataset_dir", tree,
+            "--image_size", str(TINY_SIZE), "--clip_size", "28",
+            "--model_max_length", "384", "--epochs", "1",
+            "--steps_per_epoch", str(TINY_LISA_STEPS), "--batch_size", "4",
+            "--num_conversations", str(TINY_LISA_CONVERSATIONS),
+            "--lr", "1e-3", "--warmup_steps", "2", "--no_eval",
+            "--log_base_dir", os.path.join(work, "runs"),
+            "--data_workers", "1", "--no_tensorboard"]
+    steps, masks, batch = {}, {}, None
+    for side, dev in SIDES.items():
+        trainer = train_cli.main(argv + ["--exp_name", side, "--device",
+                                         dev])
+        steps[side] = [{"loss": h["loss"], **h["loss_terms"],
+                        "rows": h["rows_by_task"]} for h in trainer.history]
+        if batch is None:
+            args = train_cli.parse_args(argv)
+            loader = train_cli.real_batch_iter(args, trainer.cfg,
+                                               trainer.tokenizer)
+            batch = next(loader)
+            loader.close()
+        with torch.inference_mode():
+            out = trainer.model.forward_train(to_device(batch, dev))
+        masks[side] = out["pred_masks"].float().cpu()
+        del trainer, out
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+              for a, b in zip(steps["card"], steps["cpu"]) for k in b
+              if k != "rows")
+    mask_diff = (masks["card"] - masks["cpu"]).abs().max().item()
+    res = {"phase": "lisa_tiny_chain", "s": time.perf_counter() - t0,
+           "conversations": TINY_LISA_CONVERSATIONS, "steps": steps,
+           "rows": int(batch["input_ids"].shape[0]),
+           "loss_max_rel_diff": rel, "loss_tol": TINY_LISA_LOSS_RTOL,
+           "mask_logit_max_diff": mask_diff,
+           "mask_logit_range": [masks["cpu"].min().item(),
+                                masks["cpu"].max().item()],
+           "mask_tol": TINY_LISA_LOGIT_TOL}
+    log(json.dumps(res))
+    if not (all(len(s) == TINY_LISA_STEPS for s in steps.values())
+            and [s["rows"] for s in steps["card"]]
+            == [s["rows"] for s in steps["cpu"]]
+            and res["rows"] == 4 * TINY_LISA_CONVERSATIONS
+            and rel <= TINY_LISA_LOSS_RTOL
+            and mask_diff <= TINY_LISA_LOGIT_TOL):
+        raise SystemExit(f"the tiny LISA chain failed: {res}")
+
+
+def lisa_workflow_phase():
+    """Phase 18: LISA's own mixture through the port's entry points: (1)
+    the LISA trees written on the host (LISA_TREE); (2) the training CLI at
+    the JAX trainer's 13B LoRA defaults on ``sem_seg_lisa||refer_seg_lisa
+    ||vqa||reason_seg`` at 9,3,3,1, B = LISA_B, LISA_WORKERS loader
+    threads, LISA_STEPS steps: each step's wall and data seconds, the
+    loader-wait share, its rows by task and by dataset, the loss terms,
+    kernels 1-5's launches and the peak GB, the step against phase 14's
+    DAMON CLI step in this run; (3) ``validate`` of one batch of ReasonSeg
+    rows; (4) the tiny chain card against CPU. Returns the CLI's
+    launches."""
+    t_phase = time.perf_counter()
+    work = os.path.join(WORKDIR, "lisa")
+    shutil.rmtree(work, ignore_errors=True)
+    tree = os.path.join(work, "tree")
+    t0 = time.perf_counter()
+    counts = write_lisa_tree(tree, **LISA_TREE)
+    log(json.dumps({"phase": "lisa_trees", "records": counts,
+                    "s": time.perf_counter() - t0,
+                    "bytes": sum(os.path.getsize(os.path.join(d, f))
+                                 for d, _, fs in os.walk(tree) for f in fs)}))
+
+    runs = os.path.join(work, "runs")
+    argv = ["--exp_name", "lisa-13b", *LISA_MIXTURE, "--model_scale", "full",
+            "--tokenizer", "whitespace", "--dataset_dir", tree,
+            "--data_workers", str(LISA_WORKERS), "--epochs", "1",
+            "--steps_per_epoch", str(LISA_STEPS),
+            "--batch_size", str(LISA_B), "--no_eval", "--save_every", "2",
+            "--log_base_dir", runs, "--no_tensorboard"]
+    trainer, cli_s, launches, peak_gb, loads = cli_train(argv)
+    hist = trainer.history
+    args = train_cli.parse_args(argv)
+    by_dataset = lisa_rows_by_dataset(args, LISA_STEPS)
+    want = train_launches_expected(trainer.cfg, LISA_STEPS)
+    steady = cli_step_ms(trainer)
+    damon = STEP_MS.get("damon_cli")
+    res = {"phase": "lisa_train", "argv": argv, "cli_s": cli_s,
+           "first_batch_s": trainer.first_batch_s,
+           "steps": [{"wall_s": h["batch_s"], "data_s": h["data_s"],
+                      "step_s": h["batch_s"] - h["data_s"],
+                      "loader_wait_share": h["loader_wait_share"],
+                      "rows_by_task": h["rows_by_task"],
+                      "rows_by_dataset": rows, "loss": h["loss"],
+                      "loss_terms": h["loss_terms"]}
+                     for h, rows in zip(hist, by_dataset)],
+           "step_ms_after_first": spread(steady),
+           "damon_cli_step_ms": damon,
+           "over_damon_cli": (float(np.median(steady)) / damon
+                              if damon else None),
+           "peak_gb": peak_gb,
+           "launches_per_step": {n: launches[n] / LISA_STEPS for n in
+                                 TRAINING_KERNELS + ("window_attention",
+                                                     "rel_attention")},
+           "image_loads": loads, "decoder": native_image.decoder()}
+    log(json.dumps(res))
+    checks = {
+        "steps": trainer.step.step == LISA_STEPS and len(hist) == LISA_STEPS,
+        "losses_finite": all(np.isfinite(h["loss"]) and all(
+            np.isfinite(v) for v in h["loss_terms"].values()) for h in hist),
+        "none_skipped": all(h["skipped_nonfinite"] == 0.0 for h in hist),
+        "launches_as_expected": launches == want,
+        "rows_per_batch": all(sum(h["rows_by_task"].values()) == LISA_B
+                              and sum(r.values()) == LISA_B
+                              for h, r in zip(hist, by_dataset)),
+        "seg_rows": any(r.get("sem_seg_lisa", 0) + r.get("refer_seg_lisa", 0)
+                        + r.get("reason_seg", 0) for r in by_dataset),
+    }
+    log(json.dumps({"phase": "lisa_train_checks", **checks,
+                    "expected": want, "launches": launches}))
+    if not all(checks.values()):
+        raise SystemExit(f"the LISA training CLI failed: {checks}")
+
+    model, tokenizer = trainer.model, trainer.tokenizer
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.requires_grad_(False)
+    with torch.inference_mode():
+        lisa_validate(model, tokenizer, args, tree)
+    del model, tokenizer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tiny_lisa_card_and_cpu(os.path.join(work, "tiny"))
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "lisa_workflow",
+                    "s": time.perf_counter() - t_phase}))
+    return launches
+
+
+# ------------------------------------------------------------ phase 19
+# the entry probes' twins at full width, iterations cut to fit the script's
+# time: each variant once after its warm-up (the train-step probe: four
+# windows of two steps, the first discarded), the data probe over 8 photos and one batch a count
+PROBE_ITERS = {"sam": 1, "int8": 2, "int4": 1, "decode": 2, "lift": 2}
+PROBE_TRAIN_ENV = {"PROBE_STEPS": "2", "PROBE_REPEATS": "3",
+                   "PROBE_LEGS": "1", "PROBE_LEG_STEPS": "1"}
+PROBE_DATA = dict(n_images=8, n_batches=1)
+PROBE_DATA_WORKERS = ["1", "8"]
+# the lift probe's two gather forms of one function, on the card
+PROBE_LIFT_TOL = 1e-5
+
+
+def sam_probe_launches(cfg):
+    """Each SAM probe variant's launches in one encode at ``cfg``'s
+    depth: the window and global kernels, or kernel 1 at the global
+    blocks without the bias, and the int8 linears' two-pass route."""
+    n_global = len(cfg.encoder_global_attn_indexes)
+    n_win = cfg.encoder_depth - n_global
+    int8 = 4 * cfg.encoder_depth  # qkv, proj, lin1, lin2 a block
+    attn = {"window_attention": n_win, "rel_attention": n_global}
+    two_pass = {"int8_matmul": int8, "int8_two_pass": int8,
+                "quantize_rows": int8, "int8_gemm": int8}
+    return {"full": attn, "gelutanh": attn,
+            "norel": {"flash_attention": n_global},
+            "int8": {**attn, **two_pass}, "int8erf": {**attn, **two_pass},
+            "noattn": {}, "noattn8": two_pass}
+
+
+def train_probe_launches_expected(cfg, env):
+    """The train-step probe's launches under ``env`` (PROBE_TRAIN_ENV): its
+    first step and its windows of steps (``train_launches_expected``) and,
+    with PROBE_LEGS, each leg's calls (its warm-up, then 3 windows of
+    PROBE_LEG_STEPS): the SAM encode alone, and the loss forward, which
+    encodes too and runs each LLaMA layer's and the SAM decoder's flash
+    forward once (no backward, no remat)."""
+    steps = 1 + (int(env["PROBE_REPEATS"]) + 1) * int(env["PROBE_STEPS"])
+    want = train_launches_expected(cfg, steps)
+    if env.get("PROBE_LEGS") != "1":
+        return want
+    calls = 1 + 3 * int(env["PROBE_LEG_STEPS"])
+    n_global = len(cfg.sam.encoder_global_attn_indexes)
+    n_win = cfg.sam.encoder_depth - n_global
+    for k, n in (("window_attention", n_win), ("rel_attention", n_global)):
+        route = k.split("_")[0] + "_routes"
+        want[k] += 2 * calls * n
+        want[route]["sm90"] += 2 * calls * n
+    want["flash_attention"] += calls * (cfg.llama.num_layers
+                                        + cfg.sam.decoder_depth)
+    return want
+
+
+def launches_between(before, after):
+    """``read_launches`` dicts: the launches made from one to the other."""
+    return {k: ({r: n - before[k][r] for r, n in v.items()}
+                if isinstance(v, dict) else v - before[k])
+            for k, v in after.items()}
+
+
+def entry_probes_phase():
+    """Phase 19: every entry probe twin through its ``main`` on the card
+    at full width (PROBE_ITERS), every variant's line printed; the launch
+    counts of each variant held (the SAM probe's by variant, the int8
+    matmuls by route) and the lift probe's two gather forms held to each
+    other. Returns the launches of the whole phase."""
+    t_phase = time.perf_counter()
+    checks, out = {}, {}
+    reset_launches()
+    t0 = time.perf_counter()
+    out["sam"] = sam_probe.main(list(sam_probe.VARIANTS),
+                                iters=PROBE_ITERS["sam"])
+    want = sam_probe_launches(sam_vit_h())
+    checks["sam"] = all(out["sam"][v]["launches"] == want[v] for v in want)
+    log(json.dumps({"phase": "probe_sam", "s": time.perf_counter() - t0,
+                    "variants": out["sam"], "launches_expected": want,
+                    "held": checks["sam"]}))
+
+    t0 = time.perf_counter()
+    out["int8"] = int8_probe.main(iters=PROBE_ITERS["int8"])
+    two_pass = {"int8_matmul": 1, "int8_two_pass": 1, "quantize_rows": 1,
+                "int8_gemm": 1}
+    checks["int8"] = all(r[v]["launches"] == two_pass
+                         for r in out["int8"].values()
+                         for v in ("pallas", "pallas_gelu"))
+    log(json.dumps({"phase": "probe_int8", "s": time.perf_counter() - t0,
+                    "shapes": out["int8"], "held": checks["int8"]}))
+
+    t0 = time.perf_counter()
+    out["int4"] = int4_probe.main(list(int4_probe.VARIANTS),
+                                  iters=PROBE_ITERS["int4"])
+    lc = llama_7b()
+    one = 7 * lc.num_layers
+    l4 = out["int4"]["launches"]
+    checks["int4"] = (all(l4[v] == {"int8_matmul": one,
+                                    "int8_one_launch": one}
+                          for v in ("int8", "int4_native", "int4_packed"))
+                      and l4["int4_grouped"]["quantize_rows"] == one
+                      and l4["int4_grouped_batched"]["int8_matmul_prequant"]
+                      == one)
+    log(json.dumps({"phase": "probe_int4", "s": time.perf_counter() - t0,
+                    **out["int4"], "held": checks["int4"]}))
+
+    t0 = time.perf_counter()
+    out["decode"] = decode_probe.main(list(decode_probe.VARIANTS),
+                                      iters=PROBE_ITERS["decode"])
+    ld = one + 1  # the lm_head too
+    checks["decode"] = all(
+        out["decode"][v]["launches"] == {"int8_matmul": ld,
+                                         "int8_one_launch": ld}
+        for v in ("matmul_floor", "step_full"))
+    log(json.dumps({"phase": "probe_decode", "s": time.perf_counter() - t0,
+                    "variants": out["decode"], "held": checks["decode"]}))
+
+    t0 = time.perf_counter()
+    out["lift"] = lift_probe.main(iters=PROBE_ITERS["lift"])
+    checks["lift"] = out["lift"]["lowres_vs_resize_gather"] <= PROBE_LIFT_TOL
+    log(json.dumps({"phase": "probe_lift", "s": time.perf_counter() - t0,
+                    **out["lift"], "tol": PROBE_LIFT_TOL,
+                    "held": checks["lift"]}))
+
+    t0 = time.perf_counter()
+    root = os.path.join(WORKDIR, "data_probe")
+    shutil.rmtree(root, ignore_errors=True)
+    out["data"] = data_probe.main(PROBE_DATA_WORKERS, root=root,
+                                  **PROBE_DATA)
+    shutil.rmtree(root, ignore_errors=True)
+    checks["data"] = all(out["data"][int(w)]["s_per_batch"] > 0
+                         for w in PROBE_DATA_WORKERS)
+    log(json.dumps({"phase": "probe_data", "s": time.perf_counter() - t0,
+                    **{str(k): v for k, v in out["data"].items()},
+                    "held": checks["data"]}))
+
+    t0 = time.perf_counter()
+    before = {k: os.environ.get(k) for k in PROBE_TRAIN_ENV}
+    os.environ.update(PROBE_TRAIN_ENV)
+    counts = read_launches()
+    try:
+        out["train_step"] = train_step_probe.main()
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    got = launches_between(counts, read_launches())
+    want = train_probe_launches_expected(
+        train_step_probe.build_config("7b", False, False, 4, True),
+        PROBE_TRAIN_ENV)
+    checks["train_step"] = got == want
+    log(json.dumps({"phase": "probe_train_step",
+                    "s": time.perf_counter() - t0, **out["train_step"],
+                    "launches": got, "launches_expected": want,
+                    "held": checks["train_step"]}))
+    launches = read_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "entry_probes", "checks": checks,
+                    "launches": launches,
+                    "s": time.perf_counter() - t_phase}))
+    if not all(checks.values()):
+        raise SystemExit(f"the entry probes failed: {checks}")
+    return launches
 
 
 def _reports_close(got, want):
@@ -5004,6 +5553,12 @@ def main() -> int:
                     "s": time.perf_counter() - t_start}))
     launches.update(distributed_phase())
     log(json.dumps({"phase": "distributed_done",
+                    "s": time.perf_counter() - t_start}))
+    launches["lisa_train"] = lisa_workflow_phase()
+    log(json.dumps({"phase": "lisa_workflow_done",
+                    "s": time.perf_counter() - t_start}))
+    launches["entry_probes"] = entry_probes_phase()
+    log(json.dumps({"phase": "entry_probes_done",
                     "s": time.perf_counter() - t_start}))
 
     rows = []

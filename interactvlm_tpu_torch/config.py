@@ -37,6 +37,13 @@ class SAMConfig:
     gelu_approx: bool = False
     # int8 encoder matmuls (qkv, proj, lin1, lin2 as Int8Linear)
     weights_int8: bool = False
+    # the encoder attention's decomposed rel-pos bias (the JAX Attention's
+    # ``use_rel_pos``); off, every block is a bias-free attention with no
+    # rel-pos tables
+    use_rel_pos: bool = True
+    # the SAM probe's knock-out: each encoder attention becomes the
+    # identity on the qkv's first third, then proj (no tables)
+    identity_attention: bool = False
 
     @property
     def image_embedding_size(self) -> int:

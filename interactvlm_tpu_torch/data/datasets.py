@@ -15,8 +15,11 @@ and builds it (``ds[idx]`` is ``ds.plan(idx)()``), so a loader can make
 every row's draws in row order in one thread and decode anywhere. PNGs
 decode through the native decoder
 (``runtime/native_image.load_rgb``: the same bytes as PIL's), other images
-through PIL. The LISA segmentation datasets are not ported yet:
-``build_dataset`` raises for them.
+through PIL. The LISA segmentation datasets (``ReferSegDataset``,
+``ReferSegLISADataset``, ``ReasonSegDataset``, ``SemSegDataset``,
+``SemSegLISADataset``) decode COCO RLE and fill polygons with the JAX
+package's own host code (``rle_decode``, ``fill_polygon``), and read label
+PNGs with PIL as they are ("L" or "P" mode).
 
 On-disk layout (the reference ``./data`` tree; ``datagen/recipes.py``
 writes it):
@@ -42,12 +45,14 @@ writes it):
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
 import os
 import pickle
 import random
 import threading
 from os.path import join
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -120,6 +125,7 @@ class BaseContactDataset:
         conv_type: str = "llava_v1",
         token_type: str = "Gen",
         rng: Optional[random.Random] = None,
+        num_classes_per_sample: int = 1,
     ):
         self.base_dir = base_dir
         self.view_set = view_set
@@ -128,6 +134,11 @@ class BaseContactDataset:
         self.conv_type = conv_type
         self.token_type = token_type
         self.rng = rng or random.Random(42)
+        # seg-style datasets sample up to this many classes per image and
+        # emit one conversation and mask per class (reference
+        # datasets/dataset.py:196); collate flattens them to rows sharing
+        # the image encode (collate.py:_collate_multiconv)
+        self.num_classes_per_sample = num_classes_per_sample
 
     def __getitem__(self, idx: int) -> Sample:
         return self.plan(idx)()
@@ -803,6 +814,514 @@ class ValDataset:
         return dataclasses.replace(s, inference=True)
 
 
+def rle_decode(rle: Dict) -> np.ndarray:
+    """Decode a COCO RLE mask, compressed (the LEB128-style string) or
+    uncompressed (a counts list), without pycocotools (reference
+    datasets/dataset.py:541-552). Column-major, as pycocotools gives it."""
+    h, w = rle["size"]
+    counts = rle["counts"]
+    if isinstance(counts, (bytes, str)):
+        if isinstance(counts, str):
+            counts = counts.encode()
+        decoded, i = [], 0
+        while i < len(counts):
+            x, k, more = 0, 0, True
+            while more:
+                c = counts[i] - 48
+                x |= (c & 0x1F) << (5 * k)
+                more = bool(c & 0x20)
+                i += 1
+                k += 1
+            if x & (1 << (5 * k - 1)):
+                x |= -1 << (5 * k)
+            if len(decoded) > 2:
+                x += decoded[-2]
+            decoded.append(x)
+        counts = decoded
+    mask = np.zeros(h * w, np.uint8)
+    pos, val = 0, 0
+    for c in counts:
+        if val:
+            mask[pos : pos + c] = 1
+        pos += c
+        val ^= 1
+    return mask.reshape(w, h).T
+
+
+def fill_polygon(points, height: int, width: int) -> np.ndarray:
+    """Scanline polygon fill (the host-side stand-in for cv2's fillPoly in
+    the reference ReasonSeg mask code, utils/data_processing.py):
+    sampled at row centres ``y + 0.5``, the half-open crossing rule, and
+    pixels ``ceil(a - 0.5)`` to ``ceil(b - 0.5)`` of each span."""
+    pts = np.asarray(points, np.float64).reshape(-1, 2)
+    mask = np.zeros((height, width), np.uint8)
+    if len(pts) < 3:
+        return mask
+    ys = np.arange(height) + 0.5
+    x0 = pts[:, 0]
+    y0 = pts[:, 1]
+    x1 = np.roll(x0, -1)
+    y1 = np.roll(y0, -1)
+    for yi, y in enumerate(ys):
+        crosses = ((y0 <= y) & (y1 > y)) | ((y1 <= y) & (y0 > y))
+        if not crosses.any():
+            continue
+        xs = x0[crosses] + (y - y0[crosses]) / (
+            y1[crosses] - y0[crosses]
+        ) * (x1[crosses] - x0[crosses])
+        xs = np.sort(xs)
+        for a, b in zip(xs[0::2], xs[1::2]):
+            lo = max(int(np.ceil(a - 0.5)), 0)
+            hi = min(int(np.ceil(b - 0.5)), width)
+            if hi > lo:
+                mask[yi, lo:hi] = 1
+    return mask
+
+
+def _coco_ann_to_mask(ann: Dict, h: int, w: int) -> np.ndarray:
+    """COCO annotation -> binary mask without pycocotools (annToMask): a
+    dict segmentation through ``rle_decode``, a polygon list as the union
+    of ``fill_polygon``s."""
+    seg = ann["segmentation"]
+    if isinstance(seg, dict):
+        return rle_decode(seg).astype(np.float32)
+    mask = np.zeros((h, w), np.float32)
+    for poly in seg:
+        mask = np.maximum(mask, fill_polygon(poly, h, w))
+    return mask
+
+
+def _read_label_png(path: str) -> np.ndarray:
+    """A label PNG as PIL reads it, unconverted ("L" or "P" ids)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+class _SegDataset(BaseContactDataset):
+    """The LISA segmentation datasets' shared plan: the draws of the
+    sampled items, then per item a question and an answer; the build
+    reads the photo and makes the single-view sample with one
+    conversation and mask per item."""
+
+    def _pick(self, items: Sequence) -> list:
+        """Up to ``num_classes_per_sample`` of ``items``: ``sample`` when
+        more than one, else one ``choice``."""
+        n = min(self.num_classes_per_sample, len(items))
+        return self.rng.sample(items, n) if n > 1 else [
+            self.rng.choice(items)]
+
+    def _short_qa(self, name: str):
+        q = self.rng.choice(C.SHORT_QUESTION_LIST).format(
+            class_name=name.lower())
+        a = self.rng.choice(C.ANSWER_LIST)
+        return build_conversation(q, a, self.conv_type), q
+
+    def _sample(self, img_path: str, img: np.ndarray, convs, questions,
+                names, masks, label) -> Sample:
+        sam_img, resize = sam_preprocess(img, self.image_size)
+        return Sample(
+            image_path=img_path,
+            sam_images=sam_img[None],
+            image_clip=clip_preprocess(img, self.clip_size),
+            conversations=list(convs),
+            masks=np.stack([sam_label_preprocess(m, self.image_size)
+                            for m in masks]),
+            label=label,
+            gt_contact_3d=np.zeros(1, np.float32),
+            cam_params=np.zeros((1, 5), np.float32),
+            resize=resize,
+            questions=list(questions),
+            sampled_classes=list(names),
+            ds_name=self.ds_name,
+            mask_paths=[],
+        )
+
+
+class ReferSegDataset(_SegDataset):
+    """LISA-legacy referring segmentation (refclef/refcoco/+/g; reference
+    ``datasets/refer_seg_dataset.py``) over an index of records carrying
+    an RLE mask or a mask PNG.
+
+    index.pkl: {split: [{image, class_name/sent, mask_rle | mask_file}]}
+    """
+
+    ds_name = "refer_seg"
+
+    def __init__(self, base_dir: str, dataset: str = "refcoco",
+                 split: str = "train",
+                 view_type: str = "4MV-Z_Vitru_mv2", **kw):
+        super().__init__(base_dir, HUMAN_VIEWS[view_type], **kw)
+        self.folder = join(base_dir, "refer_seg", dataset)
+        self.samples = _load_pickle(join(self.folder, "index.pkl"))[split]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def plan(self, idx: int) -> Callable[[], Sample]:
+        rec = self.samples[idx]
+        sent = rec.get("sent") or rec["class_name"]
+        conv, q = self._short_qa(sent)
+
+        def build() -> Sample:
+            img_path = join(self.base_dir, "images", rec["image"])
+            if "mask_rle" in rec:
+                mask = rle_decode(rec["mask_rle"]).astype(np.float32)
+            else:
+                from PIL import Image
+
+                with Image.open(join(self.folder, "masks",
+                                     rec["mask_file"])) as im:
+                    mask = (np.asarray(im.convert("L")) >= 128).astype(
+                        np.float32)
+            return self._sample(img_path, load_rgb(img_path), [conv], [q],
+                                [sent], [mask], mask)
+
+        return build
+
+
+class ReferSegLISADataset(_SegDataset):
+    """Referring segmentation over the REAL REFER corpora layout
+    (reference ``datasets/refer_seg_dataset.py`` + the REFER/G_REFER API):
+    ``refer_seg/{ds}/refs({splitBy}).p`` pickles + ``instances.json``
+    COCO-style annotations; images under ``images/saiapr_tc-12`` (refclef)
+    or ``images/mscoco/images/train2014`` (refcoco/+/g).
+
+    splitBy follows the reference: umd for refcocog, unc otherwise
+    (refer_seg_dataset.py:57-61). grefcoco refs carry ann_id LISTS whose
+    masks are unioned; empty lists (no-target) give a zero mask. Records
+    are the images in sorted id order.
+    """
+
+    ds_name = "refer_seg"
+
+    def __init__(self, base_dir: str, dataset: str = "refcoco",
+                 split: str = "train",
+                 view_type: str = "4MV-Z_Vitru_mv2", **kw):
+        super().__init__(base_dir, HUMAN_VIEWS[view_type], **kw)
+        self.dataset = dataset
+        data_dir = join(base_dir, "refer_seg")
+        split_by = "umd" if dataset == "refcocog" else "unc"
+        refs = _load_pickle(join(data_dir, dataset, f"refs({split_by}).p"))
+        with open(join(data_dir, dataset, "instances.json")) as f:
+            inst = json.load(f)
+        self.anns = {a["id"]: a for a in inst["annotations"]}
+        img_info = {im["id"]: im for im in inst["images"]}
+        if dataset == "refclef":
+            img_root = join(data_dir, "images", "saiapr_tc-12")
+        else:
+            img_root = join(data_dir, "images", "mscoco", "images",
+                            "train2014")
+        self.img2refs: Dict = {}
+        for ref in refs:
+            if ref.get("split", "train") != split:
+                continue
+            self.img2refs.setdefault(ref["image_id"], []).append(ref)
+        self.records = [
+            (join(img_root, img_info[i]["file_name"]),
+             img_info[i]["height"], img_info[i]["width"], i)
+            for i in sorted(self.img2refs) if i in img_info
+        ]
+
+    def __len__(self):
+        return len(self.records)
+
+    def _ref_mask(self, ref, h: int, w: int) -> np.ndarray:
+        ann_ids = ref["ann_id"]
+        if not isinstance(ann_ids, list):  # REFER; G_REFER uses lists
+            ann_ids = [ann_ids]
+        mask = np.zeros((h, w), np.float32)
+        for aid in ann_ids:  # empty (grefcoco no-target) -> zero mask
+            if aid in self.anns and self.anns[aid].get("segmentation"):
+                mask = np.maximum(mask,
+                                  _coco_ann_to_mask(self.anns[aid], h, w))
+        return mask
+
+    def plan(self, idx: int) -> Callable[[], Sample]:
+        img_path, h, w, image_id = self.records[idx]
+        picked, sents, convs, questions = [], [], [], []
+        for ref in self._pick(self.img2refs[image_id]):
+            sent = self.rng.choice(ref["sentences"])["sent"]
+            conv, q = self._short_qa(sent)
+            picked.append(ref)
+            sents.append(sent)
+            convs.append(conv)
+            questions.append(q)
+
+        def build() -> Sample:
+            masks = [self._ref_mask(ref, h, w) for ref in picked]
+            return self._sample(img_path, load_rgb(img_path), convs,
+                                questions, sents, masks, masks[0])
+
+        return build
+
+
+class ReasonSegDataset(_SegDataset):
+    """LISA-legacy reasoning segmentation (reference
+    ``datasets/reason_seg_dataset.py``): polygon annotations, long
+    explanatory questions and the explanatory-answer mix.
+
+    index.pkl: {split: [{image, sent, polygons: [[x,y,...], ...],
+    is_sentence: bool, explanation?: str}]}
+    """
+
+    ds_name = "reason_seg"
+
+    def __init__(self, base_dir: str, split: str = "train",
+                 view_type: str = "4MV-Z_Vitru_mv2",
+                 explanatory: float = 0.1, **kw):
+        super().__init__(base_dir, HUMAN_VIEWS[view_type], **kw)
+        self.folder = join(base_dir, "reason_seg")
+        self.explanatory = explanatory
+        self.samples = _load_pickle(join(self.folder, "index.pkl"))[split]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def plan(self, idx: int) -> Callable[[], Sample]:
+        rec = self.samples[idx]
+        sent = rec["sent"]
+        if rec.get("is_sentence"):
+            q = self.rng.choice(C.LONG_QUESTION_LIST).format(sent=sent)
+        else:
+            q = self.rng.choice(C.SHORT_QUESTION_LIST).format(
+                class_name=sent.lower())
+        a = self.rng.choice(C.ANSWER_LIST)
+        # explanatory-QA mix (reference reason_seg_dataset.py:136-180):
+        # 0 = [SEG]-only, 1 = [SEG] + explanation text (the question asks
+        # for it), 2 = the explanation alone, without a seg token
+        explanation = rec.get("explanation")
+        if self.explanatory != -1 and explanation:
+            if self.rng.random() < self.explanatory:
+                choice = 2
+            else:
+                choice = self.rng.randint(0, 1)
+            if choice == 1:
+                q = q + " " + self.rng.choice(C.EXPLANATORY_QUESTION_LIST)
+                a = a + " " + explanation
+            elif choice == 2:
+                a = explanation
+        conv = build_conversation(q, a, self.conv_type)
+
+        def build() -> Sample:
+            img_path = join(self.base_dir, "images", rec["image"])
+            img = load_rgb(img_path)
+            H, W = img.shape[:2]
+            mask = np.zeros((H, W), np.float32)
+            for poly in rec["polygons"]:
+                mask = np.maximum(mask, fill_polygon(poly, H, W))
+            return self._sample(img_path, img, [conv], [q], [sent], [mask],
+                                mask)
+
+        return build
+
+
+class SemSegDataset(_SegDataset):
+    """LISA-legacy semantic segmentation (ADE20K/COCO-Stuff-style;
+    reference ``datasets/sem_seg_dataset.py``) over an index of records
+    with a label PNG of class ids.
+
+    index.pkl: {split: [{image, label_file, classes: {name: class_id}}]}
+    """
+
+    ds_name = "sem_seg"
+
+    def __init__(self, base_dir: str, dataset: str = "ade20k",
+                 split: str = "train",
+                 view_type: str = "4MV-Z_Vitru_mv2", **kw):
+        super().__init__(base_dir, HUMAN_VIEWS[view_type], **kw)
+        self.folder = join(base_dir, "sem_seg", dataset)
+        self.samples = _load_pickle(join(self.folder, "index.pkl"))[split]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def plan(self, idx: int) -> Callable[[], Sample]:
+        rec = self.samples[idx]
+        names = self._pick(sorted(rec["classes"]))
+        qa = [self._short_qa(name) for name in names]
+
+        def build() -> Sample:
+            img_path = join(self.base_dir, "images", rec["image"])
+            label_ids = _read_label_png(
+                join(self.folder, "labels", rec["label_file"]))
+            masks = [(label_ids == rec["classes"][name]).astype(np.float32)
+                     for name in names]
+            return self._sample(img_path, load_rgb(img_path),
+                                [c for c, _ in qa], [q for _, q in qa],
+                                names, masks, masks[0])
+
+        return build
+
+
+class SemSegLISADataset(_SegDataset):
+    """LISA-legacy semantic segmentation over the REAL dataset layouts
+    (reference ``datasets/sem_seg_dataset.py``): ade20k / cocostuff /
+    mapillary id-map PNGs and the paco_lvis / pascal_part COCO-style part
+    annotations, with the reference's label remaps and class naming.
+
+    An item whose remapped label map is all-ignore falls through to the
+    next (bounded by one pass over the dataset; the reference restarts at
+    item 0, :263-265). The plan decodes the label PNGs it scans, since the
+    classes it draws from are the ones present; the photo is read by the
+    build.
+    """
+
+    ds_name = "sem_seg"
+    IGNORE = 255
+
+    def __init__(self, base_dir: str, dataset: str = "ade20k",
+                 view_type: str = "4MV-Z_Vitru_mv2", split: str = "train",
+                 **kw):
+        super().__init__(base_dir, HUMAN_VIEWS[view_type], **kw)
+        # the reference inits hardcode the training splits of these corpora
+        # (sem_seg_dataset.py:39-124): the split is accepted for
+        # build_dataset's uniformity and selects the same records
+        self.split = split
+        self.dataset = dataset
+        if dataset == "ade20k":
+            # init_ade20k (:39-67): class json + paired images/training <->
+            # annotations/training PNGs
+            with open(join(base_dir, "ade20k", "ade20k_classes.json")) as f:
+                self.classes = json.load(f)
+            img_dir = join(base_dir, "ade20k", "images", "training")
+            self.images = sorted(
+                join(img_dir, x) for x in os.listdir(img_dir)
+                if x.endswith(".jpg"))
+            self.labels = [
+                x.replace(".jpg", ".png").replace("images", "annotations")
+                for x in self.images]
+        elif dataset == "cocostuff":
+            # init_cocostuff (:69-86): "id: name" txt (first line skipped),
+            # label PNGs under cocostuff/train2017, images under coco/
+            with open(join(base_dir, "cocostuff",
+                           "cocostuff_classes.txt")) as f:
+                self.classes = [line.strip().split(": ")[-1]
+                                for line in f.readlines()[1:]]
+            self.labels = sorted(glob.glob(
+                join(base_dir, "cocostuff", "train2017", "*.png")))
+            self.images = [
+                x.replace(".png", ".jpg").replace("cocostuff", "coco")
+                for x in self.labels]
+            # multi-word "-" classes are unsegmentable -> ignored (:254-256)
+            self.coco_ignore_ids = {
+                i for i, c in enumerate(self.classes) if "-" in c}
+        elif dataset == "mapillary":
+            # init_mapillary (:20-36): config_v2.0.json readable names
+            with open(join(base_dir, "mapillary", "config_v2.0.json")) as f:
+                self.classes = [x["readable"].lower()
+                                for x in json.load(f)["labels"]]
+            self.labels = sorted(glob.glob(join(
+                base_dir, "mapillary", "training", "v2.0", "labels",
+                "*.png")))
+            self.images = [
+                x.replace(".png", ".jpg").replace("v2.0/labels", "images")
+                for x in self.labels]
+        elif dataset in ("paco_lvis", "pascal_part"):
+            # init_paco_lvis (:88-110) / init_pascal_part (:113-124):
+            # COCO-style json; "obj:part" names with "_(...)" stripped
+            if dataset == "paco_lvis":
+                ann_json = join(base_dir, "vlpart", "paco", "annotations",
+                                "paco_lvis_v1_train.json")
+            else:
+                ann_json = join(base_dir, "vlpart", "pascal_part",
+                                "train.json")
+            with open(ann_json) as f:
+                coco = json.load(f)
+            self.class_map = {}
+            for cat in coco["categories"]:
+                parts = cat["name"].strip().split(":")
+                if len(parts) == 1:
+                    self.class_map[cat["id"]] = parts[0].split("_(")[0]
+                else:
+                    obj, part = parts
+                    self.class_map[cat["id"]] = (
+                        obj.split("_(")[0], part.split("_(")[0])
+            self.img_info = {im["id"]: im for im in coco["images"]}
+            self.img_anns: Dict = {}
+            for ann in coco["annotations"]:
+                self.img_anns.setdefault(ann["image_id"], []).append(ann)
+            self.img_ids = [i for i in self.img_info if self.img_anns.get(i)]
+        else:
+            raise ValueError(f"unknown sem_seg dataset {dataset!r}")
+
+    def __len__(self):
+        if self.dataset in ("paco_lvis", "pascal_part"):
+            return len(self.img_ids)
+        return len(self.images)
+
+    def _remap(self, label: np.ndarray) -> np.ndarray:
+        lab = label.astype(np.int32)
+        if self.dataset == "ade20k":
+            # 0 = unlabeled -> ignore; ids shift down by 1 (:245-248)
+            lab[lab == 0] = self.IGNORE + 1
+            lab = lab - 1
+            lab[lab == 254] = self.IGNORE
+        elif self.dataset == "cocostuff":
+            for i in self.coco_ignore_ids:
+                lab[lab == i] = self.IGNORE
+        return lab
+
+    def plan(self, idx: int) -> Callable[[], Sample]:
+        if self.dataset in ("paco_lvis", "pascal_part"):
+            return self._plan_parts(idx)
+        present = []
+        for _ in range(len(self)):
+            lab = self._remap(_read_label_png(self.labels[idx]))
+            present = [int(c) for c in np.unique(lab) if c != self.IGNORE]
+            if present:
+                break
+            idx = (idx + 1) % len(self)
+        if not present:
+            raise ValueError(
+                f"sem_seg {self.dataset}: every label map is all-ignore")
+        ids = self._pick(present)
+        names = [self.classes[cid] for cid in ids]
+        qa = [self._short_qa(name) for name in names]
+        img_path = self.images[idx]
+
+        def build() -> Sample:
+            masks = [(lab == cid).astype(np.float32) for cid in ids]
+            return self._sample(img_path, load_rgb(img_path),
+                                [c for c, _ in qa], [q for _, q in qa],
+                                names, masks, masks[0])
+
+        return build
+
+    def _plan_parts(self, idx: int) -> Callable[[], Sample]:
+        img_id = self.img_ids[idx]
+        info = self.img_info[img_id]
+        if self.dataset == "pascal_part":
+            # images under VOCdevkit (sem_seg_dataset.py:200-205)
+            img_path = join(self.base_dir, "vlpart", "pascal_part",
+                            "VOCdevkit", "VOC2010", "JPEGImages",
+                            info["file_name"])
+        else:
+            img_path = join(self.base_dir, "coco", info["file_name"])
+        picked = self._pick(self.img_anns[img_id])
+        names = []
+        for ann in picked:
+            cls = self.class_map[ann["category_id"]]
+            if isinstance(cls, tuple):
+                obj, part = cls
+                # 50/50 phrase forms (:229-235)
+                names.append(obj + " " + part if self.rng.random() < 0.5
+                             else f"the {part} of the {obj}")
+            else:
+                names.append(cls)
+        qa = [self._short_qa(name) for name in names]
+
+        def build() -> Sample:
+            img = load_rgb(img_path)
+            masks = [_coco_ann_to_mask(ann, img.shape[0], img.shape[1])
+                     for ann in picked]
+            return self._sample(img_path, img, [c for c, _ in qa],
+                                [q for _, q in qa], names, masks, masks[0])
+
+        return build
+
+
 DATASET_REGISTRY = {
     "hcontact": HContactDataset,
     "hcontact_scene": HContactSceneDataset,
@@ -810,12 +1329,11 @@ DATASET_REGISTRY = {
     "ocontact": OContactDataset,
     "h2dcontact": H2DContactDataset,
     "vqa": VQADataset,
-}
-# the JAX package's other datasets and the ROADMAP item that ports them
-UNPORTED = {
-    name: "ROADMAP Queue A item 2 (the LISA datasets)"
-    for name in ("refer_seg", "refer_seg_lisa", "reason_seg", "sem_seg",
-                 "sem_seg_lisa")
+    "refer_seg": ReferSegDataset,
+    "refer_seg_lisa": ReferSegLISADataset,
+    "reason_seg": ReasonSegDataset,
+    "sem_seg": SemSegDataset,
+    "sem_seg_lisa": SemSegLISADataset,
 }
 
 # datasets whose choice()/sample() calls only ever pick QUESTION/ANSWER
@@ -841,13 +1359,8 @@ def build_dataset(name: str, base_dir: str, split: str, args):
     scored hcontact_scene with the wrong prompt family and dropped the
     hcontact view_type from the eval CLI.
 
-    Names the port has no dataset for yet raise ``NotImplementedError``
-    with the ROADMAP item that ports them; ``fixed_templates`` on a set
-    outside ``FIXED_TEMPLATE_SAFE`` raises ``ValueError``."""
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"dataset '{name}' is not ported to interactvlm_tpu_torch yet: "
-            f"{UNPORTED[name]}")
+    ``fixed_templates`` on a set outside ``FIXED_TEMPLATE_SAFE`` raises
+    ``ValueError``."""
     ctor = DATASET_REGISTRY[name]
     kw = dict(
         image_size=args.image_size, clip_size=args.clip_size, split=split
@@ -882,6 +1395,10 @@ def build_dataset(name: str, base_dir: str, split: str, args):
         vt = getattr(args, "oC_sam_view_type", None)
         if vt and "BM" in vt:
             kw["view_type"] = vt
+    if getattr(args, "num_conversations", 1) > 1 and name in (
+        "sem_seg", "sem_seg_lisa", "refer_seg", "refer_seg_lisa"
+    ):
+        kw["num_classes_per_sample"] = args.num_conversations
     ds = ctor(base_dir, **kw)
     if getattr(args, "fixed_templates", False):
         if name not in FIXED_TEMPLATE_SAFE:

@@ -165,7 +165,14 @@ def lift_multiview_soft_gather(logits, gather_idx, gather_w):
     N, K = gather_idx.shape[1:]
     probs = torch.sigmoid(logits.float().clamp(-20.0, 20.0)).reshape(V, -1)
     vals = torch.gather(probs, 1, gather_idx.reshape(V, N * K).long())
-    votes = (vals.reshape(V, N, K) * gather_w).sum(-1)
+    return _gathered_vote(vals.reshape(V, N, K), gather_w)
+
+
+def _gathered_vote(vals, gather_w):
+    """(V, N, K) gathered probabilities and their weights -> (N,): each
+    view's weighted mean, then the mean over the views that saw the
+    vertex, clipped to [0, 1]."""
+    votes = (vals * gather_w).sum(-1)
     wsum = gather_w.sum(-1)
     seen = wsum > 0
     view_vote = torch.where(seen, votes / torch.where(seen, wsum, 1.0), 0.0)
@@ -174,6 +181,48 @@ def lift_multiview_soft_gather(logits, gather_idx, gather_w):
     out = torch.where(count > 0, total / torch.where(count > 0, count, 1.0),
                       0.0)
     return out.clamp(0.0, 1.0)
+
+
+def lift_multiview_soft_gather_lowres(low_logits, gather_idx, gather_w,
+                                      full_hw):
+    """``lift_multiview_soft_gather`` of the bilinearly upsampled
+    ``low_logits`` without making the (V, H, W) full-resolution masks: the
+    upsample is evaluated at the gathered pixels only, as four taps of the
+    low-res logits in ``jax.image.resize``'s half-pixel convention
+    (``in = (out + 0.5) * h / H - 0.5``, each corner clipped to the grid).
+    Sigmoid and the clip come after the interpolation, as on the full-res
+    path. f32 throughout.
+
+    low_logits: (V, h, w); gather_idx/w: (V, N, K) from
+    ``build_gather_maps`` at ``full_hw = (H, W)``. Returns (N,)."""
+    V, h, w = low_logits.shape
+    H, W = full_hw
+    low = low_logits.float().reshape(V, h * w)
+    idx = gather_idx.long()
+    y = idx // W
+    x = idx % W
+    ly = (y.float() + 0.5) * (h / H) - 0.5
+    lx = (x.float() + 0.5) * (w / W) - 0.5
+    y0f = torch.floor(ly)
+    x0f = torch.floor(lx)
+    fy = ly - y0f
+    fx = lx - x0f
+    y0 = y0f.long()
+    x0 = x0f.long()
+    y1 = (y0 + 1).clamp(0, h - 1)
+    x1 = (x0 + 1).clamp(0, w - 1)
+    y0 = y0.clamp(0, h - 1)
+    x0 = x0.clamp(0, w - 1)
+    N, K = idx.shape[1:]
+
+    def tap(i):
+        return torch.gather(low, 1, i.reshape(V, N * K)).reshape(V, N, K)
+
+    v00, v01 = tap(y0 * w + x0), tap(y0 * w + x1)
+    v10, v11 = tap(y1 * w + x0), tap(y1 * w + x1)
+    logit = ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+             + fy * ((1 - fx) * v10 + fx * v11))
+    return _gathered_vote(torch.sigmoid(logit.clamp(-20.0, 20.0)), gather_w)
 
 
 def _flat_ids_and_weights(p2v3, bary3, num_views: int, num_vertices: int,

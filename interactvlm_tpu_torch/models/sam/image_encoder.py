@@ -11,7 +11,11 @@ the window attention, as the JAX package routes them on the TPU
 its plain version. Under ``SAMConfig.weights_int8`` the qkv, proj, lin1
 and lin2 linears are ``Int8Linear`` with a separate f32 bias, and lin1
 carries the GELU (tanh under ``gelu_approx``) in the int8 kernel's epilogue
-(``image_encoder.py:23-64``).
+(``image_encoder.py:23-64``). With ``SAMConfig.use_rel_pos`` off (the JAX
+Attention's field) the attention takes no bias and goes through
+``dot_product_attention``: the 64x64 global blocks (4096 queries, head dim
+80 zero-padded to 128) to the flash kernel on CUDA, the 14x14 windows to
+the plain attention, as the JAX package routes them.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 
 from interactvlm_tpu_torch.config import SAMConfig
 from interactvlm_tpu_torch.models.layers import Int8Linear, LayerNorm, Linear
+from interactvlm_tpu_torch.ops.attention import dot_product_attention
 from interactvlm_tpu_torch.ops.sam_attention import (
     fused_rel_attention,
     fused_window_attention,
@@ -85,26 +90,37 @@ def encoder_linear(in_features: int, out_features: int, int8: bool, dtype,
 
 
 class Attention(nn.Module):
-    """Multi-head attention with decomposed relative position bias."""
+    """Multi-head attention with decomposed relative position bias (none
+    without ``use_rel_pos``; ``identity`` is the probe's knock-out: the
+    qkv's first third straight to proj)."""
 
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int],
-                 dtype, device, int8: bool = False):
+                 dtype, device, int8: bool = False, use_rel_pos: bool = True,
+                 identity: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.use_rel_pos = use_rel_pos and not identity
+        self.identity = identity
         head_dim = dim // num_heads
         kw = dict(dtype=dtype, device=device)
         self.qkv = encoder_linear(dim, dim * 3, int8, dtype, device)
         self.proj = encoder_linear(dim, dim, int8, dtype, device)
-        self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1,
-                                                  head_dim, **kw))
-        self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1,
-                                                  head_dim, **kw))
+        if self.use_rel_pos:
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1,
+                                                      head_dim, **kw))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1,
+                                                      head_dim, **kw))
 
     def forward(self, x):
         B, H, W, C = x.shape
+        if self.identity:
+            return self.proj(self.qkv(x)[..., :C].contiguous())
         hd = C // self.num_heads
         qkv = self.qkv(x).reshape(B, H * W, 3, self.num_heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, nH, HW, hd)
+        if not self.use_rel_pos:
+            out = dot_product_attention(q, k, v, scale=hd ** -0.5)
+            return self.proj(out.transpose(1, 2).reshape(B, H, W, C))
         rh = self.rel_pos_h.to(q.dtype)
         rw = self.rel_pos_w.to(q.dtype)
         if H * W >= GLOBAL_KERNEL_MIN_TOKENS:
@@ -142,7 +158,8 @@ class Block(nn.Module):
         kw = dict(dtype=cfg.dtype, device=device)
         self.norm1 = LayerNorm(dim, eps=LN_EPS, **kw)
         self.attn = Attention(dim, cfg.encoder_num_heads, size, cfg.dtype,
-                              device, cfg.weights_int8)
+                              device, cfg.weights_int8, cfg.use_rel_pos,
+                              cfg.identity_attention)
         self.norm2 = LayerNorm(dim, eps=LN_EPS, **kw)
         self.mlp = MLPBlock(dim, int(dim * cfg.mlp_ratio), cfg.gelu_approx,
                             cfg.dtype, device, cfg.weights_int8)

@@ -288,7 +288,24 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def padded_head_dim(D: int) -> int:
+    """The head dim the kernel runs a head dim D at: the least of
+    ``KERNEL_HEAD_DIMS`` not below D (SAM's 80 runs at 128, as the JAX
+    kernel pads every head dim to its 128 lanes); D itself above them."""
+    return next((d for d in KERNEL_HEAD_DIMS if d >= D), D)
+
+
 def flash_attention(q, k, v, causal=False, scale=None, kv_lengths=None):
     """Flash attention over (B, H, L, D), the output only, differentiable
-    in q, k and v through ``FlashAttention``."""
-    return FlashAttention.apply(q, k, v, causal, scale, kv_lengths)
+    in q, k and v through ``FlashAttention``. A head dim between the
+    kernel's is zero-padded to ``padded_head_dim`` (the logits and the
+    kept columns do not change; the scale stays D^-1/2) and the output cut
+    back."""
+    D = q.shape[-1]
+    Dp = padded_head_dim(D)
+    if Dp == D:
+        return FlashAttention.apply(q, k, v, causal, scale, kv_lengths)
+    scale = D ** -0.5 if scale is None else scale
+    q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, causal, scale,
+                                kv_lengths)[..., :D]

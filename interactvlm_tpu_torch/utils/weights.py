@@ -224,8 +224,9 @@ def _sam(t, prefix, sd):
         _ln(blk["norm2"], bp + "norm2.", sd)
         _dense(blk["attn"]["qkv"], bp + "attn.qkv.", sd)
         _dense(blk["attn"]["proj"], bp + "attn.proj.", sd)
-        sd[bp + "attn.rel_pos_h"] = _t(blk["attn"]["rel_pos_h"])
-        sd[bp + "attn.rel_pos_w"] = _t(blk["attn"]["rel_pos_w"])
+        for tab in ("rel_pos_h", "rel_pos_w"):  # none without use_rel_pos
+            if tab in blk["attn"]:
+                sd[bp + "attn." + tab] = _t(blk["attn"][tab])
         _dense(blk["mlp"]["lin1"], bp + "mlp.lin1.", sd)
         _dense(blk["mlp"]["lin2"], bp + "mlp.lin2.", sd)
     _conv(e["neck_conv1"], p + "neck.0.", sd)

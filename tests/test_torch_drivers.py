@@ -249,6 +249,44 @@ def test_evaluate_batch_and_validate_match_jax(setup, jax_run):
             assert tsaved["objnames"] == jsaved["objnames"]
 
 
+def test_validate_scores_lisa_rows_as_jax(setup, jax_run, tmp_path):
+    """``validate`` on ReasonSeg val rows (a 2D task: gIoU and cIoU of
+    the masks in the photo's own frame, one view repeated to V) against
+    the JAX package's, from the forced weights, both inference types; the
+    REFER rows in the forward type."""
+    from interactvlm_tpu_torch.utils.lisa_tree import write_lisa_tree
+
+    lisa = str(tmp_path / "lisa")
+    write_lisa_tree(lisa, n_ade=2, n_refcoco=2, n_reason=4, n_vqa=1,
+                    scale=1 / 16)
+    args = JTR.parse_args([a for a in cli_args(lisa)
+                           if a != "--fixed_templates"])
+    jm, jcfg = setup["jm"], setup["jcfg"]
+    tm = port_model(setup, setup["forced"])
+    forced = jax_run[1]
+    jt, pt = _tokenizers()
+    for name in ("reason_seg", "refer_seg_lisa"):
+        jds = JD.ValDataset(JD.build_dataset(name, lisa, "val", args))
+        tds = TD.ValDataset(TD.build_dataset(name, lisa, "val", args))
+        jb = JC.collate([jds[i % len(jds)] for i in range(2)], jt,
+                        max_len=384)
+        tb = TC.collate([tds[i % len(tds)] for i in range(2)], pt,
+                        max_len=384)
+        assert tb[0]["task_ids"].tolist() == [1, 1]
+        types = ("generate", "forward") if name == "reason_seg" else (
+            "forward",)
+        for itype in types:
+            jres, _ = JE.validate(iter([jb]), jm, forced, jcfg, name, S,
+                                  inference_type=itype, max_new_tokens=8)
+            tres, _ = TE.validate(iter([tb]), tm, name, S,
+                                  inference_type=itype, max_new_tokens=8)
+            assert tres.keys() == jres.keys() >= {"giou", "ciou"}
+            for k in jres:
+                assert abs(tres[k] - jres[k]) <= METRIC_TOL, (name, itype, k)
+            if itype == "generate":
+                assert tres["seg_rate"] == 1.0
+
+
 def test_validate_warns_on_ocontact_without_targets(setup):
     tm = port_model(setup, setup["params"])
     _, tb, _ = val_batches(setup, n=1)
@@ -317,6 +355,9 @@ def test_eval_cli_matches_jax_on_the_same_weights(setup, jax_run, tmp_path):
 
 
 def test_unported_options_raise_with_their_roadmap_item(setup, tmp_path):
+    """The distributed options in one plain process say how to launch
+    them, and the LISA datasets, which raised until the port had them,
+    train through the CLI."""
     # the distributed options run under a launcher (tests/
     # test_torch_distributed.py); in one plain process they say how to
     # launch them
@@ -326,9 +367,22 @@ def test_unported_options_raise_with_their_roadmap_item(setup, tmp_path):
     with pytest.raises(ValueError, match="torchrun"):
         TE.main(["--run_dir", str(tmp_path), "--distributed",
                  "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
-        TTR.main(cli_args(setup["tree"], dataset="refer_seg", device="cpu",
-                          log_base_dir=str(tmp_path)))
+    # the LISA datasets, which raised until the port had them, train:
+    # LISA's own mixture takes a step with three conversations a row
+    from interactvlm_tpu_torch.utils.lisa_tree import write_lisa_tree
+
+    lisa = str(tmp_path / "lisa")
+    write_lisa_tree(lisa, n_ade=3, n_refcoco=2, n_reason=3, n_vqa=2,
+                    scale=1 / 16)
+    argv = [a for a in cli_args(
+        lisa, dataset="sem_seg_lisa||refer_seg_lisa||vqa||reason_seg",
+        sample_rates="9,3,3,1", num_conversations=3, epochs=1,
+        steps_per_epoch=1, no_eval=True, device="cpu",
+        log_base_dir=str(tmp_path / "runs")) if a != "--fixed_templates"]
+    trainer = TTR.main(argv)
+    (h,) = trainer.history
+    assert np.isfinite(h["loss"]) and h["skipped_nonfinite"] == 0.0
+    assert sum(h["rows_by_task"].values()) > 0
 
 
 # ------------------------------------------------------------- port CLIs

@@ -44,6 +44,13 @@ from interactvlm_tpu_torch.models.llava import LlavaModel
 from interactvlm_tpu_torch.models.sam.image_encoder import ImageEncoderViT
 from interactvlm_tpu_torch.models.sam.sam import Sam
 from interactvlm_tpu_torch.parallel.mesh import Mesh
+from interactvlm_tpu_torch.probes import data as data_probe
+from interactvlm_tpu_torch.probes import decode as decode_probe
+from interactvlm_tpu_torch.probes import int4 as int4_probe
+from interactvlm_tpu_torch.probes import int8 as int8_probe
+from interactvlm_tpu_torch.probes import lift as lift_probe
+from interactvlm_tpu_torch.probes import sam as sam_probe
+from interactvlm_tpu_torch.probes import train_step as train_step_probe
 from interactvlm_tpu_torch.train.train import (
     build_model_and_config,
     main as train_main,
@@ -128,6 +135,13 @@ print("PARALLEL", all(m in sys.modules for m in (
     "interactvlm_tpu_torch.parallel.launch",
     "interactvlm_tpu_torch.parallel.dryrun",
     "interactvlm_tpu_torch.utils.memory", "graft_entry_torch")))
+print("ENTRY_PROBES", all(m in sys.modules for m in (
+    "interactvlm_tpu_torch.probes.common", "interactvlm_tpu_torch.probes.sam",
+    "interactvlm_tpu_torch.probes.int8", "interactvlm_tpu_torch.probes.int4",
+    "interactvlm_tpu_torch.probes.decode", "interactvlm_tpu_torch.probes.lift",
+    "interactvlm_tpu_torch.probes.data",
+    "interactvlm_tpu_torch.probes.train_step",
+    "interactvlm_tpu_torch.utils.lisa_tree")))
 print("BAD", bad)
 """
 
@@ -148,6 +162,25 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "FIT_DEMO True" in res.stdout, res.stdout
     assert "DATAGEN True" in res.stdout, res.stdout
     assert "PARALLEL True" in res.stdout, res.stdout
+    assert "ENTRY_PROBES True" in res.stdout, res.stdout
+
+
+LAUNCHERS = ("train", "eval", "demo", "optim", "datagen", "prepare_weights")
+
+
+@pytest.mark.parametrize("name", LAUNCHERS)
+def test_launcher_twins_run_only_the_port(name):
+    """Each ``scripts/run_<name>_torch.sh`` names the port's modules and no
+    module of the JAX package."""
+    import re
+
+    with open(os.path.join(REPO, "scripts", f"run_{name}_torch.sh")) as f:
+        text = f.read()
+    modules = re.findall(r"python -m (\S+)", text)
+    assert modules and all(m.startswith("interactvlm_tpu_torch.")
+                           for m in modules), modules
+    assert not re.search(r"interactvlm_tpu\.", text)
+    assert "jax" not in text.lower()
 
 
 _BUILD = r"""
@@ -226,6 +259,13 @@ def test_native_decoder_builds_under_build_and_leaves_native_alone(
     lambda: graft_entry_torch.entry(),
     lambda: graft_entry_torch.dryrun_multichip(2),
     lambda: LlamaForCausalLM(C.llama_tiny(), mesh=Mesh(1, 1)),
+    lambda: sam_probe.main(["full"]),
+    lambda: int8_probe.main(["qkv"]),
+    lambda: int4_probe.main(["int8"]),
+    lambda: decode_probe.main(["attn_dense"]),
+    lambda: lift_probe.main(["resize_scatter"]),
+    lambda: data_probe.main(["1"]),
+    lambda: train_step_probe.main(),
 ], ids=["InteractVLM", "InteractVLM-hoi", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
         "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8",
         "LlamaForCausalLM-lora", "make_synthetic_batch",
@@ -235,7 +275,9 @@ def test_native_decoder_builds_under_build_and_leaves_native_alone(
         "demo_cli", "fit_human_object", "generate_sam_inp_objs",
         "datagen_cli", "generate_human_assets", "generate_object_assets",
         "generate_piad_tree", "generate_pico_tree", "graft_entry",
-        "dryrun_multichip", "LlamaForCausalLM-mesh"])
+        "dryrun_multichip", "LlamaForCausalLM-mesh", "sam_probe",
+        "int8_probe", "int4_probe", "decode_probe", "lift_probe",
+        "data_probe", "train_step_probe"])
 def test_entry_points_default_to_the_gpu(build):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")

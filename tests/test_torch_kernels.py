@@ -122,6 +122,45 @@ def test_flash_kernel_matches_plain(dev, B, H, Lq, Lk, D, causal, lens):
     assert bool((lse.reshape(B, H, Lq)[blind] == 0).all())
 
 
+@pytest.mark.parametrize("B,H,L,causal", [
+    (2, 16, 4096, False),  # SAM ViT-H's global block without rel-pos
+    (1, 3, 300, True),  # ragged against the 128-row blocks, causal
+])
+def test_flash_kernel_at_head_dim_80_padded_to_128(dev, B, H, L, causal):
+    """``flash_attention`` zero-pads head dim 80 to 128, launches kernel 1
+    once, and agrees with the plain version on the unpadded inputs."""
+    rng = np.random.default_rng(10)
+    q, k, v = (_bf16(rng, (B, H, L, 80), dev) for _ in range(3))
+    before = F.flash_forward.launches
+    o = F.flash_attention(q, k, v, causal, 80 ** -0.5)
+    torch.cuda.synchronize()
+    assert F.flash_forward.launches == before + 1
+    assert o.shape == (B, H, L, 80) and o.dtype == torch.bfloat16
+    o2, _ = F.flash_forward_plain(q, k, v, causal, 80 ** -0.5)
+    assert _close(o, o2)
+
+
+def test_sam_global_attention_without_rel_pos_reaches_kernel_1(dev):
+    """The SAM encoder's ``use_rel_pos=False`` global blocks (4096 queries,
+    head dim 80) go to kernel 1 through ``dot_product_attention``; its 14 x
+    14 windows (196 queries) stay on the plain attention."""
+    from interactvlm_tpu_torch.ops.attention import (
+        attention_plain,
+        dot_product_attention,
+    )
+
+    rng = np.random.default_rng(11)
+    q, k, v = (_bf16(rng, (1, 16, 4096, 80), dev) for _ in range(3))
+    before = F.flash_forward.launches
+    o = dot_product_attention(q, k, v, scale=80 ** -0.5)
+    w = (_bf16(rng, (25, 16, 196, 80), dev) for _ in range(3))
+    ow = dot_product_attention(*w, scale=80 ** -0.5)
+    torch.cuda.synchronize()
+    assert F.flash_forward.launches == before + 1
+    assert _close(o, attention_plain(q, k, v, scale=80 ** -0.5))
+    assert ow.shape == (25, 16, 196, 80)
+
+
 def _grad_close(got, want, atol_of_rms=GRAD_ATOL_OF_RMS):
     g, w = got.float(), want.float()
     err = (g - w).abs()

@@ -242,8 +242,7 @@ def test_build_dataset_with_the_flagship_arguments(trees):
         with pytest.raises(ValueError, match="fixed_templates"):
             mod.build_dataset("vqa", tree, "train", fixed)
     assert TD.FIXED_TEMPLATE_SAFE == JD.FIXED_TEMPLATE_SAFE
-    assert set(TD.DATASET_REGISTRY) | set(TD.UNPORTED) == set(
-        JD.DATASET_REGISTRY)
+    assert set(TD.DATASET_REGISTRY) == set(JD.DATASET_REGISTRY)
 
 
 def _human_maps(tree):
