@@ -155,7 +155,18 @@ prints no result, without them. Phases, each of which fails the run:
    ``main`` at full width, iterations cut, every variant's line printed,
    each variant's launches held (kernel 1 at head dim 80 padded to 128 in
    the SAM probe's ``norel``) and the lift probe's two gather forms held
-   to each other.
+   to each other;
+20. the ``bench.py`` twin (``bench_twin_phase``): ``python3
+   bench_torch.py`` in a subprocess at its card defaults (``bench.py``'s
+   chip configuration: the 7B int8 path's model, streaming B = 8 and
+   cached B = 32, the gather lift at K = 256 on ``bench.py``'s
+   4722-vertex sphere), two timed windows of two iterations a mode; its
+   record's keys and metric string, finite positive values, its MFU in
+   (0, 1) against 989 TFLOP/s, and its launches of one streaming and one
+   cached iteration held to the 7B-int8 path's of one batch a mode in the
+   same run; the gather lift's largest difference from the scatter lift
+   on its maps, and the vertices with more than K candidate pixels in a
+   view, reported.
 
 Each serving path reports images/s, the time of each leg, peak memory, the
 decode host/device split and each kernel's launches over its run; the 7B
@@ -180,6 +191,7 @@ import collections
 import dataclasses
 import gc
 import json
+import math
 import os
 import pickle
 import shutil
@@ -189,7 +201,9 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+import bench_torch
 from interactvlm_tpu_torch.config import (
     clip_tiny,
     clip_vit_l_14,
@@ -232,6 +246,7 @@ from interactvlm_tpu_torch.eval.evaluate import (
 from interactvlm_tpu_torch.geometry.lift import (
     build_gather_maps,
     corner_major,
+    lift_batch_soft,
     lift_multiview_soft_gather,
 )
 from interactvlm_tpu_torch.geometry.rasterizer import (
@@ -1779,7 +1794,8 @@ def serving_path_phase(path, cfg, kv_cache, b_cached, lift):
     (``real_lift_maps``). The cached batch is the streaming batch
     repeated, so every copy must generate the streaming ids. Launches are
     counted from 0 over the first round (one streaming and one cached
-    batch), and per mode for the int8 kernel."""
+    batch), and per mode. Returns the round's launches and each mode's
+    (``read_launches`` differences)."""
     t0 = time.perf_counter()
     model = InteractVLM(cfg, device="cuda")
     init_params(model, torch.Generator(device="cuda").manual_seed(0))
@@ -1814,18 +1830,19 @@ def serving_path_phase(path, cfg, kv_cache, b_cached, lift):
     torch.cuda.reset_peak_memory_stats()
     # the first round's batches are the path's run: their launches are
     # counted and their outputs checked; the later rounds only add times
-    outs, secs, int8_by_mode = {}, {m: [] for m in modes}, {}
+    outs, secs, int8_by_mode, by_mode = {}, {m: [] for m in modes}, {}, {}
     for rnd in range(REPEATS):
         if rnd == 0:
             reset_launches()
         for mode in modes:
-            before = int8_counts()
+            before, counts = int8_counts(), read_launches()
             out, ms = wall_ms(lambda: run(mode))
             secs[mode].append(ms / 1e3)
             outs.setdefault(mode, out)
             if rnd == 0:
                 int8_by_mode[mode] = {k: v - before[k]
                                       for k, v in int8_counts().items()}
+                by_mode[mode] = launches_between(counts, read_launches())
         if rnd == 0:
             launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1907,7 +1924,7 @@ def serving_path_phase(path, cfg, kv_cache, b_cached, lift):
     del model, cached, outs
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, by_mode
 
 
 def int8_counts():
@@ -5459,6 +5476,139 @@ def entry_probes_phase():
     return launches
 
 
+# ------------------------------------------------------------ phase 20
+# the bench.py twin at its card defaults, its windows cut to fit the script
+BENCH_TWIN_ENV = {"BENCH_ITERS": "2", "BENCH_REPEATS": "2"}
+BENCH_TWIN_TIMEOUT_S = 300
+# bench.py's record at its chip defaults, streaming and cached
+# (bench.py:660-709), and its metric string for them
+BENCH_TWIN_KEYS = {
+    "metric", "unit", "kv_cache", "flops_per_image", "uncached_value",
+    "uncached_spread", "uncached_vs_baseline", "uncached_mfu", "value",
+    "value_spread", "vs_baseline", "vs_baseline_range", "mfu",
+    "flops_per_image_cached", "cache_batch"}
+BENCH_TWIN_METRIC = ("e2e_evaluate_images_per_sec_llama7b-int8_vit_h-int8_"
+                     "4view_b8_t32_cachedviews_b32")
+BENCH_TWIN_PEAK = 989e12  # the H100's dense bf16 FLOP/s, the twin's MFU
+
+
+def per_iteration(counts):
+    """A ``read_launches`` difference in ``probes/common.py:
+    launches_since``'s form: the kernels that launched, and the int8
+    matmul's calls by route as ``int8_<route>``."""
+    out = {n: counts[n] for n in WRAPPERS if counts[n]}
+    out.update({"int8_" + r: n for r, n in counts["int8_routes"].items()
+                if n})
+    return out
+
+
+def gather_against_scatter():
+    """On the twin's maps (``bench.py``'s 4722-vertex sphere under the
+    first V ``4MV-Z_Vitru_mv2`` cameras at MASK^2, rasterized on the card):
+    the gather lift (K = 256 pixels a vertex and view) against the exact
+    scatter lift that ``evaluate_batch`` uses, on one batch of seeded
+    low-res logits (B x V x 256^2, scale 4, as the lift probe's) resized
+    bilinearly; and the vertices with more than K candidate pixels in a
+    view (a pixel is a candidate of its triangle's three vertices)."""
+    dev = torch.device("cuda")
+    K = bench_torch.MAX_K
+    p2v, bary, gidx, gw, n = lift_probe.lift_maps(
+        MASK, dev, mesh=bench_torch.sphere(), max_k=K, views=V)
+    over = torch.zeros((V, n), dtype=torch.bool, device=dev)
+    most = []
+    for v in range(V):
+        ids = p2v[:, v].reshape(3, -1)
+        ids = ids[:, (ids >= 0).all(0)].reshape(-1).long()
+        cand = torch.bincount(ids, minlength=n)
+        over[v] = cand > K
+        most.append(int(cand.max()))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    low = torch.randn(B, V, MASK // 4, MASK // 4, generator=gen,
+                      device=dev) * 4
+    full = F.interpolate(low, size=(MASK, MASK), mode="bilinear",
+                         align_corners=False)
+    gather = torch.stack([lift_multiview_soft_gather(m, gidx, gw)
+                          for m in full])
+    diff = (gather - lift_batch_soft(full, p2v, bary, n)).abs()
+    capped = over.any(0)
+    return {"vertices": n, "max_k": K,
+            "max_abs_diff": float(diff.max()),
+            "max_abs_diff_within_k": (float(diff[:, ~capped].max())
+                                      if bool((~capped).any()) else None),
+            "vertices_over_k": int(capped.sum()),
+            "vertices_over_k_by_view": over.sum(1).tolist(),
+            "most_candidates_by_view": most}
+
+
+def bench_twin_phase(serving_by_mode):
+    """Phase 20: ``python3 bench_torch.py`` in a subprocess at its card
+    defaults with BENCH_TWIN_ENV. Holds its exit code, its record's keys
+    and metric string (``bench.py``'s for these knobs), finite positive
+    values, its MFU in (0, 1) against 989 TFLOP/s, and its launches of one
+    streaming and one cached iteration equal to the ``7b_int8`` path's of
+    one batch a mode (``serving_by_mode``) in this run. Reports, and
+    holds neither, the gather lift against the scatter lift on the twin's
+    maps (``gather_against_scatter``). Returns the launches of one
+    streaming and one cached iteration."""
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_TWIN_ENV)
+    res = subprocess.run(
+        [sys.executable, "bench_torch.py"], env=env, capture_output=True,
+        text=True, timeout=BENCH_TWIN_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    twin_s = time.perf_counter() - t_phase
+    err = res.stderr.splitlines()
+    try:
+        record = json.loads(res.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        record = {}
+    launches = {}
+    for mode in ("streaming", "cached"):
+        head = "[bench] " + bench_torch.LAUNCH_LINE.format(mode)
+        got = [json.loads(ln[len(head):]) for ln in err
+               if ln.startswith(head)]
+        launches[mode] = got[0] if len(got) == 1 else None
+    want = {mode: per_iteration(c) for mode, c in serving_by_mode.items()}
+
+    def mfu_of(value, flops):
+        return record[value] * record[flops] / BENCH_TWIN_PEAK
+
+    has = set(record) == BENCH_TWIN_KEYS
+    checks = {
+        "exit_0": res.returncode == 0,
+        "record_keys": has,
+        "metric": record.get("metric") == BENCH_TWIN_METRIC,
+        "values_finite_positive": has and all(
+            math.isfinite(record[k]) and record[k] > 0
+            for k in ("value", "uncached_value")),
+        "mfu_in_0_1": has and all(0 < record[k] < 1
+                                  for k in ("mfu", "uncached_mfu")),
+        "mfu_against_989": has and abs(
+            record["mfu"] - mfu_of("value", "flops_per_image_cached")
+        ) <= 1e-4 and abs(record["uncached_mfu"] - mfu_of(
+            "uncached_value", "flops_per_image")) <= 1e-4,
+        "launches_as_7b_int8": launches == want,
+    }
+    lift = gather_against_scatter()
+    log(json.dumps({
+        "phase": "bench_twin", "argv": ["python3", "bench_torch.py"],
+        "env": BENCH_TWIN_ENV, "twin_s": twin_s, "returncode":
+        res.returncode, "record": record, "bench_log": [
+            ln for ln in err if ln.startswith("[bench]")],
+        "launches_per_iteration": launches,
+        "launches_expected_7b_int8_per_batch": want,
+        "gather_vs_scatter": lift, "checks": checks,
+        "s": time.perf_counter() - t_phase}))
+    if not all(checks.values()):
+        log(res.stderr[-4000:])
+        raise SystemExit(f"the bench twin failed: {checks}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: launches["streaming"].get(n, 0)
+            + launches["cached"].get(n, 0) for n in WRAPPERS}
+
+
 def _reports_close(got, want):
     """Two eval reports equal in structure, their numbers within
     REPORT_RTOL relative."""
@@ -5512,12 +5662,14 @@ def main() -> int:
     paths = {"13b_bf16": (config_13b(), "dense", B),
              "7b_int8": (config_7b_int8(), "int8", B_CACHED_INT8),
              "7b_int4": (config_7b_int4(), "int8", B_CACHED_INT8)}
+    by_mode = {}
     with torch.inference_mode():
         for weights in ("dense", "int8", "int4"):
             reference_phase(weights)
         hoi_reference_phase()
         for path, (cfg, kv, b_cached) in paths.items():
-            launches[path] = serving_path_phase(path, cfg, kv, b_cached, lift)
+            launches[path], by_mode[path] = serving_path_phase(
+                path, cfg, kv, b_cached, lift)
             log(json.dumps({"phase": f"{path}_done",
                             "s": time.perf_counter() - t_start}))
         launches["13b_hoi"] = hoi_path_phase("13b_hoi", config_13b_hoi(),
@@ -5559,6 +5711,9 @@ def main() -> int:
                     "s": time.perf_counter() - t_start}))
     launches["entry_probes"] = entry_probes_phase()
     log(json.dumps({"phase": "entry_probes_done",
+                    "s": time.perf_counter() - t_start}))
+    launches["bench_twin"] = bench_twin_phase(by_mode["7b_int8"])
+    log(json.dumps({"phase": "bench_twin_done",
                     "s": time.perf_counter() - t_start}))
 
     rows = []

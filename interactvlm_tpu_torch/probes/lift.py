@@ -60,12 +60,12 @@ V = 4
 MAX_K = 256
 
 
-def lift_maps(H: int, dev, mesh=None, max_k: int = MAX_K):
-    """The test body's maps at H^2 under the first V cameras, rasterized on
-    ``dev``: corner-major (p2v, bary), the gather form (built on the host)
-    and the vertex count."""
+def lift_maps(H: int, dev, mesh=None, max_k: int = MAX_K, views: int = V):
+    """The test body's maps at H^2 under the first ``views`` cameras,
+    rasterized on ``dev``: corner-major (p2v, bary), the gather form (built
+    on the host) and the vertex count."""
     verts, faces = mesh if mesh is not None else sphere()
-    cams = HUMAN_VIEWS["4MV-Z_Vitru_mv2"].cam_params()[:V]
+    cams = HUMAN_VIEWS["4MV-Z_Vitru_mv2"].cam_params()[:views]
     window = max(pick_window(verts, faces, c, H) for c in cams)
     p2v, bary, _ = build_lift_maps(verts, faces, cams, H, window,
                                    device=dev)

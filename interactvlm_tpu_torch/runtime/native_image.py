@@ -1,4 +1,5 @@
-"""ctypes binding for the native C++ image decoder (``native/ivlm_io.cpp``).
+"""ctypes binding for the native C++ image decoder (``csrc/ivlm_io.cpp``,
+the port's copy of ``native/ivlm_io.cpp``).
 
 Port of ``interactvlm_tpu/runtime/native_image.py``. The port builds its
 own copy of the shared library with ``g++`` (libpng / libjpeg) into
@@ -23,7 +24,7 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SOURCE = os.path.join(_ROOT, "native", "ivlm_io.cpp")
+SOURCE = os.path.join(_ROOT, "interactvlm_tpu_torch", "csrc", "ivlm_io.cpp")
 BUILD_DIR = os.path.join(_ROOT, "build", "native")
 LIB_PATH = os.path.join(BUILD_DIR, "libivlm_io.so")
 _CXXFLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]

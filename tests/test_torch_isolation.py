@@ -1,7 +1,8 @@
-"""The port stands alone: it and ``chip_smoke.py`` import neither JAX nor
-any module of the JAX package, its entry points (the CLIs among them)
-refuse to fall back to the CPU when no GPU is present, its native decoder
-builds under ``build/`` and leaves ``native/`` as it is, and its state dict
+"""The port stands alone: it, ``chip_smoke.py`` and ``bench_torch.py``
+import neither JAX nor any module of the JAX package, its entry points (the
+CLIs and the ``bench.py`` twin among them) refuse to fall back to the CPU
+when no GPU is present, its native decoder builds from its own copy of the
+source under ``build/`` and leaves ``native/`` as it is, and its state dict
 carries the reference's checkpoint keys (the JAX package's own converters
 read it back into the tree ``from_jax_params`` took in)."""
 
@@ -61,6 +62,7 @@ from interactvlm_tpu_torch.utils.testing import (
 )
 from interactvlm_tpu_torch.utils.weights import from_jax_params
 
+import bench_torch
 import graft_entry_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -80,6 +82,7 @@ for info in pkgutil.walk_packages(interactvlm_tpu_torch.__path__,
     importlib.import_module(info.name)
 import chip_smoke
 import graft_entry_torch
+import bench_torch
 bad = sorted(m for m in sys.modules
              if m == "interactvlm_tpu" or m.startswith("interactvlm_tpu."))
 print("MODULES", len([m for m in sys.modules
@@ -142,6 +145,7 @@ print("ENTRY_PROBES", all(m in sys.modules for m in (
     "interactvlm_tpu_torch.probes.data",
     "interactvlm_tpu_torch.probes.train_step",
     "interactvlm_tpu_torch.utils.lisa_tree")))
+print("BENCH", "bench_torch" in sys.modules and "bench" not in sys.modules)
 print("BAD", bad)
 """
 
@@ -163,6 +167,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "DATAGEN True" in res.stdout, res.stdout
     assert "PARALLEL True" in res.stdout, res.stdout
     assert "ENTRY_PROBES True" in res.stdout, res.stdout
+    assert "BENCH True" in res.stdout, res.stdout
 
 
 LAUNCHERS = ("train", "eval", "demo", "optim", "datagen", "prepare_weights")
@@ -187,14 +192,17 @@ _BUILD = r"""
 from interactvlm_tpu_torch.runtime import native_image as n
 print("AVAILABLE", n.available(), n.decoder(), n.build_error)
 print("LIB", n.LIB_PATH)
+print("SOURCE", n.SOURCE)
 """
 
 
 def test_native_decoder_builds_under_build_and_leaves_native_alone(
         tmp_path):
     """In a fresh copy of the port and ``native/``, the port's decoder build
-    writes its library under ``build/native`` and nothing else: ``native/``
-    (its sources and the JAX package's library) stays byte for byte."""
+    compiles the port's own copy of the source (under
+    ``interactvlm_tpu_torch/``) and writes its library under
+    ``build/native`` and nothing else: ``native/`` (its sources and the JAX
+    package's library) stays byte for byte."""
     import shutil
 
     for d in ("interactvlm_tpu_torch", "native"):
@@ -215,6 +223,9 @@ def test_native_decoder_builds_under_build_and_leaves_native_alone(
     assert "AVAILABLE True native None" in res.stdout, res.stdout
     lib = os.path.join(str(tmp_path), "build", "native", "libivlm_io.so")
     assert f"LIB {lib}" in res.stdout
+    source = res.stdout.split("SOURCE ")[1].strip()
+    port = os.path.join(str(tmp_path), "interactvlm_tpu_torch") + os.sep
+    assert source.startswith(port), source
     after = snapshot(tmp_path)
     new = sorted(set(after) - set(before))
     assert new == [os.path.join("build", "native", "libivlm_io.so")], new
@@ -266,6 +277,7 @@ def test_native_decoder_builds_under_build_and_leaves_native_alone(
     lambda: lift_probe.main(["resize_scatter"]),
     lambda: data_probe.main(["1"]),
     lambda: train_step_probe.main(),
+    lambda: bench_torch.main(),
 ], ids=["InteractVLM", "InteractVLM-hoi", "LlavaModel", "LlamaForCausalLM", "CLIPVisionTower",
         "Sam", "LlamaForCausalLM-int8", "ImageEncoderViT-int8",
         "LlamaForCausalLM-lora", "make_synthetic_batch",
@@ -277,7 +289,7 @@ def test_native_decoder_builds_under_build_and_leaves_native_alone(
         "generate_piad_tree", "generate_pico_tree", "graft_entry",
         "dryrun_multichip", "LlamaForCausalLM-mesh", "sam_probe",
         "int8_probe", "int4_probe", "decode_probe", "lift_probe",
-        "data_probe", "train_step_probe"])
+        "data_probe", "train_step_probe", "bench_twin"])
 def test_entry_points_default_to_the_gpu(build):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
