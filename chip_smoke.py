@@ -13,8 +13,9 @@ prints no result, without them. Phases, each of which fails the run:
    query walk of dk/dv at short key lengths; window attention, with its
    wgmma kernel for head dim 80 that reads q, k and v as strided views;
    global rel-pos attention, with its wgmma kernel for head dim 80; the one-launch
-   fused int8 matmul, K split over a thread-block cluster; the int8 row
-   quantize; the wgmma int8 GEMM, which is also the pre-quantized matmul;
+   fused int8 matmul, K split over a thread-block cluster, with its int4
+   mode; the int8 row quantize, with its row-factor route; the wgmma int8
+   GEMM, which is also the pre-quantized matmul; the wgmma int4 GEMM;
    the wgmma bf16 serving matmul; the tensor-core rate loop; the window
    copy), one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
@@ -26,8 +27,11 @@ prints no result, without them. Phases, each of which fails the run:
    the SAM global block without its rel-pos bias),
    inputs from a seeded generator, with the kernel's, the plain version's
    and one library call's time beside the least time the card could take
-   (``bound_ms``); the int8 matmul also at the 7B QLoRA step's and the
-   int4 path's shapes (f32 x); its two-pass route also times each pass,
+   (``bound_ms``); the int8 matmul also at the 7B QLoRA step's shapes;
+   the int4 matmul at the 7B-int4 path's shapes on both routes and in the
+   row-parallel form, bit for bit against its plain version and against
+   the unpack route the card took before it, both timed; the two-pass
+   routes also time each pass,
    and the int8 and bf16 matmul cases add each call's device time from the
    profiler (``device_ms``, with what launched per call) beside the
    yardsticks' (``library_device_ms``, ``bf16_linear_device_ms``): CUDA
@@ -60,9 +64,11 @@ prints no result, without them. Phases, each of which fails the run:
    ViT-L/14, SAM ViT-H with int8 weights and tanh GELU, all bf16; streaming
    at B=8 and cached at B=32, otherwise as the 13B path;
 9. the 7B-int4 path (``bench.py`` with ``BENCH_WQ=int4``): the 7B-int8
-   path with the LLaMA weights packed int4, kernel 6 on each call's
-   unpacked weight; also the unpack's and the kernel's device time a
-   decode step;
+   path with the LLaMA weights packed int4, read by the int4 matmul
+   (``ops/int4_matmul.py``: the packed nibbles inside kernel 6's two
+   routes, no unpacked copy: none may be made on the card); also each
+   decode shape's device time of the int4 call beside the unpack route's
+   pieces and kernel 6 on an int8 weight, a decode step's sums;
 10. the interaction path (``13b_hoi``), the JAX package's hcontact-ocontact
    preset: the 13B path with ``Gen-Hu-Obj`` tokens, ``vi_v1`` cams and K = 2
    seg slots, streaming only (object views are per-sample renders), the
@@ -160,7 +166,7 @@ prints no result, without them. Phases, each of which fails the run:
    bench_torch.py`` in a subprocess at its card defaults (``bench.py``'s
    chip configuration: the 7B int8 path's model, streaming B = 8 and
    cached B = 32, the gather lift at K = 256 on ``bench.py``'s
-   4722-vertex sphere), two timed windows of two iterations a mode; its
+   4722-vertex sphere), one timed window of two iterations a mode; its
    record's keys and metric string, finite positive values, its MFU in
    (0, 1) against 989 TFLOP/s, and its launches of one streaming and one
    cached iteration held to the 7B-int8 path's of one batch a mode in the
@@ -170,9 +176,10 @@ prints no result, without them. Phases, each of which fails the run:
 
 Each serving path reports images/s, the time of each leg, peak memory, the
 decode host/device split and each kernel's launches over its run; the 7B
-paths also check the int8 matmul's calls by route (the int4 path's equal
-the int8 path's): the encoder's and the prefill's through the row quantize
-and the GEMM, decode's and the lm_head's through the one-launch kernel;
+paths also check the int8 and int4 matmuls' calls by route (the int4
+path's int8 and int4 calls together equal the int8 path's int8 calls):
+the encoder's and the prefill's through the row quantize and a GEMM,
+decode's and the lm_head's through the one-launch kernel;
 the int8 path also times decode with the int8 against the dense cache.
 The training
 path reports step time, images/s and tokens/s, peak memory, the
@@ -261,6 +268,7 @@ from interactvlm_tpu_torch.models.layers import Int4Linear, Int8Linear
 from interactvlm_tpu_torch.models.llama import LlamaForCausalLM, init_kv_cache
 from interactvlm_tpu_torch.ops import _cuda
 from interactvlm_tpu_torch.ops import flash_attention as FA
+from interactvlm_tpu_torch.ops import int4_matmul as Q4
 from interactvlm_tpu_torch.ops import int8_matmul as Q
 from interactvlm_tpu_torch.ops import mxu as MX
 from interactvlm_tpu_torch.ops import quant as QT
@@ -310,9 +318,13 @@ from interactvlm_tpu_torch.utils.testing import (
 from interactvlm_tpu_torch.utils.weights import init_params
 
 # Dense peak rates (NVIDIA data sheets): bf16 tensor-core FLOP/s, HBM
-# bytes/s, int8 tensor-core OP/s, f32 FLOP/s on the CUDA cores (no TF32).
-PEAKS = {"H100 SXM": (989e12, 3.35e12, 1979e12, 67e12),
-         "H100 PCIe": (756e12, 2.0e12, 1513e12, 51e12)}
+# bytes/s, int8 tensor-core OP/s, f32 FLOP/s on the CUDA cores (no TF32),
+# and exponentials/s on the special-function units: 16 a clock an SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) at the boost clock, 132 SMs x 1.98 GHz (SXM), 114 x
+# 1.755 GHz (PCIe).
+PEAKS = {"H100 SXM": (989e12, 3.35e12, 1979e12, 67e12, 132 * 16 * 1.98e9),
+         "H100 PCIe": (756e12, 2.0e12, 1513e12, 51e12, 114 * 16 * 1.755e9)}
 # kernel vs plain version, element-wise (see compare)
 ATOL, WINDOW_ATOL, RTOL, RMS_TOL, LSE_TOL = 4e-3, 2e-2, 2e-2, 1e-2, 1e-3
 # int8 matmul vs plain version (see compare_int8)
@@ -340,7 +352,7 @@ HOI_TINY = dict(token_type="Gen-Hu-Obj-DifDe", cam_encoder_type="vi_v1",
 # the 13B training path: the preset's batch of 8, 257 text tokens (512
 # spliced), rows 0 and 1 right-padded to these text lengths
 L_TRAIN, TRAIN_PADDED = 257, (200, 129)
-TRAIN_STEPS = 5  # timed steps, after one warm-up step
+TRAIN_STEPS = 3  # timed steps, after one warm-up step
 
 # each kernel's sources (the first holds its entry point), the TPU kernel
 # it replaces (its wrapper, whose launch count a path reads, is
@@ -411,6 +423,16 @@ KERNELS = {
         replaces="scripts/winattn_probe.py:123",
         symbols=["window_copy_kernel"],
         path="probes"),
+    # the int4 weight read as packed nibbles inside kernel 6's two routes:
+    # the one-launch kernel's int4 mode, and kernel 7 with the row factor
+    # then the int4 GEMM (it replaces the JAX package's int4_matmul, which
+    # XLA fuses: no Pallas kernel)
+    "int4_matmul": dict(
+        sources=[CSRC + "int8_matmul.cu", CSRC + "int4_gemm_sm90.cu",
+                 CSRC + "int8_prequant.cu", CSRC + "matmul_core.cuh"],
+        replaces="interactvlm_tpu/ops/quant.py:199",
+        symbols=["int4_splitk_kernel", "int4_gemm_kernel"],
+        path="7b_int4"),
     # kernel 7's given-scale route: a row-parallel int8 linear's slice of
     # each row, quantized with the whole row's absmax
     "quantize_rows_given": dict(
@@ -440,13 +462,16 @@ def peaks(name: str):
     return PEAKS["H100 PCIe" if "PCIe" in name else "H100 SXM"]
 
 
-def bound(flops, nbytes, name, int8=False, f32=False):
+def bound(flops, nbytes, name, int8=False, f32=False, exps=0):
     """The least time in ms for the work: operations over the bf16 (with
     ``int8``, the int8 tensor-core; with ``f32``, the CUDA cores' f32)
-    peak, or bytes over the memory rate, whichever is larger, and which of
-    the two it is."""
-    flop_s, byte_s, int8_s, f32_s = peaks(name)
-    t_ops = flops / (int8_s if int8 else f32_s if f32 else flop_s) * 1e3
+    peak, or ``exps`` exponentials over the special-function units' rate
+    (attention's softmax: at head dim 16 these outlast the products), or
+    bytes over the memory rate, whichever is largest, and which of
+    operations or bytes it is."""
+    flop_s, byte_s, int8_s, f32_s, exp_s = peaks(name)
+    t_ops = max(flops / (int8_s if int8 else f32_s if f32 else flop_s),
+                exps / exp_s) * 1e3
     t_bytes = nbytes / byte_s * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -465,12 +490,13 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_name(fn, iters: int, warmup: int = 2):
+def device_ms_by_name(fn, iters: int, warmup: int = 2, calls=None):
     """What one call of ``fn`` runs on the card, by name (the first 60
     characters): [device ms, launches] a call, from torch.profiler over
     ``iters`` calls, every kernel, memset and copy, over the calls the
-    trace holds (the most launches of one name; the profiler may drop a
-    call's events). Empty where the trace holds no device activity."""
+    trace holds (the most launches of one name, since the profiler may drop
+    a call's events; ``calls`` where one name runs more than once a call).
+    Empty where the trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -488,17 +514,17 @@ def device_ms_by_name(fn, iters: int, warmup: int = 2):
             n = by.setdefault(e.name[:60], [0.0, 0])
             n[0] += e.time_range.end - e.time_range.start
             n[1] += 1
-    calls = max((c for _, c in by.values()), default=1)
+    calls = calls or max((c for _, c in by.values()), default=1)
     return {n: [us / 1e3 / calls, c / calls] for n, (us, c) in by.items()}
 
 
-def device_ms(fn, iters: int, warmup: int = 2):
+def device_ms(fn, iters: int, warmup: int = 2, calls=None):
     """Device time of one call of ``fn`` in ms (``device_ms_by_name``
     summed) and what ran, by name, per call; None where the trace holds no
     device activity (time with ``time_ms`` then). Unlike CUDA events around
     back-to-back calls it leaves out the host's issue time between
     launches."""
-    by = device_ms_by_name(fn, iters, warmup)
+    by = device_ms_by_name(fn, iters, warmup, calls)
     if not by:
         return None, None
     return (sum(ms for ms, _ in by.values()),
@@ -576,7 +602,7 @@ def case_flash_prefill(gen, name, L, lens, what, H=40):
     mask = float_mask(Bq, L, L, True, lens)
     pairs = int(FA._visible(Bq, L, L, True, lens, "cuda").sum().item()) * H
     t, by = bound(4 * D * pairs, (4 * Bq * H * L * D) * 2 + Bq * H * L * 4
-                  + Bq * 4, name)
+                  + Bq * 4, name, exps=pairs)
     return dict(
         shape=what, **compare(got, want, lse, lse_want),
         kernel_ms=time_ms(lambda: FA.flash_forward(q, k, v, True, None, lens), 20),
@@ -599,7 +625,7 @@ def case_flash_sam(gen, name, Lk=9,
     want, lse_want = FA.flash_forward_plain(q, k, v)
     t, by = bound(4 * R * H * Lq * Lk * D,
                   (2 * R * H * Lq * D + 2 * R * H * Lk * D) * 2
-                  + R * H * Lq * 4, name)
+                  + R * H * Lq * 4, name, exps=R * H * Lq * Lk)
     return dict(
         shape=what, **compare(got, want, lse, lse_want),
         kernel_ms=time_ms(lambda: FA.flash_forward(q, k, v), 20),
@@ -641,7 +667,7 @@ def case_flash_edge(gen, name, what, Bq, H, Lq, Lk, causal, lens):
                  and bool((lse.reshape(Bq, H, Lq)[blind] == 0).all()))
     pairs = int(vis.sum().item()) * H
     t, by = bound(4 * D * pairs, (2 * Bq * H * Lq * D + 2 * Bq * H * Lk * D)
-                  * 2 + Bq * H * Lq * 4, name)
+                  * 2 + Bq * H * Lq * 4, name, exps=pairs)
     mask = float_mask(Bq, Lq, Lk, causal, kv)
     return dict(
         shape=f"B={Bq} H={H} D=128 {what}", **res,
@@ -804,7 +830,8 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
     kernel recomputes S and dP and forms dQ (6 D flops a pair) over q, k,
     v, dO, O, lse and dq, D; the dk/dv kernel recomputes S and dP and forms
     dV and dK (8) over q, k, v, dO, lse, D and dk, dv; the whole backward
-    needs 10 (S, dP, dV, dK, dQ) over q, k, v, o, dO, lse and dq, dk, dv.
+    needs 10 (S, dP, dV, dK, dQ) over q, k, v, o, dO, lse and dq, dk, dv;
+    each, and the whole backward, one exponential a pair (P).
     ``vs_f64`` holds the kernels' and the plain version's distance from the
     exact gradient (the plain version in f64, which rounds neither P nor
     dS) in ``compare_grad``'s units: not a check, it says which side of a
@@ -840,9 +867,12 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
     pairs = int(FA._visible(Bq, Lq, Lk, causal, kv, "cuda").sum().item()) * H
     BH = Bq * H
     qb, kb, rows = BH * Lq * D * 2, BH * Lk * D * 2, BH * Lq * 4
-    dq_t = bound(6 * D * pairs, 3 * qb + 2 * kb + 2 * rows + qb, name)
-    dkv_t = bound(8 * D * pairs, 2 * qb + 2 * kb + 2 * rows + 2 * kb, name)
-    bwd_t = bound(10 * D * pairs, 3 * qb + 2 * kb + rows + qb + 2 * kb, name)
+    dq_t = bound(6 * D * pairs, 3 * qb + 2 * kb + 2 * rows + qb, name,
+                 exps=pairs)
+    dkv_t = bound(8 * D * pairs, 2 * qb + 2 * kb + 2 * rows + 2 * kb, name,
+                  exps=pairs)
+    bwd_t = bound(10 * D * pairs, 3 * qb + 2 * kb + rows + qb + 2 * kb, name,
+                  exps=pairs)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     mask = float_mask(Bq, Lq, Lk, causal, kv)
     lib_out = sdpa()(*leaves, attn_mask=mask)
@@ -942,17 +972,29 @@ INT8_CASES = [
      True, "gelu_tanh", None),
 ]
 # kernel 6 on the 7B QLoRA step (bf16 x, M = B x 512 rows, forward and
-# remat: 64 calls a step for gate/up, 32 for down) and on the 7B-int4 path
-# (f32 x * rf on the unpacked weight, calls per streaming and cached batch)
+# remat: 64 calls a step for gate/up, 32 for down)
 NEW_PATH_INT8_CASES = [
     ("LLaMA-7B QLoRA training gate/up", B * 512, 4096, 11008, False, "none",
      None),
     ("LLaMA-7B QLoRA training down", B * 512, 11008, 4096, False, "none",
      None),
-    ("LLaMA-7B int4 decode down, B=8, f32 x", B, 11008, 4096, False, "none",
-     (32 * (T - 1), 0), torch.float32),
-    ("LLaMA-7B int4 prefill gate/up, f32 x", PREFILL, 4096, 11008, False,
-     "none", (64, 0), torch.float32),
+]
+# the int4 matmul on the 7B-int4 path (what, M, K, N, calls per streaming
+# and cached batch): decode at B=8 and the lm_head (one launch), the
+# prefill's MLP (two passes)
+INT4_CASES = [
+    ("LLaMA-7B int4 decode q/k/v/o, B=8", B, 4096, 4096, (128 * (T - 1), 0)),
+    ("LLaMA-7B int4 decode gate/up, B=8", B, 4096, 11008, (64 * (T - 1), 0)),
+    ("LLaMA-7B int4 decode down, B=8", B, 11008, 4096, (32 * (T - 1), 0)),
+    ("LLaMA-7B int4 lm_head, B=8", B, 4096, 32000, (T, 0)),
+    ("LLaMA-7B int4 prefill gate/up", PREFILL, 4096, 11008, (64, 0)),
+    ("LLaMA-7B int4 prefill down", PREFILL, 11008, 4096, (32, 0)),
+]
+# the row-parallel int4 linear on one of 2 model ranks: 7B's down at decode
+# (its K halved; the half's K / 2 = 2752 packed bytes ragged against the
+# 128-byte chunk)
+INT4_ROW_PARALLEL_CASES = [
+    ("LLaMA-7B int4 decode down, B=8, one of 2 model ranks", B, 5504, 4096),
 ]
 
 
@@ -1049,6 +1091,124 @@ def case_int8(gen, name, what, M, K, N, with_bias, act, calls,
                 bound_ms=t, bound_by=by)
 
 
+def int4_inputs(gen, M, K, N):
+    """bf16 rows with ties (``rows_with_ties``), a random packed int4 weight
+    (every byte, so every nibble value -8..7 in both halves), per-column
+    scales of the init's magnitude and a row factor in [0.5, 1.5), 1 on the
+    columns of row 1's ties so that they stay ties."""
+    x = rows_with_ties(gen, M, K)
+    packed = torch.randint(-128, 128, (N, K // 2), generator=gen,
+                           device="cuda", dtype=torch.int8)
+    cs = torch.full((N,), 1.0 / (7.0 * K ** 0.5), device="cuda")
+    rf = torch.rand(K, generator=gen, device="cuda") + 0.5
+    rf[:len(TIES)] = 1.0
+    return x, packed, cs, rf
+
+
+def case_int4(gen, name, what, M, K, N, calls):
+    """The int4 matmul (``ops/int4_matmul.py:int4_matmul_fused``) at one of
+    the 7B-int4 path's shapes (``calls`` per streaming and cached batch),
+    bf16 x as the path gives it (``int4_inputs``): bit for bit against its
+    plain version and against the route the card took before it (the
+    unpack into an (N, K) int8 copy, then kernel 6 on f32 x * rf), each
+    timed by events and by the profiler's device time a call; on the
+    two-pass route each pass alone too. The bound: x, the packed bytes,
+    the scales and the row factor read once and the bf16 output written
+    once, against the int8 operations 2 M K N; ``int8_weight_bound_ms`` is
+    the same with int8 weight bytes. Library yardstick: a bf16 ``F.linear``
+    at the shape (no library call reads int4 nibbles); the port calls it
+    nowhere."""
+    x, packed, cs, rf = int4_inputs(gen, M, K, N)
+
+    def kernel():
+        return Q4.int4_matmul_fused(x, packed, cs, rf, torch.bfloat16)
+
+    def unpack_route():
+        return Q4.int4_matmul_unpack_route(x, packed, cs, rf, torch.bfloat16)
+
+    got = kernel()
+    res = compare_exact([got], [Q4.int4_matmul_fused_plain(
+        x, packed, cs, rf, torch.bfloat16)])
+    res["equals_unpack_route"] = torch.equal(got, unpack_route())
+    res["ok"] = res["ok"] and res["equals_unpack_route"]
+    del got
+    big = M * K * N > 1e11
+    it, dit = (10, 5) if big else (50, 20)
+    dev_ms, launched = device_ms(kernel, dit)
+    # the unpack route runs its elementwise kernel several times a call
+    old_dev, old_launched = device_ms(unpack_route, dit, calls=dit)
+    route = Q4.int4_route(M, K)
+    passes = {}
+    if route == "two_pass":
+        xq, xs = Q.quantize_rows(x, rf)
+        passes["quantize_ms"] = time_ms(lambda: Q.quantize_rows(x, rf), it)
+        passes["gemm_ms"] = time_ms(lambda: Q4.int4_gemm(xq, xs, packed, cs),
+                                    it)
+        del xq, xs
+    small = 2 * M * K + 4 * K + 4 * N + 2 * M * N
+    t, by = bound(2 * M * K * N, small + N * K // 2, name, int8=True)
+    wb = rand_bf16(gen, (N, K))
+    return dict(shape=f"{what}: M={M} K={K} N={N} bf16 x", route=route,
+                calls_per_batch={"streaming": calls[0], "cached": calls[1]},
+                **res, kernel_ms=time_ms(kernel, it), device_ms=dev_ms,
+                device_launches_per_call=launched, **passes,
+                unpack_route_ms=time_ms(unpack_route, it),
+                unpack_route_device_ms=old_dev,
+                unpack_route_launches_per_call=old_launched,
+                plain_ms=time_ms(lambda: Q4.int4_matmul_fused_plain(
+                    x, packed, cs, rf, torch.bfloat16), 2, 1),
+                library_ms=time_ms(lambda: F.linear(x, wb), it),
+                library_device_ms=device_ms(lambda: F.linear(x, wb), dit)[0],
+                library="bf16 F.linear (no library call reads int4 nibbles)",
+                bound_ms=t, bound_by=by,
+                int8_weight_bound_ms=bound(2 * M * K * N, small + N * K, name,
+                                           int8=True)[0])
+
+
+def case_int4_row_parallel(gen, name, what, M, K, N):
+    """The row-parallel int4 linear's partial product on one model rank
+    (``ops/quant.py:_row_partial`` with a row factor): kernel 7's
+    given-scale route with the row factor on this rank's slice of each row
+    (its given absmax spans a wider row: 1.5 times the slice's own), then
+    the int4 GEMM to f32; bit for bit against the plain versions and
+    against the unpack route (kernel 7 on f32 x * rf, then the int8 GEMM on
+    the unpacked weight), both timed. Yardstick: a bf16 ``F.linear``."""
+    x, packed, cs, rf = int4_inputs(gen, M, K, N)
+    amax = ((x.float() * rf).abs().amax(-1) * 1.5).contiguous()
+
+    def kernel():
+        xq, xs = Q.quantize_rows_given(x, amax, rf)
+        return Q4.int4_gemm(xq, xs, packed, cs, torch.float32)
+
+    def unpack_route():
+        xq, xs = Q.quantize_rows_given((x.float() * rf).contiguous(), amax)
+        return Q.int8_gemm(xq, xs, Q4.unpacked(packed), cs,
+                           dtype=torch.float32)
+
+    got = kernel()
+    xq, xs = Q.quantize_rows_given_plain(x, amax, rf)
+    res = compare_exact([got], [Q4.int4_gemm_plain(xq, xs, packed, cs,
+                                                   torch.float32)])
+    res["equals_unpack_route"] = torch.equal(got, unpack_route())
+    res["ok"] = res["ok"] and res["equals_unpack_route"]
+    del got, xq, xs
+    t, by = bound(2 * M * K * N, 2 * M * K + N * K // 2 + 4 * K + 4 * M
+                  + 4 * N + 4 * M * N, name, int8=True)
+    wb = rand_bf16(gen, (N, K))
+    return dict(shape=f"{what}: M={M} K={K} N={N} bf16 x, f32 out",
+                route="row_parallel", **res,
+                kernel_ms=time_ms(kernel, 50), device_ms=device_ms(kernel,
+                                                                   20)[0],
+                unpack_route_ms=time_ms(unpack_route, 50),
+                unpack_route_device_ms=device_ms(unpack_route, 20,
+                                                 calls=20)[0],
+                plain_ms=time_ms(lambda: Q4.int4_gemm_plain(
+                    *Q.quantize_rows_given_plain(x, amax, rf), packed, cs,
+                    torch.float32), 2, 1),
+                library_ms=time_ms(lambda: F.linear(x, wb), 50),
+                library="bf16 F.linear", bound_ms=t, bound_by=by)
+
+
 FUSION_SHAPE = "B=32 H=8 Lq=4096 Lk=512 D=16 (fusion, full width)"
 
 
@@ -1098,6 +1258,14 @@ def kernel_phase(name):
     for c in INT8_CASES + NEW_PATH_INT8_CASES:
         cases["int8_matmul"].append(case_int8(gen, name, *c))
         torch.cuda.empty_cache()
+    # from its own generator, so no other case's inputs move
+    gen4 = torch.Generator(device="cuda").manual_seed(7)
+    cases["int4_matmul"] = []
+    for c in INT4_CASES:
+        cases["int4_matmul"].append(case_int4(gen4, name, *c))
+        torch.cuda.empty_cache()
+    cases["int4_matmul"] += [case_int4_row_parallel(gen4, name, *c)
+                             for c in INT4_ROW_PARALLEL_CASES]
     # drawn last, so every earlier case keeps its inputs
     cases["flash_attention"] += [case_flash_edge(gen, name, *c)
                                  for c in FLASH_EDGE_CASES]
@@ -1342,7 +1510,7 @@ def case_flash_global(gen, name):
     del got, lse, want, lse_want
     Dp = P.FLASH_D
     t, by = bound(4 * Bg * H * L * L * Dp, 4 * Bg * H * L * Dp * 2
-                  + Bg * H * L * 4, name)
+                  + Bg * H * L * 4, name, exps=Bg * H * L * L)
     return dict(
         shape=f"B={Bg} H={H} L=Lk={L} D={D} padded to {Dp}, non-causal "
         "(window probe global_plain)", **res,
@@ -1371,7 +1539,8 @@ def case_flash_norel(gen, name):
     got = FA.flash_attention(q, k, v, False, scale)
     res = compare(got, plain())
     del got
-    t, by = bound(4 * Bg * H * L * L * D, 4 * Bg * H * L * D * 2, name)
+    t, by = bound(4 * Bg * H * L * L * D, 4 * Bg * H * L * D * 2, name,
+                  exps=Bg * H * L * L)
     return dict(
         shape=f"B={Bg} H={H} L=Lk={L} D={D}, padded to "
         f"{FA.padded_head_dim(D)} in flash_attention, non-causal (SAM "
@@ -1591,8 +1760,8 @@ def reference_phase(weights: str):
 
     ``weights`` "dense"; "int8": int8 LLaMA weights with the int8 KV
     cache, and the int8 SAM encoder; "int4": packed int4 LLaMA weights
-    (the lm_head too), otherwise as "int8". On the card every int8 and int4
-    linear launches the int8 kernel (int4 on the unpacked weight); on the
+    (the lm_head too), otherwise as "int8". On the card every int8 linear
+    launches the int8 kernel and every int4 one the int4 kernel; on the
     CPU the JAX package's composition runs, which rounds x / (amax / 127)
     where the kernel rounds x * (127 / amax): they differ only on a rounding
     tie, so the ids must still match."""
@@ -1632,7 +1801,8 @@ def reference_phase(weights: str):
                mask_rel_err=mask_err, contact_abs_err=contact_err,
                launches=launched)
     log(json.dumps(res))
-    needed = ["window_attention"] + (["int8_matmul"] if quant else [])
+    needed = (["window_attention"] + (["int8_matmul"] if quant else [])
+              + (["int4_matmul"] if weights == "int4" else []))
     if not (ids_equal and mask_err < 5e-2 and contact_err < 5e-2
             and all(launched[n] > 0 for n in needed)
             and bool(want["has_seg"].any())):
@@ -1831,25 +2001,34 @@ def serving_path_phase(path, cfg, kv_cache, b_cached, lift):
     # the first round's batches are the path's run: their launches are
     # counted and their outputs checked; the later rounds only add times
     outs, secs, int8_by_mode, by_mode = {}, {m: [] for m in modes}, {}, {}
-    for rnd in range(REPEATS):
-        if rnd == 0:
-            reset_launches()
-        for mode in modes:
-            before, counts = int8_counts(), read_launches()
-            out, ms = wall_ms(lambda: run(mode))
-            secs[mode].append(ms / 1e3)
-            outs.setdefault(mode, out)
+    with UnpackCounter() as unpacks:
+        for rnd in range(REPEATS):
             if rnd == 0:
-                int8_by_mode[mode] = {k: v - before[k]
-                                      for k, v in int8_counts().items()}
-                by_mode[mode] = launches_between(counts, read_launches())
-        if rnd == 0:
-            launches = read_launches()
+                reset_launches()
+            for mode in modes:
+                before, counts = int8_counts(), read_launches()
+                out, ms = wall_ms(lambda: run(mode))
+                secs[mode].append(ms / 1e3)
+                outs.setdefault(mode, out)
+                if rnd == 0:
+                    int8_by_mode[mode] = {k: v - before[k]
+                                          for k, v in int8_counts().items()}
+                    by_mode[mode] = launches_between(counts, read_launches())
+            if rnd == 0:
+                launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     needed = ["flash_attention", "window_attention", "rel_attention"]
-    quantized = cfg.llama.weights_int8 or cfg.llama.weights_int4
+    int4 = cfg.llama.weights_int4
+    quantized = cfg.llama.weights_int8 or int4
     if quantized:
         needed.append("int8_matmul")
+    if int4:
+        needed.append("int4_matmul")
+    log(json.dumps({"phase": "unpacks_on_card", "path": path,
+                    "calls": unpacks.n}))
+    if unpacks.n:
+        raise SystemExit(f"the {path} path unpacked int4 weights on the card "
+                         f"{unpacks.n} times")
     for n in needed:
         if launches[n] <= 0:
             raise SystemExit(f"the {path} path never launched {n}")
@@ -1861,20 +2040,27 @@ def serving_path_phase(path, cfg, kv_cache, b_cached, lift):
         raise SystemExit(f"the {path} path's window attention left the wgmma "
                          f"route: {launches['window_routes']}")
     if quantized:
-        # per batch (int8 or int4 weights alike): 7 projections a layer and
-        # the lm_head, at the prefill
+        # per batch: 7 projections a layer and the lm_head, at the prefill
         # and each of the T - 1 decode steps; 4 linears a SAM block when
         # the encoder runs (streaming only). The prefill's projections and
         # the encoder's linears take the two passes (a row quantize and a
         # GEMM each); the lm_head (at the prefill's last positions) and
-        # decode, B rows, the one-launch kernel.
+        # decode, B rows, the one-launch kernel. With int4 LLaMA weights
+        # LLaMA's calls take the int4 matmul's routes (its two-pass route's
+        # row quantize is kernel 7's too, its GEMM the int4 one), the
+        # encoder's kernel 6.
         proj = 7 * cfg.llama.num_layers
         one = 1 + (proj + 1) * (T - 1)
         sam_calls = 4 * cfg.sam.encoder_depth if cfg.sam.weights_int8 else 0
-        want = {mode: {"calls": one + two, "one_launch": one,
-                       "two_pass": two, "quantize_rows": two, "int8_gemm": two}
-                for mode, two in (("streaming", proj + sam_calls),
-                                  ("cached", proj))}
+        one4, two4 = (one, proj) if int4 else (0, 0)  # LLaMA's on int4
+        want = {}
+        for mode, sam in (("streaming", sam_calls), ("cached", 0)):
+            one8, two8 = one - one4, proj + sam - two4
+            want[mode] = {"calls": one8 + two8, "one_launch": one8,
+                          "two_pass": two8, "quantize_rows": proj + sam,
+                          "int8_gemm": two8, "int4_calls": one4 + two4,
+                          "int4_one_launch": one4, "int4_two_pass": two4,
+                          "int4_gemm": two4}
         log(json.dumps({"phase": "int8_launches", "path": path,
                         "by_mode": int8_by_mode, "expected": want}))
         if int8_by_mode != want:
@@ -1928,18 +2114,42 @@ def serving_path_phase(path, cfg, kv_cache, b_cached, lift):
 
 
 def int8_counts():
-    """The int8 matmul's calls on the card, its calls by route, and the
-    launches of the two-pass route's kernels."""
+    """The int8 and int4 matmuls' calls on the card, their calls by route,
+    and the launches of the two-pass routes' kernels (kernel 7 serves
+    both)."""
     return {"calls": Q.int8_matmul_fused.launches,
             **Q.int8_matmul_fused.route_launches,
             "quantize_rows": Q.quantize_rows.launches,
-            "int8_gemm": Q.int8_gemm.launches}
+            "int8_gemm": Q.int8_gemm.launches,
+            "int4_calls": Q4.int4_matmul_fused.launches,
+            **{"int4_" + r: n
+               for r, n in Q4.int4_matmul_fused.route_launches.items()},
+            "int4_gemm": Q4.int4_gemm.launches}
+
+
+class UnpackCounter:
+    """Counts ``ops/quant.py:unpack_int4`` calls on card tensors while
+    active (each the start of a transient (N, K) int8 copy of a packed
+    weight), patched where the port looks it up."""
+
+    def __enter__(self):
+        self.n, self.saved = 0, QT.unpack_int4
+
+        def counted(packed):
+            self.n += int(packed.is_cuda)
+            return self.saved(packed)
+
+        QT.unpack_int4 = Q4.unpack_int4 = counted
+        return self
+
+    def __exit__(self, *exc):
+        QT.unpack_int4 = Q4.unpack_int4 = self.saved
 
 
 def decode_by_cache(model, batch):
     """The decode leg (greedy_generate less prefill, host clock around
     synchronised calls) with the int8 and the dense cache on the same
-    weights, two of each in turns: int8, dense, dense, int8."""
+    weights, one of each after a warm-up of both."""
     llava = model.llava
     ids = torch.as_tensor(batch["input_ids"], device="cuda")
     px = batch["images_clip"]
@@ -1948,7 +2158,7 @@ def decode_by_cache(model, batch):
     for kv in out:  # warm-up: the dense cache's shapes are new here
         greedy_generate(llava, ids, px, max_new_tokens=T, eos_id=-1,
                         kv_cache=kv)
-    for kv in ("int8", "dense", "dense", "int8"):
+    for kv in ("int8", "dense"):
         _, p = wall_ms(lambda: llava.prefill(ids, px, Lp + T, kv_cache=kv))
         _, g = wall_ms(lambda: greedy_generate(llava, ids, px,
                                                max_new_tokens=T, eos_id=-1,
@@ -2000,10 +2210,10 @@ def device_busy(fn):
             "kernel_device_ms": ours, "symbol_device_ms": by_symbol}
 
 
-def device_or_event_ms(fn, iters):
+def device_or_event_ms(fn, iters, calls=None):
     """``device_ms`` of one call, or CUDA events (``time_ms``) where the
     profiler's trace holds no device activity; and which it was."""
-    ms = device_ms(fn, iters)[0]
+    ms = device_ms(fn, iters, calls=calls)[0]
     return (ms, "device") if ms is not None else (time_ms(fn, iters),
                                                   "events")
 
@@ -2026,20 +2236,27 @@ def linear_shapes(lcfg):
 
 @torch.no_grad()
 def int4_costs(lcfg):
-    """Device time a call (``device_ms``) of what ``int4_matmul`` runs at
-    the 7B decode shapes (B rows, bf16 x): the unpack of the packed weight
-    into a transient (N, K) int8 copy (nibble extraction and a cat: what a
-    fused int4 kernel would not write), kernel 6 on it (f32 x * rf), and
-    the whole call; each beside the bytes bound of the unpack (N K / 2
-    read, N K written), and summed over one decode step's calls. Weights
-    are cycled past the L2, as decode streams them."""
+    """Device time a call (``device_ms``) at the 7B decode shapes (B rows,
+    bf16 x) of the int4 call (``int4_matmul``: the one-launch kernel's int4
+    mode), of kernel 6 on an int8 weight of the same shape (the 7B-int8
+    path's call), and of the unpack route the card took before: the unpack
+    of the packed weight into a transient (N, K) int8 copy (nibble
+    extraction and a cat), kernel 6 on it (f32 x * rf) and that whole
+    call; the unpack beside its bytes bound (N K / 2 read, N K written),
+    and each summed over one decode step's calls. Weights are cycled past
+    the L2, as decode streams them. ``host_issue_us``: the host's time to
+    issue one call (500 calls back to back at the q/k/v/o shape) of
+    ``int4_matmul``, of its wrapper ``int4_matmul_fused`` and of kernel
+    6's ``int8_matmul_fused``: decode is host-bound, so these set its
+    pace."""
     name = torch.cuda.get_device_name(0)
     gen = torch.Generator(device="cuda").manual_seed(9)
     shapes = {k: (N, K, n * lcfg.num_layers)
               for k, (N, K, n) in linear_shapes(lcfg).items()}
     shapes["lm_head"] = (lcfg.padded_vocab_size, lcfg.hidden_size, 1)
-    rows, step = {}, {"unpack_ms": 0.0, "kernel_ms": 0.0,
-                      "int4_matmul_ms": 0.0, "unpack_bound_ms": 0.0}
+    keys = ("int4_matmul_ms", "int8_kernel_ms", "unpack_ms", "kernel_ms",
+            "unpack_route_ms", "unpack_bound_ms")
+    rows, step = {}, dict.fromkeys(keys, 0.0)
     for what, (N, K, n) in shapes.items():
         def make():
             return (torch.randint(-127, 128, (N, K // 2), generator=gen,
@@ -2049,26 +2266,57 @@ def int4_costs(lcfg):
 
         nxt = _cycled(make, N * K // 2)
         x = rand_bf16(gen, (B, K))
+        whole, how_w = device_or_event_ms(
+            lambda: QT.int4_matmul(x, *nxt()), 20)
+        # the unpack runs its elementwise kernel several times a call
         unpack, how = device_or_event_ms(
-            lambda: torch.cat(QT.unpack_int4(nxt()[0]), 1), 20)
+            lambda: torch.cat(QT.unpack_int4(nxt()[0]), 1), 20, calls=20)
         ws = _cycled(lambda: torch.cat(QT.unpack_int4(nxt()[0]), 1), N * K)
         xr = x.float()
         cs = torch.full((N,), 1.0 / (7.0 * K ** 0.5), device="cuda")
         kernel, how_k = device_or_event_ms(lambda: Q.int8_matmul_fused(
             xr, ws(), cs, out_dtype=torch.bfloat16), 20)
-        whole, how_w = device_or_event_ms(
-            lambda: QT.int4_matmul(x, *nxt()), 20)
+        int8, how_8 = device_or_event_ms(lambda: Q.int8_matmul_fused(
+            x, ws(), cs), 20)
+        old, how_o = device_or_event_ms(
+            lambda: Q4.int4_matmul_unpack_route(x, *nxt()), 20, calls=20)
         t, _ = bound(0, N * K // 2 + N * K, name)
-        rows[what] = {"N": N, "K": K, "calls_per_decode_step": n,
-                      "unpack_ms": unpack, "unpack_bound_ms": t,
-                      "kernel_ms": kernel, "int4_matmul_ms": whole,
-                      "timed_by": [how, how_k, how_w]}
-        for k, v in (("unpack_ms", unpack), ("kernel_ms", kernel),
-                     ("int4_matmul_ms", whole), ("unpack_bound_ms", t)):
+        vals = dict(zip(keys, (whole, int8, unpack, kernel, old, t)))
+        rows[what] = {"N": N, "K": K, "calls_per_decode_step": n, **vals,
+                      "timed_by": [how_w, how_8, how, how_k, how_o]}
+        for k, v in vals.items():
             step[k] += n * v
+        if what == "q/k/v/o":
+            w4, w8 = nxt(), ws()
+            host = {"int4_matmul": host_issue_us(
+                        lambda: QT.int4_matmul(x, *w4)),
+                    "int4_matmul_fused": host_issue_us(
+                        lambda: Q4.int4_matmul_fused(x, *w4)),
+                    "int8_matmul_fused": host_issue_us(
+                        lambda: Q.int8_matmul_fused(x, w8, cs))}
+            del w4, w8
         del nxt, ws
         torch.cuda.empty_cache()
-    return {"rows": B, "by_shape": rows, "per_decode_step": step}
+    return {"rows": B, "by_shape": rows, "per_decode_step": step,
+            "host_issue_us": host}
+
+
+def host_issue_us(fn, calls: int = 500):
+    """The host's time in µs to issue one call of ``fn``: ``calls`` calls
+    back to back on the host clock after a synchronise, two rounds, the
+    lower (the card runs behind, so its time is not in it while the
+    queue has room)."""
+    out = []
+    for _ in range(2):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return min(out)
 
 
 @torch.no_grad()
@@ -2613,7 +2861,8 @@ def train_launches_expected(cfg, steps: int = 1):
                  "rel_attention": n_global,
                  "int8_matmul": two, "quantize_rows": two,
                  "int8_routes": {"one_launch": 0, "two_pass": two},
-                 "int8_gemm": two,
+                 "int8_gemm": two, "int4_gemm": 0,
+                 "int4_routes": {"one_launch": 0, "two_pass": 0},
                  "window_routes": {"mma": 0, "sm90": cfg.sam.encoder_depth
                                    - n_global},
                  "rel_routes": {"mma": 0, "sm90": n_global},
@@ -2765,7 +3014,7 @@ TINY_LOGIT_TOL, TINY_CONTACT_TOL = 0.1, 0.01
 # the eval CLI's batches in the tiny chain; the forced copy's logit offset
 TINY_EVAL_B, TINY_EVAL_BATCHES, MASK_BIAS = 4, 2, 8.0
 # loader-off legs of the CLI's step split: rounds of (resident, copied)
-SPLIT_ROUNDS, SPLIT_STEPS = 2, 1
+SPLIT_ROUNDS, SPLIT_STEPS = 1, 1
 WORKDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "damon_workflow")
 
@@ -5405,9 +5654,11 @@ def entry_probes_phase():
     lc = llama_7b()
     one = 7 * lc.num_layers
     l4 = out["int4"]["launches"]
-    checks["int4"] = (all(l4[v] == {"int8_matmul": one,
-                                    "int8_one_launch": one}
-                          for v in ("int8", "int4_native", "int4_packed"))
+    checks["int4"] = (l4["int8"] == {"int8_matmul": one,
+                                     "int8_one_launch": one}
+                      and all(l4[v] == {"int4_matmul": one,
+                                        "int4_one_launch": one}
+                              for v in ("int4_native", "int4_packed"))
                       and l4["int4_grouped"]["quantize_rows"] == one
                       and l4["int4_grouped_batched"]["int8_matmul_prequant"]
                       == one)
@@ -5478,7 +5729,7 @@ def entry_probes_phase():
 
 # ------------------------------------------------------------ phase 20
 # the bench.py twin at its card defaults, its windows cut to fit the script
-BENCH_TWIN_ENV = {"BENCH_ITERS": "2", "BENCH_REPEATS": "2"}
+BENCH_TWIN_ENV = {"BENCH_ITERS": "2", "BENCH_REPEATS": "1"}
 BENCH_TWIN_TIMEOUT_S = 300
 # bench.py's record at its chip defaults, streaming and cached
 # (bench.py:660-709), and its metric string for them
@@ -5494,11 +5745,12 @@ BENCH_TWIN_PEAK = 989e12  # the H100's dense bf16 FLOP/s, the twin's MFU
 
 def per_iteration(counts):
     """A ``read_launches`` difference in ``probes/common.py:
-    launches_since``'s form: the kernels that launched, and the int8
-    matmul's calls by route as ``int8_<route>``."""
+    launches_since``'s form: the kernels that launched, and the int8 and
+    int4 matmuls' calls by route as ``int8_<route>`` / ``int4_<route>``."""
     out = {n: counts[n] for n in WRAPPERS if counts[n]}
-    out.update({"int8_" + r: n for r, n in counts["int8_routes"].items()
-                if n})
+    for kind in ("int8", "int4"):
+        out.update({f"{kind}_{r}": n
+                    for r, n in counts[kind + "_routes"].items() if n})
     return out
 
 
@@ -5677,11 +5929,19 @@ def main() -> int:
         log(json.dumps({"phase": "13b_hoi_done",
                         "s": time.perf_counter() - t_start}))
         del hoi_human, hoi_object
-    # kernel 6 takes the same routes on int4 weights as on int8 ones
-    routes = {p: launches[p]["int8_routes"] for p in ("7b_int8", "7b_int4")}
-    log(json.dumps({"phase": "int4_routes_as_int8", **routes}))
-    if routes["7b_int4"] != routes["7b_int8"]:
-        raise SystemExit(f"the int4 path's int8 routes differ: {routes}")
+    # the int4 path's int8 and int4 calls together take, route by route,
+    # the int8 path's int8 calls' routes
+    routes = {p: {r: launches[p]["int8_routes"][r]
+                  + launches[p]["int4_routes"][r]
+                  for r in ("one_launch", "two_pass")}
+              for p in ("7b_int8", "7b_int4")}
+    log(json.dumps({"phase": "int4_routes_as_int8", **routes,
+                    "by_kernel": {p: {k: launches[p][k] for k in
+                                      ("int8_routes", "int4_routes")}
+                                  for p in routes}}))
+    if (routes["7b_int4"] != routes["7b_int8"]
+            or any(launches["7b_int8"]["int4_routes"].values())):
+        raise SystemExit(f"the int4 path's routes differ: {routes}")
     for kind in ("lora", "qlora", "hoi"):
         train_reference_phase(kind)
     step_ms = {}
@@ -5733,6 +5993,11 @@ def main() -> int:
                 "int8_gemm_launches_by_path": {p: c["int8_gemm"]
                                                for p, c in launches.items()}}
                if kname == "int8_matmul" else {}),
+            # a two-pass int4 call launches kernel 7 and the int4 GEMM
+            **({"launches_by_route": launches[path]["int4_routes"],
+                "int4_gemm_launches_by_path": {p: c["int4_gemm"]
+                                               for p, c in launches.items()}}
+               if kname == "int4_matmul" else {}),
             **({"launches_by_route": launches[path]["rel_routes"]}
                if kname == "rel_attention" else {}),
             **({"launches_by_route": launches[path]["window_routes"]}

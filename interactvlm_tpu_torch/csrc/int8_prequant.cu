@@ -14,6 +14,12 @@
 // read from device memory once. Rows longer than 32 x 32 vectors are read
 // twice, the second time mostly from L2. Rows past M are never touched:
 // there is no host padding to a row block.
+//
+// With a row factor rf (K,) f32 (an int4 weight's, pass 1 of the two-pass
+// int4 matmul, csrc/int4_gemm_sm90.cu) the row quantized is the f32
+// product x * rf, formed in registers where x is read (and again where it
+// is quantized, rf from L1/L2): the bytes and scale of kernel 7 on
+// ops/quant.py's `x.float() * row_factor`, with no f32 copy of x written.
 #include "matmul_core.cuh"
 
 namespace {
@@ -31,14 +37,42 @@ __device__ __forceinline__ void store_q(int8_t* row, int j, const uint2& q) {
   }
 }
 
+// The absmax of vector j of a row (its values times rf[j VEC ..] with RF)
+// folded into amax, and its quantized bytes.
+template <typename TX, bool RF>
+__device__ __forceinline__ float row_amax(const uint4 u, const float* rf,
+                                          int j, float amax) {
+  if constexpr (RF) {
+    float v[XVec<TX>::kN];
+    vec_times<TX>(u, rf + j * XVec<TX>::kN, v);
+    return vals_amax(v, amax);
+  } else {
+    return vec_amax<TX>(u, amax);
+  }
+}
+
+template <typename TX, bool RF>
+__device__ __forceinline__ uint2 row_quant(const uint4 u, const float* rf,
+                                           int j, float inv) {
+  if constexpr (RF) {
+    float v[XVec<TX>::kN];
+    vec_times<TX>(u, rf + j * XVec<TX>::kN, v);
+    return quant_vals(v, inv);
+  } else {
+    return quant_vec<TX>(u, inv);
+  }
+}
+
 // VPL > 0: the row's vectors stay in registers, VPL of them a lane; VPL = 0:
 // the row is read twice.
 // GIVEN: the row's absmax is amax_in[row], not reduced from the row.
-template <typename TX, int VPL, bool GIVEN>
+// RF: the row quantized is x * rf.
+template <typename TX, int VPL, bool GIVEN, bool RF>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
     quantize_rows_kernel(const TX* __restrict__ x, int8_t* __restrict__ xq,
                          float* __restrict__ xs,
-                         const float* __restrict__ amax_in, int M, int K) {
+                         const float* __restrict__ amax_in,
+                         const float* __restrict__ rf, int M, int K) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= M) return;  // the whole warp leaves together
@@ -52,36 +86,43 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     for (int i = 0; i < VPL; ++i) {
       const int j = lane + 32 * i;
       v[i] = j < nv ? xr[j] : make_uint4(0u, 0u, 0u, 0u);
-      if constexpr (!GIVEN) amax = vec_amax<TX>(v[i], amax);
+      if constexpr (!GIVEN) {
+        if (j < nv) amax = row_amax<TX, RF>(v[i], rf, j, amax);
+      }
     }
     row_scales(GIVEN ? amax_in[row] : warp_max(amax), inv, scale);
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
       const int j = lane + 32 * i;
-      if (j < nv) store_q<TX>(qr, j, quant_vec<TX>(v[i], inv));
+      if (j < nv) store_q<TX>(qr, j, row_quant<TX, RF>(v[i], rf, j, inv));
     }
   } else {
     if constexpr (!GIVEN) {
-      for (int j = lane; j < nv; j += 32) amax = vec_amax<TX>(xr[j], amax);
+      for (int j = lane; j < nv; j += 32)
+        amax = row_amax<TX, RF>(xr[j], rf, j, amax);
     }
     row_scales(GIVEN ? amax_in[row] : warp_max(amax), inv, scale);
-    for (int j = lane; j < nv; j += 32) store_q<TX>(qr, j, quant_vec<TX>(xr[j], inv));
+    for (int j = lane; j < nv; j += 32)
+      store_q<TX>(qr, j, row_quant<TX, RF>(xr[j], rf, j, inv));
   }
   if (lane == 0) xs[row] = scale;
 }
 
-template <typename TX, bool GIVEN>
+template <typename TX, bool GIVEN, bool RF>
 cudaError_t launch_quantize(const void* x, void* xq, void* xs,
-                            const void* amax, int M, int K, cudaStream_t st) {
+                            const void* amax, const void* rf, int M, int K,
+                            cudaStream_t st) {
   const TX* xp = static_cast<const TX*>(x);
   int8_t* qp = static_cast<int8_t*>(xq);
   float* sp = static_cast<float*>(xs);
   const float* ap = static_cast<const float*>(amax);
+  const float* rp = static_cast<const float*>(rf);
   const int per_lane = (K / XVec<TX>::kN + 31) / 32;
   const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
   const dim3 block(kRowsPerBlock * 32);
-#define IVLM_QUANT(V) \
-  quantize_rows_kernel<TX, V, GIVEN><<<grid, block, 0, st>>>(xp, qp, sp, ap, M, K)
+#define IVLM_QUANT(V)                                              \
+  quantize_rows_kernel<TX, V, GIVEN, RF><<<grid, block, 0, st>>>( \
+      xp, qp, sp, ap, rp, M, K)
   if (per_lane <= 2) {
     IVLM_QUANT(2);
   } else if (per_lane <= 4) {
@@ -101,34 +142,42 @@ cudaError_t launch_quantize(const void* x, void* xq, void* xs,
   return cudaGetLastError();
 }
 
+template <bool GIVEN>
+cudaError_t launch_type(const void* x, int x_f32, void* xq, void* xs,
+                        const void* amax, const void* rf, int M, int K,
+                        cudaStream_t st) {
+  if (rf != nullptr)
+    return x_f32 ? launch_quantize<float, GIVEN, true>(x, xq, xs, amax, rf, M, K, st)
+                 : launch_quantize<bf16, GIVEN, true>(x, xq, xs, amax, rf, M, K, st);
+  return x_f32 ? launch_quantize<float, GIVEN, false>(x, xq, xs, amax, rf, M, K, st)
+               : launch_quantize<bf16, GIVEN, false>(x, xq, xs, amax, rf, M, K, st);
+}
+
 }  // namespace
 
-// x: (M, K) bf16 (x_f32 = 0) or f32, contiguous, K % 8 == 0; xq: (M, K)
-// int8; xs: (M,) f32. Returns the launch status (0 = launched).
-extern "C" int ivlm_quantize_rows(const void* x, int x_f32, void* xq, void* xs,
-                                  int M, int K, void* stream) {
+// x: (M, K) bf16 (x_f32 = 0) or f32, contiguous, K % 8 == 0; rf: (K,) f32
+// or null (x itself); xq: (M, K) int8; xs: (M,) f32. Returns the launch
+// status (0 = launched).
+extern "C" int ivlm_quantize_rows(const void* x, int x_f32, const void* rf,
+                                  void* xq, void* xs, int M, int K,
+                                  void* stream) {
   if (M <= 0 || K <= 0 || K % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      x_f32 ? launch_quantize<float, false>(x, xq, xs, nullptr, M, K, st)
-            : launch_quantize<bf16, false>(x, xq, xs, nullptr, M, K, st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_type<false>(
+      x, x_f32, xq, xs, nullptr, rf, M, K, static_cast<cudaStream_t>(stream)));
 }
 
 // The given-scale route: as ivlm_quantize_rows, with each row's absmax
-// read from amax (M,) f32 (the row's max |x| over its whole length, of
-// which x holds a slice) instead of reduced from x.
+// read from amax (M,) f32 (the row's max |x| (|x * rf| with rf) over its
+// whole length, of which x holds a slice) instead of reduced from x.
 extern "C" int ivlm_quantize_rows_given(const void* x, int x_f32,
-                                        const void* amax, void* xq, void* xs,
-                                        int M, int K, void* stream) {
+                                        const void* amax, const void* rf,
+                                        void* xq, void* xs, int M, int K,
+                                        void* stream) {
   if (M <= 0 || K <= 0 || K % 8 != 0 || amax == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      x_f32 ? launch_quantize<float, true>(x, xq, xs, amax, M, K, st)
-            : launch_quantize<bf16, true>(x, xq, xs, amax, M, K, st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_type<true>(
+      x, x_f32, xq, xs, amax, rf, M, K, static_cast<cudaStream_t>(stream)));
 }
 
 IVLM_EXPORT_ERROR_STRING(ivlm_int8_prequant)

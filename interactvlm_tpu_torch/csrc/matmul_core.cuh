@@ -1,7 +1,9 @@
 // Shared device code of the hand-written matmul kernels: cp.async copies
 // into shared memory (the window probe's copy kernel), the per-row int8
-// quantization (the row quantize and the one-launch int8 matmul) and the
-// epilogue arithmetic (rescale, GELU) of every int8 and bf16 matmul kernel.
+// quantization, of x or of x times an int4 weight's row factor (the row
+// quantize and the one-launch int8 / int4 matmul), the unpack of packed
+// int4 nibbles (the int4 matmuls) and the epilogue arithmetic (rescale,
+// GELU) of every int8, int4 and bf16 matmul kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,6 +113,54 @@ __device__ __forceinline__ uint2 quant_vec(const uint4 u, float inv) {
     q.y = 0u;
   }
   return q;
+}
+
+// The f32 values of a 16-byte vector of x, each times its row factor (`rf`:
+// the factors of the vector's K columns, 16-byte aligned), the product
+// rounded once: what ops/quant.py's `x.float() * row_factor` gives.
+template <typename TX>
+__device__ __forceinline__ void vec_times(const uint4 u, const float* rf,
+                                          float (&v)[XVec<TX>::kN]) {
+#pragma unroll
+  for (int q = 0; q < XVec<TX>::kN / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(rf)[q];
+    v[4 * q] = __fmul_rn(XVec<TX>::get(u, 4 * q), f.x);
+    v[4 * q + 1] = __fmul_rn(XVec<TX>::get(u, 4 * q + 1), f.y);
+    v[4 * q + 2] = __fmul_rn(XVec<TX>::get(u, 4 * q + 2), f.z);
+    v[4 * q + 3] = __fmul_rn(XVec<TX>::get(u, 4 * q + 3), f.w);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float vals_amax(const float (&v)[N], float amax) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  return amax;
+}
+
+// N = 8 or 4 values quantized as quant_vec quantizes a vector: a uint2, or
+// .x alone.
+template <int N>
+__device__ __forceinline__ uint2 quant_vals(const float (&v)[N], float inv) {
+  uint2 q;
+  q.x = quant4(v[0], v[1], v[2], v[3], inv);
+  if constexpr (N == 8) {
+    q.y = quant4(v[4], v[5], v[6], v[7], inv);
+  } else {
+    q.y = 0u;
+  }
+  return q;
+}
+
+// The nibbles of a word of four packed int4 bytes (ops/quant.py:pack_int4),
+// each sign-extended to a byte: `lo` the low nibbles, `hi` the high ones,
+// in the bytes they came from. Bytewise (n ^ 8) - 8, written as
+// ((n ^ 8) + 0x78) ^ 0x80 so that no byte carries into the next:
+// n ^ 8 <= 15.
+__device__ __forceinline__ void unpack_nibbles(uint32_t p, uint32_t& lo,
+                                               uint32_t& hi) {
+  lo = (((p & 0x0F0F0F0Fu) ^ 0x08080808u) + 0x78787878u) ^ 0x80808080u;
+  hi = ((((p >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u) + 0x78787878u) ^ 0x80808080u;
 }
 
 // The activation of an f32 epilogue value: exact (erf) GELU or tanh GELU.

@@ -304,9 +304,13 @@ class Int4Linear(nn.Module):
     of ``interactvlm_tpu/models/llama.py:Int4Dense``. ``weight_q4`` (out,
     in/2) int8 holds two nibbles a byte (``ops/quant.py``), ``weight_scale``
     (out,) f32 the per-column scales and ``weight_rf`` (in,) f32 the rank-1
-    group row factor that multiplies x. Runs ``ops/quant.int4_matmul``:
-    kernel 6 on the unpacked weight on a CUDA tensor, the JAX package's
-    composition on a CPU one. Serving only: raises under grad."""
+    group row factor that multiplies x. Runs ``ops/quant.int4_matmul``: on
+    a CUDA tensor the int4 kernels, which read the packed nibbles and fold
+    the row factor into the row quantize (``ops/int4_matmul.py``: the
+    one-launch kernel's int4 mode up to 32 rows, else kernel 7 with the row
+    factor and the int4 GEMM; a row-parallel layer kernel 7's given-scale
+    route and the int4 GEMM), on a CPU one the JAX package's composition.
+    Serving only: raises under grad."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype=torch.bfloat16, device=None):

@@ -24,7 +24,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("flash_attention", "flash_attention_bwd", "window_attention",
            "rel_attention", "int8_matmul", "int8_prequant", "int8_gemm_sm90",
-           "serving_matmul", "mxu_probe", "window_copy")
+           "int4_gemm_sm90", "serving_matmul", "mxu_probe", "window_copy")
 _HEADERS = ("attention_core.cuh", "matmul_core.cuh", "sm90_core.cuh",
             "gemm_sm90.cuh", "flash_fwd_sm90.cuh", "rel_attention_sm90.cuh",
             "flash_bwd_sm90.cuh", "window_attention_sm90.cuh")

@@ -10,6 +10,9 @@ Ports of the Pallas TPU kernels of ``interactvlm_tpu/ops/int8_matmul.py``:
 (``int8_matmul_prequant``, which only the chain probe runs). The kernel
 sources say what bounds each on the H100 and how its design answers that.
 
+The row quantize also takes an int4 weight's row factor (x * rf quantized,
+the int4 matmul's pass 1, ``ops/int4_matmul.py``).
+
 ``int8_matmul_fused`` picks its route by the number of rows M (``int8_route``):
 up to ``ONE_LAUNCH_MAX_ROWS`` (decode and the lm_head, where the host's
 launches set the pace) one launch of the fused kernel; above it, or where K
@@ -63,19 +66,16 @@ def apply_activation(y, activation: str):
 
 def int8_matmul_fused_plain(x, w_q, w_scale, bias=None,
                             activation: str = "none", out_dtype=None):
-    """Plain version of the kernel, the same arithmetic in torch: the int32
-    sum is taken exactly in float64 (``quant.int_matmul_exact``)."""
+    """Plain version of the kernel: the same arithmetic in torch, as the
+    two-pass route's plain versions compute it (``quantize_rows_plain``,
+    then ``int8_matmul_prequant_plain``), so that the two routes' plain
+    versions are one computation on one layout; the int32 sum is taken
+    exactly in float64 (``quant.int_matmul_exact``)."""
     K = x.shape[-1]
-    x2 = x.reshape(-1, K)
-    amax = x2.abs().amax(dim=-1, keepdim=True).float().clamp_min(SCALE_FLOOR)
-    x_scale = exact_div(amax, 127.0)
-    inv = exact_div(127.0, amax)
-    xq = torch.clamp(torch.round(x2.float() * inv), -127, 127)
-    out = int_matmul_exact(xq, w_q) * x_scale * w_scale.float()
-    if bias is not None:
-        out = out + bias.float()
-    out = apply_activation(out, activation)
-    return out.to(out_dtype or x.dtype).reshape(*x.shape[:-1], w_q.shape[0])
+    x_q, x_scale = quantize_rows_plain(x.reshape(-1, K))
+    out = int8_matmul_prequant_plain(x_q, x_scale, w_q, w_scale,
+                                     out_dtype or x.dtype, activation, bias)
+    return out.reshape(*x.shape[:-1], w_q.shape[0])
 
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -200,40 +200,61 @@ int8_matmul_fused.launches = 0
 int8_matmul_fused.route_launches = {"one_launch": 0, "two_pass": 0}
 
 
-def quantize_rows_plain(x):
+def quantize_rows_plain(x, row_factor=None):
     """Plain version of the row quantize kernel: x (M, K) -> (x_q int8
     (M, K), x_scale f32 (M, 1)), with the fused kernel's quantization of x
-    (the absmax in x's own type, x * (127 / amax) rounded half to even)."""
+    (the absmax in x's own type, x * (127 / amax) rounded half to even).
+    With ``row_factor`` (K,) f32 the rows quantized are the f32 products
+    x * row_factor (an int4 weight's, ``ops/quant.py:int4_matmul``)."""
+    if row_factor is not None:
+        x = x.float() * row_factor
     amax = x.abs().amax(dim=-1, keepdim=True).float().clamp_min(SCALE_FLOOR)
     inv = exact_div(127.0, amax)
     q = torch.clamp(torch.round(x.float() * inv), -127, 127)
     return q.to(torch.int8), exact_div(amax, 127.0)
 
 
-_QUANT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+_QUANT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-def quantize_rows(x):
-    """Per-row symmetric int8 quantization of (M, K) activations: returns
-    (x_q int8 (M, K), x_scale f32 (M, 1)), as ``quantize_rows_plain``.
+def _row_factor_arg(kernel, x, row_factor):
+    """The row factor's pointer for kernel 7 (null without one), after
+    checking it: (K,) f32, contiguous, on x's device."""
+    if row_factor is None:
+        return ctypes.c_void_p(None)
+    if row_factor.shape != (x.shape[1],):
+        raise ValueError(f"{kernel}: row factor must be ({x.shape[1]},), got "
+                         f"{tuple(row_factor.shape)}")
+    _cuda.require_kernel_inputs(kernel, row_factor, dtype=torch.float32)
+    if row_factor.device != x.device:
+        raise ValueError(f"{kernel}: all inputs must be on one CUDA device")
+    return _cuda.ptr(row_factor)
+
+
+def quantize_rows(x, row_factor=None):
+    """Per-row symmetric int8 quantization of (M, K) activations (with
+    ``row_factor`` (K,) f32, of x * row_factor): returns (x_q int8 (M, K),
+    x_scale f32 (M, 1)), as ``quantize_rows_plain``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (x bf16
-    or f32, contiguous, K a multiple of 8) or raise. Forward only."""
+    or f32, contiguous, K a multiple of 8; the row factor f32 contiguous) or
+    raise. Forward only."""
     _cuda.refuse_grad("quantize_rows", x)
     if not x.is_cuda:
-        return quantize_rows_plain(x)
+        return quantize_rows_plain(x, row_factor)
     if x.dim() != 2 or x.dtype not in X_DTYPES or x.shape[1] % 8:
         raise ValueError(f"quantize_rows: x must be bf16 or f32 (M, K) with K "
                          f"a multiple of 8, got {x.dtype} {tuple(x.shape)}")
     _cuda.require_kernel_inputs("quantize_rows", x, dtype=x.dtype)
+    rf = _row_factor_arg("quantize_rows", x, row_factor)
     M, K = x.shape
     xq = torch.empty(M, K, dtype=torch.int8, device=x.device)
     xs = torch.empty(M, 1, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         _cuda.launch(
             "int8_prequant", "ivlm_quantize_rows", _QUANT_ARGTYPES,
-            _cuda.ptr(x), int(x.dtype == torch.float32), _cuda.ptr(xq),
+            _cuda.ptr(x), int(x.dtype == torch.float32), rf, _cuda.ptr(xq),
             _cuda.ptr(xs), M, K, _cuda.stream_handle(x.device),
         )
     quantize_rows.launches += 1
@@ -243,31 +264,35 @@ def quantize_rows(x):
 quantize_rows.launches = 0
 
 
-def quantize_rows_given_plain(x, amax):
+def quantize_rows_given_plain(x, amax, row_factor=None):
     """Plain version of the given-scale row quantize: ``quantize_rows_plain``
-    with each row's absmax ``amax`` (M,) given instead of taken from x."""
+    with each row's absmax ``amax`` (M,) given instead of taken from x (or
+    from x * row_factor)."""
+    if row_factor is not None:
+        x = x.float() * row_factor
     a = amax.reshape(-1, 1).float().clamp_min(SCALE_FLOOR)
     inv = exact_div(127.0, a)
     q = torch.clamp(torch.round(x.float() * inv), -127, 127)
     return q.to(torch.int8), exact_div(a, 127.0)
 
 
-_GIVEN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+_GIVEN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-def quantize_rows_given(x, amax):
+def quantize_rows_given(x, amax, row_factor=None):
     """Per-row int8 quantization of (M, K) activations with each row's
     absmax given, (M,) f32 (the row's max |x| over a length of which x is a
-    slice): returns (x_q int8 (M, K), x_scale f32 (M, 1)), as
-    ``quantize_rows_given_plain``. Kernel 7's given-scale route.
+    slice; with ``row_factor`` (K,) f32 the slice's factors, max |x * rf|
+    and x * rf quantized): returns (x_q int8 (M, K), x_scale f32 (M, 1)),
+    as ``quantize_rows_given_plain``. Kernel 7's given-scale route.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (x
-    bf16 or f32, contiguous, K a multiple of 8; amax f32 contiguous) or
-    raise. ``launches`` counts the launches. Forward only."""
+    bf16 or f32, contiguous, K a multiple of 8; amax and the row factor f32
+    contiguous) or raise. ``launches`` counts the launches. Forward only."""
     _cuda.refuse_grad("quantize_rows_given", x)
     if not x.is_cuda:
-        return quantize_rows_given_plain(x, amax)
+        return quantize_rows_given_plain(x, amax, row_factor)
     if x.dim() != 2 or x.dtype not in X_DTYPES or x.shape[1] % 8:
         raise ValueError(f"quantize_rows_given: x must be bf16 or f32 (M, K) "
                          f"with K a multiple of 8, got {x.dtype} "
@@ -279,12 +304,13 @@ def quantize_rows_given(x, amax):
     _cuda.require_kernel_inputs("quantize_rows_given", x, dtype=x.dtype)
     _cuda.require_kernel_inputs("quantize_rows_given", amax,
                                 dtype=torch.float32)
+    rf = _row_factor_arg("quantize_rows_given", x, row_factor)
     xq = torch.empty(M, K, dtype=torch.int8, device=x.device)
     xs = torch.empty(M, 1, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         _cuda.launch(
             "int8_prequant", "ivlm_quantize_rows_given", _GIVEN_ARGTYPES,
-            _cuda.ptr(x), int(x.dtype == torch.float32), _cuda.ptr(amax),
+            _cuda.ptr(x), int(x.dtype == torch.float32), _cuda.ptr(amax), rf,
             _cuda.ptr(xq), _cuda.ptr(xs), M, K,
             _cuda.stream_handle(x.device),
         )

@@ -192,16 +192,21 @@ def int4_matmul(x, packed, col_scale, row_factor, dtype=torch.bfloat16):
     over both halves of K, times the row scale and the column scale.
 
     On a CPU tensor the JAX package's composition (its two half-K int8
-    products are one exact sum here). On a CUDA tensor kernel 6
-    (``int8_matmul_fused``) on the f32 product x * rf and the unpacked
-    (N, K) int8 weight, a transient copy each call; the kernel quantizes x
+    products are one exact sum here). On a CUDA tensor the int4 kernels
+    (``ops/int4_matmul.py:int4_matmul_fused``), which read the packed
+    nibbles and fold the row factor into the row quantize; they quantize x
     with x * (127 / amax) where the composition divides by amax / 127 (a
     rounding tie apart). Serving only: raises under grad."""
     _cuda.refuse_grad("int4_matmul", x)
+    if x.is_cuda:
+        # imported here: ops/int4_matmul.py imports this module
+        from interactvlm_tpu_torch.ops.int4_matmul import int4_matmul_fused
+
+        K, N = x.shape[-1], packed.shape[0]
+        return int4_matmul_fused(x.reshape(-1, K), packed, col_scale,
+                                 row_factor, dtype).reshape(*x.shape[:-1], N)
     xr = x.float() * row_factor
     w = torch.cat(unpack_int4(packed), dim=1)
-    if x.is_cuda:
-        return _kernel6(xr, w, col_scale, dtype)
     x_q, x_scale = quantize_int8(xr, axis=-1)
     return (int_matmul_exact(x_q, w) * x_scale * col_scale).to(dtype)
 
@@ -233,25 +238,33 @@ def row_parallel_quantize(x, group, row_factor=None):
 
 def _row_partial(x, w_q, w_scale, group, row_factor=None):
     """This rank's f32 partial of the row-parallel product: on a CPU tensor
-    ``row_parallel_quantize`` and the exact int32 sum; on a CUDA tensor the
-    slices' absmax all-reduced, kernel 7's given-scale route
-    (``quantize_rows_given``) and the int8 GEMM to f32."""
+    ``row_parallel_quantize`` and the exact int32 sum (``w_q`` int8, or
+    packed int4 with ``row_factor``, unpacked here); on a CUDA tensor the
+    slices' absmax (of x * rf with a row factor) all-reduced, kernel 7's
+    given-scale route (with the row factor) and the int8 GEMM, or with a
+    row factor the int4 GEMM on the packed weight, to f32."""
     K, N = x.shape[-1], w_q.shape[0]
     if not x.is_cuda:
+        if row_factor is not None:
+            w_q = torch.cat(unpack_int4(w_q), dim=1)
         q, scale = row_parallel_quantize(x, group, row_factor)
         return int_matmul_exact(q, w_q) * scale * w_scale
+    from interactvlm_tpu_torch.ops.int4_matmul import int4_gemm
     from interactvlm_tpu_torch.ops.int8_matmul import (
         int8_gemm,
         quantize_rows_given,
     )
     from interactvlm_tpu_torch.parallel.collectives import all_reduce_max
 
-    xr = x.reshape(-1, K)
-    xr = xr.float() * row_factor if row_factor is not None else xr
-    xr = xr.contiguous()
-    amax = all_reduce_max(xr.abs().amax(dim=-1).float(), group)
-    xq, xs = quantize_rows_given(xr, amax)
-    out = int8_gemm(xq, xs, w_q, w_scale, dtype=torch.float32)
+    xr = x.reshape(-1, K).contiguous()
+    xa = xr.float() * row_factor if row_factor is not None else xr
+    amax = all_reduce_max(xa.abs().amax(dim=-1).float(), group)
+    del xa
+    xq, xs = quantize_rows_given(xr, amax, row_factor)
+    if row_factor is not None:
+        out = int4_gemm(xq, xs, w_q, w_scale, dtype=torch.float32)
+    else:
+        out = int8_gemm(xq, xs, w_q, w_scale, dtype=torch.float32)
     return out.reshape(*x.shape[:-1], N)
 
 
@@ -290,12 +303,12 @@ def int4_matmul_row_parallel(x, packed, col_scale, row_factor, group,
     rank's contiguous slice, packed split-half on its own,
     ``parallel/mesh.py:shard_tensor``) with its slice of the row factor,
     summed over ``group``: the unsharded ``int4_matmul``, whose x * rf
-    quantizes with the whole row's absmax. Serving only."""
+    quantizes with the whole row's absmax. On the card the packed bytes are
+    read by the int4 GEMM (``_row_partial``). Serving only."""
     from interactvlm_tpu_torch.parallel.collectives import reduce_from
 
     _cuda.refuse_grad("int4_matmul", x)
-    w = torch.cat(unpack_int4(packed), dim=1)
-    part = _row_partial(x, w, col_scale, group, row_factor)
+    part = _row_partial(x, packed, col_scale, group, row_factor)
     return reduce_from(part, group).to(dtype)
 
 

@@ -14,6 +14,7 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 from interactvlm_tpu_torch.ops import flash_attention as FA
+from interactvlm_tpu_torch.ops import int4_matmul as Q4
 from interactvlm_tpu_torch.ops import int8_matmul as Q
 from interactvlm_tpu_torch.ops import mxu as MX
 from interactvlm_tpu_torch.ops import sam_attention as SA
@@ -26,7 +27,8 @@ BF16_PEAK = 989e12
 # every hand-written kernel's wrapper, by kernel name: each adds one to its
 # ``launches`` where it launches its kernel (``int8_gemm`` is pass 2 of
 # ``int8_matmul``'s two-pass route; ``quantize_rows_given`` kernel 7's
-# given-scale route)
+# given-scale route; ``int4_gemm`` pass 2 of ``int4_matmul``'s two-pass
+# route, whose pass 1 counts under ``quantize_rows``)
 WRAPPERS = {
     "flash_attention": FA.flash_forward,
     "window_attention": SA.window_attention,
@@ -41,9 +43,12 @@ WRAPPERS = {
     "window_copy": SA.window_copy,
     "quantize_rows_given": Q.quantize_rows_given,
     "int8_gemm": Q.int8_gemm,
+    "int4_matmul": Q4.int4_matmul_fused,
+    "int4_gemm": Q4.int4_gemm,
 }
 # the wrappers that also count their launches by route
 ROUTES = {"int8_routes": Q.int8_matmul_fused,
+          "int4_routes": Q4.int4_matmul_fused,
           "window_routes": SA.window_attention,
           "rel_routes": SA.rel_attention,
           "bwd_dq_routes": FA.flash_bwd_dq,
@@ -67,11 +72,14 @@ def read_launches() -> Dict[str, object]:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Each counted kernel's launches so far, and the int8 matmul's calls
-    by route (``int8_one_launch``, ``int8_two_pass``)."""
+    """Each counted kernel's launches so far, and the int8 and int4
+    matmuls' calls by route (``int8_one_launch``, ``int8_two_pass``,
+    ``int4_one_launch``, ``int4_two_pass``)."""
     out = {n: w.launches for n, w in WRAPPERS.items()}
-    for route, n in Q.int8_matmul_fused.route_launches.items():
-        out["int8_" + route] = n
+    for kind, w in (("int8_", Q.int8_matmul_fused),
+                    ("int4_", Q4.int4_matmul_fused)):
+        for route, n in w.route_launches.items():
+            out[kind + route] = n
     return out
 
 

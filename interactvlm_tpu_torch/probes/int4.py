@@ -9,9 +9,11 @@ stored and multiplied:
 
   int8          int8 weights, kernel 6 (``int8_matmul_fused``: its
                 one-launch route at B = 8), the serving int8 path
-  int4_native   packed int4 weights unpacked to int8 beside each kernel-6
-                call, no row factor (the JAX variant stores XLA's s4 type,
-                which torch lacks on the card; the packed bytes stand in)
+  int4_native   packed int4 weights read by the int4 kernel
+                (``ops/int4_matmul.py:int4_matmul_fused``, the one-launch
+                kernel's int4 mode at B = 8) with a unit row factor (the
+                JAX variant stores XLA's s4 type and no row factor, which
+                torch lacks on the card; the packed bytes stand in)
   int4_grouped  packed int4 weights, one group of 128 input columns a
                 product: kernel 7 quantizes the row once, then kernel 8
                 (``int8_matmul_prequant``) per group with that group's f32
@@ -22,7 +24,8 @@ stored and multiplied:
                 (G * B, K) rows, the (G, B, N) partials scaled per group
                 and summed
   int4_packed   the port's serving route, ``ops/quant.py:int4_matmul``:
-                the row factor on x, the unpack, kernel 6
+                the int4 kernel with the row factor folded into its row
+                quantize
 
 The weights are random integers with scales that keep the activations
 O(1) through the 32 layers (the leg's work is the serving path's; its
@@ -50,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from interactvlm_tpu_torch.config import llama_7b
+from interactvlm_tpu_torch.ops.int4_matmul import int4_matmul_fused
 from interactvlm_tpu_torch.ops.int8_matmul import (
     int8_matmul_fused,
     int8_matmul_prequant,
@@ -138,9 +142,7 @@ def matmul(variant):
         return int8_matmul_fused(x, w[0], w[1], out_dtype=torch.float32)
 
     def int4_native(x, w):
-        packed, col, _ = w
-        return int8_matmul_fused(x, torch.cat(unpack_int4(packed), 1), col,
-                                 out_dtype=torch.float32)
+        return int4_matmul_fused(x, *w, out_dtype=torch.float32)
 
     def int4_packed(x, w):
         return int4_matmul(x, *w, dtype=torch.float32)

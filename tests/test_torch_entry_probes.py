@@ -315,7 +315,8 @@ def test_launch_counters_cover_every_kernel_and_reset(monkeypatch):
     import chip_smoke
     from interactvlm_tpu_torch.probes import common as C
 
-    assert set(chip_smoke.KERNELS) | {"int8_gemm"} == set(C.WRAPPERS)
+    assert (set(chip_smoke.KERNELS) | {"int8_gemm", "int4_gemm"}
+            == set(C.WRAPPERS))
     for n, w in C.WRAPPERS.items():
         monkeypatch.setattr(w, "launches", 3)
     for w in C.ROUTES.values():

@@ -44,6 +44,12 @@ two-pass form (row quantize, then the pre-quantized matmul or the wgmma
 GEMM, which is the fused matmul's route above 32 rows): the quantize is
 held byte for byte, the matmul bit for bit without an activation.
 
+The int4 matmul (the one-launch kernel's int4 mode; kernel 7 with the row
+factor, then the int4 GEMM) shares its plain version's arithmetic, an
+exact integer sum and no activation: bit for bit against the plain version
+and against the unpack route the card took before it (the unpacked weight
+and kernel 6 on f32 x * rf), on both routes and in the row-parallel form.
+
 The bf16 serving matmul sums f32 products of bf16 inputs in another order
 than the plain version's f32 matmul, then rounds once to bf16: each element
 within 2^-7 of its magnitude plus 1e-3 of the output's RMS (sums that cancel
@@ -58,6 +64,7 @@ import pytest
 import torch
 
 from interactvlm_tpu_torch.ops import flash_attention as F
+from interactvlm_tpu_torch.ops import int4_matmul as Q4
 from interactvlm_tpu_torch.ops import int8_matmul as Q
 from interactvlm_tpu_torch.ops import mxu as X
 from interactvlm_tpu_torch.ops import sam_attention as S
@@ -887,8 +894,8 @@ def test_probe_kernels_refuse_what_they_do_not_take(dev):
 
 # ------------------------------------------------ QLoRA, int4, lift maps
 # The straight-through int8 matmul (kernel 6 forward, a bf16 GEMM with an
-# f32 output backward) and int4_matmul (kernel 6 on the unpacked weight)
-# against their plain versions on the CPU. Forward: the kernel and the plain
+# f32 output backward) and int4_matmul (the int4 kernels) against their
+# plain versions on the CPU. Forward: the kernel and the plain
 # version share the quantization and the exact integer sum, so each element
 # within one bf16 step plus 1e-6 of the largest (as the int8 cases above).
 # dx: bf16 products exact in f32 on both sides, f32 sums in another order,
@@ -933,9 +940,9 @@ def test_int8_ste_on_the_card_matches_the_cpu(dev, M, K, N, dtype):
 @pytest.mark.parametrize("M,K,N", [(8, 4096, 4096), (32, 11008, 4096),
                                    (40, 4096, 11008), (512, 4096, 4096)])
 def test_int4_matmul_on_the_card_matches_plain(dev, M, K, N):
-    """Kernel 6 on the unpacked int4 weight, on both routes, against the
-    fused kernel's plain version on the CPU on the same f32 x * rf and
-    unpacked weight."""
+    """The int4 kernels on both routes (the route its rows pick, counted by
+    the int4 wrapper), through ``int4_matmul`` as ``Int4Linear`` calls it,
+    against the plain version on the CPU on the same inputs."""
     from interactvlm_tpu_torch.ops import quant as QT
 
     rng = np.random.default_rng(22)
@@ -944,19 +951,101 @@ def test_int4_matmul_on_the_card_matches_plain(dev, M, K, N):
     q4, cs, rf = QT.quantize_int4(w)
     x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
         torch.bfloat16)
-    routes = dict(Q.int8_matmul_fused.route_launches)
+    routes = dict(Q4.int4_matmul_fused.route_launches)
     with torch.no_grad():
         got = QT.int4_matmul(x.to(dev), q4.to(dev), cs.to(dev), rf.to(dev))
     torch.cuda.synchronize()
-    route = Q.int8_route(M, K)
-    assert Q.int8_matmul_fused.route_launches[route] == routes[route] + 1
-    want = Q.int8_matmul_fused_plain(
-        x.float() * rf, torch.cat(QT.unpack_int4(q4), 1), cs,
-        out_dtype=torch.bfloat16).float()
+    route = Q4.int4_route(M, K)
+    assert Q4.int4_matmul_fused.route_launches[route] == routes[route] + 1
+    want = Q4.int4_matmul_fused_plain(x, q4, cs, rf, torch.bfloat16).float()
     err = (got.float().cpu() - want).abs()
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     assert bool((err <= 2.0 ** -7 * want.abs()
                  + 1e-6 * want.abs().max()).all()), err.max().item()
+
+
+def _int4_inputs(rng, M, K, N, dev, xdt, flat=False):
+    """Rows with a zero row and rounding ties (``_ties_rows``; one random
+    row where M is 1), a packed
+    weight of random bytes (every nibble value in both halves), scales and
+    a row factor (1 on the ties' columns, so that they stay ties)."""
+    x = (_ties_rows(rng, M, K, dev, xdt) if M > 1 else torch.from_numpy(
+        rng.standard_normal((M, K)).astype(np.float32)).to(dev, xdt))
+    packed = torch.from_numpy(rng.integers(-128, 128, (N, K // 2),
+                                           dtype=np.int8)).to(dev)
+    cs = torch.from_numpy(rng.uniform(0.5, 1.5, N).astype(np.float32)
+                          / (7 * K ** 0.5)).to(dev)
+    rf = (np.ones(K, np.float32) if flat
+          else rng.uniform(0.5, 1.5, K).astype(np.float32))
+    rf[:9] = 1.0
+    return x, packed, cs, torch.from_numpy(rf).to(dev)
+
+
+@pytest.mark.parametrize("M,K,N,xdt,odt,flat", [
+    (8, 4096, 4096, torch.bfloat16, torch.bfloat16, False),  # 7B decode
+    (8, 11008, 4096, torch.bfloat16, torch.bfloat16, False),  # its down
+    (8, 4096, 32000, torch.bfloat16, torch.bfloat16, False),  # lm_head
+    (1, 256, 128, torch.float32, torch.float32, False),
+    (32, 160, 136, torch.bfloat16, torch.float32, True),  # K/2 ragged
+    (39, 160, 136, torch.bfloat16, torch.bfloat16, True),  # two passes
+    (33, 256, 264, torch.float32, torch.float32, False),
+    (2552, 4096, 11008, torch.bfloat16, torch.bfloat16, False),  # prefill
+])
+def test_int4_kernel_matches_plain_and_the_unpack_route(dev, M, K, N, xdt,
+                                                        odt, flat):
+    """Both routes bit for bit against the plain version and against the
+    unpack route on the card."""
+    rng = np.random.default_rng(M + K + N)
+    x, packed, cs, rf = _int4_inputs(rng, M, K, N, dev, xdt, flat)
+    before = dict(Q4.int4_matmul_fused.route_launches)
+    got = Q4.int4_matmul_fused(x, packed, cs, rf, odt)
+    torch.cuda.synchronize()
+    route = Q4.int4_route(M, K)
+    assert Q4.int4_matmul_fused.route_launches[route] == before[route] + 1
+    assert got.dtype == odt and got.shape == (M, N)
+    assert torch.equal(got, Q4.int4_matmul_fused_plain(x, packed, cs, rf,
+                                                       odt))
+    assert torch.equal(got, Q4.int4_matmul_unpack_route(x, packed, cs, rf,
+                                                        odt))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 5504, 4096), (2552, 2048, 4096)])
+def test_int4_row_parallel_partial_matches_plain(dev, M, K, N):
+    """The row-parallel int4 linear's partial on one rank (7B down at
+    decode and o_proj at prefill, K halved): kernel 7's given-scale route
+    with the row factor, then the int4 GEMM to f32, bit for bit against
+    the plain versions and the unpack route."""
+    rng = np.random.default_rng(M + K)
+    x, packed, cs, rf = _int4_inputs(rng, M, K, N, dev, torch.bfloat16)
+    amax = ((x.float() * rf).abs().amax(-1) * 1.5).contiguous()
+    xq, xs = Q.quantize_rows_given(x, amax, rf)
+    got = Q4.int4_gemm(xq, xs, packed, cs, torch.float32)
+    torch.cuda.synchronize()
+    pq, ps = Q.quantize_rows_given_plain(x, amax, rf)
+    assert torch.equal(xq, pq) and torch.equal(xs, ps)
+    assert torch.equal(got, Q4.int4_gemm_plain(pq, ps, packed, cs,
+                                               torch.float32))
+    oq, os_ = Q.quantize_rows_given((x.float() * rf).contiguous(), amax)
+    assert torch.equal(got, Q.int8_gemm(oq, os_, Q4.unpacked(packed), cs,
+                                        dtype=torch.float32))
+
+
+@pytest.mark.parametrize("M,K,dtype", [(8, 4096, torch.bfloat16),
+                                       (2552, 11008, torch.bfloat16),
+                                       (40, 264, torch.float32),
+                                       (5, 16384, torch.bfloat16)])
+def test_quantize_rows_with_row_factor_matches_plain(dev, M, K, dtype):
+    """Kernel 7 with the row factor: bit for bit its plain version, which is
+    the plain route on f32 x * rf."""
+    rng = np.random.default_rng(M)
+    x = _ties_rows(rng, M, K, dev, dtype)
+    rf = torch.from_numpy(rng.uniform(0.5, 1.5, K).astype(np.float32)).to(dev)
+    q, s = Q.quantize_rows(x, rf)
+    torch.cuda.synchronize()
+    q2, s2 = Q.quantize_rows_plain(x, rf)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    q3, s3 = Q.quantize_rows((x.float() * rf).contiguous())
+    assert torch.equal(q, q3) and torch.equal(s, s3)
 
 
 @pytest.mark.parametrize("size", [128, 1024])
