@@ -7,8 +7,9 @@ prints no result, without them. Phases, each of which fails the run:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the hand-written kernel sources under
-   ``interactvlm_tpu_torch/csrc/`` (flash forward, with its wgmma kernel
-   for head dim 128; flash backward dq, which also forms D = rowsum(dO O),
+   ``interactvlm_tpu_torch/csrc/`` (flash forward, with its wgmma kernels
+   for head dims 128 and 16, the latter reading q, k and v as strided
+   views; flash backward dq, which also forms D = rowsum(dO O),
    and dk/dv, with their wgmma kernels for head dim 128 and the split
    query walk of dk/dv at short key lengths; window attention, with its
    wgmma kernel for head dim 80 that reads q, k and v as strided views;
@@ -24,7 +25,10 @@ prints no result, without them. Phases, each of which fails the run:
    flash at head dim 128 with ragged lengths and rows that see no key; the
    flash forward and backward at the fusion's full-width shape, D = 16,
    Lq = 4096, Lk = 512; the flash forward at head dim 80 padded to 128,
-   the SAM global block without its rel-pos bias),
+   the SAM global block without its rel-pos bias; at head dim 16 the SAM
+   decoder's shape on the projections' views, the key widths and kv-length
+   and causal edges of its wgmma kernel's tiles, and its CTA plan timed
+   against one 128-row query tile of one head a CTA),
    inputs from a seeded generator, with the kernel's, the plain version's
    and one library call's time beside the least time the card could take
    (``bound_ms``); the int8 matmul also at the 7B QLoRA step's shapes;
@@ -362,9 +366,10 @@ CSRC = "interactvlm_tpu_torch/csrc/"
 KERNELS = {
     "flash_attention": dict(
         sources=[CSRC + "flash_attention.cu", CSRC + "flash_fwd_sm90.cuh",
-                 CSRC + "attention_core.cuh"],
+                 CSRC + "flash_fwd_d16_sm90.cuh", CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:43",
-        symbols=["flash_fwd_kernel", "flash_fwd_sm90_kernel"],
+        symbols=["flash_fwd_kernel", "flash_fwd_sm90_kernel",
+                 "flash_fwd_d16_kernel"],
         path="train_13b_lora"),
     "window_attention": dict(
         sources=[CSRC + "window_attention.cu",
@@ -617,7 +622,15 @@ def case_flash_sam(gen, name, Lk=9,
     """D = 16 over the 64 x 64 SAM grid: B*V=32, H=8, Lq=4096, non-causal,
     no kv lengths. Lk=9: the SAM decoder's image -> token attention; Lk=512:
     the fusion's image -> LLaVA attention at full width (its padded
-    positions are not masked, as in the JAX package)."""
+    positions are not masked, as in the JAX package). Besides the kernel's
+    time on its own plan (``kernel_ms``, and the profiler's ``device_ms``:
+    CUDA events around back-to-back calls time the host's issue where a
+    call is shorter than it), the CTAs an SM holds, and its time with one
+    head's 128-row query tile a CTA (``one_tile_a_cta_ms``, ``_device_ms``:
+    8192 CTAs that each load K and V and one query tile, as the mma.sync
+    kernel's 16 384 did), in turns with the default; at Lk = 9 also each
+    group of heads a CTA (``by_heads_per_cta``), and every plan must give
+    the default's bits."""
     R, H, Lq, D = B * V, 8, 4096, 16
     q = rand_bf16(gen, (R, H, Lq, D))
     k, v = rand_bf16(gen, (R, H, Lk, D)), rand_bf16(gen, (R, H, Lk, D))
@@ -626,9 +639,86 @@ def case_flash_sam(gen, name, Lk=9,
     t, by = bound(4 * R * H * Lq * Lk * D,
                   (2 * R * H * Lq * D + 2 * R * H * Lk * D) * 2
                   + R * H * Lq * 4, name, exps=R * H * Lq * Lk)
+
+    def one_wave():
+        return FA.flash_forward(q, k, v)
+
+    def one_tile():
+        return FA.flash_forward(q, k, v, False, None, None, (1, 1))
+
+    plans = {"kernel_ms": [], "one_tile_a_cta_ms": []}
+    for fn, key in ((one_wave, "kernel_ms"), (one_tile, "one_tile_a_cta_ms"),
+                    (one_tile, "one_tile_a_cta_ms"), (one_wave, "kernel_ms")):
+        plans[key].append(time_ms(fn, 20))
+    res = compare(got, want, lse, lse_want)
+    # the CTA plan moves no bit: every row runs the same arithmetic
+    res["plans_equal"] = all(
+        torch.equal(x, y) for x, y in zip(
+            FA.flash_forward(q, k, v, False, None, None, (1, 1)), (got, lse)))
+    by_heads = {}
+    if Lk == 9:
+        # heads a CTA against the CTAs an SM and the profiler's time
+        for G in (1, 2, 4, 8):
+            o2, l2 = FA.flash_forward(q, k, v, False, None, None, (0, G))
+            res["plans_equal"] = (res["plans_equal"] and torch.equal(o2, got)
+                                  and torch.equal(l2, lse))
+            by_heads[G] = {"blocks_per_sm": FA.d16_blocks_per_sm(Lk, H, G),
+                           "device_ms": device_ms(lambda: FA.flash_forward(
+                               q, k, v, False, None, None, (0, G)), 10)[0]}
+    res["ok"] = res["ok"] and res["plans_equal"]
     return dict(
-        shape=what, **compare(got, want, lse, lse_want),
+        shape=what, route=FA.fwd_route(D), key_tiles=FA.d16_key_tiles(D, Lk),
+        blocks_per_sm=FA.d16_blocks_per_sm(Lk, H), by_heads_per_cta=by_heads,
+        **res,
+        kernel_ms=min(plans["kernel_ms"]),
+        device_ms=device_ms(one_wave, 10)[0],
+        one_tile_a_cta_ms=min(plans["one_tile_a_cta_ms"]),
+        one_tile_a_cta_device_ms=device_ms(one_tile, 10)[0],
+        plain_ms=time_ms(lambda: FA.flash_forward_plain(q, k, v), 5),
+        library_ms=time_ms(lambda: sdpa()(q, k, v), 20),
+        bound_ms=t, bound_by=by)
+
+
+def case_flash_sam_views(gen, name):
+    """The SAM decoder's image -> token attention at (b) as the decoder
+    calls it: q, k and v the (B, H, L, 16) head views of its (32, L, 128)
+    projections, read in place, and o a view whose transpose back to
+    tokens must be contiguous; the result must equal, bit for bit, the
+    call on contiguous copies. Timed beside the contiguous call the
+    mma.sync route needed (copies of q, k and v, the kernel, o's copy back
+    to tokens: ``with_copies_ms``)."""
+    R, H, Lq, Lk, D = B * V, 8, 4096, 9, 16
+
+    def views(L):
+        return rand_bf16(gen, (R, L, H * D)).view(R, L, H, D).transpose(1, 2)
+
+    q, k, v = views(Lq), views(Lk), views(Lk)
+    got, lse = FA.flash_forward(q, k, v)
+    want, lse_want = FA.flash_forward_plain(q, k, v)
+    res = compare(got, want, lse, lse_want)
+    cont, cont_lse = FA.flash_forward(q.contiguous(), k.contiguous(),
+                                      v.contiguous())
+    res["out_transpose_contiguous"] = got.transpose(1, 2).is_contiguous()
+    res["equals_contiguous_call"] = (torch.equal(got, cont)
+                                     and torch.equal(lse, cont_lse))
+    res["ok"] = (res["ok"] and res["out_transpose_contiguous"]
+                 and res["equals_contiguous_call"])
+    t, by = bound(4 * R * H * Lq * Lk * D,
+                  (2 * R * H * Lq * D + 2 * R * H * Lk * D) * 2
+                  + R * H * Lq * 4, name, exps=R * H * Lq * Lk)
+
+    def with_copies():
+        o, _ = FA.flash_forward(q.contiguous(), k.contiguous(),
+                                v.contiguous())
+        return o.transpose(1, 2).reshape(R, Lq, H * D)
+
+    return dict(
+        shape="B=32 H=8 Lq=4096 Lk=9 D=16 views of (32, L, 128) "
+        "projections (SAM decoder image->token, as called)",
+        route=FA.fwd_route(D), **res,
         kernel_ms=time_ms(lambda: FA.flash_forward(q, k, v), 20),
+        device_ms=device_ms(lambda: FA.flash_forward(q, k, v), 10)[0],
+        with_copies_ms=time_ms(with_copies, 20),
         plain_ms=time_ms(lambda: FA.flash_forward_plain(q, k, v), 5),
         library_ms=time_ms(lambda: sdpa()(q, k, v), 20),
         bound_ms=t, bound_by=by)
@@ -647,12 +737,28 @@ FLASH_EDGE_CASES = [
     ("Lq=319 Lk=500 non-causal, kv lengths 500 and 77", 2, 8, 319, 500,
      False, (500, 77)),
 ]
+# Head dim 16 at the edges of its wgmma kernel's key tiles (16 ceil(Lk /
+# 16 t) keys for the fewest t tiles of at most 128) and 128-row query
+# tiles: (what, B, H, Lq, Lk, causal, kv lengths)
+FLASH_D16_EDGE_CASES = [
+    ("Lq=300 Lk=1: one 16-key tile", 4, 8, 300, 1, False, None),
+    ("Lq=300 Lk=9: one 16-key tile", 4, 8, 300, 9, False, None),
+    ("Lq=300 Lk=17: one 32-key tile", 4, 8, 300, 17, False, None),
+    ("Lq=300 Lk=300: three 112-key tiles", 4, 8, 300, 300, False, None),
+    ("Lq=300 Lk=512: four 128-key tiles", 4, 8, 300, 512, False, None),
+    ("Lq=300 Lk=513: five 112-key tiles", 4, 8, 300, 513, False, None),
+    ("Lq=200 Lk=300 causal (bottom-right offset)", 2, 8, 200, 300, True,
+     None),
+    ("Lq=300 Lk=129 causal: 171 rows see no key", 2, 8, 300, 129, True,
+     None),
+    ("Lq=Lk=129 causal, kv lengths 0, 1 and full", 3, 8, 129, 129, True,
+     (0, 1, 129)),
+]
 
 
-def case_flash_edge(gen, name, what, Bq, H, Lq, Lk, causal, lens):
-    """Kernel 1 at D = 128 on one edge case: rows that see no key must give
-    exact zeros and logsumexp 0, besides ``compare``'s limits."""
-    D = 128
+def case_flash_edge(gen, name, what, Bq, H, Lq, Lk, causal, lens, D=128):
+    """Kernel 1 at head dim D on one edge case: rows that see no key must
+    give exact zeros and logsumexp 0, besides ``compare``'s limits."""
     q = rand_bf16(gen, (Bq, H, Lq, D))
     k, v = rand_bf16(gen, (Bq, H, Lk, D)), rand_bf16(gen, (Bq, H, Lk, D))
     kv = (None if lens is None
@@ -670,7 +776,7 @@ def case_flash_edge(gen, name, what, Bq, H, Lq, Lk, causal, lens):
                   * 2 + Bq * H * Lq * 4, name, exps=pairs)
     mask = float_mask(Bq, Lq, Lk, causal, kv)
     return dict(
-        shape=f"B={Bq} H={H} D=128 {what}", **res,
+        shape=f"B={Bq} H={H} D={D} {what}", route=FA.fwd_route(D), **res,
         kernel_ms=time_ms(lambda: FA.flash_forward(q, k, v, causal, None, kv),
                           20),
         plain_ms=time_ms(lambda: FA.flash_forward_plain(q, k, v, causal, None,
@@ -758,12 +864,19 @@ def case_global(gen, name, hw=(64, 64)):
         plain_ms=time_ms(lambda: SA.rel_attention_plain(q, k, v, rh, rw, hw), 3),
         library_ms=time_ms(lambda: sdpa()(q, k, v, attn_mask=bias), 10),
         bound_ms=t, bound_by=by)
-    del q, k, v, rh, rw, bias, got, want
+    del q, k, v, rh, rw, got, want
     if not main:
         return out
     big = inputs(B * V * 16)
     out["kernel_ms_per_block"] = time_ms(lambda: SA.rel_attention(*big, hw), 3, 1)
     out["bound_ms_per_block"] = bound(*flops_bytes(B * V * 16), name)[0]
+    # the yardstick over the block: SDPA with the bias an image (16 rows) a
+    # call, every call on one image's bias (its values do not move the time;
+    # the block's 32 biases would take 17 GB)
+    qb, kb, vb = big[:3]
+    out["library_ms_per_block"] = time_ms(lambda: [
+        sdpa()(qb[i:i + R], kb[i:i + R], vb[i:i + R], attn_mask=bias)
+        for i in range(0, B * V * 16, R)], 1, 1)
     return out
 
 
@@ -841,6 +954,7 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
     kv = (None if lens is None
           else torch.tensor(lens, dtype=torch.int32, device="cuda"))
     o, lse = FA.flash_forward(q, k, v, causal, None, kv)
+    o = o.contiguous()  # a view at head dim 16; the backward takes rows
     got = FA.flash_backward(q, k, v, o, lse, do, causal, None, kv)
     want = FA.flash_backward_plain(q, k, v, o, lse, do, causal, None, kv)
     cmp = {n: compare_grad(g, w) for n, g, w in zip(("dq", "dk", "dv"),
@@ -1274,6 +1388,13 @@ def kernel_phase(name):
         FUSION_SHAPE))
     cases["flash_attention"].append(case_flash_norel(
         torch.Generator(device="cuda").manual_seed(6), name))
+    # head dim 16 on the projections' views, then at its tiles' edges, each
+    # from a generator of its own
+    cases["flash_attention"].append(case_flash_sam_views(
+        torch.Generator(device="cuda").manual_seed(8), name))
+    gen16 = torch.Generator(device="cuda").manual_seed(9)
+    cases["flash_attention"] += [case_flash_edge(gen16, name, *c, D=16)
+                                 for c in FLASH_D16_EDGE_CASES]
     torch.cuda.empty_cache()
     tp_cases(name, cases, lens)
     for kname, rows in cases.items():
@@ -2039,6 +2160,14 @@ def serving_path_phase(path, cfg, kv_cache, b_cached, lift):
                                      "sm90": launches["window_attention"]}:
         raise SystemExit(f"the {path} path's window attention left the wgmma "
                          f"route: {launches['window_routes']}")
+    # the round's two batches each run one SAM decode: its image -> token
+    # attention a decoder block on the head-dim-16 kernel, LLaMA's on
+    # head dim 128's
+    d16 = 2 * cfg.sam.decoder_depth
+    if launches["fwd_routes"] != {"sm90": launches["flash_attention"] - d16,
+                                  "sm90_d16": d16, "mma": 0}:
+        raise SystemExit(f"the {path} path's flash forward left its routes: "
+                         f"{launches['fwd_routes']}")
     if quantized:
         # per batch: 7 projections a layer and the lm_head, at the prefill
         # and each of the T - 1 decode steps; 4 linears a SAM block when
@@ -2482,6 +2611,8 @@ def hoi_path_phase(path, cfg, human, obj):
     # kernel 1: each LLaMA layer's prefill and each SAM decoder block's
     # image -> token attention, one call over all B*K*V slot images
     want = {"flash_attention": cfg.llama.num_layers + cfg.sam.decoder_depth,
+            "fwd_routes": {"sm90": cfg.llama.num_layers,
+                           "sm90_d16": cfg.sam.decoder_depth, "mma": 0},
             "window_attention": n_window, "rel_attention": n_global,
             "window_routes": {"mma": 0, "sm90": n_window},
             "rel_routes": {"mma": 0, "sm90": n_global}}
@@ -2855,6 +2986,8 @@ def train_launches_expected(cfg, steps: int = 1):
     two = 2 * 7 * layers if qlora else 0
     want = {n: 0 for n in KERNELS}
     want.update({"flash_attention": 2 * layers + dec,
+                 "fwd_routes": {"sm90": 2 * layers, "sm90_d16": dec,
+                                "mma": 0},
                  "flash_attention_bwd_dq": layers + dec,
                  "flash_attention_bwd_dkv": layers + dec,
                  "window_attention": cfg.sam.encoder_depth - n_global,
@@ -3304,6 +3437,9 @@ def damon_workflow_phase(train_step_ms):
     want_val = {n: 0 for n in KERNELS}
     want_val.update({"flash_attention": DAMON_VAL_BATCHES * (
         layers + model.config.sam.decoder_depth),
+        "fwd_routes": {"sm90": DAMON_VAL_BATCHES * layers,
+                       "sm90_d16": DAMON_VAL_BATCHES
+                       * model.config.sam.decoder_depth, "mma": 0},
         "window_attention": 28, "rel_attention": 4})
     res = {"phase": "damon_validate", "images": n_val, "s": val_s,
            "images_per_s": n_val / val_s, "results": results,
@@ -3620,6 +3756,9 @@ def demo_legs(model, tokenizer, root, out_root):
             want = {"flash_attention": cfg.llama.num_layers
                     + cfg.sam.decoder_depth, "window_attention": 28,
                     "rel_attention": 4}
+            routes_ok = launches["fwd_routes"] == {
+                "sm90": n * cfg.llama.num_layers,
+                "sm90_d16": n * cfg.sam.decoder_depth, "mma": 0}
             stems = [(os.path.splitext(r["image"])[0], DEMO_PHOTO)
                      for r in results]
             bad = check_bundle(out, ctype, stems, N_VERTS, N_OBJ, MASK)
@@ -3629,10 +3768,12 @@ def demo_legs(model, tokenizer, root, out_root):
                    "object_views_s": list(builds),
                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                    "seg": [r["has_seg"] for r in results],
-                   "launches_per_image": per_image, "bundle_failures": bad}
+                   "launches_per_image": per_image,
+                   "fwd_routes": launches["fwd_routes"],
+                   "bundle_failures": bad}
             log(json.dumps(res))
             if (bad or len(results) != n or per_image != want
-                    or not results[0]["has_seg"]
+                    or not routes_ok or not results[0]["has_seg"]
                     or (ctype == "ocontact" and len(builds) != 1)):
                 raise SystemExit(f"the demo failed: {res}")
             total.update({k: v for k, v in launches.items()
@@ -4336,6 +4477,8 @@ def flagship_validate(model, tokenizer, args, tree):
     n_global = len(sam.encoder_global_attn_indexes)
     want = {"flash_attention": model.config.llama.num_layers
             + sam.decoder_depth,
+            "fwd_routes": {"sm90": model.config.llama.num_layers,
+                           "sm90_d16": sam.decoder_depth, "mma": 0},
             "window_attention": sam.encoder_depth - n_global,
             "rel_attention": n_global}
     out, full = {}, []
@@ -5387,6 +5530,8 @@ def lisa_validate(model, tokenizer, args, tree):
     n_global = len(sam.encoder_global_attn_indexes)
     want = {"flash_attention": model.config.llama.num_layers
             + sam.decoder_depth,
+            "fwd_routes": {"sm90": model.config.llama.num_layers,
+                           "sm90_d16": sam.decoder_depth, "mma": 0},
             "window_attention": sam.encoder_depth - n_global,
             "rel_attention": n_global}
     torch.cuda.synchronize()
@@ -5610,6 +5755,8 @@ def train_probe_launches_expected(cfg, env):
         want[route]["sm90"] += 2 * calls * n
     want["flash_attention"] += calls * (cfg.llama.num_layers
                                         + cfg.sam.decoder_depth)
+    want["fwd_routes"]["sm90"] += calls * cfg.llama.num_layers
+    want["fwd_routes"]["sm90_d16"] += calls * cfg.sam.decoder_depth
     return want
 
 
@@ -6000,6 +6147,8 @@ def main() -> int:
                if kname == "int4_matmul" else {}),
             **({"launches_by_route": launches[path]["rel_routes"]}
                if kname == "rel_attention" else {}),
+            **({"launches_by_route": launches[path]["fwd_routes"]}
+               if kname == "flash_attention" else {}),
             **({"launches_by_route": launches[path]["window_routes"]}
                if kname == "window_attention" else {}),
             **({"launches_by_route": launches[path][

@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from interactvlm_tpu_torch.ops.flash_attention import flash_attention
+from interactvlm_tpu_torch.ops.flash_attention import (
+    VIEW_HEAD_DIM,
+    flash_attention,
+)
 
 FLASH_MIN_QUERIES = 512
 
@@ -46,10 +49,13 @@ def dot_product_attention(q, k, v, bias=None, causal: bool = False,
 
     On a CUDA device, bias-free attention with Lq >= 512 launches the flash
     kernel (which raises on inputs it does not take); all other calls use
-    ``attention_plain``.
+    ``attention_plain``. At head dim 16 the kernel reads the callers' head
+    views in place and returns o as a view whose transpose back to tokens
+    is contiguous; other head dims take contiguous copies.
     """
     if q.is_cuda and bias is None and q.shape[-2] >= FLASH_MIN_QUERIES:
-        # the kernel takes contiguous (B, H, L, D); callers pass head views
+        if q.shape[-1] == VIEW_HEAD_DIM:
+            return flash_attention(q, k, v, causal=causal, scale=scale)
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, scale=scale)
     return attention_plain(q, k, v, bias=bias, causal=causal, scale=scale)

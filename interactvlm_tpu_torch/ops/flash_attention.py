@@ -1,7 +1,8 @@
-"""Flash attention: the forward kernel ``csrc/flash_attention.cu``, the two
-backward kernels ``csrc/flash_attention_bwd.cu`` (head dim 128:
-``csrc/flash_bwd_sm90.cuh``), their plain PyTorch versions, and the
-autograd Function that joins them.
+"""Flash attention: the forward kernel ``csrc/flash_attention.cu`` (head dim
+128: ``csrc/flash_fwd_sm90.cuh``; head dim 16: ``csrc/flash_fwd_d16_sm90.cuh``,
+which reads q, k and v as strided views), the two backward kernels
+``csrc/flash_attention_bwd.cu`` (head dim 128: ``csrc/flash_bwd_sm90.cuh``),
+their plain PyTorch versions, and the autograd Function that joins them.
 
 Ports of ``interactvlm_tpu/ops/flash_attention.py``: ``_flash_kernel`` (the
 Pallas TPU kernel, wrapper ``_flash_forward``), ``_bwd_dq_kernel`` and
@@ -28,6 +29,13 @@ import torch
 from interactvlm_tpu_torch.ops import _cuda
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# the forward's routes: the wgmma + TMA kernels at 128 and at 16, the
+# mma.sync core at 32 and 64
+FWD_ROUTES = ("sm90", "sm90_d16", "mma")
+# the head dim whose kernel reads strided views in place
+VIEW_HEAD_DIM = 16
+# the head-dim-16 kernel's widest key tile (wgmma's N; 256 spilled)
+D16_MAX_KEY_WIDTH = 128
 
 
 def _visible(B, Lq, Lk, causal, kv_lengths, device):
@@ -61,15 +69,67 @@ def flash_forward_plain(q, k, v, causal=False, scale=None, kv_lengths=None):
     return o.to(v.dtype), lse.reshape(B * H, Lq)
 
 
+def fwd_route(D):
+    """The forward kernel's route, by head dim alone: "sm90" (the wgmma +
+    TMA kernel of ``csrc/flash_fwd_sm90.cuh``) at 128, "sm90_d16" (the
+    wgmma + TMA kernel of ``csrc/flash_fwd_d16_sm90.cuh``, on strided
+    views) at 16, "mma" (the mma.sync core) at 32 and 64. Raises on any
+    other head dim."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    return {128: "sm90", VIEW_HEAD_DIM: "sm90_d16"}.get(D, "mma")
+
+
+def d16_key_tiles(D, Lk):
+    """The head-dim-16 kernel's key tiling: (key width N, tiles). The
+    fewest tiles of at most ``D16_MAX_KEY_WIDTH`` keys, each N = 16
+    ceil(Lk / (16 tiles)) wide: one 16-key tile at the SAM decoder's
+    Lk = 9 (a row runs 16 exponentials), four of 128 at the fusion's 512.
+    S = Q K^T is one wgmma m64nNk16 a tile. Raises on another head dim."""
+    if D != VIEW_HEAD_DIM:
+        raise ValueError(f"flash_attention: the key tiling is the head dim "
+                         f"{VIEW_HEAD_DIM} kernel's, not {D}'s")
+    if Lk < 1:
+        raise ValueError(f"flash_attention: Lk {Lk}")
+    tiles = -(-Lk // D16_MAX_KEY_WIDTH)
+    return 16 * -(-Lk // (16 * tiles)), tiles
+
+
+def d16_blocks_per_sm(Lk, H, heads_per_cta=0):
+    """The CTAs of the head-dim-16 kernel one SM holds at Lk keys, H heads
+    and ``heads_per_cta`` heads a CTA (0: the kernel's choice), card only:
+    what its launch plan reads from the occupancy API."""
+    width, _ = d16_key_tiles(VIEW_HEAD_DIM, Lk)
+    f = _cuda.load("flash_attention").ivlm_flash_fwd_d16_blocks_per_sm
+    f.restype, f.argtypes = ctypes.c_int, [ctypes.c_int] * 4
+    n = f(width, Lk, H, heads_per_cta)
+    if n < 0:
+        raise RuntimeError(f"flash_attention: occupancy query failed ({-n})")
+    return n
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_D16_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 9
+                 + [ctypes.c_int] * 4
+                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
-def flash_forward(q, k, v, causal=False, scale=None, kv_lengths=None):
+def flash_forward(q, k, v, causal=False, scale=None, kv_lengths=None,
+                  cta_plan=(0, 0)):
     """Flash attention forward over (B, H, L, D): returns (o, lse).
 
     CPU tensors run ``flash_forward_plain``; CUDA tensors launch the kernel
-    (bf16, contiguous, head dim in ``KERNEL_HEAD_DIMS``) or raise.
+    of ``fwd_route(D)`` (bf16, head dim in ``KERNEL_HEAD_DIMS``) or raise.
+    At head dim 16 q, k and v may be views with unit stride on the head
+    dim and the other strides 16-byte multiples (the projections' head
+    splits), read in place, and o is a (B, H, Lq, 16) view of a (B, Lq, H,
+    16) tensor, which the caller's transpose back to tokens reads without
+    a copy; ``cta_plan`` = (query tiles, heads) sets how many 128-row
+    query tiles and how many heads a CTA of that kernel takes (0: the
+    kernel's own plan). Other head dims take contiguous tensors and give o
+    contiguous.
     """
     if not q.is_cuda:
         return flash_forward_plain(q, k, v, causal, scale, kv_lengths)
@@ -77,31 +137,49 @@ def flash_forward(q, k, v, causal=False, scale=None, kv_lengths=None):
     Lk = k.shape[2]
     if k.shape != (B, H, Lk, D) or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes {q.shape} {k.shape} {v.shape}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {KERNEL_HEAD_DIMS}")
-    _cuda.require_kernel_inputs("flash_attention", q, k, v)
+    route = fwd_route(D)
+    if route == "sm90_d16":
+        _cuda.require_strided_rows("flash_attention", q, k, v)
+    else:
+        _cuda.require_kernel_inputs("flash_attention", q, k, v)
     lens = None
     if kv_lengths is not None:
         lens = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
         if lens.shape != (B,):
             raise ValueError(f"flash_attention: kv_lengths shape {lens.shape}")
     scale = D ** -0.5 if scale is None else scale
-    o = torch.empty_like(q)
     lse = torch.empty(B * H, Lq, dtype=torch.float32, device=q.device)
+    lens_ptr = _cuda.ptr(lens) if lens is not None else ctypes.c_void_p(None)
     with torch.cuda.device(q.device):
-        _cuda.launch(
-            "flash_attention", "ivlm_flash_fwd", _ARGTYPES,
-            _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o),
-            _cuda.ptr(lse),
-            _cuda.ptr(lens) if lens is not None else ctypes.c_void_p(None),
-            B * H, H, Lq, Lk, D, float(scale), int(bool(causal)),
-            _cuda.stream_handle(q.device),
-        )
+        if route == "sm90_d16":
+            if not scale > 0:
+                # the kernel takes the row maximum of the raw logits
+                raise ValueError(f"flash_attention: scale {scale} at head "
+                                 f"dim {D} must be positive")
+            width, _ = d16_key_tiles(D, Lk)
+            o = torch.empty(B, Lq, H, D, dtype=q.dtype,
+                            device=q.device).transpose(1, 2)
+            _cuda.launch(
+                "flash_attention", "ivlm_flash_fwd_d16", _D16_ARGTYPES,
+                _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o),
+                _cuda.ptr(lse), lens_ptr, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], B, H, Lq, Lk, float(scale),
+                int(bool(causal)), width, *(int(n) for n in cta_plan),
+                _cuda.stream_handle(q.device))
+        else:
+            o = torch.empty_like(q)
+            _cuda.launch(
+                "flash_attention", "ivlm_flash_fwd", _ARGTYPES,
+                _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o),
+                _cuda.ptr(lse), lens_ptr, B * H, H, Lq, Lk, D, float(scale),
+                int(bool(causal)), _cuda.stream_handle(q.device))
     flash_forward.launches += 1
+    flash_forward.route_launches[route] += 1
     return o, lse
 
 
 flash_forward.launches = 0
+flash_forward.route_launches = {r: 0 for r in FWD_ROUTES}
 
 
 def flash_backward_plain(q, k, v, o, lse, do, causal=False, scale=None,
@@ -269,7 +347,8 @@ def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: the forward kernel, and on the
-    backward the two backward kernels over the saved (q, k, v, o, lse)
+    backward the two backward kernels over the saved (q, k, v, o, lse), made
+    contiguous
     (the JAX package's ``custom_vjp``, ``flash_attention.py:402-421``).
     CPU tensors take the plain versions both ways."""
 
@@ -283,6 +362,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, kv_lengths = ctx.saved_tensors
+        # the head-dim-16 forward read views and wrote o as one; the
+        # backward kernels take contiguous tensors (a copy in training only)
+        q, k, v, o = (t.contiguous() for t in (q, k, v, o))
         dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(),
                                     ctx.causal, ctx.scale, kv_lengths)
         return dq, dk, dv, None, None, None

@@ -47,7 +47,8 @@ WRAPPERS = {
     "int4_gemm": Q4.int4_gemm,
 }
 # the wrappers that also count their launches by route
-ROUTES = {"int8_routes": Q.int8_matmul_fused,
+ROUTES = {"fwd_routes": FA.flash_forward,
+          "int8_routes": Q.int8_matmul_fused,
           "int4_routes": Q4.int4_matmul_fused,
           "window_routes": SA.window_attention,
           "rel_routes": SA.rel_attention,

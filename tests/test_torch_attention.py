@@ -48,6 +48,11 @@ def _t(x):
         (1, 2, 64, 192, 16, True, None),  # Lq != Lk: bottom-right offset
         (2, 2, 160, 160, 128, True, (160, 57)),  # per-row kv lengths
         (2, 1, 96, 96, 16, False, (0, 40)),  # row 0 sees no key
+        # head dim 16 against the wgmma kernel's tiles: Lq ragged against
+        # its 128-row query tiles at the SAM decoder's Lk = 9; a kv length
+        # past four 128-key tiles
+        (2, 2, 130, 9, 16, False, None),
+        (1, 2, 64, 520, 16, False, (520,)),
     ],
 )
 def test_flash_plain_matches_pallas_interpret(B, H, Lq, Lk, D, causal, lens):
@@ -246,3 +251,80 @@ def test_fused_window_attention_on_views_equals_contiguous_copies():
     assert got.shape == (BW, nH, H * W, D)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
                                rtol=1e-6)
+
+
+def _head_views(x, H):
+    """(B, H, L, D) views of a (B, L, H * D) tensor: the head split of a
+    projection's output, as the SAM decoder and the fusion pass it."""
+    B, L, HD = x.shape
+    return x.view(B, L, H, HD // H).transpose(1, 2)
+
+
+@pytest.mark.parametrize("causal,lens", [(False, None), (True, (70, 0))])
+def test_flash_plain_on_head_views_equals_contiguous_copies(causal, lens):
+    """The plain flash version on permuted (B, L, H, D) views, the layout
+    the head-dim-16 kernel reads in place, equals its call on contiguous
+    copies."""
+    rng = np.random.default_rng(11)
+    B, H, Lq, Lk = 2, 4, 90, 70
+    q = _head_views(_t(_rand(rng, (B, Lq, H * 16))), H)
+    k = _head_views(_t(_rand(rng, (B, Lk, H * 16))), H)
+    v = _head_views(_t(_rand(rng, (B, Lk, H * 16))), H)
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    kv = None if lens is None else torch.tensor(lens)
+    got = F.flash_forward_plain(q, k, v, causal, None, kv)
+    want = F.flash_forward_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, None, kv)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-6,
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("Lk,width,tiles", [
+    (1, 16, 1), (9, 16, 1), (16, 16, 1), (17, 32, 1), (128, 128, 1),
+    (256, 128, 2), (257, 96, 3), (512, 128, 4), (513, 112, 5),
+])
+def test_d16_route_and_key_tiles(Lk, width, tiles):
+    """Head dim 16 takes the wgmma + TMA kernel, whose key tiles are the
+    fewest of at most 128 keys, each a multiple of 16 wide that covers
+    Lk; the other head dims keep their routes."""
+    assert F.fwd_route(16) == "sm90_d16"
+    assert F.d16_key_tiles(16, Lk) == (width, tiles)
+    assert width % 16 == 0 and width <= F.D16_MAX_KEY_WIDTH
+    assert (tiles - 1) * width < Lk <= tiles * width
+
+
+@pytest.mark.parametrize("D,route", [(128, "sm90"), (32, "mma"), (64, "mma"),
+                                     (80, None), (48, None)])
+def test_other_head_dims_refuse_the_d16_key_tiling(D, route):
+    """The key tiling is the head-dim-16 kernel's alone; a head dim no
+    kernel takes has no route; a CPU call moves no route's count."""
+    with pytest.raises(ValueError, match="head dim"):
+        F.d16_key_tiles(D, 9)
+    if route is None:
+        with pytest.raises(ValueError, match="head dim"):
+            F.fwd_route(D)
+    else:
+        assert F.fwd_route(D) == route and route in F.FWD_ROUTES
+    before = dict(F.flash_forward.route_launches)
+    rng = np.random.default_rng(12)
+    q = _t(_rand(rng, (1, 1, 8, 16)))
+    F.flash_forward(q, q, q)
+    assert F.flash_forward.route_launches == before
+
+
+def test_dot_product_attention_on_head_views_matches_xla_path():
+    """``dot_product_attention`` on the CPU, given head views of
+    projections (the SAM decoder's image -> token call at a tiny size, Lq
+    past the flash threshold), gives the JAX package's ``_xla_attention``
+    on the same values."""
+    rng = np.random.default_rng(13)
+    B, H, Lq, Lk = 2, 2, 520, 9
+    q = _head_views(_t(_rand(rng, (B, Lq, H * 16))), H)
+    k = _head_views(_t(_rand(rng, (B, Lk, H * 16))), H)
+    v = _head_views(_t(_rand(rng, (B, Lk, H * 16))), H)
+    got = dot_product_attention(q, k, v)
+    want = _xla_attention(*(jnp.asarray(t.contiguous().numpy())
+                            for t in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)

@@ -110,6 +110,18 @@ def _close(got, want, atol=ATOL):
     (2, 2, 300, 129, 128, True, None),  # causal Lq > Lk: 171 rows blind
     (2, 2, 319, 500, 128, False, (500, 77)),
     (1, 1, 4096, 300, 128, True, (257,)),
+    # head dim 16 runs the wgmma/TMA kernel of flash_fwd_d16_sm90.cuh: key
+    # tiles of 16 (Lk 1, 9), 32 (17), 112 x 3 (300), 128 x 4 (512) and
+    # 112 x 5 (513), Lq = 300 ragged against its 128-row query tiles,
+    # causal with Lq != Lk both ways, kv lengths 0, 1 and full
+    (2, 3, 300, 1, 16, False, None),
+    (2, 2, 300, 17, 16, False, None),
+    (1, 2, 300, 512, 16, False, None),
+    (1, 2, 300, 513, 16, False, None),
+    (2, 2, 200, 300, 16, True, None),
+    (2, 2, 300, 129, 16, True, None),  # 171 rows see no key
+    (3, 2, 129, 129, 16, True, (0, 1, 129)),
+    (2, 2, 300, 300, 16, False, (300, 1)),
 ])
 def test_flash_kernel_matches_plain(dev, B, H, Lq, Lk, D, causal, lens):
     rng = np.random.default_rng(0)
@@ -117,9 +129,13 @@ def test_flash_kernel_matches_plain(dev, B, H, Lq, Lk, D, causal, lens):
     k, v = _bf16(rng, (B, H, Lk, D), dev), _bf16(rng, (B, H, Lk, D), dev)
     kv = None if lens is None else torch.tensor(lens, device=dev)
     before = F.flash_forward.launches
+    routes = dict(F.flash_forward.route_launches)
     o, lse = F.flash_forward(q, k, v, causal, None, kv)
     torch.cuda.synchronize()
     assert F.flash_forward.launches == before + 1
+    route = F.fwd_route(D)
+    assert F.flash_forward.route_launches == {
+        r: n + (r == route) for r, n in routes.items()}
     o2, lse2 = F.flash_forward_plain(q, k, v, causal, None, kv)
     assert _close(o, o2)
     assert (lse - lse2).abs().max().item() < LSE_TOL
@@ -145,6 +161,53 @@ def test_flash_kernel_at_head_dim_80_padded_to_128(dev, B, H, L, causal):
     assert o.shape == (B, H, L, 80) and o.dtype == torch.bfloat16
     o2, _ = F.flash_forward_plain(q, k, v, causal, 80 ** -0.5)
     assert _close(o, o2)
+
+
+@pytest.mark.parametrize("causal,lens", [(False, None), (True, (300, 5))])
+def test_d16_kernel_on_projection_views_equals_contiguous_copies(dev, causal,
+                                                                 lens):
+    """The head-dim-16 kernel reads q, k and v as the (B, H, L, 16) head
+    views of (B, L, H * 16) projections, in place, and gives o as a view
+    whose transpose back to tokens is contiguous: bit for bit its call on
+    contiguous copies (one arithmetic, other addresses), on the route the
+    dispatch counts."""
+    rng = np.random.default_rng(12)
+    B, H, Lq, Lk = 2, 8, 4096, 300
+
+    def views(L):
+        return _bf16(rng, (B, L, H * 16), dev).view(B, L, H, 16).transpose(
+            1, 2)
+
+    q, k, v = views(Lq), views(Lk), views(Lk)
+    kv = None if lens is None else torch.tensor(lens, device=dev)
+    before = F.flash_forward.route_launches["sm90_d16"]
+    o, lse = F.flash_forward(q, k, v, causal, None, kv)
+    o2, lse2 = F.flash_forward(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal, None, kv)
+    torch.cuda.synchronize()
+    assert F.flash_forward.route_launches["sm90_d16"] == before + 2
+    assert o.shape == (B, H, Lq, 16) and o.transpose(1, 2).is_contiguous()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert _close(o, F.flash_forward_plain(q, k, v, causal, None, kv)[0])
+
+
+@pytest.mark.parametrize("Lk,causal,lens", [(9, False, None),
+                                             (300, True, (300, 17))])
+def test_d16_kernel_plans_move_no_bit(dev, Lk, causal, lens):
+    """The head-dim-16 kernel's CTA plan (query tiles and heads a CTA)
+    changes which CTA computes a row, not how: every plan gives the
+    default plan's bits."""
+    rng = np.random.default_rng(13)
+    B, H, Lq = 2, 8, 700
+    q = _bf16(rng, (B, H, Lq, 16), dev)
+    k, v = _bf16(rng, (B, H, Lk, 16), dev), _bf16(rng, (B, H, Lk, 16), dev)
+    kv = None if lens is None else torch.tensor(lens, device=dev)
+    o, lse = F.flash_forward(q, k, v, causal, None, kv)
+    # eight heads' K and V at Lk = 300 do not fit beside their query ring
+    for plan in [(1, 1), (2, 2), (0, 4), (3, 8 if Lk == 9 else 4), (6, 1)]:
+        o2, lse2 = F.flash_forward(q, k, v, causal, None, kv, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), plan
 
 
 def test_sam_global_attention_without_rel_pos_reaches_kernel_1(dev):
@@ -203,6 +266,7 @@ def test_flash_backward_kernels_match_plain(dev, B, H, Lq, Lk, D, causal,
     k, v = _bf16(rng, (B, H, Lk, D), dev), _bf16(rng, (B, H, Lk, D), dev)
     kv = None if lens is None else torch.tensor(lens, device=dev)
     o, lse = F.flash_forward(q, k, v, causal, None, kv)
+    o = o.contiguous()  # a view at head dim 16; the backward takes rows
     n_dq, n_dkv = F.flash_bwd_dq.launches, F.flash_bwd_dkv.launches
     routes = (dict(F.flash_bwd_dq.route_launches),
               dict(F.flash_bwd_dkv.route_launches))
@@ -252,6 +316,7 @@ def test_flash_bwd_dq_writes_the_row_sum(dev, B, H, Lq, Lk, D, causal, lens):
     kv = None if lens is None else torch.tensor(lens, device=dev,
                                                 dtype=torch.int32)
     o, lse = F.flash_forward(q, k, v, causal, None, kv)
+    o = o.contiguous()  # a view at head dim 16; the kernel takes rows
     dq, dsum = F.flash_bwd_dq(q, k, v, do, o, lse, causal, D ** -0.5, kv)
     torch.cuda.synchronize()
     assert dsum.shape == (B * H, Lq) and dsum.dtype == torch.float32
@@ -334,6 +399,7 @@ def test_flash_backward_refuses_what_the_kernels_do_not_take(dev):
     rng = np.random.default_rng(9)
     q = _bf16(rng, (1, 2, 64, 16), dev)
     o, lse = F.flash_forward(q, q, q)
+    o = o.contiguous()  # a view at head dim 16; the backward takes rows
     with pytest.raises(ValueError, match="bfloat16"):
         F.flash_backward(q, q, q, o, lse, q.float())
     with pytest.raises(ValueError, match="lse"):
@@ -349,9 +415,9 @@ def test_flash_backward_refuses_what_the_kernels_do_not_take(dev):
 def test_fusion_attention_launches_the_flash_kernels_at_full_width(dev):
     """The fusion head in bf16 on a 64 x 64 SAM grid (Lq = 4096 >= 512,
     D = 16, Lk = 300 LLaVA positions, none masked): its attention launches
-    the flash forward once, and its backward both backward kernels once,
-    with no fallback to the plain attention; outputs and every parameter's
-    gradient are finite."""
+    the flash forward once, on the head-dim-16 wgmma route, and its
+    backward both backward kernels once, with no fallback to the plain
+    attention; outputs and every parameter's gradient are finite."""
     from interactvlm_tpu_torch.models.components import LLaVASAMFusion
 
     torch.manual_seed(0)
@@ -361,11 +427,14 @@ def test_fusion_attention_launches_the_flash_kernels_at_full_width(dev):
     llava = _bf16(rng, (2, 300, 5120), dev)
     before = (F.flash_forward.launches, F.flash_bwd_dq.launches,
               F.flash_bwd_dkv.launches)
+    routes = dict(F.flash_forward.route_launches)
     out = m(sam, llava)
     out.float().square().mean().backward()
     torch.cuda.synchronize()
     assert (F.flash_forward.launches, F.flash_bwd_dq.launches,
             F.flash_bwd_dkv.launches) == tuple(b + 1 for b in before)
+    assert F.flash_forward.route_launches == {
+        r: n + (r == "sm90_d16") for r, n in routes.items()}
     assert bool(torch.isfinite(out).all())
     for n, p in m.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
@@ -519,9 +588,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         F.flash_forward(q.float(), q.float(), q.float())
     with pytest.raises(ValueError, match="head dim"):
         F.flash_forward(*(_bf16(rng, (1, 2, 64, 48), dev),) * 3)
-    with pytest.raises(ValueError, match="contiguous"):
+    # head dim 16 reads views, but only with unit stride on the head dim;
+    # the other head dims take contiguous tensors
+    with pytest.raises(ValueError, match="unit"):
         t = q.transpose(2, 3).contiguous().transpose(2, 3)
         F.flash_forward(t, t, t)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = _bf16(rng, (1, 2, 32, 64), dev).transpose(2, 3)
+        F.flash_forward(t, t, t)
+    with pytest.raises(ValueError, match="positive"):
+        F.flash_forward(q, q, q, False, -0.25)
 
 
 def test_launch_binds_each_c_function_once():
