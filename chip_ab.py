@@ -18,11 +18,11 @@ kernels. Parts (all by default):
 - ``bwd_draws``: ``chip_smoke.case_flash_bwd`` at the LLaMA-13B training
   shape on eight draws (generator seeds 0-7), each with the backward
   kernels' distance from their plain version and from the f64 value;
-- ``bwd``: ``chip_smoke.case_flash_bwd`` alone at the two training shapes
-  of the backward kernels (the LLaMA-13B layer and the SAM decoder's
-  image -> token attention): each kernel's, the whole backward's and the
-  forward + backward's time beside SDPA's, the kernels' checks; only the
-  flash kernels are built;
+- ``bwd``: ``chip_smoke.case_flash_bwd`` alone at the backward kernels'
+  three shapes (the LLaMA-13B layer, the SAM decoder's image -> token
+  attention and the fusion's image -> LLaVA attention): each kernel's,
+  the whole backward's and the forward + backward's time beside SDPA's,
+  the kernels' checks; only the flash kernels are built;
 - ``matmuls``: the int8 matmul at the 7B-int8 path's decode and lm_head
   shapes (``chip_smoke.INT8_CASES`` up to ``ONE_LAUNCH_MAX_ROWS`` rows) and
   the bf16 serving matmul at the chain probe's, each timed by CUDA events
@@ -131,7 +131,9 @@ elif part == "bwd":
             ("LLaMA-13B training, 1 layer", (c.B, 40, 512, 512, 128, True,
                                              lens)),
             ("SAM decoder image->token", (c.B * c.V, 8, 4096, 9, 16, False,
-                                          None))):
+                                          None)),
+            ("fusion image->LLaVA", (c.B * c.V, 8, 4096, 512, 16, False,
+                                     None))):
         r = c.case_flash_bwd(gen, name, what, *args)
         print(json.dumps({"name": "flash_attention_bwd", **r}), flush=True)
 elif part == "bwd_draws":
@@ -159,6 +161,10 @@ def summary(lines):
                 "name", "shape", "route", "kernel_ms", "device_ms",
                 "quantize_ms", "gemm_ms", "int8_gemm_ms", "dq_ms", "dkv_ms",
                 "backward_ms", "port_fwd_bwd_ms", "library_fwd_bwd_ms",
+                "dq_device_ms", "dkv_device_ms", "old_copies_ms",
+                "old_copies_device_ms", "plan",
+                "port_fwd_bwd_device_ms_by_kernel", "library_fwd_bwd_device_ms",
+                "backward_device_ms_by_kernel",
                 "dkv_split", "dkv_device_ms_by_kernel", "kernel_ms_per_block",
                 "library_ms", "strided",
                 "library_device_ms", "err_over_limit") if k in rec}

@@ -366,7 +366,8 @@ CSRC = "interactvlm_tpu_torch/csrc/"
 KERNELS = {
     "flash_attention": dict(
         sources=[CSRC + "flash_attention.cu", CSRC + "flash_fwd_sm90.cuh",
-                 CSRC + "flash_fwd_d16_sm90.cuh", CSRC + "attention_core.cuh"],
+                 CSRC + "flash_fwd_d16_sm90.cuh", CSRC + "d16_sm90.cuh",
+                 CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:43",
         symbols=["flash_fwd_kernel", "flash_fwd_sm90_kernel",
                  "flash_fwd_d16_kernel"],
@@ -390,18 +391,25 @@ KERNELS = {
         replaces="interactvlm_tpu/ops/int8_matmul.py:39",
         symbols=["int8_splitk_kernel", "int8_gemm_kernel"],
         path="7b_int8"),
+    # at head dim 16 the first launch is the one pass (dq and the dK/dV
+    # partials) or the dq kernel, the second the partials' reduce or the
+    # dk/dv kernel (both the rows kernel's symbol)
     "flash_attention_bwd_dq": dict(
         sources=[CSRC + "flash_attention_bwd.cu", CSRC + "flash_bwd_sm90.cuh",
+                 CSRC + "flash_bwd_d16_sm90.cuh", CSRC + "d16_sm90.cuh",
                  CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:190",
-        symbols=["flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel"],
+        symbols=["flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel",
+                 "flash_bwd_d16_rows_kernel"],
         path="train_13b_lora"),
     "flash_attention_bwd_dkv": dict(
         sources=[CSRC + "flash_attention_bwd.cu", CSRC + "flash_bwd_sm90.cuh",
+                 CSRC + "flash_bwd_d16_sm90.cuh", CSRC + "d16_sm90.cuh",
                  CSRC + "attention_core.cuh"],
         replaces="interactvlm_tpu/ops/flash_attention.py:243",
         symbols=["flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel",
-                 "flash_bwd_dkv_reduce_kernel"],
+                 "flash_bwd_dkv_reduce_kernel", "flash_bwd_d16_dkv_kernel",
+                 "flash_bwd_d16_reduce_kernel"],
         path="train_13b_lora"),
     "quantize_rows": dict(
         sources=[CSRC + "int8_prequant.cu"],
@@ -930,35 +938,56 @@ def compare_dsum(got, do, o):
 
 def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
     """Kernels 4 and 5 at one shape: (dq, dk, dv) from the port's forward
-    against ``flash_backward_plain``, and the dq kernel's D against the
-    torch rowsum (``compare_dsum``), and what a ``flash_backward`` call
-    runs on the card (only its kernels, no torch operation). Times: the dq kernel (D included) and
-    the dk/dv kernel alone, the whole backward (``flash_backward``: the two
-    launches, three with the split's reduce), the plain version, and, as
-    the library yardstick the port never calls, SDPA's backward alone and
-    SDPA forward + backward with the same explicit float mask against the
-    port's flash forward + backward. ``route`` is ``bwd_route(D)``;
-    ``dkv_split`` the mma.sync dk/dv kernel's (splits, query tiles a
-    split). Bounds count this run's visible (query, key) pairs: the dq
-    kernel recomputes S and dP and forms dQ (6 D flops a pair) over q, k,
-    v, dO, O, lse and dq, D; the dk/dv kernel recomputes S and dP and forms
-    dV and dK (8) over q, k, v, dO, lse, D and dk, dv; the whole backward
-    needs 10 (S, dP, dV, dK, dQ) over q, k, v, o, dO, lse and dq, dk, dv;
-    each, and the whole backward, one exponential a pair (P).
-    ``vs_f64`` holds the kernels' and the plain version's distance from the
-    exact gradient (the plain version in f64, which rounds neither P nor
-    dS) in ``compare_grad``'s units: not a check, it says which side of a
-    failed comparison is off."""
-    q, do = rand_bf16(gen, (Bq, H, Lq, D)), rand_bf16(gen, (Bq, H, Lq, D))
-    k, v = rand_bf16(gen, (Bq, H, Lk, D)), rand_bf16(gen, (Bq, H, Lk, D))
+    against ``flash_backward_plain``, the dq kernel's D against the torch
+    rowsum (``compare_dsum``) where the first launch writes D, and what a
+    ``flash_backward`` call runs on the card (only its kernels, no torch
+    operation). At head dim 16 q, k, v and dO are the (B, H, L, 16) views
+    of (B, L, H, 16) tensors that the training path hands the backward, o
+    the forward's view, and dq, dk, dv come back as views (``views``: their
+    transposes are contiguous); ``old_copies_ms`` times the copies the
+    mma.sync route's call made around the kernels (q, k, v, o and dO made
+    contiguous, dq, dk and dv copied back to tokens). Times: the first
+    launch (the one pass, or the dq kernel with D) and the second (the
+    partials' reduce, or the dk/dv kernel) alone, by CUDA events and by
+    device time, the whole backward, the plain version, and, as the library
+    yardstick the port never calls, SDPA's backward alone and SDPA forward
+    + backward with the same explicit float mask against the port's flash
+    forward + backward. ``route`` is ``bwd_route(D)``; ``plan`` the head
+    dim 16 route's ``d16_bwd_plan`` (``dkv_split`` the mma.sync dk/dv
+    kernel's). Bounds count this run's visible (query, key) pairs, each
+    for the launch it is set beside (``dq_bound_ms`` the first,
+    ``dkv_bound_ms`` the second): the dq kernel recomputes S and dP and
+    forms dQ (6 D flops a pair) over q, k, v, dO, O, lse and dq, D; the
+    dk/dv kernel recomputes S and dP and forms dV and dK (8) over q, k, v,
+    dO, lse, D and dk, dv; the one pass does the whole backward's 10 (S,
+    dP, dV, dK, dQ) over q, k, v, o, dO, lse and dq and its 16 x 16
+    partials; the partials' reduce adds its runs' partials of the Lk keys
+    in f32 and writes dk, dv; the whole backward needs 10 over q, k, v, o,
+    dO, lse and dq, dk, dv; each but the reduce one exponential a pair
+    (P). ``vs_f64`` holds the kernels' and the plain version's distance
+    from the exact gradient (the plain version in f64, which rounds
+    neither P nor dS) in ``compare_grad``'s units: not a check, it says
+    which side of a failed comparison is off."""
+    views = D == FA.VIEW_HEAD_DIM
+
+    def heads(L):
+        if views:
+            return rand_bf16(gen, (Bq, L, H, D)).transpose(1, 2)
+        return rand_bf16(gen, (Bq, H, L, D))
+
+    q, do = heads(Lq), heads(Lq)
+    k, v = heads(Lk), heads(Lk)
     kv = (None if lens is None
           else torch.tensor(lens, dtype=torch.int32, device="cuda"))
     o, lse = FA.flash_forward(q, k, v, causal, None, kv)
-    o = o.contiguous()  # a view at head dim 16; the backward takes rows
     got = FA.flash_backward(q, k, v, o, lse, do, causal, None, kv)
     want = FA.flash_backward_plain(q, k, v, o, lse, do, causal, None, kv)
     cmp = {n: compare_grad(g, w) for n, g, w in zip(("dq", "dk", "dv"),
                                                     got, want)}
+    if views:
+        cmp["dq"]["views"] = all(g.transpose(1, 2).is_contiguous()
+                                 for g in got)
+        cmp["dq"]["ok"] = cmp["dq"]["ok"] and cmp["dq"]["views"]
     exact = FA.flash_backward_plain(*(t.double() for t in (q, k, v, o, lse,
                                                           do)), causal,
                                     None, kv)
@@ -966,25 +995,35 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
                          for m in ("err_over_limit", "rms_rel_err")}
                   for side, x in (("kernel", g), ("plain", w))}
               for n, g, w, e in zip(("dq", "dk", "dv"), got, want, exact)}
-    del got, want, exact
+    del got, exact
     scale = D ** -0.5
-    _, dsum = FA.flash_bwd_dq(q, k, v, do, o, lse, causal, scale, kv)
-    cmp["dq"].update(compare_dsum(dsum, do, o))
+    _, carry = FA.flash_bwd_dq(q, k, v, do, o, lse, causal, scale, kv)
+    if carry.shape == lse.shape:  # the first launch writes D
+        cmp["dq"].update(compare_dsum(carry, do, o))
+        cmp["dq"]["ok"] = cmp["dq"]["ok"] and cmp["dq"]["dsum_ok"]
     # what a flash_backward call runs on the card: its kernels and nothing
     # else (no torch operation; an empty trace shows nothing either way)
     launched = device_ms_by_name(lambda: FA.flash_backward(
         q, k, v, o, lse, do, causal, None, kv), 10)
     cmp["dq"]["backward_runs_only_its_kernels"] = all(
         "flash_bwd_" in n for n in launched)
-    cmp["dq"]["ok"] = (cmp["dq"]["ok"] and cmp["dq"]["dsum_ok"]
+    cmp["dq"]["ok"] = (cmp["dq"]["ok"]
                        and cmp["dq"]["backward_runs_only_its_kernels"])
     pairs = int(FA._visible(Bq, Lq, Lk, causal, kv, "cuda").sum().item()) * H
     BH = Bq * H
     qb, kb, rows = BH * Lq * D * 2, BH * Lk * D * 2, BH * Lq * 4
-    dq_t = bound(6 * D * pairs, 3 * qb + 2 * kb + 2 * rows + qb, name,
-                 exps=pairs)
-    dkv_t = bound(8 * D * pairs, 2 * qb + 2 * kb + 2 * rows + 2 * kb, name,
-                  exps=pairs)
+    plan = FA.d16_bwd_plan_on_card(Bq, H, Lq, Lk) if views else None
+    if plan is not None and plan.fused:
+        part = plan.runs * BH * 2 * 16 * 16 * 4  # written whole a CTA
+        read = plan.runs * BH * 2 * Lk * 16  # the reduce's f32 values
+        dq_t = bound(10 * D * pairs, 3 * qb + 2 * kb + rows + qb + part,
+                     name, exps=pairs)
+        dkv_t = bound(read, 4 * read + 2 * kb, name, f32=True)
+    else:
+        dq_t = bound(6 * D * pairs, 3 * qb + 2 * kb + 2 * rows + qb, name,
+                     exps=pairs)
+        dkv_t = bound(8 * D * pairs, 2 * qb + 2 * kb + 2 * rows + 2 * kb,
+                      name, exps=pairs)
     bwd_t = bound(10 * D * pairs, 3 * qb + 2 * kb + rows + qb + 2 * kb, name,
                   exps=pairs)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -999,19 +1038,22 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
         return torch.autograd.grad(sdpa()(*leaves, attn_mask=mask), leaves,
                                    do)
 
+    def first():
+        return FA.flash_bwd_dq(q, k, v, do, o, lse, causal, scale, kv)
+
+    def second():
+        return FA.flash_bwd_dkv(q, k, v, do, lse, carry, causal, scale, kv)
+
     route = FA.bwd_route(D)
     out = dict(
         shape=what, route=route,
         dkv_split=FA.dkv_split(Lq, Lk) if route == "mma" else (1, None),
         dq=cmp["dq"], dk=cmp["dk"], dv=cmp["dv"], vs_f64=vs_f64,
-        dq_ms=time_ms(lambda: FA.flash_bwd_dq(q, k, v, do, o, lse, causal,
-                                              scale, kv), 20),
-        dkv_ms=time_ms(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, dsum,
-                                                causal, scale, kv), 20),
+        dq_ms=time_ms(first, 20), dkv_ms=time_ms(second, 20),
+        dq_device_ms=device_ms(first, 20)[0],
+        dkv_device_ms=device_ms(second, 20)[0],
         # [device ms, launches] a call by kernel: the split's reduce pass
-        dkv_device_ms_by_kernel=device_ms_by_name(
-            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, scale,
-                                     kv), 20),
+        dkv_device_ms_by_kernel=device_ms_by_name(second, 20),
         backward_ms=time_ms(lambda: FA.flash_backward(
             q, k, v, o, lse, do, causal, None, kv), 20),
         backward_device_ms_by_kernel=launched,
@@ -1022,11 +1064,90 @@ def case_flash_bwd(gen, name, what, Bq, H, Lq, Lk, D, causal, lens):
         library="SDPA backward (dq, dk and dv together)",
         port_fwd_bwd_ms=time_ms(port_fwd_bwd, 10),
         library_fwd_bwd_ms=time_ms(lib_fwd_bwd, 10),
+        # ten calls each: a library kernel that runs twice a call must not
+        # halve the count
+        port_fwd_bwd_device_ms_by_kernel=device_ms_by_name(port_fwd_bwd, 10,
+                                                           calls=10),
+        library_fwd_bwd_device_ms=device_ms(lib_fwd_bwd, 10, calls=10)[0],
+        library_device_ms=device_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True), 10, calls=10)[0],
         dq_bound_ms=dq_t[0], dq_bound_by=dq_t[1],
         dkv_bound_ms=dkv_t[0], dkv_bound_by=dkv_t[1],
         backward_bound_ms=bwd_t[0], backward_bound_by=bwd_t[1],
         visible_pairs=pairs)
+    if views:
+        out["plan"] = plan._asdict()
+
+        def old_copies():
+            # the mma.sync route's call: contiguous q, k, v, o and dO in,
+            # dq, dk and dv (contiguous (B, H, L, 16)) copied back to tokens
+            for t in (q, k, v, o, do):
+                t.contiguous()
+            for L in (Lq, Lk, Lk):
+                torch.empty(Bq, H, L, D, dtype=q.dtype, device="cuda"
+                            ).transpose(1, 2).contiguous()
+
+        out["old_copies_ms"] = time_ms(old_copies, 20)
+        out["old_copies_device_ms"] = device_ms(old_copies, 10)[0]
     return out
+
+
+# Head dim 16 at the edges of the backward's plan: the one pass at Lk <= 16
+# (Lk 9, an odd head count: one head a CTA), the two kernels past it
+# (17: one 32-key tile; 130: three of 48; 520: nine of 64 and nine 64-key
+# dk/dv CTAs; 1100: eighteen of 64, past the resident K/V budget, so the dq
+# kernel streams K and V through its ring), Lq off the 128-row tiles,
+# causal with Lq != Lk both ways, kv lengths 0 and 1: (what, B, H, Lq, Lk,
+# causal, kv lengths)
+FLASH_D16_BWD_EDGE_CASES = [
+    ("Lq=257 Lk=9 causal, H=3: 248 rows see no key", 1, 3, 257, 9, True,
+     None),
+    ("Lq=200 Lk=9, kv lengths 0, 1 and 9", 3, 4, 200, 9, False, (0, 1, 9)),
+    ("Lq=300 Lk=17 causal", 1, 2, 300, 17, True, None),
+    ("Lq=70 Lk=130 causal, kv lengths 130 and 1", 2, 2, 70, 130, True,
+     (130, 1)),
+    ("Lq=200 Lk=130, kv length 0", 1, 2, 200, 130, False, (0,)),
+    ("Lq=1000 Lk=520, kv length 520", 1, 2, 1000, 520, False, (520,)),
+    ("Lq=300 Lk=1100: K and V streamed", 1, 2, 300, 1100, False, None),
+    ("Lq=300 Lk=1100 causal, kv lengths 1100 and 700: K and V streamed", 2,
+     2, 300, 1100, True, (1100, 700)),
+]
+
+
+def case_flash_bwd_edge(gen, what, Bq, H, Lq, Lk, causal, lens):
+    """One head-dim-16 backward edge case on the training path's views:
+    each gradient against ``flash_backward_plain`` (``compare_grad``) and
+    exact zeros where no row sees a key or a row sees none; returns one row
+    for each of the two launches' kernels."""
+    def heads(L):
+        return rand_bf16(gen, (Bq, L, H, 16)).transpose(1, 2)
+
+    q, do, k, v = heads(Lq), heads(Lq), heads(Lk), heads(Lk)
+    kv = (None if lens is None
+          else torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    o, lse = FA.flash_forward(q, k, v, causal, None, kv)
+    got = FA.flash_backward(q, k, v, o, lse, do, causal, None, kv)
+    want = FA.flash_backward_plain(q, k, v, o, lse, do, causal, None, kv)
+    cmp = {n: compare_grad(g, w) for n, g, w in zip(("dq", "dk", "dv"),
+                                                    got, want)}
+    vis = FA._visible(Bq, Lq, Lk, causal, kv, "cuda")[:, 0]
+    blind = ~vis.any(-1)  # (B, Lq)
+    unseen = ~vis.any(-2)  # (B, Lk)
+    cmp["dq"]["blind_rows_zero"] = bool(
+        (got[0].transpose(1, 2)[blind] == 0).all())
+    for n, g in zip(("dk", "dv"), got[1:]):
+        cmp[n]["unseen_keys_zero"] = bool(
+            (g.transpose(1, 2)[unseen] == 0).all())
+    for n, c in cmp.items():
+        c["ok"] = (c["ok"] and c.get("blind_rows_zero", True)
+                   and c.get("unseen_keys_zero", True))
+    shape = f"B={Bq} H={H} {what} D=16 (views)"
+    plan = FA.d16_bwd_plan_on_card(Bq, H, Lq, Lk)._asdict()
+    worst = max(cmp["dk"], cmp["dv"], key=lambda c: c["err_over_limit"])
+    return ({"shape": shape, "route": FA.bwd_route(16), "plan": plan,
+             **cmp["dq"]},
+            {"shape": shape, "route": FA.bwd_route(16), "plan": plan,
+             **worst, "ok": cmp["dk"]["ok"] and cmp["dv"]["ok"]})
 
 
 def bwd_rows(case, which):
@@ -1383,6 +1504,13 @@ def kernel_phase(name):
     # drawn last, so every earlier case keeps its inputs
     cases["flash_attention"] += [case_flash_edge(gen, name, *c)
                                  for c in FLASH_EDGE_CASES]
+    # the head-dim-16 backward at its plan's edges, from a generator of its
+    # own
+    gen_bwd16 = torch.Generator(device="cuda").manual_seed(10)
+    for c in FLASH_D16_BWD_EDGE_CASES:
+        dq_row, dkv_row = case_flash_bwd_edge(gen_bwd16, *c)
+        cases["flash_attention_bwd_dq"].append(dq_row)
+        cases["flash_attention_bwd_dkv"].append(dkv_row)
     cases["flash_attention"].append(case_flash_sam(
         torch.Generator(device="cuda").manual_seed(4), name, 512,
         FUSION_SHAPE))
@@ -2999,8 +3127,10 @@ def train_launches_expected(cfg, steps: int = 1):
                  "window_routes": {"mma": 0, "sm90": cfg.sam.encoder_depth
                                    - n_global},
                  "rel_routes": {"mma": 0, "sm90": n_global},
-                 "bwd_dq_routes": {"sm90": layers, "mma": dec},
-                 "bwd_dkv_routes": {"sm90": layers, "mma": dec}})
+                 "bwd_dq_routes": {"sm90": layers, "sm90_d16": dec,
+                                   "mma": 0},
+                 "bwd_dkv_routes": {"sm90": layers, "sm90_d16": dec,
+                                    "mma": 0}})
     return {k: ({r: steps * c for r, c in v.items()} if isinstance(v, dict)
                 else steps * v) for k, v in want.items()}
 

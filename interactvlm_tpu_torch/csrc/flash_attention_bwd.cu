@@ -13,12 +13,15 @@
 // has P = 0 and contributes nothing: its dQ is 0, never NaN. The dq kernel
 // owns whole query rows, so it reads O and forms D itself, uses it for its
 // own dS and writes it to a (B*H, Lq) f32 buffer that the dk/dv kernel,
-// launched after it on the same stream, reads.
+// launched after it on the same stream, reads (at head dim 16 and at most
+// 16 keys one pass computes all three gradients, and D stays in it).
 //
 // Head dim 128 (the LLaMA-13B shapes) takes the wgmma + TMA kernels of
-// flash_bwd_sm90.cuh, which say what bounds them there; 16, 32 and 64 take
-// the mma.sync kernels below. At the SAM decoder's image->token shape
-// (Lq = 4096, Lk = 9, D = 16) the bytes bound it by far.
+// flash_bwd_sm90.cuh, head dim 16 (the SAM decoder's image->token
+// attention and the fusion) those of flash_bwd_d16_sm90.cuh, which read and
+// write the projections' views (ivlm_flash_bwd_d16_dq / _dkv below); each
+// header says what bounds its kernels. 32 and 64 (no caller of the port's
+// presets) take the mma.sync kernels below.
 //
 // Design of the mma.sync kernels. The TPU kernels pad D to 128 and the
 // sequence to 128-row blocks and keep a whole (bh) slice of K/V (dq) or
@@ -34,20 +37,21 @@
 //   registers already in the A-fragment layout of dV += P^T dO and
 //   dK += dS^T Q. dK and dV accumulate in f32 registers: no atomics.
 // - At Lk <= 64 one key tile is all there is, so one block per (bh) would
-//   walk every query alone (4096 of them for the SAM decoder, 256 blocks on
-//   132 SMs). There the query walk is split over a third grid dimension
+//   walk every query alone (4096 of them at Lq = 4096, 256 blocks on
+//   132 SMs at B*H = 256). There the query walk is split over a third grid dimension
 //   (ops/flash_attention.py:dkv_split): each split writes its partial dK
 //   and dV in f32 to a workspace, and a second launch adds the splits in
 //   order, so the sum stays deterministic. (Measured at the SAM shape: the
 //   second launch is a few microseconds, so a last-block reduce inside the
-//   kernel would gain little.) At Lk <= 16 (the SAM decoder's 9) one warp
+//   kernel would gain little.) At Lk <= 16 one warp
 //   would hold every key and do every product while three idled: there
 //   all four warps take the 16 keys, each its own 16 queries of a tile,
 //   and add their sums in warp order at the end.
 // - bf16 mma.sync.m16n8k16 with f32 accumulation throughout; P and dS are
-//   rounded to bf16 as the products' A operands. The ragged edges (Lk = 9,
-//   rows past Lq, keys past kv_len) are masked in-kernel, never padded.
+//   rounded to bf16 as the products' A operands. The ragged edges (Lk off
+//   the tiles, rows past Lq, keys past kv_len) are masked in-kernel, never padded.
 #include "attention_core.cuh"
+#include "flash_bwd_d16_sm90.cuh"
 #include "flash_bwd_sm90.cuh"
 
 using namespace ivlm;
@@ -513,8 +517,9 @@ __global__ void flash_bwd_dkv_reduce_kernel(const float* __restrict__ part,
 
 // q, dO, o: (BH, Lq, D); k, v: (BH, Lk, D) bf16 contiguous; lse: (BH, Lq)
 // f32; writes dsum: (BH, Lq) f32 and dq: (BH, Lq, D) bf16; kv_lengths:
-// (BH / heads,) int32 or null. D = 128 launches the wgmma kernel, 16, 32 and
-// 64 the mma.sync one. Returns the launch status (0 = launched).
+// (BH / heads,) int32 or null. D = 128 launches the wgmma kernel, 32 and
+// 64 the mma.sync one (16: ivlm_flash_bwd_d16_dq). Returns the launch
+// status (0 = launched).
 extern "C" int ivlm_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dO, const void* o,
                                  const void* lse, void* dsum, void* dq,
@@ -544,7 +549,6 @@ extern "C" int ivlm_flash_bwd_dq(const void* q, const void* k, const void* v,
         qp, kp, vp, gp, op, lp, sp, out, kl, heads, lq, lk, scale, causal); \
     break;
   switch (d) {
-    IVLM_LAUNCH(16)
     IVLM_LAUNCH(32)
     IVLM_LAUNCH(64)
     default:
@@ -555,7 +559,7 @@ extern "C" int ivlm_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // As ivlm_flash_bwd_dq, reading dsum and writing dk, dv: (BH, Lk, D) bf16.
-// On the mma.sync route (D < 128) `splits` > 1 splits the query walk into
+// On the mma.sync route (D = 32, 64) `splits` > 1 splits the query walk into
 // runs of `split_tiles` 64-query tiles, each writing its partial sums to
 // `part`, (splits, 2, BH, Lk, D) f32, which a second launch adds up;
 // D = 128 takes no split.
@@ -602,7 +606,6 @@ extern "C" int ivlm_flash_bwd_dkv(const void* q, const void* k, const void* v,
               scale, causal, split_tiles);                                   \
     break;
   switch (d) {
-    IVLM_LAUNCH(16)
     IVLM_LAUNCH(32)
     IVLM_LAUNCH(64)
     default:
@@ -617,6 +620,80 @@ extern "C" int ivlm_flash_bwd_dkv(const void* q, const void* k, const void* v,
   flash_bwd_dkv_reduce_kernel<<<blocks, threads, 0, st>>>(pp, kout, vout,
                                                            splits, n, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// D = 16, the first launch (ops/flash_attention.py:flash_bwd_dq): q, k, v,
+// o, dO (B, H, L, 16) bf16 views with element strides (batch, head, row)
+// sq, sk, sv, so, sdo, multiples of 8, unit stride on the head dim,
+// 16-byte aligned; lse (B*H, Lq) f32; dq (B, Lq, H, 16) bf16; kv_lengths
+// (B,) int32 or null. With part: the one pass, writing the dK/dV partials
+// to part (runs, B*H, 2, 16, 16) f32 (dsum null); else the dq kernel,
+// writing D to dsum (B*H, Lq) f32. key_width, group, kv_resident,
+// tiles_per_cta: ops/flash_attention.py:d16_bwd_plan. Returns the launch
+// status.
+extern "C" int ivlm_flash_bwd_d16_dq(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, void* dsum, void* dq, void* part,
+    const void* kv_lengths, long long sq0, long long sq1, long long sq2,
+    long long sk0, long long sk1, long long sk2, long long sv0, long long sv1,
+    long long sv2, long long so0, long long so1, long long so2,
+    long long sdo0, long long sdo1, long long sdo2, int b, int h, int lq,
+    int lk, float scale, int causal, int key_width, int group,
+    int kv_resident, int tiles_per_cta, void* stream) {
+  const long long sq[3] = {sq0, sq1, sq2}, sk[3] = {sk0, sk1, sk2},
+                  sv[3] = {sv0, sv1, sv2}, so[3] = {so0, so1, so2},
+                  sdo[3] = {sdo0, sdo1, sdo2};
+  return static_cast<int>(flash_bwd_d16::launch_rows(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dO), sq, sk, sv, so, sdo,
+      static_cast<const float*>(lse), static_cast<float*>(dsum),
+      static_cast<bf16*>(dq), static_cast<float*>(part),
+      static_cast<const int*>(kv_lengths), b, h, lq, lk, scale, causal,
+      key_width, group, kv_resident, tiles_per_cta,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// D = 16, the second launch (ops/flash_attention.py:flash_bwd_dkv), after
+// ivlm_flash_bwd_d16_dq on the same stream: with part (the fused route's
+// `runs` partials) the ordered reduce into dk, dv; else the dk/dv kernel
+// over q, k, v, dO (as above), lse and the dq kernel's dsum. dk, dv: (B, Lk, H, 16)
+// bf16. Returns the launch status.
+extern "C" int ivlm_flash_bwd_d16_dkv(
+    const void* q, const void* k, const void* v, const void* dO,
+    const void* lse, const void* dsum, const void* part, void* dk, void* dv,
+    const void* kv_lengths, long long sq0, long long sq1, long long sq2,
+    long long sk0, long long sk1, long long sk2, long long sv0, long long sv1,
+    long long sv2, long long sdo0, long long sdo1, long long sdo2, int b,
+    int h, int lq, int lk, float scale, int causal, int runs, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* kout = static_cast<bf16*>(dk);
+  bf16* vout = static_cast<bf16*>(dv);
+  if (part != nullptr)
+    return static_cast<int>(flash_bwd_d16::launch_reduce(
+        static_cast<const float*>(part), kout, vout, runs, b, h, lk, scale,
+        st));
+  const long long sq[3] = {sq0, sq1, sq2}, sk[3] = {sk0, sk1, sk2},
+                  sv[3] = {sv0, sv1, sv2}, sdo[3] = {sdo0, sdo1, sdo2};
+  return static_cast<int>(flash_bwd_d16::launch_dkv(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dO), sq, sk, sv,
+      sdo, static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      kout, vout, static_cast<const int*>(kv_lengths), b, h, lq, lk, scale,
+      causal, st));
+}
+
+// The CTAs an SM holds of the D = 16 rows kernel (one pass or not; key
+// width, heads a CTA, key tiles, K and V resident or not): what
+// ops/flash_attention.py:d16_bwd_plan sizes its runs by; or minus the error
+// code.
+extern "C" int ivlm_flash_bwd_d16_blocks_per_sm(int fused, int key_width,
+                                                int group, int nkt,
+                                                int kv_resident) {
+  int per_sm = 0;
+  const cudaError_t err = flash_bwd_d16::blocks_per_sm(
+      fused, key_width, group, nkt, kv_resident, &per_sm);
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
 }
 
 IVLM_EXPORT_ERROR_STRING(ivlm_flash_attention_bwd)

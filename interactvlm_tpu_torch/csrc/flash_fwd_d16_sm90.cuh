@@ -66,12 +66,14 @@
 #include <type_traits>
 
 #include "attention_core.cuh"
+#include "d16_sm90.cuh"
 #include "sm90_core.cuh"
 
 namespace ivlm {
 namespace flash_d16 {
 
 using namespace ivlm::sm90;
+using namespace ivlm::d16_sm90;
 
 constexpr int kD = 16;
 constexpr int kRowBytes = 32;   // one row of q, k or v in shared memory
@@ -108,72 +110,6 @@ struct Params {
   float sc2;          // scale * log2 e
   int causal;
 };
-
-// ---- S = Q K^T, m64nNk16, both operands from shared memory (K-major),
-// overwriting d: one function a key width N = 16 .. 128
-#define IVLM_D16_OUT8(d, i)                                                 \
-  "=f"(d[i + 0]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),           \
-      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
-#define IVLM_D16_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define IVLM_D16_R16 IVLM_D16_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define IVLM_D16_R24 IVLM_D16_R16 ", %16, %17, %18, %19, %20, %21, %22, %23"
-#define IVLM_D16_R32 IVLM_D16_R24 ", %24, %25, %26, %27, %28, %29, %30, %31"
-#define IVLM_D16_R40 IVLM_D16_R32 ", %32, %33, %34, %35, %36, %37, %38, %39"
-#define IVLM_D16_R48 IVLM_D16_R40 ", %40, %41, %42, %43, %44, %45, %46, %47"
-#define IVLM_D16_R56 IVLM_D16_R48 ", %48, %49, %50, %51, %52, %53, %54, %55"
-#define IVLM_D16_R64 IVLM_D16_R56 ", %56, %57, %58, %59, %60, %61, %62, %63"
-#define IVLM_D16_C8(d) IVLM_D16_OUT8(d, 0)
-#define IVLM_D16_C16(d) IVLM_D16_C8(d), IVLM_D16_OUT8(d, 8)
-#define IVLM_D16_C24(d) IVLM_D16_C16(d), IVLM_D16_OUT8(d, 16)
-#define IVLM_D16_C32(d) IVLM_D16_C24(d), IVLM_D16_OUT8(d, 24)
-#define IVLM_D16_C40(d) IVLM_D16_C32(d), IVLM_D16_OUT8(d, 32)
-#define IVLM_D16_C48(d) IVLM_D16_C40(d), IVLM_D16_OUT8(d, 40)
-#define IVLM_D16_C56(d) IVLM_D16_C48(d), IVLM_D16_OUT8(d, 48)
-#define IVLM_D16_C64(d) IVLM_D16_C56(d), IVLM_D16_OUT8(d, 56)
-// REGS lists the N / 2 accumulators; A, B and P are the operand numbers of
-// the two descriptors and the scale-d flag that follow them
-#define IVLM_D16_S_SET(NN, REGS, A, B, P, CONS)                              \
-  __device__ __forceinline__ void s_set(float(&d)[NN / 2], uint64_t a,      \
-                                        uint64_t b) {                       \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"             \
-                 "wgmma.mma_async.sync.aligned.m64n" #NN                    \
-                 "k16.f32.bf16.bf16 {" REGS "}, " A ", " B                  \
-                 ", p, 1, 1, 0, 0;\n}\n"                                    \
-                 : CONS(d)                                                  \
-                 : "l"(a), "l"(b), "r"(0));                                 \
-  }
-IVLM_D16_S_SET(16, IVLM_D16_R8, "%8", "%9", "%10", IVLM_D16_C8)
-IVLM_D16_S_SET(32, IVLM_D16_R16, "%16", "%17", "%18", IVLM_D16_C16)
-IVLM_D16_S_SET(48, IVLM_D16_R24, "%24", "%25", "%26", IVLM_D16_C24)
-IVLM_D16_S_SET(64, IVLM_D16_R32, "%32", "%33", "%34", IVLM_D16_C32)
-IVLM_D16_S_SET(80, IVLM_D16_R40, "%40", "%41", "%42", IVLM_D16_C40)
-IVLM_D16_S_SET(96, IVLM_D16_R48, "%48", "%49", "%50", IVLM_D16_C48)
-IVLM_D16_S_SET(112, IVLM_D16_R56, "%56", "%57", "%58", IVLM_D16_C56)
-IVLM_D16_S_SET(128, IVLM_D16_R64, "%64", "%65", "%66", IVLM_D16_C64)
-#undef IVLM_D16_S_SET
-#undef IVLM_D16_OUT8
-#undef IVLM_D16_R8
-#undef IVLM_D16_C8
-#undef IVLM_D16_R16
-#undef IVLM_D16_C16
-#undef IVLM_D16_R24
-#undef IVLM_D16_C24
-#undef IVLM_D16_R32
-#undef IVLM_D16_C32
-#undef IVLM_D16_R40
-#undef IVLM_D16_C40
-#undef IVLM_D16_R48
-#undef IVLM_D16_C48
-#undef IVLM_D16_R56
-#undef IVLM_D16_C56
-#undef IVLM_D16_R64
-#undef IVLM_D16_C64
-
-// brings a tensor map into the cache before its first TMA load
-__device__ __forceinline__ void prefetch_tmap(const CUtensorMap* m) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m))
-               : "memory");
-}
 
 // The online softmax of one half (64 rows from `hrow`) against one key
 // tile, on S's accumulator s: P into pa as the A fragments of O += P V, o
@@ -664,28 +600,11 @@ inline cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
                                   : auto_group(H, nkt, key_width);
   if (G > kMaxGroup || H % G != 0 || (long long)B * (H / G) > 65535)
     return cudaErrorInvalidValue;
-  const CUtensorMapDataType t = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle s32 = CU_TENSOR_MAP_SWIZZLE_32B;
   // (head-dim column, row, head, batch)
-  const cuuint64_t qdims[4] = {kD, (cuuint64_t)Lq, (cuuint64_t)H,
-                               (cuuint64_t)B};
-  const cuuint64_t kdims[4] = {kD, (cuuint64_t)Lk, (cuuint64_t)H,
-                               (cuuint64_t)B};
-  auto strides = [](const long long* s, cuuint64_t* out) {
-    out[0] = (cuuint64_t)s[2] * 2;
-    out[1] = (cuuint64_t)s[1] * 2;
-    out[2] = (cuuint64_t)s[0] * 2;
-  };
-  cuuint64_t qstr[3], kstr[3], vstr[3];
-  strides(sq, qstr);
-  strides(sk, kstr);
-  strides(sv, vstr);
-  const cuuint32_t qbox[4] = {kD, kBQ, (cuuint32_t)G, 1};
-  const cuuint32_t kbox[4] = {kD, (cuuint32_t)key_width, (cuuint32_t)G, 1};
   CUtensorMap tq, tk, tv;
-  if (!encode_swizzled(&tq, t, 4, q, qdims, qstr, qbox, s32) ||
-      !encode_swizzled(&tk, t, 4, k, kdims, kstr, kbox, s32) ||
-      !encode_swizzled(&tv, t, 4, v, kdims, vstr, kbox, s32))
+  if (!view_map(&tq, q, sq, B, H, Lq, kBQ, G) ||
+      !view_map(&tk, k, sk, B, H, Lk, key_width, G) ||
+      !view_map(&tv, v, sv, B, H, Lk, key_width, G))
     return cudaErrorInvalidValue;
   Params prm{};
   prm.kv_lengths = kv_lengths;

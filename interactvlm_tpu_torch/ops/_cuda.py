@@ -26,9 +26,10 @@ SOURCES = ("flash_attention", "flash_attention_bwd", "window_attention",
            "rel_attention", "int8_matmul", "int8_prequant", "int8_gemm_sm90",
            "int4_gemm_sm90", "serving_matmul", "mxu_probe", "window_copy")
 _HEADERS = ("attention_core.cuh", "matmul_core.cuh", "sm90_core.cuh",
-            "gemm_sm90.cuh", "flash_fwd_sm90.cuh", "flash_fwd_d16_sm90.cuh",
-            "rel_attention_sm90.cuh",
-            "flash_bwd_sm90.cuh", "window_attention_sm90.cuh")
+            "gemm_sm90.cuh", "flash_fwd_sm90.cuh", "d16_sm90.cuh",
+            "flash_fwd_d16_sm90.cuh", "rel_attention_sm90.cuh",
+            "flash_bwd_sm90.cuh", "flash_bwd_d16_sm90.cuh",
+            "window_attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -141,6 +142,14 @@ def require_kernel_inputs(kernel: str, *tensors: torch.Tensor,
             raise ValueError(f"{kernel}: inputs must be 16-byte aligned")
 
 
+def strided_rows(t: torch.Tensor) -> bool:
+    """Whether a TMA kernel reads the view t in place: unit stride on the
+    last dim, every other stride a multiple of 16 bytes, 16-byte aligned."""
+    step = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % step for s in t.stride()[:-1]))
+
+
 def require_strided_rows(kernel: str, *tensors: torch.Tensor,
                          dtype=torch.bfloat16) -> None:
     """Validate views a TMA kernel reads in place: one CUDA device, the
@@ -152,8 +161,7 @@ def require_strided_rows(kernel: str, *tensors: torch.Tensor,
             raise ValueError(f"{kernel}: all inputs must be on one CUDA device")
         if t.dtype != dtype:
             raise ValueError(f"{kernel}: expected {dtype}, got {t.dtype}")
-        step = 16 // t.element_size()
-        if t.stride(-1) != 1 or any(s % step for s in t.stride()[:-1]):
+        if t.data_ptr() % 16 == 0 and not strided_rows(t):
             raise ValueError(f"{kernel}: strides {t.stride()} are not unit "
                              f"on the last dim and 16-byte multiples")
         if t.data_ptr() % 16:

@@ -1,8 +1,10 @@
 """Flash attention: the forward kernel ``csrc/flash_attention.cu`` (head dim
 128: ``csrc/flash_fwd_sm90.cuh``; head dim 16: ``csrc/flash_fwd_d16_sm90.cuh``,
 which reads q, k and v as strided views), the two backward kernels
-``csrc/flash_attention_bwd.cu`` (head dim 128: ``csrc/flash_bwd_sm90.cuh``),
-their plain PyTorch versions, and the autograd Function that joins them.
+``csrc/flash_attention_bwd.cu`` (head dim 128: ``csrc/flash_bwd_sm90.cuh``;
+head dim 16: ``csrc/flash_bwd_d16_sm90.cuh``, which reads q, k, v, o and dO
+as strided views and writes dq, dk and dv as views), their plain PyTorch
+versions, and the autograd Function that joins them.
 
 Ports of ``interactvlm_tpu/ops/flash_attention.py``: ``_flash_kernel`` (the
 Pallas TPU kernel, wrapper ``_flash_forward``), ``_bwd_dq_kernel`` and
@@ -23,6 +25,8 @@ fully masked row.)
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -212,16 +216,110 @@ def flash_backward_plain(q, k, v, o, lse, do, causal=False, scale=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+BWD_ROUTES = ("sm90", "sm90_d16", "mma")
+
+
 def bwd_route(D):
     """The backward kernels' route, by head dim alone (as the forward's and
     ``sam_attention.rel_route``): "sm90", the wgmma + TMA kernels of
-    ``csrc/flash_bwd_sm90.cuh``, at 128 (the LLaMA shapes); "mma", the
-    mma.sync kernels of ``csrc/flash_attention_bwd.cu``, at 16, 32 and 64
-    (the SAM decoder's 16). Raises on any other head dim."""
+    ``csrc/flash_bwd_sm90.cuh``, at 128 (the LLaMA shapes); "sm90_d16", the
+    wgmma + TMA kernels of ``csrc/flash_bwd_d16_sm90.cuh``, at 16 (the SAM
+    decoder's image -> token attention and the fusion; ``d16_bwd_plan``);
+    "mma", the mma.sync kernels of ``csrc/flash_attention_bwd.cu``, at 32
+    and 64. Raises on any other head dim."""
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_backward: head dim {D} not in "
                          f"{KERNEL_HEAD_DIMS}")
-    return "sm90" if D == 128 else "mma"
+    return {128: "sm90", VIEW_HEAD_DIM: "sm90_d16"}.get(D, "mma")
+
+
+# the head-dim-16 backward's plan, decided here alone (the launchers of
+# csrc/flash_bwd_d16_sm90.cuh run it, refusing only what their kernels
+# cannot): one pass at Lk <= D16_BWD_FUSED_MAX_LK (dq and the dK/dV
+# partials, then their ordered reduce), else the dq kernel then the dk/dv
+# kernel; key tiles of at most D16_BWD_MAX_KEY_WIDTH over 128-row query
+# tiles; K and V of a CTA's heads resident up to D16_BWD_RESIDENT_KV_BYTES,
+# else streamed for one query tile a CTA; runs of query tiles sized to at
+# most D16_BWD_WAVES times the CTAs the card holds at once
+D16_BWD_FUSED_MAX_LK = 16
+D16_BWD_MAX_KEY_WIDTH = 64
+D16_BWD_QUERY_TILE = 128
+D16_BWD_RESIDENT_KV_BYTES = 64 * 1024
+D16_BWD_WAVES = {True: 1, False: 8}
+
+
+def d16_bwd_key_tiles(Lk):
+    """The head-dim-16 backward's key tiling: (key width N, tiles), the
+    fewest tiles of at most ``D16_BWD_MAX_KEY_WIDTH`` keys, each
+    N = 16 ceil(Lk / (16 tiles)) wide: one 16-key tile at the SAM decoder's
+    Lk = 9, eight of 64 at the fusion's 512."""
+    if Lk < 1:
+        raise ValueError(f"flash_backward: Lk {Lk}")
+    tiles = -(-Lk // D16_BWD_MAX_KEY_WIDTH)
+    return 16 * -(-Lk // (16 * tiles)), tiles
+
+
+class D16BwdPlan(NamedTuple):
+    """How the head-dim-16 backward covers a call (``d16_bwd_plan``)."""
+    fused: bool          # one pass (dq and the dK/dV partials) + a reduce
+    key_width: int       # N, keys a tile
+    key_tiles: int       # tiles over Lk
+    group: int           # heads a CTA of the first launch
+    kv_resident: bool    # K and V loaded once a CTA (else streamed)
+    query_tiles: int     # 128-row tiles over Lq
+    tiles_per_cta: int   # query tiles a CTA of the first launch walks
+    runs: int            # CTAs over one head group's query tiles
+
+
+def d16_bwd_plan(B, H, Lq, Lk, per_sm, sms):
+    """The head-dim-16 backward's plan at (B, H, Lq, Lk) when the first
+    launch's kernel fits ``per_sm`` CTAs an SM of ``sms`` SMs (on the card,
+    ``d16_bwd_blocks_per_sm`` and the card's SM count): the one pass at
+    Lk <= ``D16_BWD_FUSED_MAX_LK``, else the two kernels. Runs of whole
+    query tiles cover [0, Lq) once each, none empty; each (head group, run)
+    is a CTA, at most ``D16_BWD_WAVES`` times as many as the card holds at
+    once (one run a head group where that is fewer than the groups)."""
+    fused = Lk <= D16_BWD_FUSED_MAX_LK
+    width, nkt = d16_bwd_key_tiles(Lk)
+    group = 2 if fused and H % 2 == 0 else 1
+    resident = 2 * group * nkt * width * 32 <= D16_BWD_RESIDENT_KV_BYTES
+    nqt = -(-Lq // D16_BWD_QUERY_TILE)
+    tiles = 1
+    if resident:
+        cap = max(per_sm, 1) * sms * D16_BWD_WAVES[fused]
+        runs = min(nqt, max(1, cap // (B * H // group)))
+        tiles = -(-nqt // runs)
+    return D16BwdPlan(fused, width, nkt, group, resident, nqt, tiles,
+                      -(-nqt // tiles))
+
+
+def d16_bwd_blocks_per_sm(plan):
+    """The CTAs an SM of the current card holds of the first launch of a
+    head-dim-16 backward ``plan``, card only."""
+    f = _cuda.load("flash_attention_bwd").ivlm_flash_bwd_d16_blocks_per_sm
+    f.restype, f.argtypes = ctypes.c_int, [ctypes.c_int] * 5
+    n = f(int(plan.fused), plan.key_width, plan.group, plan.key_tiles,
+          int(plan.kv_resident))
+    if n < 0:
+        raise RuntimeError(f"flash_backward: occupancy query failed ({-n})")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _d16_bwd_plan_on(B, H, Lq, Lk, device):
+    with torch.cuda.device(device):
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        per_sm = d16_bwd_blocks_per_sm(d16_bwd_plan(B, H, Lq, Lk, 1, sms))
+        return d16_bwd_plan(B, H, Lq, Lk, per_sm, sms)
+
+
+def d16_bwd_plan_on_card(B, H, Lq, Lk, device=None):
+    """``d16_bwd_plan`` at a card's SM count and occupancy (``device``, or
+    the current card), worked out once a shape and card (the training step
+    calls it twice a step)."""
+    index = None if device is None else torch.device(device).index
+    return _d16_bwd_plan_on(B, H, Lq, Lk, torch.cuda.current_device()
+                            if index is None else index)
 
 
 # the mma.sync dk/dv kernel's query tiles, and at Lk <= DKV_SPLIT_MAX_LK
@@ -233,10 +331,10 @@ def dkv_split(Lq, Lk):
     """The mma.sync dk/dv kernel's plan: (splits, query tiles a split).
 
     Its blocks own 64 keys each and walk the query tiles. At Lk <= 64 one
-    block per (batch*head) would walk every query alone (Lq = 4096 at the
-    SAM decoder's Lk = 9: 256 blocks on 132 SMs), so the walk is cut into
-    runs of at most ``DKV_SPLIT_TILES`` tiles, one block each (2048 blocks
-    there), whose partial sums a second launch adds in order. Longer key
+    block per (batch*head) would walk every query alone (Lq = 4096 at
+    B*H = 256: 256 blocks on 132 SMs), so the walk is cut into runs of at
+    most ``DKV_SPLIT_TILES`` tiles, one block each (2048 blocks there),
+    whose partial sums a second launch adds in order. Longer key
     sequences give blocks enough already: one split over every tile."""
     tiles = -(-Lq // DKV_QUERY_TILE)
     if Lk > DKV_SPLIT_MAX_LK:
@@ -249,6 +347,12 @@ _DQ_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DKV_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_D16_DQ_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 15
+                    + [ctypes.c_int] * 4 + [ctypes.c_float]
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_D16_DKV_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 12
+                     + [ctypes.c_int] * 4 + [ctypes.c_float]
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def _lens_ptr(kv_lengths):
@@ -256,56 +360,115 @@ def _lens_ptr(kv_lengths):
             else ctypes.c_void_p(None))
 
 
+def _strides(*ts):
+    return [s for t in ts for s in t.stride()[:3]]
+
+
 def flash_bwd_dq(q, k, v, do, o, lse, causal, scale, kv_lengths):
-    """Launch the dq kernel (CUDA only; ``flash_backward`` checks the
-    inputs), which also forms D = rowsum(dO * O) in f32. lse is (B*H, Lq)
-    f32, kv_lengths int32 or None. Returns (dq, dsum (B*H, Lq) f32)."""
-    B, H, Lq, D = q.shape
-    dq = torch.empty_like(q)
-    dsum = torch.empty(B * H, Lq, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _cuda.launch(
-            "flash_attention_bwd", "ivlm_flash_bwd_dq", _DQ_ARGTYPES,
-            _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(do),
-            _cuda.ptr(o), _cuda.ptr(lse), _cuda.ptr(dsum), _cuda.ptr(dq),
-            _lens_ptr(kv_lengths), B * H, H, Lq, k.shape[2], D, float(scale),
-            int(bool(causal)), _cuda.stream_handle(q.device))
-    flash_bwd_dq.launches += 1
-    flash_bwd_dq.route_launches[bwd_route(D)] += 1
-    return dq, dsum
-
-
-flash_bwd_dq.launches = 0
-flash_bwd_dq.route_launches = {"sm90": 0, "mma": 0}
-
-
-def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, scale, kv_lengths):
-    """Launch the dk/dv kernel (CUDA only, as ``flash_bwd_dq``) after the
-    dq kernel that wrote dsum, on the same stream. On the mma.sync route
-    with more than one split (``dkv_split``) it allocates the f32 partial
-    sums and the C launcher adds a second launch that sums them."""
+    """The first backward launch (CUDA only; ``flash_backward`` checks the
+    inputs). lse is (B*H, Lq) f32, kv_lengths int32 or None. Returns
+    (dq, carry), carry what ``flash_bwd_dkv`` reads: on the "sm90" and
+    "mma" routes the dq kernel, which also forms D = rowsum(dO * O) in f32,
+    and carry is D (B*H, Lq). On "sm90_d16" q, k, v, o and dO may be views
+    (``_cuda.strided_rows``) and dq is a (B, H, Lq, 16) view of a
+    (B, Lq, H, 16) tensor; the plan (``d16_bwd_plan``) either runs the one
+    pass, which writes dq and the dK/dV partials, and
+    carry is the partials (runs, B*H, 2, 16, 16) f32, or the dq kernel, and
+    carry is D."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     route = bwd_route(D)
-    splits, tiles = dkv_split(Lq, Lk) if route == "mma" else (1, 1)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    part = (torch.empty(splits, 2, B * H, Lk, D, dtype=torch.float32,
-                        device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
-        _cuda.launch(
-            "flash_attention_bwd", "ivlm_flash_bwd_dkv", _DKV_ARGTYPES,
-            _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(do),
-            _cuda.ptr(lse), _cuda.ptr(dsum), _cuda.ptr(dk), _cuda.ptr(dv),
-            _cuda.ptr(part) if part is not None else ctypes.c_void_p(None),
-            _lens_ptr(kv_lengths), B * H, H, Lq, Lk, D, float(scale),
-            int(bool(causal)), splits, tiles, _cuda.stream_handle(q.device))
+        if route == "sm90_d16":
+            plan = d16_bwd_plan_on_card(B, H, Lq, Lk, q.device)
+            dq = torch.empty(B, Lq, H, D, dtype=q.dtype,
+                             device=q.device).transpose(1, 2)
+            if plan.fused:
+                carry = torch.empty(plan.runs, B * H, 2, 16, 16,
+                                    dtype=torch.float32, device=q.device)
+            else:
+                carry = torch.empty(B * H, Lq, dtype=torch.float32,
+                                    device=q.device)
+            none = ctypes.c_void_p(None)
+            _cuda.launch(
+                "flash_attention_bwd", "ivlm_flash_bwd_d16_dq",
+                _D16_DQ_ARGTYPES, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v),
+                _cuda.ptr(o), _cuda.ptr(do), _cuda.ptr(lse),
+                none if plan.fused else _cuda.ptr(carry), _cuda.ptr(dq),
+                _cuda.ptr(carry) if plan.fused else none,
+                _lens_ptr(kv_lengths), *_strides(q, k, v, o, do), B, H, Lq,
+                Lk, float(scale), int(bool(causal)), plan.key_width,
+                plan.group, int(plan.kv_resident), plan.tiles_per_cta,
+                _cuda.stream_handle(q.device))
+        else:
+            dq = torch.empty_like(q)
+            carry = torch.empty(B * H, Lq, dtype=torch.float32,
+                                device=q.device)
+            _cuda.launch(
+                "flash_attention_bwd", "ivlm_flash_bwd_dq", _DQ_ARGTYPES,
+                _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(do),
+                _cuda.ptr(o), _cuda.ptr(lse), _cuda.ptr(carry), _cuda.ptr(dq),
+                _lens_ptr(kv_lengths), B * H, H, Lq, Lk, D, float(scale),
+                int(bool(causal)), _cuda.stream_handle(q.device))
+    flash_bwd_dq.launches += 1
+    flash_bwd_dq.route_launches[route] += 1
+    return dq, carry
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dq.route_launches = {r: 0 for r in BWD_ROUTES}
+
+
+def flash_bwd_dkv(q, k, v, do, lse, carry, causal, scale, kv_lengths):
+    """The second backward launch (CUDA only, as ``flash_bwd_dq``), after
+    the first on the same stream, given its carry. On "sm90" and "mma" the
+    dk/dv kernel reading D; on the mma.sync route with more than one split
+    (``dkv_split``) it allocates the f32 partial sums and the C launcher
+    adds a second launch that sums them. On "sm90_d16" dk and dv are
+    (B, H, Lk, 16) views of (B, Lk, H, 16) tensors: after the one pass the
+    ordered reduce of its partials (carry (runs, B*H, 2, 16, 16)), else the
+    dk/dv kernel reading D."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    route = bwd_route(D)
+    with torch.cuda.device(q.device):
+        if route == "sm90_d16":
+            dk, dv = (torch.empty(B, Lk, H, D, dtype=k.dtype,
+                                  device=q.device).transpose(1, 2)
+                      for _ in range(2))
+            fused = carry.dim() == 5
+            none = ctypes.c_void_p(None)
+            _cuda.launch(
+                "flash_attention_bwd", "ivlm_flash_bwd_d16_dkv",
+                _D16_DKV_ARGTYPES, _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v),
+                _cuda.ptr(do), _cuda.ptr(lse),
+                none if fused else _cuda.ptr(carry),
+                _cuda.ptr(carry) if fused else none, _cuda.ptr(dk),
+                _cuda.ptr(dv), _lens_ptr(kv_lengths), *_strides(q, k, v, do),
+                B, H, Lq, Lk, float(scale), int(bool(causal)),
+                carry.shape[0] if fused else 0,
+                _cuda.stream_handle(q.device))
+        else:
+            splits, tiles = dkv_split(Lq, Lk) if route == "mma" else (1, 1)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            part = (torch.empty(splits, 2, B * H, Lk, D, dtype=torch.float32,
+                                device=q.device) if splits > 1 else None)
+            _cuda.launch(
+                "flash_attention_bwd", "ivlm_flash_bwd_dkv", _DKV_ARGTYPES,
+                _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(do),
+                _cuda.ptr(lse), _cuda.ptr(carry), _cuda.ptr(dk),
+                _cuda.ptr(dv),
+                _cuda.ptr(part) if part is not None else ctypes.c_void_p(None),
+                _lens_ptr(kv_lengths), B * H, H, Lq, Lk, D, float(scale),
+                int(bool(causal)), splits, tiles,
+                _cuda.stream_handle(q.device))
     flash_bwd_dkv.launches += 1
     flash_bwd_dkv.route_launches[route] += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
-flash_bwd_dkv.route_launches = {"sm90": 0, "mma": 0}
+flash_bwd_dkv.route_launches = {r: 0 for r in BWD_ROUTES}
 
 
 def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
@@ -313,11 +476,16 @@ def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
     """Flash attention backward: (dq, dk, dv) from the forward's inputs, its
     output o and logsumexp lse (B*H, Lq), and the output gradient do.
 
-    CPU tensors run ``flash_backward_plain``; CUDA tensors launch the dq and
-    the dk/dv kernels of ``bwd_route(D)`` (bf16, contiguous, head dim in
-    ``KERNEL_HEAD_DIMS``) or raise. D = rowsum(dO * O), which the JAX
-    package takes in jnp outside its kernels, is formed by the dq kernel;
-    nothing here runs a torch operation on the card but allocations.
+    CPU tensors run ``flash_backward_plain``; CUDA tensors launch the
+    kernels of ``bwd_route(D)`` (bf16, head dim in ``KERNEL_HEAD_DIMS``) or
+    raise: at head dim 16 q, k, v, o and do may be views
+    (``_cuda.strided_rows``: the projections' head splits and the forward's
+    o), read in place, and dq, dk, dv come back as (B, H, L, 16) views of
+    (B, L, H, 16) tensors, which the projections' backward reads without a
+    copy; other head dims
+    take contiguous tensors. D = rowsum(dO * O), which the JAX package
+    takes in jnp outside its kernels, is formed by the kernels; nothing
+    here runs a torch operation on the card but allocations.
     """
     if not q.is_cuda:
         return flash_backward_plain(q, k, v, o, lse, do, causal, scale,
@@ -328,8 +496,10 @@ def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
             or do.shape != q.shape):
         raise ValueError(f"flash_backward: shapes q {q.shape} k {k.shape} "
                          f"v {v.shape} o {o.shape} do {do.shape}")
-    bwd_route(D)  # raises on a head dim no kernel takes
-    _cuda.require_kernel_inputs("flash_backward", q, k, v, o, do)
+    if bwd_route(D) == "sm90_d16":  # raises on a head dim no kernel takes
+        _cuda.require_strided_rows("flash_backward", q, k, v, o, do)
+    else:
+        _cuda.require_kernel_inputs("flash_backward", q, k, v, o, do)
     _cuda.require_kernel_inputs("flash_backward", lse, dtype=torch.float32)
     if lse.shape != (B * H, Lq) or lse.device != q.device:
         raise ValueError(f"flash_backward: lse {tuple(lse.shape)} on "
@@ -340,17 +510,19 @@ def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
         if lens.shape != (B,):
             raise ValueError(f"flash_backward: kv_lengths shape {lens.shape}")
     scale = D ** -0.5 if scale is None else scale
-    dq, dsum = flash_bwd_dq(q, k, v, do, o, lse, causal, scale, lens)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, dsum, causal, scale, lens)
+    dq, carry = flash_bwd_dq(q, k, v, do, o, lse, causal, scale, lens)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, carry, causal, scale, lens)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: the forward kernel, and on the
-    backward the two backward kernels over the saved (q, k, v, o, lse), made
-    contiguous
-    (the JAX package's ``custom_vjp``, ``flash_attention.py:402-421``).
-    CPU tensors take the plain versions both ways."""
+    backward the backward kernels over the saved (q, k, v, o, lse) (the
+    JAX package's ``custom_vjp``, ``flash_attention.py:402-421``). At head
+    dim 16 on the card the backward reads the saved views as they are and
+    the output gradient as autograd hands it (a copy only where its strides
+    are no TMA's), and its gradients are views; other head dims take
+    contiguous copies. CPU tensors take the plain versions both ways."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, kv_lengths):
@@ -362,11 +534,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, kv_lengths = ctx.saved_tensors
-        # the head-dim-16 forward read views and wrote o as one; the
-        # backward kernels take contiguous tensors (a copy in training only)
-        q, k, v, o = (t.contiguous() for t in (q, k, v, o))
-        dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(),
-                                    ctx.causal, ctx.scale, kv_lengths)
+        if q.is_cuda and q.shape[-1] == VIEW_HEAD_DIM:
+            if not _cuda.strided_rows(do):
+                do = do.contiguous()
+        else:
+            q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal,
+                                    ctx.scale, kv_lengths)
         return dq, dk, dv, None, None, None
 
 

@@ -33,6 +33,10 @@ def _rand(rng, shape):
     (1, 2, 64, 192, 32, True, None),  # causal Lq < Lk: bottom-right
     (1, 2, 1000, 9, 16, False, None),  # Lk = 9, Lq off the dk/dv split
     (1, 2, 200, 130, 128, True, (130,)),  # the sm90 route's head dim
+    # head dim 16: Lq off the 128-row tiles at Lk = 9 (the one pass), and
+    # past the 512-key mark with a kv length (the two kernels)
+    (2, 2, 130, 9, 16, False, None),
+    (1, 2, 64, 520, 16, False, (520,)),
 ])
 def test_plain_backward_matches_pallas_interpret(B, H, Lq, Lk, D, causal,
                                                  lens):
@@ -134,10 +138,90 @@ def test_backward_on_the_cpu_takes_no_route(D):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("D,route", [(16, "mma"), (32, "mma"), (64, "mma"),
-                                     (128, "sm90")])
+@pytest.mark.parametrize("D,route", [(16, "sm90_d16"), (32, "mma"),
+                                     (64, "mma"), (128, "sm90")])
 def test_bwd_route_by_head_dim(D, route):
     assert F.bwd_route(D) == route
+
+
+# the SMs of an H100 SXM, the card the plan's one-wave sizing was measured on
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("Lk", [1, 9, 16, 17, 128, 512])
+@pytest.mark.parametrize("Lq,H", [(4096, 8), (130, 3), (1, 2)])
+def test_d16_bwd_plan_covers_every_query_tile_and_key_once(Lq, Lk, H):
+    """The head-dim-16 backward's plan: runs of whole 128-row query tiles
+    cover [0, Lq) once each with none empty; key tiles of at most 64 keys,
+    multiples of 16, cover [0, Lk) once with none empty; the one pass at
+    Lk <= 16 (two heads a CTA where H is even), else the dq and dk/dv
+    kernels, at key tiles wider than 16; a plan that streams K and V takes
+    one query tile a CTA. At the SAM decoder's shape (B*V = 32, H = 8,
+    Lq = 4096, Lk = 9) a row recomputes 16 exponentials, and the CTAs fill
+    one wave of an H100's 132 SMs at 4 a SM."""
+    B = 32
+    for per_sm in (1, 4, 8):
+        p = F.d16_bwd_plan(B, H, Lq, Lk, per_sm, H100_SMS)
+        tile = F.D16_BWD_QUERY_TILE
+        runs = [(r * p.tiles_per_cta * tile,
+                 min(Lq, (r + 1) * p.tiles_per_cta * tile))
+                for r in range(p.runs)]
+        assert p.query_tiles == -(-Lq // tile)
+        assert runs[0][0] == 0 and runs[-1][1] == Lq
+        assert all(a < b for a, b in runs)
+        assert all(runs[i][1] == runs[i + 1][0] for i in range(p.runs - 1))
+        assert p.key_width % 16 == 0
+        assert p.key_width <= F.D16_BWD_MAX_KEY_WIDTH
+        assert (p.key_tiles - 1) * p.key_width < Lk <= p.key_tiles * p.key_width
+        assert p.fused == (Lk <= F.D16_BWD_FUSED_MAX_LK)
+        assert p.group == (2 if p.fused and H % 2 == 0 else 1)
+        assert (B * H) % p.group == 0
+        assert p.fused == (p.key_width == 16)
+        assert p.kv_resident or p.tiles_per_cta == 1
+    if (Lq, H, Lk) == (4096, 8, 9):
+        p = F.d16_bwd_plan(B, H, Lq, Lk, 4, H100_SMS)
+        assert p.key_width == 16 and p.fused
+        ctas = p.runs * B * H // p.group
+        assert 0.9 * 4 * H100_SMS <= ctas <= 4 * H100_SMS
+
+
+@pytest.mark.parametrize("Lk,resident", [(1024, True), (1025, False),
+                                         (1100, False), (3000, False)])
+def test_d16_bwd_plan_streams_keys_past_the_resident_budget(Lk, resident):
+    """Past the resident K/V budget (64 KB: 1024 keys of one head) the dq
+    kernel streams K and V through its ring, one head and one query tile a
+    CTA, whatever the occupancy; the SM count sizes the runs only where K
+    and V are resident."""
+    for per_sm, sms in ((1, 132), (4, 132), (4, 78)):
+        p = F.d16_bwd_plan(1, 2, 1000, Lk, per_sm, sms)
+        assert not p.fused and p.group == 1
+        assert p.kv_resident == resident
+        assert (p.key_tiles * p.key_width * 2 * 32
+                <= F.D16_BWD_RESIDENT_KV_BYTES) == resident
+        if not resident:
+            assert p.tiles_per_cta == 1 and p.runs == p.query_tiles == 8
+
+
+def test_plain_backward_on_views_equals_contiguous_copies():
+    """The plain backward on (B, H, L, 16) views of (B, L, H, 16) tensors,
+    as the head-dim-16 route takes them, gives the bits of the call on
+    contiguous copies: the layout changes no value."""
+    rng = np.random.default_rng(5)
+    B, H, Lq, Lk = 2, 3, 70, 9
+
+    def heads(L):
+        return torch.from_numpy(_rand(rng, (B, L, H, 16))).transpose(1, 2)
+
+    q, do, k, v = heads(Lq), heads(Lq), heads(Lk), heads(Lk)
+    kv = torch.tensor([9, 4])
+    o, lse = F.flash_forward_plain(q, k, v, True, None, kv)
+    o = o.transpose(1, 2).contiguous().transpose(1, 2)
+    got = F.flash_backward_plain(q, k, v, o, lse, do, True, None, kv)
+    want = F.flash_backward_plain(*(t.contiguous() for t in (q, k, v, o)),
+                                  lse, do.contiguous(), True, None, kv)
+    assert not q.is_contiguous() and not o.is_contiguous()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("D", [8, 48, 80, 256])

@@ -41,6 +41,22 @@ def _x(rng, M, K):
     return x
 
 
+def _first_difference(got, want, activation):
+    """Where two results that should be equal differ: the first index, both
+    values (and their bits), the activation, the intra-op thread count and
+    the CPU capability torch dispatched to."""
+    diff = (got != want).nonzero()
+    if len(diff) == 0:
+        return "equal values, different dtype or shape"
+    i = tuple(diff[0].tolist())
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    return (f"{len(diff)} elements differ, first at {i}: got "
+            f"{got[i].item()!r} ({got[i].view(bits).item():#x}), want "
+            f"{want[i].item()!r} ({want[i].view(bits).item():#x}); "
+            f"activation {activation}, {torch.get_num_threads()} threads, "
+            f"{torch.backends.cpu.get_cpu_capability()}")
+
+
 def _two_pass(x, w_q, w_scale, bias, activation, out_dtype):
     x_q, x_scale = Q.quantize_rows_plain(x)
     return Q.int8_gemm(x_q, x_scale, w_q, w_scale, bias, activation,
@@ -68,7 +84,7 @@ def test_two_pass_plain_gives_the_fused_plain_bits(in_dtype, out_dtype,
     want = Q.int8_matmul_fused_plain(x, w_q, w_scale, bias, activation,
                                      out_dtype)
     assert got.dtype == out_dtype and got.shape == (M, N)
-    assert torch.equal(got, want)
+    assert torch.equal(got, want), _first_difference(got, want, activation)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -250,6 +250,22 @@ def _grad_close(got, want, atol_of_rms=GRAD_ATOL_OF_RMS):
     # split's queries see no key
     (1, 4, 1000, 9, 16, False, None),
     (2, 2, 700, 40, 32, True, (40, 33)),
+    # head dim 16 runs the wgmma/TMA kernels of flash_bwd_d16_sm90.cuh: the
+    # one pass at Lk <= 16 (Lk 9; Lk 1 in the test below), the two kernels
+    # past it (17: one 32-key tile; 130: three of 48; 520: nine of 64, more
+    # than one dk/dv CTA; 1100: eighteen of 64, past the resident K/V
+    # budget, so the dq kernel streams K and V through its ring), Lq off
+    # the 128-row tiles, causal with Lq != Lk both ways (rows that see no
+    # key), kv lengths 0 and 1, an odd head count (one head a CTA of the
+    # one pass)
+    (1, 3, 257, 9, 16, True, None),  # causal Lq > Lk: 248 rows blind
+    (3, 4, 200, 9, 16, False, (0, 1, 9)),
+    (1, 2, 300, 17, 16, True, None),
+    (2, 2, 70, 130, 16, True, (130, 1)),
+    (1, 2, 200, 130, 16, False, (0,)),
+    (1, 2, 1000, 520, 16, False, (520,)),
+    (1, 2, 300, 1100, 16, False, None),
+    (2, 2, 300, 1100, 16, True, (1100, 700)),
     # head dim 128 runs the wgmma/TMA kernels: causal Lq < Lk, causal
     # Lq > Lk with rows that see no key, kv lengths 0, 1 and full, Lq and Lk
     # off the 128-row blocks and 64-row tiles, one (batch, head)
@@ -266,7 +282,6 @@ def test_flash_backward_kernels_match_plain(dev, B, H, Lq, Lk, D, causal,
     k, v = _bf16(rng, (B, H, Lk, D), dev), _bf16(rng, (B, H, Lk, D), dev)
     kv = None if lens is None else torch.tensor(lens, device=dev)
     o, lse = F.flash_forward(q, k, v, causal, None, kv)
-    o = o.contiguous()  # a view at head dim 16; the backward takes rows
     n_dq, n_dkv = F.flash_bwd_dq.launches, F.flash_bwd_dkv.launches
     routes = (dict(F.flash_bwd_dq.route_launches),
               dict(F.flash_bwd_dkv.route_launches))
@@ -298,10 +313,51 @@ def test_flash_backward_kernels_match_plain(dev, B, H, Lq, Lk, D, causal,
         assert bool((g.float()[unseen_keys[:, None].expand(B, H, Lk)] == 0).all())
 
 
+@pytest.mark.parametrize("B,H,Lq,Lk,lens", [
+    (2, 2, 300, 1, None),  # one key tile of 16 with 15 keys masked
+    (2, 4, 200, 9, (0, 1)),  # kv lengths 0 and 1
+])
+def test_flash_backward_at_head_dim_16_where_rows_see_one_key(dev, B, H, Lq,
+                                                             Lk, lens):
+    """Rows that see exactly one key: there P = 1, o is that key's v up to
+    the forward's bf16 rounding, and dS = P (dP - D) is 0 but for
+    dO (v - o) and the f32 rounding of the two dot products dP and D, so dq,
+    and dk of a key only such rows see, are rounding noise on both sides,
+    and the comparison above, relative to the plain gradient's RMS, would
+    hold noise to noise. Here dv is held to the plain version as above, and
+    dq and dk on both sides to 2^-6 of their natural scale: per row
+    scale sum_d |dO o| max |k| for dq (|dS| <= 2^-8 sum_d |dO| |v| plus
+    the dot products' f32 rounding, 32 2^-24 of the same sum), per key
+    scale sum_r sum_d |dO o| max |q| for dk."""
+    rng = np.random.default_rng(13)
+
+    def heads(L):
+        return _bf16(rng, (B, L, H, 16), dev).transpose(1, 2)
+
+    q, do, k, v = heads(Lq), heads(Lq), heads(Lk), heads(Lk)
+    kv = None if lens is None else torch.tensor(lens, device=dev)
+    o, lse = F.flash_forward(q, k, v, False, None, kv)
+    got = F.flash_backward(q, k, v, o, lse, do, False, None, kv)
+    want = F.flash_backward_plain(q, k, v, o, lse, do, False, None, kv)
+    torch.cuda.synchronize()
+    assert _grad_close(got[2], want[2]), "dv"
+    scale = 16 ** -0.5
+    row = scale * (do.float() * o.float()).abs().sum(-1)  # (B, H, Lq)
+    dq_lim = 2.0 ** -6 * row * k.float().abs().amax((-1, -2))[..., None]
+    dk_lim = 2.0 ** -6 * (row * q.float().abs().amax(-1)).sum(-1)  # (B, H)
+    for side in (got, want):
+        assert bool((side[0].float().abs().amax(-1) <= dq_lim).all()), "dq"
+        assert bool((side[1].float().abs().amax((-1, -2)) <= dk_lim).all()), \
+            "dk"
+        assert all(bool(torch.isfinite(g).all()) for g in side)
+
+
 @pytest.mark.parametrize("B,H,Lq,Lk,D,causal,lens", [
     (2, 4, 512, 512, 128, True, (512, 300)),
     (1, 3, 300, 129, 128, True, (0,)),  # rows that see no key still get D
-    (2, 8, 4096, 9, 16, False, None),
+    # head dim 16 writes D where it takes two kernels (past 16 keys; the
+    # one pass at the SAM decoder's Lk = 9 keeps D inside it)
+    (2, 8, 4096, 40, 16, False, None),
     (1, 2, 130, 70, 32, True, (70,)),
 ])
 def test_flash_bwd_dq_writes_the_row_sum(dev, B, H, Lq, Lk, D, causal, lens):
@@ -316,7 +372,6 @@ def test_flash_bwd_dq_writes_the_row_sum(dev, B, H, Lq, Lk, D, causal, lens):
     kv = None if lens is None else torch.tensor(lens, device=dev,
                                                 dtype=torch.int32)
     o, lse = F.flash_forward(q, k, v, causal, None, kv)
-    o = o.contiguous()  # a view at head dim 16; the kernel takes rows
     dq, dsum = F.flash_bwd_dq(q, k, v, do, o, lse, causal, D ** -0.5, kv)
     torch.cuda.synchronize()
     assert dsum.shape == (B * H, Lq) and dsum.dtype == torch.float32
@@ -327,6 +382,63 @@ def test_flash_bwd_dq_writes_the_row_sum(dev, B, H, Lq, Lk, D, causal, lens):
     assert bool(((dsum - want).abs() <= limit).all())
     assert torch.equal(dq, F.flash_backward(q, k, v, o, lse, do, causal,
                                             None, kv)[0])
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,causal,lens", [
+    (32, 8, 4096, 9, False, None),  # the SAM decoder's image -> token
+    (2, 8, 4096, 512, False, None),  # the fusion's image -> LLaVA
+    (2, 2, 300, 9, True, (9, 1)),
+])
+def test_flash_backward_at_head_dim_16_reads_and_writes_views(dev, B, H, Lq,
+                                                              Lk, causal,
+                                                              lens):
+    """The head-dim-16 route on the projections' views: q, k, v and dO as
+    (B, H, L, 16) views of (B, L, H, 16) tensors and o the forward's view
+    give the bits of the same call on contiguous copies; dq, dk and dv are
+    views whose transpose back to tokens is contiguous; only the route's
+    kernels launch, each once."""
+    rng = np.random.default_rng(12)
+
+    def heads(L):
+        return _bf16(rng, (B, L, H, 16), dev).transpose(1, 2)
+
+    q, do = heads(Lq), heads(Lq)
+    k, v = heads(Lk), heads(Lk)
+    kv = None if lens is None else torch.tensor(lens, device=dev)
+    o, lse = F.flash_forward(q, k, v, causal, None, kv)
+    before = (dict(F.flash_bwd_dq.route_launches),
+              dict(F.flash_bwd_dkv.route_launches))
+    got = F.flash_backward(q, k, v, o, lse, do, causal, None, kv)
+    torch.cuda.synchronize()
+    for b, a in zip(before, (F.flash_bwd_dq.route_launches,
+                             F.flash_bwd_dkv.route_launches)):
+        assert a == {r: n + (r == "sm90_d16") for r, n in b.items()}
+    flat = F.flash_backward(*(t.contiguous() for t in (q, k, v, o)), lse,
+                            do.contiguous(), causal, None, kv)
+    want = F.flash_backward_plain(q, k, v, o, lse, do, causal, None, kv)
+    for name, g, f, w in zip(("dq", "dk", "dv"), got, flat, want):
+        assert g.transpose(1, 2).is_contiguous(), name
+        assert torch.equal(g, f), name
+        assert _grad_close(g, w), name
+
+
+def test_flash_backward_at_head_dim_16_alternating_key_lengths(dev):
+    """One kernel at two shared-memory sizes in turn (the dq kernel keeps 2
+    key tiles of 64 resident at Lk = 128, 8 at 512): each call launches
+    (a kernel's shared-memory limit is raised, never lowered) and matches
+    the plain version."""
+    rng = np.random.default_rng(14)
+    for Lk in (512, 128, 512):
+        q, do = (_bf16(rng, (1, 300, 2, 16), dev).transpose(1, 2)
+                 for _ in range(2))
+        k, v = (_bf16(rng, (1, Lk, 2, 16), dev).transpose(1, 2)
+                for _ in range(2))
+        o, lse = F.flash_forward(q, k, v)
+        got = F.flash_backward(q, k, v, o, lse, do)
+        want = F.flash_backward_plain(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert _grad_close(g, w), (Lk, name)
 
 
 def _units(got, ref):
@@ -399,14 +511,19 @@ def test_flash_backward_refuses_what_the_kernels_do_not_take(dev):
     rng = np.random.default_rng(9)
     q = _bf16(rng, (1, 2, 64, 16), dev)
     o, lse = F.flash_forward(q, q, q)
-    o = o.contiguous()  # a view at head dim 16; the backward takes rows
     with pytest.raises(ValueError, match="bfloat16"):
         F.flash_backward(q, q, q, o, lse, q.float())
     with pytest.raises(ValueError, match="lse"):
         F.flash_backward(q, q, q, o, lse[:1], q)
-    with pytest.raises(ValueError, match="contiguous"):
+    # head dim 16 reads views, but with unit stride on the head dim only
+    with pytest.raises(ValueError, match="unit on the last dim"):
         F.flash_backward(q, q, q, o, lse, q.transpose(2, 3).contiguous()
                          .transpose(2, 3))
+    q32 = _bf16(rng, (1, 2, 64, 32), dev)
+    o32, lse32 = F.flash_forward(q32, q32, q32)
+    with pytest.raises(ValueError, match="contiguous"):
+        F.flash_backward(q32, q32, q32, o32, lse32, q32.transpose(2, 3)
+                         .contiguous().transpose(2, 3))
     q48 = _bf16(rng, (1, 2, 64, 48), dev)
     with pytest.raises(ValueError, match="head dim"):
         F.flash_backward(q48, q48, q48, q48, lse, q48)
@@ -416,7 +533,8 @@ def test_fusion_attention_launches_the_flash_kernels_at_full_width(dev):
     """The fusion head in bf16 on a 64 x 64 SAM grid (Lq = 4096 >= 512,
     D = 16, Lk = 300 LLaVA positions, none masked): its attention launches
     the flash forward once, on the head-dim-16 wgmma route, and its
-    backward both backward kernels once, with no fallback to the plain
+    backward both backward kernels once, on that route too (the dq kernel
+    and the dk/dv kernel past 16 keys), with no fallback to the plain
     attention; outputs and every parameter's gradient are finite."""
     from interactvlm_tpu_torch.models.components import LLaVASAMFusion
 
@@ -427,14 +545,17 @@ def test_fusion_attention_launches_the_flash_kernels_at_full_width(dev):
     llava = _bf16(rng, (2, 300, 5120), dev)
     before = (F.flash_forward.launches, F.flash_bwd_dq.launches,
               F.flash_bwd_dkv.launches)
-    routes = dict(F.flash_forward.route_launches)
+    routes = [dict(w.route_launches) for w in (
+        F.flash_forward, F.flash_bwd_dq, F.flash_bwd_dkv)]
     out = m(sam, llava)
     out.float().square().mean().backward()
     torch.cuda.synchronize()
     assert (F.flash_forward.launches, F.flash_bwd_dq.launches,
             F.flash_bwd_dkv.launches) == tuple(b + 1 for b in before)
-    assert F.flash_forward.route_launches == {
-        r: n + (r == "sm90_d16") for r, n in routes.items()}
+    for w, b in zip((F.flash_forward, F.flash_bwd_dq, F.flash_bwd_dkv),
+                    routes):
+        assert w.route_launches == {r: n + (r == "sm90_d16")
+                                    for r, n in b.items()}
     assert bool(torch.isfinite(out).all())
     for n, p in m.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
