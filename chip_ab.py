@@ -28,8 +28,19 @@ kernels. Parts (all by default):
   the bf16 serving matmul at the chain probe's, each timed by CUDA events
   (``kernel_ms``) and by the profiler's device time per call
   (``device_ms``), with the timing code here, the same for both sides;
+  then the int4 matmul at LLaMA-7B's decode shapes at 8 and 32 rows, by
+  device time with the weight warm in the L2 and with weights cycled past
+  it, beside kernel 6 on int8 weights and a bf16 ``F.linear`` cycled the
+  same way, each summed over a decode step's calls; and the int4 GEMM at
+  7B's prefill shapes (2552 rows) beside the int8 GEMM on the same
+  quantized rows; only the matmul kernels are built;
 - ``serving_int8`` / ``serving_int4``: ``chip_smoke.serving_path_phase``
-  for the 7B-int8 or the 7B-int4 path alone.
+  for the 7B-int8 or the 7B-int4 path alone;
+- ``decode_plans``: the int4 decode kernel at LLaMA-7B's decode shapes at
+  8 and 32 rows on every split it can run (cluster sizes 1-8, each with
+  as many clusters as the card holds and half that), weights cycled past
+  the L2, beside the split its plan picks; a tree without the plan
+  (``ops/int4_matmul.py:decode_plan_on_card``) skips it.
 
 Each run's output goes to ``build/ab/logs/<n>_<side>_<part>.log`` under
 the directory it is started in; the script prints one JSON line per run
@@ -49,7 +60,7 @@ import subprocess
 import sys
 
 PARTS = ("kernels", "serving", "train", "train_qlora", "bwd_draws",
-         "matmuls", "serving_int8", "serving_int4", "bwd")
+         "matmuls", "serving_int8", "serving_int4", "bwd", "decode_plans")
 ORDER = ("parent", "change", "change", "parent")
 
 # what one run does, in the checkout it starts in
@@ -60,7 +71,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 name = torch.cuda.get_device_name(0)
 part = sys.argv[1]
-if part != "bwd":
+if part in ("matmuls", "decode_plans"):
+    c._cuda.build([s for s in c._cuda.SOURCES
+                   if "matmul" in s or "gemm" in s or "prequant" in s])
+elif part != "bwd":
     c._cuda.build()
 if part == "kernels":
     c.kernel_phase(name)
@@ -124,6 +138,89 @@ elif part == "matmuls":
                                   "shape": f"M={M} K={k} N={n} {act}",
                                   "kernel_ms": c.time_ms(f, 10),
                                   "device_ms": dev_ms(f, 5)}), flush=True)
+        from interactvlm_tpu_torch.ops import int4_matmul as Q4
+        F = torch.nn.functional
+        # LLaMA-7B's decode linears: (K, N, calls a decode step)
+        shapes = {"q/k/v/o": (4096, 4096, 128), "gate/up": (4096, 11008, 64),
+                  "down": (11008, 4096, 32), "lm_head": (4096, 32000, 1)}
+        for M in (8, 32):
+            step = {"int4": 0.0, "int8": 0.0, "bf16_linear": 0.0}
+            for what, (K, N, n) in shapes.items():
+                x, packed, cs, rf = c.int4_inputs(gen, M, K, N)
+                nxt4 = c._cycled(lambda: (torch.randint(
+                    -128, 128, (N, K // 2), generator=gen, device="cuda",
+                    dtype=torch.int8), cs, rf), N * K // 2)
+                nxt8 = c._cycled(lambda: c.int8_weight(gen, N, K), N * K)
+                wb = c.rand_bf16(gen, (N, K))
+                nxtb = c._cycled(lambda: c.rand_bf16(gen, (N, K)), 2 * N * K)
+                f4 = lambda: Q4.int4_matmul_fused(x, packed, cs, rf)
+                rec = {"name": "int4_decode", "shape": f"{what} M={M} K={K} "
+                       f"N={N}", "kernel_ms": c.time_ms(f4, 50),
+                       "device_ms": dev_ms(f4),
+                       "cycled_device_ms": dev_ms(
+                           lambda: Q4.int4_matmul_fused(x, *nxt4())),
+                       "int8_cycled_device_ms": dev_ms(
+                           lambda: Q.int8_matmul_fused(x, *nxt8())),
+                       "library_device_ms": dev_ms(lambda: F.linear(x, wb)),
+                       "library_cycled_device_ms": dev_ms(
+                           lambda: F.linear(x, nxtb()))}
+                print(json.dumps(rec), flush=True)
+                step["int4"] += n * rec["cycled_device_ms"]
+                step["int8"] += n * rec["int8_cycled_device_ms"]
+                step["bf16_linear"] += n * rec["library_cycled_device_ms"]
+                del nxt4, nxt8, nxtb, wb, x, packed
+                torch.cuda.empty_cache()
+            print(json.dumps({"name": "int4_decode_step", "shape": f"M={M}",
+                              "kernel_ms": None,
+                              "device_ms": step}), flush=True)
+        for K, N in ((4096, 11008), (11008, 4096), (4096, 4096)):
+            M = 2552
+            x, packed, cs, rf = c.int4_inputs(gen, M, K, N)
+            xq, xs = Q.quantize_rows(x, rf)
+            w8, s8 = c.int8_weight(gen, N, K)
+            g4 = lambda: Q4.int4_gemm(xq, xs, packed, cs)
+            print(json.dumps({
+                "name": "int4_gemm", "shape": f"M={M} K={K} N={N}",
+                "kernel_ms": c.time_ms(g4, 10), "device_ms": dev_ms(g4, 10),
+                "int8_gemm_ms": dev_ms(lambda: Q.int8_gemm(xq, xs, w8, s8),
+                                       10),
+                "library_device_ms": dev_ms(
+                    lambda: Q4.int4_matmul_fused(x, packed, cs, rf), 10)}),
+                flush=True)
+            del x, packed, xq, xs, w8
+            torch.cuda.empty_cache()
+elif part == "decode_plans":
+    from interactvlm_tpu_torch.ops import int4_matmul as Q4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = {"q/k/v/o": (4096, 4096), "gate/up": (4096, 11008),
+              "down": (11008, 4096), "lm_head": (4096, 32000)}
+    with torch.inference_mode():
+        for M in (8, 32):
+            for what, (K, N) in shapes.items():
+                if not hasattr(Q4, "decode_plan_on_card"):
+                    break
+                x, packed, cs, rf = c.int4_inputs(gen, M, K, N)
+                nxt = c._cycled(lambda: (torch.randint(
+                    -128, 128, (N, K // 2), generator=gen, device="cuda",
+                    dtype=torch.int8), cs, rf), N * K // 2)
+                fits = Q4._card_clusters(0, Q4.padded_rows(M), K)
+                nch, blocks = -(-(K // 2) // 128), -(-N // 128)
+                split_ms = {}
+                for cl in range(1, min(8, nch) + 1):
+                    for n in sorted({min(blocks, fits[cl - 1]),
+                                     min(blocks, fits[cl - 1] // 2)} - {0}):
+                        split_ms[f"{cl}x{n}"] = c.device_ms(
+                            lambda: Q4.int4_decode(x, *nxt(), torch.bfloat16,
+                                                   (cl, n)), 20)[0]
+                plan = Q4.decode_plan_on_card(M, N, K, 0)
+                print(json.dumps({
+                    "name": "int4_decode_plans", "shape": f"{what} M={M} "
+                    f"K={K} N={N}", "kernel_ms": None, "plan": plan,
+                    "device_ms": split_ms.get(f"{plan[0]}x{plan[1]}"),
+                    "clusters_held": fits, "split_device_ms": split_ms}),
+                    flush=True)
+                del nxt, x, packed
+                torch.cuda.empty_cache()
 elif part == "bwd":
     lens = c.train_kv_lengths()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -167,7 +264,10 @@ def summary(lines):
                 "backward_device_ms_by_kernel",
                 "dkv_split", "dkv_device_ms_by_kernel", "kernel_ms_per_block",
                 "library_ms", "strided",
-                "library_device_ms", "err_over_limit") if k in rec}
+                "library_device_ms", "cycled_device_ms",
+                "int8_cycled_device_ms", "library_cycled_device_ms",
+                "split_device_ms",
+                "clusters_held", "err_over_limit") if k in rec}
             if "vs_f64" in rec:  # a backward case: each gradient's check
                 row["err_over_limit"] = {
                     g: {"plain": rec[g]["err_over_limit"],

@@ -14,9 +14,10 @@ prints no result, without them. Phases, each of which fails the run:
    query walk of dk/dv at short key lengths; window attention, with its
    wgmma kernel for head dim 80 that reads q, k and v as strided views;
    global rel-pos attention, with its wgmma kernel for head dim 80; the one-launch
-   fused int8 matmul, K split over a thread-block cluster, with its int4
-   mode; the int8 row quantize, with its row-factor route; the wgmma int8
-   GEMM, which is also the pre-quantized matmul; the wgmma int4 GEMM;
+   fused int8 matmul, K split over a thread-block cluster; the int4 decode
+   matmul, K split over a cluster as its shape's plan says; the int8 row
+   quantize, with its row-factor route; the wgmma int8 GEMM, which is also
+   the pre-quantized matmul; the wgmma int4 GEMM;
    the wgmma bf16 serving matmul; the tensor-core rate loop; the window
    copy), one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
@@ -436,12 +437,11 @@ KERNELS = {
         replaces="scripts/winattn_probe.py:123",
         symbols=["window_copy_kernel"],
         path="probes"),
-    # the int4 weight read as packed nibbles inside kernel 6's two routes:
-    # the one-launch kernel's int4 mode, and kernel 7 with the row factor
-    # then the int4 GEMM (it replaces the JAX package's int4_matmul, which
-    # XLA fuses: no Pallas kernel)
+    # the int4 weight read as packed nibbles: the decode kernel, and kernel 7
+    # with the row factor then the int4 GEMM (it replaces the JAX package's
+    # int4_matmul, which XLA fuses: no Pallas kernel)
     "int4_matmul": dict(
-        sources=[CSRC + "int8_matmul.cu", CSRC + "int4_gemm_sm90.cu",
+        sources=[CSRC + "int4_matmul.cu", CSRC + "int4_gemm_sm90.cu",
                  CSRC + "int8_prequant.cu", CSRC + "matmul_core.cuh"],
         replaces="interactvlm_tpu/ops/quant.py:199",
         symbols=["int4_splitk_kernel", "int4_gemm_kernel"],
@@ -1215,13 +1215,20 @@ NEW_PATH_INT8_CASES = [
      None),
 ]
 # the int4 matmul on the 7B-int4 path (what, M, K, N, calls per streaming
-# and cached batch): decode at B=8 and the lm_head (one launch), the
-# prefill's MLP (two passes)
+# and cached batch): decode at B=8 (streaming) and B=32 (cached) and the
+# lm_head (the decode kernel), the prefill's MLP (two passes)
 INT4_CASES = [
     ("LLaMA-7B int4 decode q/k/v/o, B=8", B, 4096, 4096, (128 * (T - 1), 0)),
     ("LLaMA-7B int4 decode gate/up, B=8", B, 4096, 11008, (64 * (T - 1), 0)),
     ("LLaMA-7B int4 decode down, B=8", B, 11008, 4096, (32 * (T - 1), 0)),
     ("LLaMA-7B int4 lm_head, B=8", B, 4096, 32000, (T, 0)),
+    ("LLaMA-7B int4 decode q/k/v/o, B=32", B_CACHED_INT8, 4096, 4096,
+     (0, 128 * (T - 1))),
+    ("LLaMA-7B int4 decode gate/up, B=32", B_CACHED_INT8, 4096, 11008,
+     (0, 64 * (T - 1))),
+    ("LLaMA-7B int4 decode down, B=32", B_CACHED_INT8, 11008, 4096,
+     (0, 32 * (T - 1))),
+    ("LLaMA-7B int4 lm_head, B=32", B_CACHED_INT8, 4096, 32000, (0, T)),
     ("LLaMA-7B int4 prefill gate/up", PREFILL, 4096, 11008, (64, 0)),
     ("LLaMA-7B int4 prefill down", PREFILL, 11008, 4096, (32, 0)),
 ]
@@ -1352,7 +1359,10 @@ def case_int4(gen, name, what, M, K, N, calls):
     once, against the int8 operations 2 M K N; ``int8_weight_bound_ms`` is
     the same with int8 weight bytes. Library yardstick: a bf16 ``F.linear``
     at the shape (no library call reads int4 nibbles); the port calls it
-    nowhere."""
+    nowhere. At decode (the decode kernel) the kernel and the yardstick are
+    also timed with their weights cycled past the L2
+    (``cycled_device_ms``, ``library_cycled_device_ms``), as a decode step
+    streams them; the warm times read a weight the L2 holds."""
     x, packed, cs, rf = int4_inputs(gen, M, K, N)
 
     def kernel():
@@ -1374,15 +1384,29 @@ def case_int4(gen, name, what, M, K, N, calls):
     old_dev, old_launched = device_ms(unpack_route, dit, calls=dit)
     route = Q4.int4_route(M, K)
     passes = {}
+    wb = rand_bf16(gen, (N, K))
     if route == "two_pass":
         xq, xs = Q.quantize_rows(x, rf)
         passes["quantize_ms"] = time_ms(lambda: Q.quantize_rows(x, rf), it)
         passes["gemm_ms"] = time_ms(lambda: Q4.int4_gemm(xq, xs, packed, cs),
                                     it)
+        passes["gemm_device_ms"] = device_ms(
+            lambda: Q4.int4_gemm(xq, xs, packed, cs), dit)[0]
         del xq, xs
+    else:
+        nxt = _cycled(lambda: (torch.randint(
+            -128, 128, (N, K // 2), generator=gen, device="cuda",
+            dtype=torch.int8), cs, rf), N * K // 2)
+        passes["cycled_device_ms"] = device_ms(
+            lambda: Q4.int4_matmul_fused(x, *nxt(), torch.bfloat16), dit)[0]
+        passes["plan"] = Q4.decode_plan_on_card(M, N, K, 0)
+        del nxt
+        nxt = _cycled(lambda: rand_bf16(gen, (N, K)), 2 * N * K)
+        passes["library_cycled_device_ms"] = device_ms(
+            lambda: F.linear(x, nxt()), dit)[0]
+        del nxt
     small = 2 * M * K + 4 * K + 4 * N + 2 * M * N
     t, by = bound(2 * M * K * N, small + N * K // 2, name, int8=True)
-    wb = rand_bf16(gen, (N, K))
     return dict(shape=f"{what}: M={M} K={K} N={N} bf16 x", route=route,
                 calls_per_batch={"streaming": calls[0], "cached": calls[1]},
                 **res, kernel_ms=time_ms(kernel, it), device_ms=dev_ms,
@@ -2494,13 +2518,15 @@ def linear_shapes(lcfg):
 @torch.no_grad()
 def int4_costs(lcfg):
     """Device time a call (``device_ms``) at the 7B decode shapes (B rows,
-    bf16 x) of the int4 call (``int4_matmul``: the one-launch kernel's int4
-    mode), of kernel 6 on an int8 weight of the same shape (the 7B-int8
+    bf16 x) of the int4 call (``int4_matmul``: the decode kernel), of
+    kernel 6 on an int8 weight of the same shape (the 7B-int8
     path's call), and of the unpack route the card took before: the unpack
     of the packed weight into a transient (N, K) int8 copy (nibble
     extraction and a cat), kernel 6 on it (f32 x * rf) and that whole
     call; the unpack beside its bytes bound (N K / 2 read, N K written),
-    and each summed over one decode step's calls. Weights are cycled past
+    the packed weight's and the int8 weight's bytes bounds (N K / 2 and N
+    K read), and each summed over one decode step's calls (the packed
+    bound of a 7B step ≈ 1.0 ms, the int8 one ≈ 2.0). Weights are cycled past
     the L2, as decode streams them. ``host_issue_us``: the host's time to
     issue one call (500 calls back to back at the q/k/v/o shape) of
     ``int4_matmul``, of its wrapper ``int4_matmul_fused`` and of kernel
@@ -2512,7 +2538,8 @@ def int4_costs(lcfg):
               for k, (N, K, n) in linear_shapes(lcfg).items()}
     shapes["lm_head"] = (lcfg.padded_vocab_size, lcfg.hidden_size, 1)
     keys = ("int4_matmul_ms", "int8_kernel_ms", "unpack_ms", "kernel_ms",
-            "unpack_route_ms", "unpack_bound_ms")
+            "unpack_route_ms", "unpack_bound_ms", "packed_bound_ms",
+            "int8_bound_ms")
     rows, step = {}, dict.fromkeys(keys, 0.0)
     for what, (N, K, n) in shapes.items():
         def make():
@@ -2538,7 +2565,10 @@ def int4_costs(lcfg):
         old, how_o = device_or_event_ms(
             lambda: Q4.int4_matmul_unpack_route(x, *nxt()), 20, calls=20)
         t, _ = bound(0, N * K // 2 + N * K, name)
-        vals = dict(zip(keys, (whole, int8, unpack, kernel, old, t)))
+        packed_t, _ = bound(0, N * K // 2, name)
+        int8_t, _ = bound(0, N * K, name)
+        vals = dict(zip(keys, (whole, int8, unpack, kernel, old, t, packed_t,
+                               int8_t)))
         rows[what] = {"N": N, "K": K, "calls_per_decode_step": n, **vals,
                       "timed_by": [how_w, how_8, how, how_k, how_o]}
         for k, v in vals.items():

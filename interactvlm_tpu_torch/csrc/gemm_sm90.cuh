@@ -5,8 +5,8 @@
 // operands, f32 sums, bias and GELU); an operand type `Op` gives the element
 // type, the accumulator, the TMA data type and the product, an epilogue
 // `Epi` turns a warp's accumulators into f32 output values in place. The int4
-// GEMM (int4_gemm_sm90.cu), whose weight is unpacked in registers, walks its
-// tiles with tile_coords.
+// GEMM (int4_gemm_sm90.cu), whose consumers split the packed weight into
+// int8 tiles of their own, walks its tiles with tile_coords.
 //
 // - A CTA computes 128 x 256 tiles: two consumer warpgroups of 64 rows each
 //   run wgmma m64n256 with both operands from shared memory, 128

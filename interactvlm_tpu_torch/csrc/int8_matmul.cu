@@ -54,36 +54,7 @@
 // Rows past M and K past its end are zero in the quantized slice, columns
 // past N zero-filled by TMA and masked on store. No host padding.
 //
-// The int4 mode (ivlm_int4_matmul) is the same kernel on a packed int4
-// weight (N, K/2), byte j of a row holding column j in its low nibble and
-// column j + K/2 in its high one (ops/quant.py:pack_int4), with the row
-// factor rf (K,) on x: it computes ops/quant.py:int4_matmul, out =
-// (f32(acc) * x_scale) * w_scale for the int8 quantization of the f32
-// products x * rf, acc = sum_j xq[j] lo[j] + xq[K/2 + j] hi[j]. It
-// replaces no Pallas kernel (the JAX package leaves int4 to XLA's fusion
-// of the unpack into its two half-K dots); it was added because the card's
-// only other route unpacked each weight into a transient (N, K) int8 copy
-// and ran the int8 kernel on twice the bytes. What bounds it: the packed
-// bytes, N K / 2, half the int8 weight's. The design reads them once:
-// - TMA brings packed chunks of 128 bytes (256 K values) into the same
-//   ring; CTA r of the cluster takes packed chunks [r n / c, (r + 1) n / c),
-//   so its slice of x is two pieces, columns [128 c0, 128 c1) and K/2 plus
-//   those, each quantized into its own tiles of the shared slice and both
-//   in the partial absmax (the swapped maxima then cover the whole row);
-// - x * rf is formed in f32 registers where x is read, in the absmax pass
-//   and again in the quantize: no f32 copy of x is made;
-// - the product warps read their A fragments (W as A, the mma.m16n8k32
-//   layout) from the 128-byte-swizzled ring into registers, split each
-//   word into its low and high nibbles, sign-extended bytewise
-//   (matmul_core.cuh unpack_nibbles), and run wgmma ... s8 with A from
-//   registers: the low nibbles against the chunk's first x tile, the high
-//   ones against its second. A byte's nibbles sit at the same fragment
-//   position of the two products, so nothing is shuffled. A ring slot is
-//   free once the four warps have read it (the products read registers),
-//   and a chunk's products wait for the last ones only where they reuse
-//   its A registers.
-// The sum is exact and the epilogue is the int8 one, so the output equals
-// the unpack-then-int8-kernel route on f32 x * rf bit for bit.
+// The int4 weights' decode route is csrc/int4_matmul.cu.
 #include "matmul_core.cuh"
 #include "sm90_core.cuh"
 
@@ -106,16 +77,15 @@ constexpr int kLoads = 24;             // x loads in flight a lane
 constexpr int kBarStart = 1, kBarSum = 2, kBarWork = 3;
 
 // Shared memory from a 1024-byte boundary: the W ring (`stages` x 16 KB),
-// the quantized x slice (`halves` x `chunks` tiles of `np` rows x 128
-// bytes: int4 keeps K's two halves apart), two
+// the quantized x slice (`chunks` tiles of `np` rows x 128 bytes), two
 // buffers that receive the cluster's partial sums of this CTA's columns
 // (up to np x 136 ints), the barriers (full and empty a stage, ready and
 // freed a buffer), and the rows' absmax, inv and x_scale.
 struct Smem {
-  int stages, chunks, np, halves;
+  int stages, chunks, np;
   __host__ __device__ int xq() const { return stages * kWBytes; }
   __host__ __device__ int part() const {
-    return xq() + halves * chunks * np * kChunk;
+    return xq() + chunks * np * kChunk;
   }
   __host__ __device__ int part_bytes() const { return np * (kBN + 8) * 4; }
   __host__ __device__ int bar() const { return part() + 2 * part_bytes(); }
@@ -126,22 +96,18 @@ struct Smem {
 struct Args {
   const float* w_scale;  // (N,)
   const float* bias;     // (N,) or null
-  const float* rf;       // (K,): int4's row factor
   void* out;             // (M, N) bf16 or f32
   int out_f32, act, M, N, K;
 };
 
-// The kernel's body (each mode's __global__ wrapper below calls it, so the
-// two keep their own names in a profile). NP: the rows of x padded to the
-// product's width (8, 16 or 32). INT4: W is packed int4 (N, K/2) and x is
-// multiplied by rf.
-template <typename TX, int NP, bool INT4>
-__device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
-                                            const TX* __restrict__ x,
-                                            const Args& a, const Smem& L) {
+// NP: the rows of x padded to the product's width (8, 16 or 32).
+template <typename TX, int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_splitk_kernel(const __grid_constant__ CUtensorMap tw,
+                       const TX* __restrict__ x, Args a, Smem L) {
   constexpr int VEC = XVec<TX>::kN;  // x values a 16-byte vector
   constexpr int kQ = NP * kChunk;    // a quantized x chunk
-  const int KW = INT4 ? a.K / 2 : a.K;  // W bytes a row
+  const int KW = a.K;  // W bytes a row
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* w_ring = smem;
@@ -175,8 +141,7 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);   // the loader's arrival with its bytes
-      // the product warps' release (int4: each warp's, after its reads)
-      mbar_init(&empty[s], INT4 ? 4 : 1);
+      mbar_init(&empty[s], 1);  // the product warps' release
     }
     for (int b = 0; b < 2; ++b) {
       mbar_init(&ready[b], 1);   // the owner's own arrival, with the bytes
@@ -185,7 +150,7 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
     fence_barrier_init();
   }
   if (tid < kMP) amax_s[tid] = 0.f;
-  for (int i = tid; i < L.halves * L.chunks * kQ / 16; i += kThreads)  // zeros past M
+  for (int i = tid; i < L.chunks * kQ / 16; i += kThreads)  // zeros past M
     reinterpret_cast<uint4*>(xq)[i] = make_uint4(0u, 0u, 0u, 0u);  // and K
   __syncthreads();
 
@@ -211,16 +176,11 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
   // vectors (f % G) 32 + lane, of the G a row. A batch of kLoads items is in
   // flight at once; where one batch holds all (K <= 11264 at 32 rows), its
   // registers are quantized after the exchange without reading x again.
-  // int4: the slice's vectors are the first piece's nv, then the second's.
   const int k_lo = c_lo * kChunk, k_hi = min((c_lo + nloc) * kChunk, KW);
-  const int nv = (k_hi - k_lo) / VEC, nvt = (INT4 ? 2 : 1) * nv;
+  const int nvt = (k_hi - k_lo) / VEC;
   const int groups = (nvt + 31) / 32;
   const int items = (warp < a.M ? (a.M - warp + 7) / 8 : 0) * groups;
-  // vector `col` of the slice: its half of K (int4) and its column there
-  auto half_of = [&](int col) { return INT4 && col >= nv ? 1 : 0; };
-  auto x_col = [&](int col) {
-    return half_of(col) * KW + k_lo + (col - half_of(col) * nv) * VEC;
-  };
+  auto x_col = [&](int col) { return k_lo + col * VEC; };
   uint4 v[kLoads];
   // item f0's row and vector group; step() moves to the next item
   int r0 = 0, g0 = 0;
@@ -253,18 +213,7 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       if (f0 + u < items) {  // warp-uniform
-        float m = 0.f;
-        if constexpr (INT4) {
-          const int col = g * 32 + lane;
-          if (col < nvt) {
-            float xr[VEC];
-            vec_times<TX>(v[u], a.rf + x_col(col), xr);
-            m = vals_amax(xr, 0.f);
-          }
-        } else {
-          m = vec_amax<TX>(v[u], 0.f);
-        }
-        m = warp_max(m);
+        const float m = warp_max(vec_amax<TX>(v[u], 0.f));
         if (lane == 0) amax_s[r] = fmaxf(amax_s[r], m);
       }
       step(r, g);
@@ -280,8 +229,7 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
   }
   bar_sync(kBarWork, 256);
 
-  // ---- the slice quantized into shared memory, 128-byte swizzled (int4:
-  // the second half's pieces in tiles `chunks` on)
+  // ---- the slice quantized into shared memory, 128-byte swizzled
   for (int f0 = 0; f0 < items; f0 += kLoads) {
     if (items > kLoads) {  // else v holds the one batch
       first(f0);
@@ -292,17 +240,9 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
     for (int u = 0; u < kLoads; ++u, step(r, g)) {
       const int col = g * 32 + lane;
       if (f0 + u < items && col < nvt) {
-        const int h = half_of(col), k = (col - h * nv) * VEC;
-        uint2 q;
-        if constexpr (INT4) {
-          float xr[VEC];
-          vec_times<TX>(v[u], a.rf + x_col(col), xr);
-          q = quant_vals(xr, inv_s[r]);
-        } else {
-          q = quant_vec<TX>(v[u], inv_s[r]);
-        }
-        unsigned char* p = xq + (h * L.chunks + k / kChunk) * kQ +
-                           sw128_offset(r, k % kChunk);
+        const int k = col * VEC;
+        const uint2 q = quant_vec<TX>(v[u], inv_s[r]);
+        unsigned char* p = xq + (k / kChunk) * kQ + sw128_offset(r, k % kChunk);
         if constexpr (VEC == 8) {
           *reinterpret_cast<uint2*>(p) = q;
         } else {
@@ -326,8 +266,7 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
   if (warp < 4) {
     // two accumulator sets, even and odd chunks, so that a chunk's products
     // need not wait for the previous chunk's: W rows as A, x rows as B
-    // (int4: one set; its ring slots are freed before the products)
-    constexpr int P = INT4 ? 1 : 2;
+    constexpr int P = 2;
     int acc[P][2][NP / 2];
     const int gr = lane >> 2, t = lane & 3;
     auto chunk = [&](int j, int c, int (&ac)[2][NP / 2]) {
@@ -348,47 +287,6 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
         if (tid == 0) mbar_arrive(&empty[(g - 1) % S]);
       }
     };
-    // int4: the warp's A fragments of packed chunk c (rows 64 h + 16 warp
-    // + gr (+ 8), packed columns 32 kk + 4 t (+ 16)) read from the ring, the
-    // slot released, the nibbles split into the fragments of the products
-    // against K's two halves
-    auto chunk4 = [&](int j, int c, int (&ac)[2][NP / 2]) {
-      const int g = j * nloc + c, s = g % S;
-      mbar_wait(&full[s], (g / S) & 1);
-      const unsigned char* wt = w_ring + s * kWBytes;
-      uint32_t raw[2][kChunk / 32][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int kk = 0; kk < kChunk / 32; ++kk)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            raw[h][kk][i] = *reinterpret_cast<const uint32_t*>(
-                wt + sw128_offset(64 * h + 16 * warp + gr + 8 * (i & 1),
-                                  32 * kk + 16 * (i >> 1) + 4 * t));
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);  // this warp's reads are done
-      wgmma_wait<0>();  // the last chunk's products have read their A
-      uint32_t lo[2][kChunk / 32][4], hi[2][kChunk / 32][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int kk = 0; kk < kChunk / 32; ++kk)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            unpack_nibbles(raw[h][kk][i], lo[h][kk][i], hi[h][kk][i]);
-      wgmma_fence();
-      const uint32_t b_lo = smem_addr(xq + c * kQ);
-      const uint32_t b_hi = smem_addr(xq + (L.chunks + c) * kQ);
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 32; ++kk)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          wgmma_s8_rs(ac[h], lo[h][kk], desc_kmajor(b_lo + kk * 32));
-          wgmma_s8_rs(ac[h], hi[h][kk], desc_kmajor(b_hi + kk * 32));
-        }
-      wgmma_commit();
-    };
     for (int j = 0; j < nblocks; ++j) {
 #pragma unroll
       for (int p = 0; p < P; ++p)
@@ -396,17 +294,12 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int i = 0; i < NP / 2; ++i) acc[p][h][i] = 0;
-      if constexpr (INT4) {
-        for (int c = 0; c < nloc; ++c) chunk4(j, c, acc[0]);
-        wgmma_wait<0>();
-      } else {
-        for (int c = 0; c < nloc; c += 2) {
-          chunk(j, c, acc[0]);
-          if (c + 1 < nloc) chunk(j, c + 1, acc[P - 1]);
-        }
-        wgmma_wait<0>();
-        if (tid == 0) mbar_arrive(&empty[(j * nloc + nloc - 1) % S]);
+      for (int c = 0; c < nloc; c += 2) {
+        chunk(j, c, acc[0]);
+        if (c + 1 < nloc) chunk(j, c + 1, acc[P - 1]);
       }
+      wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[(j * nloc + nloc - 1) % S]);
 #pragma unroll
       for (int p = 0; p < P; ++p)
 #pragma unroll
@@ -470,20 +363,6 @@ __device__ __forceinline__ void splitk_body(const CUtensorMap& tw,
   }
 }
 
-template <typename TX, int NP>
-__global__ void __launch_bounds__(kThreads, 1)
-    int8_splitk_kernel(const __grid_constant__ CUtensorMap tw,
-                       const TX* __restrict__ x, Args a, Smem L) {
-  splitk_body<TX, NP, false>(tw, x, a, L);
-}
-
-template <typename TX, int NP>
-__global__ void __launch_bounds__(kThreads, 1)
-    int4_splitk_kernel(const __grid_constant__ CUtensorMap tw,
-                       const TX* __restrict__ x, Args a, Smem L) {
-  splitk_body<TX, NP, true>(tw, x, a, L);
-}
-
 // The largest dynamic shared memory a block may take on a device.
 inline int max_smem(int dev) {
   static int v[64] = {0};
@@ -500,18 +379,18 @@ struct Fit {
   const void* kernel;
 };
 
-template <typename TX, int NP, bool INT4>
+template <typename TX, int NP>
 cudaError_t launch(const void* x, const void* w, const Args& a, int cluster,
                    cudaStream_t st) {
   static std::mutex mu;
   static Fit fits[64];
   static int nfits = 0;
-  auto kernel = INT4 ? int4_splitk_kernel<TX, NP> : int8_splitk_kernel<TX, NP>;
+  auto kernel = int8_splitk_kernel<TX, NP>;
   int dev = 0;
   cudaGetDevice(&dev);
-  const int KW = INT4 ? a.K / 2 : a.K;  // W bytes a row
+  const int KW = a.K;  // W bytes a row
   const int nch = (KW + kChunk - 1) / kChunk;
-  Smem L{0, (nch + cluster - 1) / cluster, NP, INT4 ? 2 : 1};
+  Smem L{0, (nch + cluster - 1) / cluster, NP};
   L.stages = min(kMaxStages, (max_smem(dev) - L.bytes()) / kWBytes);
   if (L.stages < kMinStages) return cudaErrorInvalidValue;
   CUtensorMap tw;
@@ -557,12 +436,12 @@ cudaError_t launch(const void* x, const void* w, const Args& a, int cluster,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename TX, bool INT4>
+template <typename TX>
 cudaError_t launch_rows(const void* x, const void* w, const Args& a,
                         int cluster, cudaStream_t st) {
-  if (a.M <= 8) return launch<TX, 8, INT4>(x, w, a, cluster, st);
-  if (a.M <= 16) return launch<TX, 16, INT4>(x, w, a, cluster, st);
-  return launch<TX, 32, INT4>(x, w, a, cluster, st);
+  if (a.M <= 8) return launch<TX, 8>(x, w, a, cluster, st);
+  if (a.M <= 16) return launch<TX, 16>(x, w, a, cluster, st);
+  return launch<TX, 32>(x, w, a, cluster, st);
 }
 
 }  // namespace
@@ -583,33 +462,11 @@ extern "C" int ivlm_int8_matmul(const void* x, int x_f32, const void* w,
       cluster > (K + kChunk - 1) / kChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(w_scale),
-               static_cast<const float*>(bias), nullptr, out, out_f32, act,
-               M, N, K};
+               static_cast<const float*>(bias), out, out_f32, act, M, N, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      x_f32 ? launch_rows<float, false>(x, w, a, cluster, st)
-            : launch_rows<bf16, false>(x, w, a, cluster, st);
-  return static_cast<int>(err);
-}
-
-// The int4 mode: w (N, K/2) packed int4, contiguous; rf: (K,) f32; no bias
-// and no activation; otherwise as ivlm_int8_matmul, with K <= 30720 (the
-// two halves' quantized slices and 4 ring stages fit 227 KB) and `cluster`
-// at most K / 256 rounded up (one_launch_plan(K / 2)).
-extern "C" int ivlm_int4_matmul(const void* x, int x_f32, const void* w,
-                                const void* rf, const void* w_scale,
-                                void* out, int out_f32, int M, int N, int K,
-                                int cluster, void* stream) {
-  if (M <= 0 || M > kMP || N <= 0 || K <= 0 || K % 32 != 0 || N % 8 != 0 ||
-      rf == nullptr || cluster < 1 || cluster > kMaxCluster ||
-      cluster > (K / 2 + kChunk - 1) / kChunk)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const float*>(w_scale), nullptr,
-               static_cast<const float*>(rf), out, out_f32, kNone, M, N, K};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      x_f32 ? launch_rows<float, true>(x, w, a, cluster, st)
-            : launch_rows<bf16, true>(x, w, a, cluster, st);
+      x_f32 ? launch_rows<float>(x, w, a, cluster, st)
+            : launch_rows<bf16>(x, w, a, cluster, st);
   return static_cast<int>(err);
 }
 

@@ -6,8 +6,8 @@
 // cluster's pieces (the cluster barrier, distributed shared memory reads,
 // remote barrier arrivals and st.async stores). Used by the GEMM skeleton
 // (gemm_sm90.cuh: the int8 GEMM and the bf16 serving matmul), the one-launch
-// int8 matmul and its int4 mode (int8_matmul.cu), the int4 GEMM
-// (int4_gemm_sm90.cu), the D = 128 flash forward
+// int8 matmul (int8_matmul.cu), the int4 decode matmul (int4_matmul.cu), the
+// int4 GEMM (int4_gemm_sm90.cu), the D = 128 flash forward
 // (flash_fwd_sm90.cuh), the D = 80 global rel-pos attention
 // (rel_attention_sm90.cuh), the D = 80 window attention
 // (window_attention_sm90.cuh) and the tensor-core rate loop (mxu_probe.cu).
@@ -512,72 +512,6 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[16], uint64_t a, uint64_t b) {
       : IVLM_ACC8_S32(d, 0),
         IVLM_ACC8_S32(d, 8)
       : "l"(a), "l"(b), "r"(1));
-}
-
-// d += a b, m64nNk32 for N = 8, 16, 32, s8 x s8 -> s32: a from registers
-// (each warp's 16 rows as the mma.m16n8k32 A fragment: four words of four
-// bytes, a[0] row g columns 4 t.., a[1] row g + 8, a[2] and a[3] the same
-// rows at columns 16 + 4 t..), b from shared memory (K-major).
-__device__ __forceinline__ void wgmma_s8_rs(int (&d)[4], const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_s8_rs(int (&d)[8], const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
-      : IVLM_ACC8_S32(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_s8_rs(int (&d)[16], const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p;\n}\n"
-      : IVLM_ACC8_S32(d, 0),
-        IVLM_ACC8_S32(d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (+)= a b, m64n128k32, s8 x s8 -> s32: a from registers as for
-// wgmma_s8_rs, b from shared memory (K-major); scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_s8_rs_n128(int (&d)[64],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p;\n}\n"
-      : IVLM_ACC8_S32(d, 0),
-        IVLM_ACC8_S32(d, 8),
-        IVLM_ACC8_S32(d, 16),
-        IVLM_ACC8_S32(d, 24),
-        IVLM_ACC8_S32(d, 32),
-        IVLM_ACC8_S32(d, 40),
-        IVLM_ACC8_S32(d, 48),
-        IVLM_ACC8_S32(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(scale_d));
 }
 
 // d (+)= a b, m64n256k16, bf16 x bf16 -> f32, both operands from shared

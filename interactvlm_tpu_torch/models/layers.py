@@ -307,7 +307,7 @@ class Int4Linear(nn.Module):
     group row factor that multiplies x. Runs ``ops/quant.int4_matmul``: on
     a CUDA tensor the int4 kernels, which read the packed nibbles and fold
     the row factor into the row quantize (``ops/int4_matmul.py``: the
-    one-launch kernel's int4 mode up to 32 rows, else kernel 7 with the row
+    decode kernel up to 32 rows, else kernel 7 with the row
     factor and the int4 GEMM; a row-parallel layer kernel 7's given-scale
     route and the int4 GEMM), on a CPU one the JAX package's composition.
     Serving only: raises under grad."""

@@ -23,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("flash_attention", "flash_attention_bwd", "window_attention",
-           "rel_attention", "int8_matmul", "int8_prequant", "int8_gemm_sm90",
+           "rel_attention", "int8_matmul", "int4_matmul", "int8_prequant",
+           "int8_gemm_sm90",
            "int4_gemm_sm90", "serving_matmul", "mxu_probe", "window_copy")
 _HEADERS = ("attention_core.cuh", "matmul_core.cuh", "sm90_core.cuh",
             "gemm_sm90.cuh", "flash_fwd_sm90.cuh", "d16_sm90.cuh",

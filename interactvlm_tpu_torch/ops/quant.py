@@ -52,11 +52,17 @@ def dequantize_int8(q, scale, dtype=torch.float32):
 
 
 def int_matmul_exact(a_q, w_q):
-    """(..., K) int8 @ (N, K) int8 -> (..., N) f32, the int32 sum exactly:
-    products and partial sums of int8 values are exact in float64 for any K
-    here (|sum| <= 127^2 K < 2^53), and float64 -> f32 rounds the exact sum
-    as int32 -> f32 does."""
-    return torch.matmul(a_q.double(), w_q.double().t()).float()
+    """(..., K) int8 @ (N, K) int8 -> (..., N) f32, the int32 sum exactly.
+    On the CPU an int32 product (|sum| <= 127^2 K < 2^31 for K below
+    133 000), which torch computes with its own integer loops, so it is
+    exact in every order and on every call (the float64 product through
+    the BLAS gave other sums for a few rows in the first calls of some
+    processes, a bf16 step or two off). On the card, which has no integer
+    matmul, float64 products and sums, exact for any K here (|sum| <
+    2^53). Either rounds the exact sum to f32 as int32 -> f32 does."""
+    if a_q.is_cuda:
+        return torch.matmul(a_q.double(), w_q.double().t()).float()
+    return torch.matmul(a_q.int(), w_q.int().t()).float()
 
 
 def int8_matmul(x, w_q, w_scale, dtype=torch.bfloat16):

@@ -95,23 +95,33 @@ def main(argv=None, device="cuda", size=None, n_images=None,
     ds = HContactDataset(root, image_size=size, clip_size=224)
     tok = WhitespaceTokenizer()
     print(f"[data] image decoder: {results['decoder']}", flush=True)
+    def drained_sampler(workers):
+        return ParallelSampler(lambda i: ds[i % len(ds)],
+                               num_workers=workers,
+                               lookahead=max(2 * B, workers))
+
     for workers in counts:
-        sampler = ParallelSampler(lambda i: ds[i % len(ds)],
-                                  num_workers=workers,
-                                  lookahead=max(2 * B, workers))
-        it = sampler.iterate(iter(range(10 ** 9)))
-        samples = [next(it) for _ in range(B)]  # warm: page cache, pools
+        # warm (page cache, allocator) on a pool of its own, drained before
+        # the clock starts: its look-ahead would otherwise decode the timed
+        # samples before the timed loop, and into the load count's start
+        warm = drained_sampler(workers)
+        it = warm.iterate(iter(range(10 ** 9)))
+        samples = [next(it) for _ in range(B)]
         collate([samples[0]], tok, max_len=512)
+        warm.pool.shutdown(wait=True, cancel_futures=True)
+        sampler = drained_sampler(workers)
+        it = sampler.iterate(iter(range(B, 10 ** 9)))
         loads0 = collections.Counter(native_image.loads)
         t0 = time.perf_counter()
         for _ in range(n_batches):
             samples = [next(it) for _ in range(B)]
             collate(samples, tok, max_len=512)
         dt = (time.perf_counter() - t0) / n_batches
-        loads = dict(native_image.loads - loads0)
-        # drain the pool: abandoned look-ahead would keep decoding into
-        # the next count's timed loop
+        # drain before reading the count: every sample the timed loop took
+        # has been decoded, and no look-ahead decodes into the next count's
+        # timed loop
         sampler.pool.shutdown(wait=True, cancel_futures=True)
+        loads = dict(native_image.loads - loads0)
         results[workers] = {"s_per_batch": dt, "step_share": dt / step_s,
                             "loads": loads}
         print(f"[data] workers={workers}: {dt:.2f} s/batch (B={B}, V=4, "

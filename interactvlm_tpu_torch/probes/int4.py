@@ -10,8 +10,8 @@ stored and multiplied:
   int8          int8 weights, kernel 6 (``int8_matmul_fused``: its
                 one-launch route at B = 8), the serving int8 path
   int4_native   packed int4 weights read by the int4 kernel
-                (``ops/int4_matmul.py:int4_matmul_fused``, the one-launch
-                kernel's int4 mode at B = 8) with a unit row factor (the
+                (``ops/int4_matmul.py:int4_matmul_fused``, the decode
+                kernel ``csrc/int4_matmul.cu`` at B = 8) with a unit row factor (the
                 JAX variant stores XLA's s4 type and no row factor, which
                 torch lacks on the card; the packed bytes stand in)
   int4_grouped  packed int4 weights, one group of 128 input columns a

@@ -33,6 +33,7 @@ import os
 import re
 import shlex
 import subprocess
+import time
 
 import flax.linen as nn
 import jax
@@ -201,6 +202,35 @@ def test_data_probe_reads_a_port_tree_serial_and_threaded(tmp_path):
     for w in (1, 2):
         assert res[w]["s_per_batch"] > 0
         assert sum(res[w]["loads"].values()) > 0
+
+
+def test_data_probe_times_and_counts_its_own_decodes(tmp_path, monkeypatch):
+    """The race the probe once had, forced: the warm collate held while
+    the look-ahead threads decode ahead, and every item started late. The
+    timed loop must still see each of its samples decoded (non-empty
+    loads) and spend at least one item's delay a batch."""
+    from interactvlm_tpu_torch.data import collate as collate_mod
+    from interactvlm_tpu_torch.data import datasets
+
+    delay, hold = 0.1, 0.4
+    get, collate = datasets.HContactDataset.__getitem__, collate_mod.collate
+
+    def late_item(self, i):
+        time.sleep(delay)
+        return get(self, i)
+
+    def held_warm_collate(samples, *args, **kwargs):
+        if len(samples) == 1:  # the probe's warm collate
+            time.sleep(hold)
+        return collate(samples, *args, **kwargs)
+
+    monkeypatch.setattr(datasets.HContactDataset, "__getitem__", late_item)
+    monkeypatch.setattr(collate_mod, "collate", held_warm_collate)
+    res = data_probe.main(["1", "2"], device="cpu", size=64, n_images=2,
+                          n_batches=1, B=2, root=str(tmp_path / "tree"))
+    for w in (1, 2):
+        assert sum(res[w]["loads"].values()) > 0, res[w]
+        assert res[w]["s_per_batch"] >= delay, res[w]
 
 
 @pytest.mark.parametrize("env", [

@@ -196,3 +196,67 @@ def test_cpu_tensors_count_no_launch_and_refuse_grad():
     assert out.shape == (8, 128)
     with pytest.raises(RuntimeError, match="no backward"):
         Q4.int4_matmul_fused(x.requires_grad_(), packed, cs, rf)
+
+
+H100_SMS = 132
+# LLaMA-7B's decode linears (K, N): q/k/v/o, gate/up, down, the lm_head,
+# and the row-parallel down on one of 2 model ranks
+DECODE_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+                 (5504, 4096)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 31, 32])
+@pytest.mark.parametrize("K,N", DECODE_SHAPES + [(160, 136)])
+def test_decode_plan_takes_every_chunk_once_in_one_wave(M, K, N):
+    """The decode kernel's plan on an H100: its CTAs split the packed
+    chunks of each column block so that every chunk is taken once and
+    every CTA takes one; no more clusters than the card holds at once (one
+    CTA an SM); the slice and at least 4 ring stages fit a block's shared
+    memory; and the plan's modelled time is the least of every split's."""
+    cluster, clusters, stages = Q4.decode_plan(M, N, K)
+    nch, blocks = -(-(K // 2) // 128), -(-N // 128)
+    slices = [(r * nch // cluster, (r + 1) * nch // cluster)
+              for r in range(cluster)]
+    assert [c for lo, hi in slices for c in range(lo, hi)] == list(range(nch))
+    assert all(hi > lo for lo, hi in slices)
+    assert 1 <= cluster <= Q.MAX_CLUSTER and 1 <= clusters <= blocks
+    assert clusters <= Q4.H100_CLUSTERS[cluster - 1]
+    assert cluster * clusters <= H100_SMS
+    chunks = -(-nch // cluster)
+    assert Q4.DECODE_MIN_STAGES <= stages <= Q4.DECODE_MAX_STAGES
+    rows = Q4.padded_rows(M)
+    assert Q4.decode_smem_bytes(rows, chunks, stages) <= Q4.H100_SMEM
+    t0, tb, tc, tcr, ts, tsr = Q4.DECODE_COST
+
+    def modelled(cs, n):
+        ch, rounds, r = -(-nch // cs), -(-blocks // n), rows // 8
+        return (t0 + rounds * tb + rounds * ch * (tc + r * tcr)
+                + ch * (ts + r * tsr))
+
+    fits = [cs for cs in range(1, min(8, nch) + 1)
+            if Q4.decode_smem_bytes(rows, -(-nch // cs), 4) <= Q4.H100_SMEM]
+    assert modelled(cluster, clusters) <= min(
+        modelled(cs, min(blocks, Q4.H100_CLUSTERS[cs - 1])) for cs in fits)
+
+
+def test_decode_plan_edges():
+    """The 7B shapes' plans (the fastest splits of an H100 sweep); the
+    route's edges: 32 rows and ONE_LAUNCH_MAX_K are the decode kernel's,
+    where a plan exists at every row count, and past them none is needed;
+    a smaller card gets fewer CTAs."""
+    assert Q4.decode_plan(8, 4096, 4096)[:2] == (6, 17)
+    assert Q4.decode_plan(8, 11008, 4096)[:2] == (4, 30)
+    assert Q4.decode_plan(8, 32000, 4096)[:2] == (2, 66)
+    assert Q4.decode_plan(32, 4096, 11008)[:2] == (8, 15)
+    assert Q4.int4_route(32, 4096) == "one_launch"
+    assert Q4.int4_route(33, 4096) == "two_pass"
+    K = Q4.ONE_LAUNCH_MAX_K
+    for M in (1, 8, 16, 32):  # and LLaMA-13B's widest K
+        Q4.decode_plan(M, 4096, K)
+        Q4.decode_plan(M, 5120, 13824)
+    assert Q4.int4_route(32, K + 32) == "two_pass"
+    with pytest.raises(ValueError, match="no decode split"):
+        Q4.decode_plan(32, 4096, K + 512)
+    small = (16, 8, 5, 4, 3, 2, 2, 2)  # a card of 16 SMs
+    cluster, clusters, _ = Q4.decode_plan(8, 11008, 4096, small)
+    assert clusters <= small[cluster - 1] and cluster * clusters <= 16

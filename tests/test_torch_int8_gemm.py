@@ -25,6 +25,7 @@ import torch
 from interactvlm_tpu.ops import quant as jq
 from interactvlm_tpu.ops.int8_matmul import int8_matmul_fused as jax_fused
 from interactvlm_tpu_torch.ops import int8_matmul as Q
+from interactvlm_tpu_torch.ops import quant as QT
 
 BF16_STEP = 2.0 ** -7
 TIES = [127.0, 2.5, 3.5, -2.5, 0.5, 1.5, -0.5, 126.5, -127.0]
@@ -85,6 +86,72 @@ def test_two_pass_plain_gives_the_fused_plain_bits(in_dtype, out_dtype,
                                      out_dtype)
     assert got.dtype == out_dtype and got.shape == (M, N)
     assert torch.equal(got, want), _first_difference(got, want, activation)
+
+
+# the unsteady case's pair as a fresh process's first torch work
+FIRST_WORK = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {repo!r})
+from interactvlm_tpu_torch.ops import int8_matmul as Q
+from interactvlm_tpu_torch.ops import quant as QT
+rng = np.random.default_rng(0)
+M, K, N = 39, 160, 136
+x = rng.standard_normal((M, K)).astype(np.float32) * 2
+x = torch.from_numpy(x).to(torch.bfloat16)
+x[0] = 0.0
+x[1] = 0.0
+x[1, :9] = torch.tensor({ties!r})
+w_q = torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8))
+w_scale = torch.from_numpy(
+    rng.uniform(0.5, 1.5, N).astype(np.float32) / (127 * K ** 0.5))
+x_q, x_scale = Q.quantize_rows_plain(x)
+acc = QT.int_matmul_exact(x_q, w_q)
+got = Q.int8_gemm(x_q, x_scale, w_q, w_scale, None, "gelu", torch.bfloat16)
+want = Q.int8_matmul_fused_plain(x, w_q, w_scale, None, "gelu",
+                                 torch.bfloat16)
+exact = x_q.numpy().astype(np.int64) @ w_q.numpy().astype(np.int64).T
+print(int(torch.equal(got, want)), int(np.array_equal(acc.numpy(), exact)))
+"""
+
+
+def test_two_pass_plain_is_steady_as_a_process_first_work():
+    """The case of ``test_two_pass_plain_gives_the_fused_plain_bits`` that
+    came out different in the first calls of some processes, run as the
+    first torch work of fresh processes, four at once at 8 intra-op
+    threads: both plain routes agree, and the exact sum equals numpy's
+    int64 sum. The sum runs as an int32 product outside the BLAS
+    (``quant.int_matmul_exact``), whose float64 product was the one part
+    of the pair with a process's first call of its own."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = FIRST_WORK.format(repo=repo, ties=TIES)
+    env = dict(os.environ, OMP_NUM_THREADS="8")
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=env,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=120)[0].split() for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    assert outs == [["1", "1"]] * 4
+
+
+@pytest.mark.parametrize("K", [160, 11008, 30000])
+def test_cpu_exact_sum_is_the_integer_sum(K):
+    """``int_matmul_exact`` on CPU tensors: every product at +-127 (the
+    largest sums, past f32's 2^24 for K above 1040) equals numpy's int64
+    sum rounded once to f32."""
+    rng = np.random.default_rng(K)
+    a = rng.choice([-127, 127], (3, K)).astype(np.int8)
+    w = rng.choice([-127, 127], (5, K)).astype(np.int8)
+    a[0] = 127
+    w[0] = 127
+    got = QT.int_matmul_exact(torch.from_numpy(a), torch.from_numpy(w))
+    want = (a.astype(np.int64) @ w.astype(np.int64).T).astype(np.float32)
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -44,8 +44,8 @@ two-pass form (row quantize, then the pre-quantized matmul or the wgmma
 GEMM, which is the fused matmul's route above 32 rows): the quantize is
 held byte for byte, the matmul bit for bit without an activation.
 
-The int4 matmul (the one-launch kernel's int4 mode; kernel 7 with the row
-factor, then the int4 GEMM) shares its plain version's arithmetic, an
+The int4 matmul (the decode kernel; kernel 7 with the row factor, then the
+int4 GEMM) shares its plain version's arithmetic, an
 exact integer sum and no activation: bit for bit against the plain version
 and against the unpack route the card took before it (the unpacked weight
 and kernel 6 on f32 x * rf), on both routes and in the row-parallel form.
@@ -1178,20 +1178,43 @@ def _int4_inputs(rng, M, K, N, dev, xdt, flat=False):
     return x, packed, cs, torch.from_numpy(rf).to(dev)
 
 
+BF, F32 = torch.bfloat16, torch.float32
+
+
 @pytest.mark.parametrize("M,K,N,xdt,odt,flat", [
-    (8, 4096, 4096, torch.bfloat16, torch.bfloat16, False),  # 7B decode
-    (8, 11008, 4096, torch.bfloat16, torch.bfloat16, False),  # its down
-    (8, 4096, 32000, torch.bfloat16, torch.bfloat16, False),  # lm_head
-    (1, 256, 128, torch.float32, torch.float32, False),
-    (32, 160, 136, torch.bfloat16, torch.float32, True),  # K/2 ragged
-    (39, 160, 136, torch.bfloat16, torch.bfloat16, True),  # two passes
-    (33, 256, 264, torch.float32, torch.float32, False),
-    (2552, 4096, 11008, torch.bfloat16, torch.bfloat16, False),  # prefill
+    # the decode kernel: the route's row counts, a chunk tail (K = 160),
+    # K / 2 = 5504 (43 chunks, ragged against every cluster but 1), N ragged
+    # against the 128-column blocks (136), both x and output types
+    (1, 160, 136, F32, F32, True),
+    (1, 256, 128, F32, F32, False),
+    (1, 4096, 4096, BF, BF, False),
+    (8, 4096, 4096, BF, BF, False),  # 7B decode q/k/v/o
+    (8, 4096, 4096, F32, F32, False),
+    (8, 4096, 11008, BF, BF, False),  # gate/up
+    (8, 11008, 4096, BF, BF, False),  # down
+    (8, 11008, 136, F32, BF, False),
+    (8, 4096, 32000, BF, BF, False),  # lm_head
+    (31, 11008, 136, BF, F32, False),
+    (31, 160, 136, F32, BF, True),
+    (32, 4096, 4096, BF, BF, False),  # the cached batch
+    (32, 4096, 11008, BF, BF, False),
+    (32, 11008, 4096, BF, F32, False),
+    (32, 4096, 32000, BF, BF, False),
+    (32, 160, 136, BF, F32, True),
+    # above 32 rows: kernel 7 with the row factor, then the int4 GEMM
+    (33, 256, 264, F32, F32, False),
+    (33, 11008, 136, BF, BF, False),
+    (39, 160, 136, BF, BF, True),
+    (39, 4096, 4096, F32, BF, False),
+    (2552, 4096, 4096, BF, BF, False),  # 7B prefill
+    (2552, 4096, 11008, BF, BF, False),
+    (2552, 11008, 4096, BF, F32, False),
 ])
 def test_int4_kernel_matches_plain_and_the_unpack_route(dev, M, K, N, xdt,
                                                         odt, flat):
     """Both routes bit for bit against the plain version and against the
-    unpack route on the card."""
+    unpack route on the card, rows 0 and 1 a zero row and rounding ties
+    (``_ties_rows``) where M allows."""
     rng = np.random.default_rng(M + K + N)
     x, packed, cs, rf = _int4_inputs(rng, M, K, N, dev, xdt, flat)
     before = dict(Q4.int4_matmul_fused.route_launches)
@@ -1204,6 +1227,53 @@ def test_int4_kernel_matches_plain_and_the_unpack_route(dev, M, K, N, xdt,
                                                        odt))
     assert torch.equal(got, Q4.int4_matmul_unpack_route(x, packed, cs, rf,
                                                         odt))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 4096), (32, 11008, 4096),
+                                   (5, 160, 136)])
+def test_int4_decode_gives_one_result_for_every_plan(dev, M, K, N):
+    """The decode kernel's bits do not depend on its split: every cluster
+    size and cluster count gives the plain version's bits; a split whose
+    slice leaves no room for the ring raises (no fallback)."""
+    rng = np.random.default_rng(M * N)
+    x, packed, cs, rf = _int4_inputs(rng, M, K, N, dev, BF)
+    want = Q4.int4_matmul_fused_plain(x, packed, cs, rf, BF)
+    nch = -(-(K // 2) // 128)
+    for cluster in sorted({1, 2, 3, min(8, nch), nch} & set(range(1, 9))):
+        if cluster > nch:
+            continue
+        for clusters in (1, 5, 132):
+            try:
+                got = Q4.int4_decode(x, packed, cs, rf, BF,
+                                     (cluster, clusters))
+            except RuntimeError:
+                # only a split whose slice does not fit may refuse
+                rows = Q4.padded_rows(M)
+                assert Q4.decode_smem_bytes(
+                    rows, -(-nch // cluster), Q4.DECODE_MIN_STAGES) \
+                    > Q4.H100_SMEM
+                continue
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (cluster, clusters)
+
+
+def test_int4_cuda_inputs_the_kernels_refuse_raise(dev):
+    """No fallback: an input a kernel cannot take raises on the card."""
+    rng = np.random.default_rng(5)
+    x, packed, cs, rf = _int4_inputs(rng, 8, 256, 136, dev, BF)
+    with pytest.raises(ValueError, match="multiple"):
+        Q4.int4_matmul_fused(x[:, :240].contiguous(), packed[:, :120]
+                             .contiguous(), cs, rf[:240].contiguous())
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        Q4.int4_matmul_fused(x.half(), packed, cs, rf)
+    with pytest.raises(ValueError, match="contiguous"):
+        Q4.int4_matmul_fused(x.t().contiguous().t(), packed, cs, rf)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        Q4.int4_decode(x, packed, cs, rf, BF, (9, 1))  # no such cluster
+    xq, xs = Q.quantize_rows(x, rf)
+    with pytest.raises(ValueError, match="multiple"):
+        Q4.int4_gemm(xq[:, :240].contiguous(), xs, packed[:, :120]
+                     .contiguous(), cs)
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 5504, 4096), (2552, 2048, 4096)])
